@@ -1,0 +1,76 @@
+"""Carry parameters of the JAX package over to the port.
+
+The input is the JAX parameter tree with numpy leaves (the caller maps
+``np.asarray`` over it; nothing here imports JAX). Leaves become torch
+tensors with the same names and layouts (linear weights ``(in, out)``, conv
+weights WIO), quantized leaves included (``weight_i8``/``scale``,
+``embedding_i8``/``row_scale``). The JAX package stacks the layers of a
+stack on a leading axis for ``lax.scan``; the port keeps a list of per-layer
+dicts, so those leaves are split along their first axis.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def to_torch(tree, device: Optional[torch.device] = None):
+    """Every numpy leaf of ``tree`` as a torch tensor (dicts and lists kept)."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_torch(v, device) for v in tree]
+    a = np.array(tree, copy=True)
+    if a.dtype.name == "bfloat16":       # numpy's bfloat16 extension type
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def unstack_layers(stacked: dict) -> list:
+    """A dict of (L, ...) stacked leaves -> a list of L per-layer dicts."""
+    def leaves(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                yield from leaves(v)
+        else:
+            yield node
+
+    n = next(leaves(stacked)).shape[0]
+
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return node[i]
+
+    return [take(stacked, i) for i in range(n)]
+
+
+def speech_encoder_from_jax(tree: dict, device=None) -> dict:
+    out = {k: v for k, v in tree.items() if k != "encoder"}
+    out["encoder"] = unstack_layers(tree["encoder"])     # the conformer stack
+    return to_torch(out, device)
+
+
+def text_stack_from_jax(tree: dict, device=None) -> dict:
+    """{"embed", "stack": {"layers": stacked, "layer_norm"}} of a text encoder
+    or decoder."""
+    stack = dict(tree["stack"], layers=unstack_layers(tree["stack"]["layers"]))
+    return to_torch(dict(tree, stack=stack), device)
+
+
+def unity_params_from_jax(tree: dict, device=None) -> dict:
+    """The parts of a UnitY tree that the port runs: the speech encoder and
+    the text decoder. NLLB ties the text encoder's embedding, the decoder's
+    embedding and the output projection to one table: where the tree has a
+    text encoder, the port's text encoder shares the decoder's ``embed`` dict
+    (the numpy copy of the tree no longer knows they were one)."""
+    params = {"speech_encoder": speech_encoder_from_jax(tree["speech_encoder"], device),
+              "text_decoder": text_stack_from_jax(tree["text_decoder"], device)}
+    if "text_encoder" in tree:
+        enc = text_stack_from_jax(dict(tree["text_encoder"], embed={}), device)
+        enc["embed"] = params["text_decoder"]["embed"]
+        params["text_encoder"] = enc
+    return params

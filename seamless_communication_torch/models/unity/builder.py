@@ -1,0 +1,102 @@
+"""UnitY model configs (counterpart of
+``seamless_communication_tpu/models/unity/builder.py``) for the archs the
+port runs:
+
+  - ``base_v2``  v2 large: conformer_shaw 600m speech encoder (Shaw rel-pos,
+                 causal depthwise conv) + NLLB dense_1b decoder (vocab 256102)
+  - ``tiny_v2``  the tiny arch of the tests
+
+The NAR T2U fields are kept as plain config data: the T2U itself is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Dict, NamedTuple, Optional
+
+from seamless_communication_torch.models.nllb.model import NllbConfig
+from seamless_communication_torch.models.wav2vec2.encoder import SpeechEncoderConfig
+from seamless_communication_torch.ops.conformer import ConformerConfig
+
+
+class NarT2UConfig(NamedTuple):
+    model_dim: int = 1024
+    num_encoder_layers: int = 6
+    num_decoder_layers: int = 6
+    num_heads: int = 16
+    ffn_inner_dim: int = 8192
+    unit_vocab_size: int = 10082
+    char_vocab_size: int = 10943
+    conv_kernel_size: int = 7
+    dur_predictor_hidden: int = 256
+    dur_predictor_kernel: int = 3
+    pad_idx: int = 1
+    char_pad_idx: int = 1
+    pos_pad_idx: int = 1
+    max_seq_len: int = 4096
+    film_cond_dim: int = 0
+    prosody_proj_dim: int = 0
+
+
+@dataclass(frozen=True)
+class UnitYConfig:
+    model_dim: int = 1024
+    speech: SpeechEncoderConfig = field(default_factory=SpeechEncoderConfig)
+    nllb: NllbConfig = field(default_factory=NllbConfig)
+    nar_t2u: Optional[NarT2UConfig] = None
+    arch: str = "base_v2"
+
+
+_ARCHS: Dict[str, Callable[[], UnitYConfig]] = {}
+
+
+def register_arch(name: str):
+    def deco(fn):
+        _ARCHS[name] = fn
+        return fn
+    return deco
+
+
+def get_arch(name: str) -> UnitYConfig:
+    if name not in _ARCHS:
+        raise ValueError(f"unknown UnitY arch {name!r}; known: {sorted(_ARCHS)}")
+    return _ARCHS[name]()
+
+
+def _shaw_conformer(dim=1024, layers=24, heads=16, ffn=4096) -> ConformerConfig:
+    return ConformerConfig(dim=dim, ffn_inner_dim=ffn, num_heads=heads,
+                           num_layers=layers, pos_type="shaw",
+                           causal_depthwise_conv=True, conv_norm="layer_norm",
+                           shaw_max_left=64, shaw_max_right=8)
+
+
+@register_arch("base_v2")
+def _base_v2() -> UnitYConfig:
+    return UnitYConfig(
+        speech=SpeechEncoderConfig(conformer=_shaw_conformer()),
+        nllb=NllbConfig(vocab_size=256102, max_seq_len=4096),
+        nar_t2u=NarT2UConfig(unit_vocab_size=10082, char_vocab_size=10943),
+        arch="base_v2",
+    )
+
+
+@register_arch("tiny_v2")
+def _tiny_v2() -> UnitYConfig:
+    return UnitYConfig(
+        model_dim=64,
+        speech=SpeechEncoderConfig(
+            model_dim=64, feature_dim=160, ffn_inner_dim=128, num_adaptor_heads=4,
+            conformer=ConformerConfig(dim=64, ffn_inner_dim=128, num_heads=4,
+                                      num_layers=2, depthwise_kernel_size=7,
+                                      pos_type="shaw", shaw_max_left=8,
+                                      shaw_max_right=3)),
+        nllb=NllbConfig(dim=64, num_encoder_layers=2, num_decoder_layers=2,
+                        num_heads=4, ffn_inner_dim=128, vocab_size=256,
+                        max_seq_len=512),
+        nar_t2u=NarT2UConfig(model_dim=64, num_encoder_layers=2, num_decoder_layers=2,
+                             num_heads=4, ffn_inner_dim=128, unit_vocab_size=112,
+                             char_vocab_size=64, dur_predictor_hidden=32,
+                             max_seq_len=512),
+        arch="tiny_v2",
+    )

@@ -1,0 +1,248 @@
+"""Multi-head attention (counterpart of
+``seamless_communication_tpu/ops/attention.py``): plain scaled-dot-product
+attention, Shaw clipped relative-position self-attention (the v2 speech
+encoder), and the KV-cached single-step decode paths, fp and int8.
+
+Logit math is fp32; inputs and outputs keep the activation dtype. Caches are
+(B, H, T, Dh).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from seamless_communication_torch.ops.modules import linear, linear_init, true_div
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+def mha_init(gen: torch.Generator, dim: int, num_heads: int, *,
+             kv_dim: Optional[int] = None, bias: bool = True, dtype=torch.float32,
+             device=None) -> dict:
+    kv_dim = kv_dim or dim
+    kw = dict(bias=bias, dtype=dtype, device=device)
+    return {
+        "q_proj": linear_init(gen, dim, dim, **kw),
+        "k_proj": linear_init(gen, kv_dim, dim, **kw),
+        "v_proj": linear_init(gen, kv_dim, dim, **kw),
+        "output_proj": linear_init(gen, dim, dim, **kw),
+    }
+
+
+def shaw_attention_init(gen: torch.Generator, dim: int, num_heads: int, *,
+                        max_left: int, max_right: int, dtype=torch.float32,
+                        device=None) -> dict:
+    params = mha_init(gen, dim, num_heads, dtype=dtype, device=device)
+    head_dim = dim // num_heads
+    num_pos = max_left + max_right + 1
+    emb = torch.randn((num_pos, head_dim), generator=gen, dtype=torch.float32,
+                      device=device) * head_dim ** -0.5
+    params["rel_k_embed"] = {"embedding": emb.to(dtype)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Core
+# ---------------------------------------------------------------------------
+
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, T, D) -> (B, H, T, Dh)"""
+    B, T, D = x.shape
+    return x.reshape(B, T, num_heads, D // num_heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, Dh) -> (B, T, D)"""
+    B, H, T, Dh = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * Dh)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          bias: Optional[torch.Tensor], *, extra_logits: Optional[torch.Tensor] = None,
+          scale: Optional[float] = None) -> torch.Tensor:
+    """Scaled-dot-product attention on (B, H, T, Dh) tensors, fp32 softmax.
+    Plain matmul + softmax, as the JAX package computes it with its fused
+    attention switched off (its default)."""
+    dh = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if extra_logits is not None:
+        logits = logits + extra_logits
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def multi_head_attention(params: dict, q_in: torch.Tensor, kv_in: torch.Tensor,
+                         num_heads: int, *, bias: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Full-sequence MHA; ``bias`` is an additive fp32 logit mask broadcastable
+    to (B, H, Tq, Tk)."""
+    q = _split_heads(linear(params["q_proj"], q_in), num_heads)
+    k = _split_heads(linear(params["k_proj"], kv_in), num_heads)
+    v = _split_heads(linear(params["v_proj"], kv_in), num_heads)
+    out = _sdpa(q, k, v, bias)
+    return linear(params["output_proj"], _merge_heads(out))
+
+
+def shaw_self_attention(params: dict, x: torch.Tensor, num_heads: int, *,
+                        max_left: int, max_right: int,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits[i,j] = (q_i.k_j + q_i.E[clip(j-i, -L, R) + L]) / sqrt(dh).
+
+    The relative term is taken as the JAX package takes it: the (B,H,T,P)
+    products with the P embeddings, then a product with the (T,T,P) one-hot
+    of the clipped distance. Each output sums exactly one nonzero term."""
+    q = _split_heads(linear(params["q_proj"], x), num_heads)
+    k = _split_heads(linear(params["k_proj"], x), num_heads)
+    v = _split_heads(linear(params["v_proj"], x), num_heads)
+    T = x.shape[1]
+    dh = q.shape[-1]
+    rel = params["rel_k_embed"]["embedding"].to(q.dtype)            # (P, Dh)
+    pos = torch.arange(T, device=x.device)
+    idx = torch.clamp(pos[None, :] - pos[:, None], -max_left, max_right) + max_left
+    rel_logits_full = torch.matmul(q.float(), rel.float().T)         # (B,H,T,P)
+    P = rel.shape[0]
+    onehot = (idx[:, :, None] == torch.arange(P, device=x.device)).float()
+    rel_logits = torch.einsum("bhqp,qjp->bhqj", rel_logits_full, onehot)
+    out = _sdpa(q, k, v, bias, extra_logits=rel_logits / math.sqrt(dh))
+    return linear(params["output_proj"], _merge_heads(out))
+
+
+# ---------------------------------------------------------------------------
+# KV-cached decode
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, H, T, Dh)
+    v: torch.Tensor
+
+
+class Int8KVCache(NamedTuple):
+    """int8 row-quantized KV; scales are per (batch, head, position) absmax/127."""
+    k: torch.Tensor        # (B, H, T, Dh) int8
+    v: torch.Tensor
+    k_scale: torch.Tensor  # (B, H, T) fp32
+    v_scale: torch.Tensor
+
+
+def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., Dh) -> int8 rows + per-row fp32 scales; round half to even."""
+    xf = x.float()
+    s = torch.clamp_min(true_div(xf.abs().amax(dim=-1), 127.0), 1e-8)
+    q = torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def _joint_softmax(q, k_t, logits, step: int):
+    """Softmax over the history rows t < step of ``logits`` (B,H,1,T) jointly
+    with the current row, whose logit comes from the unquantized ``k_t``.
+    Returns (p_hist (B,H,1,T) with row ``step`` zeroed, p_cur (B,H,1))."""
+    dh = q.shape[-1]
+    t_max = logits.shape[-1]
+    logit_cur = true_div((q.float() * k_t.float()).sum(-1), math.sqrt(dh))  # (B,H,1)
+    t = torch.arange(t_max, device=q.device)[None, None, None, :]
+    valid = t < step
+    is_cur = t == step
+    logits = torch.where(valid, logits,
+                         torch.where(is_cur, logit_cur[..., None], -1e9))
+    probs = torch.softmax(logits, dim=-1)
+    p_hist = torch.where(is_cur, 0.0, probs)
+    p_cur = torch.where(is_cur, probs, 0.0).sum(-1)                    # (B,H,1)
+    return p_hist, p_cur
+
+
+def self_attention_step_nocache(params: dict, x_t: torch.Tensor,
+                                k_cache: torch.Tensor, v_cache: torch.Tensor,
+                                step: int, num_heads: int):
+    """Causal decode attention that does not write the cache: history rows
+    t < step come from the caches, the current token's K/V are used exactly.
+    Returns (y, k_t, v_t); the caller stores the current row."""
+    dtype = x_t.dtype
+    q = _split_heads(linear(params["q_proj"], x_t), num_heads)       # (B,H,1,Dh)
+    k_t = _split_heads(linear(params["k_proj"], x_t), num_heads)
+    v_t = _split_heads(linear(params["v_proj"], x_t), num_heads)
+    dh = q.shape[-1]
+    logits = true_div(torch.matmul(q.float(), k_cache.to(dtype).float()
+                                   .transpose(-1, -2)), math.sqrt(dh))
+    p_hist, p_cur = _joint_softmax(q, k_t, logits, step)
+    out = torch.matmul(p_hist.to(dtype).float(), v_cache.to(dtype).float())
+    out = (out + p_cur[..., None] * v_t.float()).to(dtype)
+    y = linear(params["output_proj"], _merge_heads(out))
+    return y, k_t, v_t
+
+
+def self_attention_step_nocache_int8(params: dict, x_t: torch.Tensor,
+                                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                                     k_scale: torch.Tensor, v_scale: torch.Tensor,
+                                     step: int, num_heads: int):
+    """int8-KV variant of :func:`self_attention_step_nocache`. Returns
+    (y, kq, ks, vq, vs): the quantized current row for the caller to store."""
+    dtype = x_t.dtype
+    q = _split_heads(linear(params["q_proj"], x_t), num_heads)       # (B,H,1,Dh)
+    k_t = _split_heads(linear(params["k_proj"], x_t), num_heads)
+    v_t = _split_heads(linear(params["v_proj"], x_t), num_heads)
+    kq, ks = quantize_kv_rows(k_t)
+    vq, vs = quantize_kv_rows(v_t)
+    dh = q.shape[-1]
+    logits = torch.matmul(q.float(), k_cache.to(dtype).float().transpose(-1, -2))
+    logits = true_div(logits * k_scale[:, :, None, :], math.sqrt(dh))
+    p_hist, p_cur = _joint_softmax(q, k_t, logits, step)
+    out = torch.matmul((p_hist * v_scale[:, :, None, :]).to(dtype).float(),
+                       v_cache.to(dtype).float())
+    out = (out + p_cur[..., None] * v_t.float()).to(dtype)
+    y = linear(params["output_proj"], _merge_heads(out))
+    return y, kq, ks, vq, vs
+
+
+def cross_attention_precompute(params: dict, enc_out: torch.Tensor,
+                               num_heads: int) -> KVCache:
+    """Project the encoder output to K/V once; reused at every decode step."""
+    k = _split_heads(linear(params["k_proj"], enc_out), num_heads)
+    v = _split_heads(linear(params["v_proj"], enc_out), num_heads)
+    return KVCache(k, v)
+
+
+def cross_attention_precompute_int8(params: dict, enc_out: torch.Tensor,
+                                    num_heads: int) -> Int8KVCache:
+    kv = cross_attention_precompute(params, enc_out, num_heads)
+    kq, ks = quantize_kv_rows(kv.k)
+    vq, vs = quantize_kv_rows(kv.v)
+    return Int8KVCache(kq, vq, ks, vs)
+
+
+def cross_attention_step(params: dict, x_t: torch.Tensor, enc_kv: KVCache,
+                         num_heads: int, *, bias: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    q = _split_heads(linear(params["q_proj"], x_t), num_heads)
+    dh = q.shape[-1]
+    logits = true_div(torch.matmul(q.float(), enc_kv.k.to(q.dtype).float()
+                                   .transpose(-1, -2)), math.sqrt(dh))
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(q.dtype).float(), enc_kv.v.to(q.dtype).float())
+    return linear(params["output_proj"], _merge_heads(out.to(x_t.dtype)))
+
+
+def cross_attention_step_int8(params: dict, x_t: torch.Tensor, enc_kv: Int8KVCache,
+                              num_heads: int, *,
+                              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    dtype = x_t.dtype
+    q = _split_heads(linear(params["q_proj"], x_t), num_heads)
+    dh = q.shape[-1]
+    logits = torch.matmul(q.float(), enc_kv.k.to(dtype).float().transpose(-1, -2))
+    logits = true_div(logits * enc_kv.k_scale[:, :, None, :], math.sqrt(dh))
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul((probs * enc_kv.v_scale[:, :, None, :]).to(dtype).float(),
+                       enc_kv.v.to(dtype).float()).to(dtype)
+    return linear(params["output_proj"], _merge_heads(out))

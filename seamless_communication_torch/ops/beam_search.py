@@ -1,0 +1,159 @@
+"""Beam search (counterpart of ``beam_search`` in
+``seamless_communication_tpu/ops/beam_search.py``), as a Python loop over
+decode steps:
+
+  - beam size K, 2K candidates per step;
+  - prefix forcing (the target-language control tokens);
+  - length penalty: a finalized score is sum_lprob / ((len + 1) ** len_penalty);
+  - unk penalty, minimum generation length, EOS forced at the hard maximum;
+  - only EOS candidates ranked within the top K finalize;
+  - early stop once no live beam can beat the worst finalized hypothesis.
+
+The decoder is ``step_fn(tok_t, cache, step, beam_src) -> (logits, cache)``
+over the flattened (B*K) batch. The beam reorder of the previous selection is
+not applied to the cache here: it is handed to the next ``step_fn`` call as
+``beam_src`` (B*K,), which reads the cache through it. Ties rank the lower
+index first, as ``jax.lax.top_k`` does. Step processors (n-gram blocking,
+banned sequences) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+NEG_INF = -1e9
+
+
+class BeamSearchOptions(NamedTuple):
+    beam_size: int = 5
+    max_len: int = 256            # hard cap incl. prefix
+    min_len: int = 1              # min generated tokens before EOS allowed
+    len_penalty: float = 1.0
+    unk_penalty: float = 0.0
+    pad_idx: int = 0
+    unk_idx: int = 1
+    bos_idx: int = 2
+    eos_idx: int = 3
+
+
+class BeamSearchResult(NamedTuple):
+    tokens: torch.Tensor   # (B, K, T_max) best-first finalized hypotheses
+    scores: torch.Tensor   # (B, K) normalized scores (NEG_INF = empty slot)
+    lengths: torch.Tensor  # (B, K) hypothesis lengths incl. prefix and EOS
+    steps: int             # number of decode steps run
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top k along the last axis, ties to the lower index."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
+                prefix_len: torch.Tensor, opts: BeamSearchOptions,
+                vocab_size: int) -> BeamSearchResult:
+    """``prefix``: (B, P) forced target prefix (e.g. [eos, lang]);
+    ``prefix_len``: (B,) its lengths. ``cache``: the decoder cache for the
+    B*K beams, passed through ``step_fn`` untouched."""
+    B, P = prefix.shape
+    K, T, V = opts.beam_size, opts.max_len, vocab_size
+    dev = prefix.device
+    prefix = prefix.long()
+    plen = prefix_len.long()[:, None]                                  # (B, 1)
+    max_prefix = int(prefix_len.max())
+
+    tokens = torch.full((B, K, T), opts.pad_idx, dtype=torch.long, device=dev)
+    tokens[:, :, :P] = prefix[:, None, :]
+    # beams 1..K-1 start dead so the first expansion comes from beam 0 only
+    scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0
+    fin_tokens = torch.full((B, K, T), opts.pad_idx, dtype=torch.long, device=dev)
+    fin_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
+    fin_lengths = torch.zeros((B, K), dtype=torch.long, device=dev)
+    pending_src = torch.arange(B * K, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, device=dev)
+    rank = torch.arange(2 * K, device=dev)[None, :]
+
+    def normalize(score_sum, length):
+        return score_sum / torch.pow(length.float() + 1.0, opts.len_penalty)
+
+    step = 0
+    while step < T - 1:
+        # stop once no live beam's best reachable score beats the worst final
+        best_cont = normalize(scores.amax(dim=1), torch.full((B,), T, device=dev))
+        done = ((fin_scores > NEG_INF / 2).all(dim=1)
+                & (fin_scores.amin(dim=1) >= best_cont))
+        if bool(done.all()):
+            break
+
+        gen_pos = step + 1                                             # position filled now
+        in_prefix = gen_pos < plen                                     # (B, 1)
+        eos_banned = (gen_pos - plen) < opts.min_len                   # (B, 1)
+        force_eos = gen_pos >= T - 1
+
+        logits, cache = step_fn(tokens[:, :, step].reshape(B * K, 1), cache, step,
+                                pending_src)
+        lprobs = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+        lprobs[:, :, opts.unk_idx] -= opts.unk_penalty
+        lprobs[:, :, opts.eos_idx] = torch.where(
+            eos_banned, NEG_INF, lprobs[:, :, opts.eos_idx])
+        if gen_pos < max_prefix or force_eos:
+            if force_eos:
+                lprobs = torch.full_like(lprobs, NEG_INF)
+                lprobs[:, :, opts.eos_idx] = 0.0
+            nxt = prefix[:, min(gen_pos, P - 1)][:, None]               # (B, 1)
+            forced = torch.where(torch.arange(V, device=dev)[None, None, :]
+                                 == nxt[:, :, None], 0.0, NEG_INF)
+            lprobs = torch.where(in_prefix[:, :, None], forced, lprobs)
+
+        # dead beams must not spawn candidates
+        cand = (scores[:, :, None] + lprobs).reshape(B, K * V)
+        top_scores, top_idx = _top_k(cand, 2 * K)                      # (B, 2K)
+        src_beam = torch.div(top_idx, V, rounding_mode="floor")
+        tok = top_idx % V
+        is_eos = ((tok == opts.eos_idx) & ~in_prefix
+                  & (top_scores > NEG_INF / 2))
+        # only EOS candidates ranked within the top K finalize
+        fin_eos = is_eos & (rank < K)
+
+        hyp_len = gen_pos + 1                                          # incl. EOS
+        pos_is_gen = pos[None, None, :] == gen_pos
+        if bool(fin_eos.any()):
+            norm_eos = torch.where(
+                fin_eos, normalize(top_scores, torch.full_like(top_scores, hyp_len)),
+                NEG_INF)
+            parent = torch.gather(tokens, 1, src_beam[:, :, None].expand(B, 2 * K, T))
+            eos_tokens = torch.where(pos_is_gen, opts.eos_idx, parent)
+            all_scores = torch.cat([fin_scores, norm_eos], dim=1)
+            all_tokens = torch.cat([fin_tokens, eos_tokens], dim=1)
+            all_lengths = torch.cat(
+                [fin_lengths, torch.full((B, 2 * K), hyp_len, device=dev)], dim=1)
+            fin_scores, f_sel = _top_k(all_scores, K)
+            fin_tokens = torch.gather(all_tokens, 1, f_sel[:, :, None].expand(B, K, T))
+            fin_lengths = torch.gather(all_lengths, 1, f_sel)
+
+        # pick K continuing (non-EOS) beams
+        scores, cont_sel = _top_k(torch.where(is_eos, NEG_INF, top_scores), K)
+        new_src = torch.gather(src_beam, 1, cont_sel)
+        new_tok = torch.gather(tok, 1, cont_sel)
+        tokens = torch.gather(tokens, 1, new_src[:, :, None].expand(B, K, T))
+        tokens = torch.where(pos_is_gen, new_tok[:, :, None], tokens)
+        pending_src = (torch.arange(B, device=dev)[:, None] * K + new_src
+                       ).reshape(B * K).to(torch.int32)
+        step += 1
+
+    # rows that never finalized K hypotheses fall back to live beams
+    live_norm = scores / torch.pow(torch.tensor(step + 1.0, device=dev) + 1.0,
+                                   opts.len_penalty)
+    need_fill = fin_scores <= NEG_INF / 2
+    fin_scores = torch.where(need_fill, live_norm, fin_scores)
+    fin_tokens = torch.where(need_fill[:, :, None], tokens, fin_tokens)
+    fin_lengths = torch.where(need_fill, step + 1, fin_lengths)
+    order = torch.argsort(-fin_scores, dim=1, stable=True)
+    return BeamSearchResult(
+        tokens=torch.gather(fin_tokens, 1, order[:, :, None].expand(B, K, T)),
+        scores=torch.gather(fin_scores, 1, order),
+        lengths=torch.gather(fin_lengths, 1, order),
+        steps=step)

@@ -1,0 +1,167 @@
+"""Primitive layers as plain functions over parameter dicts of tensors
+(counterpart of ``seamless_communication_tpu/ops/modules.py``).
+
+Conventions kept from the JAX package, so the two compare like with like:
+- activations are ``(batch, time, dim)``;
+- linear weights are ``(in_dim, out_dim)``;
+- conv1d is NWC with ``(kernel, in_ch // groups, out_ch)`` ("WIO") weights;
+- products accumulate in fp32 and return the activation dtype. Where the JAX
+  code asks for an fp32 result from bf16 operands, the port widens the
+  operands to fp32 first: a bf16 x bf16 product is exact in fp32, so the
+  result is the same as a bf16 product with fp32 output.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as an IEEE division in x's dtype. PyTorch turns a division
+    by a host scalar into a multiplication by its reciprocal on CUDA, which
+    can differ in the last bit; a divisor on x's device is divided exactly,
+    as jnp and the CUDA kernels divide. (``torch.full`` fills on the device;
+    ``torch.tensor`` would copy from the host.)"""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _uniform(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return (u * (2 * scale) - scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear
+# ---------------------------------------------------------------------------
+
+def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, *, bias: bool = True,
+                dtype=torch.float32, device=None) -> dict:
+    """Kaiming-uniform init matching torch ``nn.Linear`` defaults."""
+    scale = 1.0 / math.sqrt(in_dim)
+    params = {"weight": _uniform(gen, (in_dim, out_dim), scale, dtype, device)}
+    if bias:
+        params["bias"] = _uniform(gen, (out_dim,), scale, dtype, device)
+    return params
+
+
+def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """y = x @ W (+ b), fp32 accumulation, returns x.dtype. Dispatches to the
+    int8 weight-only path for params rewritten by ``quantize_params``."""
+    if "weight_i8" in params:
+        from seamless_communication_torch.ops.quantization import linear_quantized
+        return linear_quantized(params, x)
+    w = params["weight"].to(x.dtype)
+    y = torch.matmul(x.float(), w.float())
+    b = params.get("bias")
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm
+# ---------------------------------------------------------------------------
+
+def layer_norm_init(dim: int, *, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layer_norm(params: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim with fp32 statistics."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if params:
+        y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def embedding_init(gen: torch.Generator, vocab_size: int, dim: int, *,
+                   dtype=torch.float32, device=None) -> dict:
+    emb = torch.randn((vocab_size, dim), generator=gen, dtype=torch.float32,
+                      device=device) * (dim ** -0.5)
+    return {"embedding": emb.to(dtype)}
+
+
+def embedding(params: dict, ids: torch.Tensor, *, scale: Optional[float] = None
+              ) -> torch.Tensor:
+    """Token-id lookup times an optional ``scale`` (sqrt(dim) in transformer
+    frontends). Dispatches to the int8 row-quantized table when present."""
+    if "embedding_i8" in params:
+        from seamless_communication_torch.ops.quantization import (
+            embedding_lookup_quantized,
+        )
+        return embedding_lookup_quantized(params, ids, scale_mult=scale)
+    e = params["embedding"][ids]
+    if scale is not None:
+        e = e * torch.full((), scale, dtype=e.dtype, device=e.device)
+    return e
+
+
+# ---------------------------------------------------------------------------
+# Conv1d (NWC layout, WIO weights)
+# ---------------------------------------------------------------------------
+
+def conv1d_init(gen: torch.Generator, in_ch: int, out_ch: int, kernel_size: int, *,
+                groups: int = 1, bias: bool = True, dtype=torch.float32,
+                device=None) -> dict:
+    scale = 1.0 / math.sqrt((in_ch // groups) * kernel_size)
+    params = {"weight": _uniform(gen, (kernel_size, in_ch // groups, out_ch), scale,
+                                 dtype, device)}
+    if bias:
+        params["bias"] = _uniform(gen, (out_ch,), scale, dtype, device)
+    return params
+
+
+def _conv_padding(padding, width: int, k: int, stride: int, dilation: int
+                  ) -> tuple[int, int]:
+    if padding == "CAUSAL":
+        return (k - 1) * dilation, 0
+    if padding == "VALID":
+        return 0, 0
+    if padding == "SAME":     # XLA's rule: output ceil(width / stride)
+        out = -(-width // stride)
+        total = max((out - 1) * stride + (k - 1) * dilation + 1 - width, 0)
+        return total // 2, total - total // 2
+    lo, hi = padding
+    return lo, hi
+
+
+def conv1d(params: dict, x: torch.Tensor, *, stride: int = 1, padding="SAME",
+           groups: int = 1, dilation: int = 1) -> torch.Tensor:
+    """1-D convolution on (batch, time, channels). ``padding`` is "SAME",
+    "VALID", "CAUSAL" or an explicit (lo, hi) pair."""
+    w = params["weight"].to(x.dtype)
+    k = w.shape[0]
+    lo, hi = _conv_padding(padding, x.shape[1], k, stride, dilation)
+    xc = F.pad(x.transpose(1, 2), (lo, hi))                  # (B, C, W)
+    y = F.conv1d(xc, w.permute(2, 1, 0), stride=stride, dilation=dilation,
+                 groups=groups).transpose(1, 2)
+    b = params.get("bias")
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations / gating
+# ---------------------------------------------------------------------------
+
+def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Gated linear unit: split in half along ``dim``; a * sigmoid(b)."""
+    a, b = torch.chunk(x, 2, dim=dim)
+    return a * torch.sigmoid(b)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)

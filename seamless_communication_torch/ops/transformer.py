@@ -1,0 +1,224 @@
+"""Pre-LN transformer decoder stack with a KV-cached single-step forward
+(counterpart of ``seamless_communication_tpu/ops/transformer.py``):
+
+    x += self_attn(LN(x))
+    x += cross_attn(LN(x), enc)
+    x += ffn(LN(x))
+    final stack LayerNorm.
+
+A stack is ``{"layers": [per-layer params], "layer_norm": ...}``. The decode
+caches are per layer: lists of (B, H, T, Dh) tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from seamless_communication_torch.ops import attention as attn_ops
+from seamless_communication_torch.ops.attention import Int8KVCache, KVCache
+from seamless_communication_torch.ops.kernels.decode_attention import (
+    fused_decode_self_attention_int8,
+)
+from seamless_communication_torch.ops.masks import padding_bias
+from seamless_communication_torch.ops.modules import (
+    embedding, layer_norm, layer_norm_init, linear, linear_init,
+)
+from seamless_communication_torch.ops.positional import apply_sinusoidal_pos
+
+
+class TransformerConfig(NamedTuple):
+    dim: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    ffn_inner_dim: int = 8192
+    activation: str = "relu"
+    vocab_size: int = 256102
+    pad_idx: int = 0
+    max_seq_len: int = 4096
+    has_cross_attention: bool = False
+
+
+# NLLB's activation; the expressive variant's gelu comes with that model
+_ACTIVATIONS = {"relu": torch.relu}
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def ffn_init(gen, dim, inner, *, dtype=torch.float32, device=None) -> dict:
+    kw = dict(dtype=dtype, device=device)
+    return {"layer_norm": layer_norm_init(dim, **kw),
+            "inner_proj": linear_init(gen, dim, inner, **kw),
+            "output_proj": linear_init(gen, inner, dim, **kw)}
+
+
+def transformer_layer_init(gen: torch.Generator, cfg: TransformerConfig, *,
+                           dtype=torch.float32, device=None) -> dict:
+    kw = dict(dtype=dtype, device=device)
+    p = {"self_attn_layer_norm": layer_norm_init(cfg.dim, **kw),
+         "self_attn": attn_ops.mha_init(gen, cfg.dim, cfg.num_heads, **kw),
+         "ffn": ffn_init(gen, cfg.dim, cfg.ffn_inner_dim, **kw)}
+    if cfg.has_cross_attention:
+        p["cross_attn_layer_norm"] = layer_norm_init(cfg.dim, **kw)
+        p["cross_attn"] = attn_ops.mha_init(gen, cfg.dim, cfg.num_heads, **kw)
+    return p
+
+
+def transformer_stack_init(gen: torch.Generator, cfg: TransformerConfig, *,
+                           dtype=torch.float32, device=None) -> dict:
+    return {"layers": [transformer_layer_init(gen, cfg, dtype=dtype, device=device)
+                       for _ in range(cfg.num_layers)],
+            "layer_norm": layer_norm_init(cfg.dim, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# KV-cached decode step
+# ---------------------------------------------------------------------------
+
+class DecoderCache(NamedTuple):
+    """Per-layer lists: self-attention KV (B, H, T_max, Dh) and the
+    precomputed cross-attention KV (B, H, S, Dh)."""
+    self_k: list
+    self_v: list
+    cross_k: list
+    cross_v: list
+
+
+class DecoderCacheQ8(NamedTuple):
+    """int8 variant: (B, H, T_max, Dh) int8 rows with (B, H, T_max) fp32
+    scales, per layer."""
+    self_k: list
+    self_v: list
+    self_k_scale: list
+    self_v_scale: list
+    cross_k: list
+    cross_v: list
+    cross_k_scale: list
+    cross_v_scale: list
+
+
+def decoder_cache_init(params: dict, cfg: TransformerConfig, enc_out: torch.Tensor,
+                       max_len: int, dtype=None, *, kv_int8: bool = False):
+    """Empty per-layer self-attention caches of length ``max_len`` and the
+    cross-attention K/V of ``enc_out``, computed once."""
+    dtype = dtype or enc_out.dtype
+    B, H, L = enc_out.shape[0], cfg.num_heads, cfg.num_layers
+    shape = (B, H, max_len, cfg.dim // H)
+    dev = enc_out.device
+
+    def zeros(shp, dt):
+        return [torch.zeros(shp, dtype=dt, device=dev) for _ in range(L)]
+
+    layers = params["layers"]
+    if kv_int8:
+        cross = [attn_ops.cross_attention_precompute_int8(lp["cross_attn"], enc_out, H)
+                 for lp in layers]
+        return DecoderCacheQ8(
+            zeros(shape, torch.int8), zeros(shape, torch.int8),
+            zeros(shape[:3], torch.float32), zeros(shape[:3], torch.float32),
+            [c.k for c in cross], [c.v for c in cross],
+            [c.k_scale for c in cross], [c.v_scale for c in cross])
+    cross = [attn_ops.cross_attention_precompute(lp["cross_attn"], enc_out, H)
+             for lp in layers]
+    return DecoderCache(zeros(shape, dtype), zeros(shape, dtype),
+                        [c.k for c in cross], [c.v for c in cross])
+
+
+def _take(xs: list, src: Optional[torch.Tensor]) -> list:
+    return list(xs) if src is None else [x[src] for x in xs]
+
+
+def transformer_decoder_step(params: dict, x_t: torch.Tensor, cache, step: int,
+                             cfg: TransformerConfig, *,
+                             enc_padding_mask: Optional[torch.Tensor] = None,
+                             beam_src: Optional[torch.Tensor] = None):
+    """One decode step. ``x_t``: (B, 1, D) embedded current token; ``step``:
+    the current position, a host int. ``beam_src``: optional (B,) beam
+    origins of the previous beam selection: the caches are read through that
+    gather, and the current row is written into the gathered copy.
+
+    With an int8 cache, a ``beam_src`` and tensors on the card, the self
+    attention of each layer is one launch of the fused decode-attention
+    kernel (``ops/kernels/decode_attention.py``). Otherwise it takes the
+    plain composition. The caches in ``cache`` are written in place where no
+    ``beam_src`` is given; the returned cache holds the new tensors."""
+    cross_bias = padding_bias(enc_padding_mask)
+    int8 = isinstance(cache, DecoderCacheQ8)
+    fused = int8 and beam_src is not None and x_t.is_cuda
+    src = None if beam_src is None else beam_src.long()
+    sk, sv = list(cache.self_k), list(cache.self_v)
+    if int8:
+        sks, svs = list(cache.self_k_scale), list(cache.self_v_scale)
+    act = _ACTIVATIONS[cfg.activation]
+    h = x_t
+    for i, lp in enumerate(params["layers"]):
+        z = layer_norm(lp["self_attn_layer_norm"], h)
+        ap = lp["self_attn"]
+        if fused:
+            heads = [attn_ops._split_heads(linear(ap[n], z), cfg.num_heads)[:, :, 0]
+                     .contiguous() for n in ("q_proj", "k_proj", "v_proj")]
+            o, sk[i], sv[i], sks[i], svs[i] = fused_decode_self_attention_int8(
+                *heads, sk[i], sv[i], sks[i], svs[i], step, beam_src)
+            y = linear(ap["output_proj"], attn_ops._merge_heads(o[:, :, None]))
+        elif int8:
+            ski, svi, sksi, svsi = _take((sk[i], sv[i], sks[i], svs[i]), src)
+            y, kq, ks, vq, vs = attn_ops.self_attention_step_nocache_int8(
+                ap, z, ski, svi, sksi, svsi, step, cfg.num_heads)
+            ski[:, :, step], svi[:, :, step] = kq[:, :, 0], vq[:, :, 0]
+            sksi[:, :, step], svsi[:, :, step] = ks[:, :, 0], vs[:, :, 0]
+            sk[i], sv[i], sks[i], svs[i] = ski, svi, sksi, svsi
+        else:
+            ski, svi = _take((sk[i], sv[i]), src)
+            y, k_t, v_t = attn_ops.self_attention_step_nocache(
+                ap, z, ski, svi, step, cfg.num_heads)
+            ski[:, :, step] = k_t[:, :, 0].to(ski.dtype)
+            svi[:, :, step] = v_t[:, :, 0].to(svi.dtype)
+            sk[i], sv[i] = ski, svi
+        h = h + y
+        z = layer_norm(lp["cross_attn_layer_norm"], h)
+        if int8:
+            cross_kv = Int8KVCache(cache.cross_k[i], cache.cross_v[i],
+                                   cache.cross_k_scale[i], cache.cross_v_scale[i])
+            h = h + attn_ops.cross_attention_step_int8(
+                lp["cross_attn"], z, cross_kv, cfg.num_heads, bias=cross_bias)
+        else:
+            cross_kv = KVCache(cache.cross_k[i], cache.cross_v[i])
+            h = h + attn_ops.cross_attention_step(
+                lp["cross_attn"], z, cross_kv, cfg.num_heads, bias=cross_bias)
+        z = layer_norm(lp["ffn"]["layer_norm"], h)
+        z = act(linear(lp["ffn"]["inner_proj"], z))
+        h = h + linear(lp["ffn"]["output_proj"], z)
+    out = layer_norm(params["layer_norm"], h)
+    if int8:
+        return out, cache._replace(self_k=sk, self_v=sv, self_k_scale=sks,
+                                   self_v_scale=svs)
+    return out, cache._replace(self_k=sk, self_v=sv)
+
+
+# ---------------------------------------------------------------------------
+# Embedding frontend and tied projection
+# ---------------------------------------------------------------------------
+
+def embedding_frontend(embed_params: dict, ids: torch.Tensor, cfg: TransformerConfig, *,
+                       padding_mask: Optional[torch.Tensor] = None,
+                       start_step: int = 0) -> torch.Tensor:
+    """ids -> embeddings scaled by sqrt(dim) + sinusoidal positions (fairseq
+    convention: positions offset by pad_idx + 1)."""
+    x = embedding(embed_params, ids, scale=cfg.dim ** 0.5)
+    return apply_sinusoidal_pos(x, padding_mask=padding_mask, padding_idx=cfg.pad_idx,
+                                start_step=start_step)
+
+
+def tied_projection(embed_params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits through the tied embedding matrix, fp32; the int8 row-quantized
+    table when present."""
+    if "embedding_i8" in embed_params:
+        from seamless_communication_torch.ops.quantization import (
+            tied_projection_quantized,
+        )
+        return tied_projection_quantized(embed_params, x)
+    w = embed_params["embedding"]
+    return torch.matmul(x.float(), w.to(x.dtype).float().T)

@@ -1,0 +1,64 @@
+"""The port imports neither JAX nor the JAX package, and its entry points run
+on the CPU only when asked."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import seamless_communication_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "seamless_communication_tpu")))
+print(len(names), ";".join(bad))
+"""
+
+
+def _run(code: str, **env) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120, env={**os.environ, **env})
+
+
+def test_port_imports_no_jax():
+    proc = _run(_PROBE)
+    assert proc.returncode == 0, proc.stderr
+    n, _, bad = proc.stdout.strip().partition(" ")
+    assert int(n) >= 20
+    assert bad == "", f"the port pulled in {bad}"
+
+
+def test_chip_smoke_imports_no_jax():
+    proc = _run("import sys, chip_smoke; print(';'.join(m for m in sys.modules "
+                "if m == 'jax' or m.startswith('seamless_communication_tpu')))")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_default_device_needs_a_card(device):
+    """Without a card the default device raises; ``device="cpu"`` is the
+    only way onto the CPU."""
+    proc = _run(
+        "import torch\n"
+        "from seamless_communication_torch.inference.translator import Translator\n"
+        "from seamless_communication_torch.models.unity.builder import get_arch\n"
+        f"dev = {device!r}\n"
+        "try:\n"
+        "    t = Translator({}, get_arch('tiny_v2'), None, device=dev)\n"
+        "    print('device', t.device)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n",
+        CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+    if device is None:
+        assert proc.stdout.startswith("raised no CUDA device"), proc.stdout
+    else:
+        assert proc.stdout.strip() == "device cpu"
