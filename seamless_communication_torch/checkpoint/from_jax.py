@@ -18,7 +18,9 @@ import torch
 
 
 def to_torch(tree, device: Optional[torch.device] = None):
-    """Every numpy leaf of ``tree`` as a torch tensor (dicts and lists kept)."""
+    """Every numpy leaf of ``tree`` as a torch tensor (dicts and lists kept).
+    A code HiFi-GAN tree comes across as it is: its ``upsampler`` and
+    ``resblocks`` lists are per layer in the JAX package too."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -61,16 +63,28 @@ def text_stack_from_jax(tree: dict, device=None) -> dict:
     return to_torch(dict(tree, stack=stack), device)
 
 
+def t2u_from_jax(tree: dict, device=None) -> dict:
+    """A NAR T2U tree: the encoder stack's layers and the scan-stacked
+    ``decoder_layers`` become lists of per-layer dicts."""
+    out = dict(tree, encoder=dict(tree["encoder"],
+                                  layers=unstack_layers(tree["encoder"]["layers"])),
+               decoder_layers=unstack_layers(tree["decoder_layers"]))
+    return to_torch(out, device)
+
+
 def unity_params_from_jax(tree: dict, device=None) -> dict:
-    """The parts of a UnitY tree that the port runs: the speech encoder and
-    the text decoder. NLLB ties the text encoder's embedding, the decoder's
-    embedding and the output projection to one table: where the tree has a
-    text encoder, the port's text encoder shares the decoder's ``embed`` dict
-    (the numpy copy of the tree no longer knows they were one)."""
+    """The parts of a UnitY tree that the port runs: the speech encoder, the
+    text decoder and the NAR T2U. NLLB ties the text encoder's embedding, the
+    decoder's embedding and the output projection to one table: where the
+    tree has a text encoder, the port's text encoder shares the decoder's
+    ``embed`` dict (the numpy copy of the tree no longer knows they were
+    one)."""
     params = {"speech_encoder": speech_encoder_from_jax(tree["speech_encoder"], device),
               "text_decoder": text_stack_from_jax(tree["text_decoder"], device)}
     if "text_encoder" in tree:
         enc = text_stack_from_jax(dict(tree["text_encoder"], embed={}), device)
         enc["embed"] = params["text_decoder"]["embed"]
         params["text_encoder"] = enc
+    if "t2u" in tree:
+        params["t2u"] = t2u_from_jax(tree["t2u"], device)
     return params

@@ -1,57 +1,98 @@
-"""Text generation of the UnitY model (counterpart of the text pass of
-``seamless_communication_tpu/inference/generator.py``): beam search of the
-text hypothesis from the encoder output."""
+"""Two-pass generation of the UnitY model (counterpart of
+``seamless_communication_tpu/inference/generator.py``).
+
+Pass 1: beam search of the text hypothesis from the encoder output.
+Pass 2: re-decode the best hypothesis through the text decoder (full
+        sequence) to get its features, run the NAR T2U (argmax) on them and
+        detokenize the units.
+"""
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from seamless_communication_torch.models.unity import model as unity
 from seamless_communication_torch.models.unity.builder import UnitYConfig
+from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
 from seamless_communication_torch.ops.beam_search import (
     BeamSearchOptions, BeamSearchResult, beam_search,
 )
+from seamless_communication_torch.text.char_frontend import text_to_char_seqs
+from seamless_communication_torch.text.char_tokenizer import CharTokenizer
 from seamless_communication_torch.text.nllb import NllbTokenizer
+
+
+def remove_consecutive_repeated_ngrams(seq: list, min_size: int = 1,
+                                       max_size: int = 40) -> list:
+    """Drop immediately repeated n-grams from a token list."""
+    drop = set()
+    for n in range(min_size, max_size + 1):
+        for i in range(len(seq) - 2 * n + 1):
+            if seq[i:i + n] == seq[i + n:i + 2 * n]:
+                drop.update(range(i, i + n))
+    return [tok for i, tok in enumerate(seq) if i not in drop]
 
 
 @dataclass
 class SequenceGeneratorOptions:
-    """The JAX package's defaults (reference generator.py:59-84)."""
+    """The JAX package's defaults (its inference/generator.py:51-67)."""
     beam_size: int = 5
     soft_max_seq_len: tuple[int, int] = (1, 200)
     hard_max_seq_len: int = 1024
     len_penalty: float = 1.0
     unk_penalty: float = 0.0
     kv_cache_int8: Optional[bool] = None  # None: int8 KV on the card, fp KV on the CPU
+    kv_cache_bits: int = 8                # 4: packed-int4 self-attention KV
 
 
 def _bucket(n: int, step: int = 64) -> int:
     return max(step, int(math.ceil(n / step)) * step)
 
 
-def _resolve_kv_int8(opts: SequenceGeneratorOptions, device: torch.device) -> bool:
-    if opts.kv_cache_int8 is not None:
-        return opts.kv_cache_int8
-    return device.type == "cuda"
+def _resolve_kv(opts: SequenceGeneratorOptions, device: torch.device
+                ) -> tuple[bool, int]:
+    """(quantized KV?, bits per cached value): int8 KV on the card unless
+    the options say otherwise; ``kv_cache_bits`` applies to a quantized
+    cache only."""
+    kv_int8 = (opts.kv_cache_int8 if opts.kv_cache_int8 is not None
+               else device.type == "cuda")
+    return kv_int8, (opts.kv_cache_bits if kv_int8 else 8)
+
+
+def stage_end(timings: dict, name: str, t0: float, device: torch.device) -> float:
+    """Record under ``name`` the wall seconds since ``t0``, after the card has
+    finished the stage's work; returns the time now."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    now = time.perf_counter()
+    timings[name] = now - t0
+    return now
 
 
 class UnitYGenerator:
-    """Beam-search text generator over a UnitY parameter tree on ``device``."""
+    """Two-pass generator over a UnitY parameter tree on ``device``."""
 
     def __init__(self, params: dict, cfg: UnitYConfig, text_tokenizer: NllbTokenizer,
+                 unit_tokenizer: Optional[UnitTokenizer] = None,
+                 char_tokenizer: Optional[CharTokenizer] = None,
                  text_opts: Optional[SequenceGeneratorOptions] = None, *,
                  device: torch.device):
         self.params = params
         self.cfg = cfg
         self.text_tokenizer = text_tokenizer
+        self.unit_tokenizer = unit_tokenizer
+        self.char_tokenizer = char_tokenizer
         self.text_opts = text_opts or SequenceGeneratorOptions()
         self.device = device
         self.last_result: Optional[BeamSearchResult] = None
+        # wall seconds of the re-decode and the T2U in the last generate_units
+        self.last_timings: dict = {}
 
     def generate_text(self, enc: unity.EncoderOutput, tgt_lang: str, *,
                       opts_override: Optional[SequenceGeneratorOptions] = None):
@@ -70,7 +111,8 @@ class UnitYGenerator:
         enc_bk = unity.EncoderOutput(torch.repeat_interleave(enc.seqs, K, dim=0),
                                      torch.repeat_interleave(enc.lengths, K, dim=0))
         step_fn, cache_fn = unity.make_text_decode_step(self.params, self.cfg, enc_bk)
-        cache = cache_fn(max_len, _resolve_kv_int8(topts, self.device))
+        kv_int8, kv_bits = _resolve_kv(topts, self.device)
+        cache = cache_fn(max_len, kv_int8, kv_bits)
         prefix = torch.as_tensor(np.tile(self.text_tokenizer.target_prefix(tgt_lang),
                                          (B, 1)), device=self.device)
         prefix_len = torch.full((B,), prefix.shape[1], dtype=torch.int32,
@@ -79,3 +121,49 @@ class UnitYGenerator:
         self.last_result = res
         return (res.tokens[:, 0].cpu().numpy(), res.lengths[:, 0].cpu().numpy(),
                 res.scores[:, 0].cpu().numpy())
+
+    def generate_units(self, text_tokens: np.ndarray, text_lens: np.ndarray,
+                       enc: unity.EncoderOutput, tgt_lang: str, *,
+                       duration_factor: float = 1.0, max_unit_len: int = 2048,
+                       ngram_filtering: bool = False) -> List[List[int]]:
+        """Pass 2: re-decode the text, run the NAR T2U, detokenize to raw
+        units. Returns one list of unit ids per utterance."""
+        if self.cfg.nar_t2u is None:
+            raise NotImplementedError(
+                "the AR T2U of the v1 models is not ported yet: it comes with the "
+                "v1 slice (ROADMAP Queue 1, entry 8)")
+        if "prosody_encoder" in self.params:
+            raise NotImplementedError("expressive models (prosody encoder, FiLM) "
+                                      "are not ported yet")
+        dev = self.device
+        self.last_timings = {}
+        t0 = time.perf_counter()
+        max_text = int(text_lens.max())
+        T = _bucket(max_text, 16)
+        ids = np.asarray(text_tokens[:, :T])
+        # the final column is trimmed before the re-decode, as in the
+        # reference: the longest rows lose their trailing EOS position
+        t2u_lens = text_lens - (text_lens == max_text)
+        lens = torch.as_tensor(t2u_lens, device=dev)
+        feats = unity.decode_text(self.params, self.cfg, torch.as_tensor(ids, device=dev),
+                                  enc, self_lengths=lens)
+        t0 = stage_end(self.last_timings, "redecode", t0, dev)
+        char_ids, _, char_counts = text_to_char_seqs(
+            self.text_tokenizer, self.char_tokenizer, ids,
+            max_char_len=_bucket(max_text * 12, 64))
+        out = unity.t2u_nar(self.params, self.cfg, feats, lens,
+                            torch.as_tensor(char_ids, device=dev),
+                            torch.as_tensor(char_counts, device=dev),
+                            max_unit_len=max_unit_len, duration_factor=duration_factor)
+        units = out.unit_logits.argmax(dim=-1).cpu().numpy()
+        unit_lens = out.unit_lengths.cpu().numpy()
+        stage_end(self.last_timings, "t2u", t0, dev)
+        raw = self.unit_tokenizer.decode(units)     # offset -4, EOS -> pad
+        out_units = []
+        for b in range(raw.shape[0]):
+            u = [int(t) for t in raw[b, :unit_lens[b]]
+                 if 0 <= t < self.unit_tokenizer.num_units]
+            if ngram_filtering:
+                u = remove_consecutive_repeated_ngrams(u)
+            out_units.append(u)
+        return out_units

@@ -1,5 +1,6 @@
 """NLLB text decoder (counterpart of the decoder half of
-``seamless_communication_tpu/models/nllb/model.py``): dense_1b is 24 layers,
+``seamless_communication_tpu/models/nllb/model.py``): the KV-cached step of
+the beam search and the full-sequence re-decode. dense_1b is 24 layers,
 1024-d, ffn 8192, vocab 256102, with the output projection tied to the
 embedding."""
 
@@ -12,7 +13,7 @@ import torch
 from seamless_communication_torch.ops.modules import embedding_init
 from seamless_communication_torch.ops.transformer import (
     TransformerConfig, decoder_cache_init, embedding_frontend, tied_projection,
-    transformer_decoder_step, transformer_stack_init,
+    transformer_decoder, transformer_decoder_step, transformer_stack_init,
 )
 
 
@@ -43,6 +44,19 @@ def text_decoder_init(gen: torch.Generator, cfg: NllbConfig, *, dtype=torch.floa
                                             device=device)}
 
 
+def text_decoder_forward(params: dict, ids: torch.Tensor, enc_out: torch.Tensor,
+                         cfg: NllbConfig, *,
+                         enc_padding_mask: Optional[torch.Tensor] = None,
+                         self_padding_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Full-sequence decode -> (B, T, D) features (before the projection)."""
+    x = embedding_frontend(params["embed"], ids, cfg.dec_cfg(),
+                           padding_mask=self_padding_mask)
+    return transformer_decoder(params["stack"], x, cfg.dec_cfg(), enc_out=enc_out,
+                               enc_padding_mask=enc_padding_mask,
+                               self_padding_mask=self_padding_mask)
+
+
 def text_decoder_step(params: dict, tok_t: torch.Tensor, cache, step: int,
                       cfg: NllbConfig, *,
                       enc_padding_mask: Optional[torch.Tensor] = None,
@@ -56,6 +70,6 @@ def text_decoder_step(params: dict, tok_t: torch.Tensor, cache, step: int,
 
 
 def text_decoder_cache(params: dict, cfg: NllbConfig, enc_out: torch.Tensor,
-                       max_len: int, *, kv_int8: bool = False):
+                       max_len: int, *, kv_int8: bool = False, kv_bits: int = 8):
     return decoder_cache_init(params["stack"], cfg.dec_cfg(), enc_out, max_len,
-                              kv_int8=kv_int8)
+                              kv_int8=kv_int8, kv_bits=kv_bits)

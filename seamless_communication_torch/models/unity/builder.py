@@ -6,37 +6,18 @@ port runs:
                  causal depthwise conv) + NLLB dense_1b decoder (vocab 256102)
   - ``tiny_v2``  the tiny arch of the tests
 
-The NAR T2U fields are kept as plain config data: the T2U itself is not
-ported yet.
+Both carry a NAR T2U (``models/unity/t2u.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, Optional
 
 from seamless_communication_torch.models.nllb.model import NllbConfig
+from seamless_communication_torch.models.unity.t2u import NarT2UConfig
 from seamless_communication_torch.models.wav2vec2.encoder import SpeechEncoderConfig
 from seamless_communication_torch.ops.conformer import ConformerConfig
-
-
-class NarT2UConfig(NamedTuple):
-    model_dim: int = 1024
-    num_encoder_layers: int = 6
-    num_decoder_layers: int = 6
-    num_heads: int = 16
-    ffn_inner_dim: int = 8192
-    unit_vocab_size: int = 10082
-    char_vocab_size: int = 10943
-    conv_kernel_size: int = 7
-    dur_predictor_hidden: int = 256
-    dur_predictor_kernel: int = 3
-    pad_idx: int = 1
-    char_pad_idx: int = 1
-    pos_pad_idx: int = 1
-    max_seq_len: int = 4096
-    film_cond_dim: int = 0
-    prosody_proj_dim: int = 0
 
 
 @dataclass(frozen=True)

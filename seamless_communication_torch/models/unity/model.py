@@ -1,7 +1,8 @@
-"""UnitY model functions for the speech-to-text path (counterpart of
+"""UnitY model functions (counterpart of
 ``seamless_communication_tpu/models/unity/model.py``): parameter init for the
-speech encoder and the text decoder, ``encode_speech`` and the beam-search
-step of the X2T view."""
+speech encoder, the text decoder and the NAR T2U; ``encode_speech``; the
+beam-search step of the X2T view; the full-sequence re-decode
+``decode_text``; and ``t2u_nar``."""
 
 from __future__ import annotations
 
@@ -10,9 +11,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from seamless_communication_torch.models.nllb.model import (
-    text_decoder_cache, text_decoder_init, text_decoder_step,
+    text_decoder_cache, text_decoder_forward, text_decoder_init, text_decoder_step,
 )
 from seamless_communication_torch.models.unity.builder import UnitYConfig
+from seamless_communication_torch.models.unity.t2u import (
+    NarT2UOutput, nar_t2u_forward, nar_t2u_init,
+)
 from seamless_communication_torch.models.wav2vec2.encoder import (
     speech_encoder_forward, speech_encoder_init,
 )
@@ -21,12 +25,15 @@ from seamless_communication_torch.ops.masks import lengths_to_padding_mask
 
 def unity_init(gen: torch.Generator, cfg: UnitYConfig, *, dtype=torch.float32,
                device=None) -> dict:
-    """Random parameters of the speech encoder and the text decoder, drawn
-    from ``gen`` (which must live on ``device``)."""
-    return {"speech_encoder": speech_encoder_init(gen, cfg.speech, dtype=dtype,
-                                                  device=device),
-            "text_decoder": text_decoder_init(gen, cfg.nllb, dtype=dtype,
-                                              device=device)}
+    """Random parameters of the speech encoder, the text decoder and (where
+    the config has one) the NAR T2U, drawn from ``gen`` in that order (``gen``
+    must live on ``device``)."""
+    kw = dict(dtype=dtype, device=device)
+    params = {"speech_encoder": speech_encoder_init(gen, cfg.speech, **kw),
+              "text_decoder": text_decoder_init(gen, cfg.nllb, **kw)}
+    if cfg.nar_t2u is not None:
+        params["t2u"] = nar_t2u_init(gen, cfg.nar_t2u, **kw)
+    return params
 
 
 class EncoderOutput(NamedTuple):
@@ -45,9 +52,19 @@ def encode_speech(params: dict, cfg: UnitYConfig, fbank: torch.Tensor,
     return EncoderOutput(seqs, lens)
 
 
+def decode_text(params: dict, cfg: UnitYConfig, ids: torch.Tensor, enc: EncoderOutput,
+                *, self_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence text decode -> (B, T, D) features, the T2U's input."""
+    mask = (lengths_to_padding_mask(self_lengths, ids.shape[1])
+            if self_lengths is not None else None)
+    return text_decoder_forward(params["text_decoder"], ids, enc.seqs, cfg.nllb,
+                                enc_padding_mask=enc.padding_mask,
+                                self_padding_mask=mask)
+
+
 def make_text_decode_step(params: dict, cfg: UnitYConfig, enc: EncoderOutput):
     """The beam-search ``step_fn(tok_t, cache, step, beam_src)`` and the cache
-    factory ``cache_fn(max_len, kv_int8)`` of the X2T view."""
+    factory ``cache_fn(max_len, kv_int8, kv_bits)`` of the X2T view."""
     mask = enc.padding_mask
     dec = params["text_decoder"]
 
@@ -55,7 +72,16 @@ def make_text_decode_step(params: dict, cfg: UnitYConfig, enc: EncoderOutput):
         return text_decoder_step(dec, tok_t, cache, step, cfg.nllb,
                                  enc_padding_mask=mask, beam_src=beam_src)
 
-    def cache_fn(max_len: int, kv_int8: bool = False):
-        return text_decoder_cache(dec, cfg.nllb, enc.seqs, max_len, kv_int8=kv_int8)
+    def cache_fn(max_len: int, kv_int8: bool = False, kv_bits: int = 8):
+        return text_decoder_cache(dec, cfg.nllb, enc.seqs, max_len, kv_int8=kv_int8,
+                                  kv_bits=kv_bits)
 
     return step_fn, cache_fn
+
+
+def t2u_nar(params: dict, cfg: UnitYConfig, text_dec_out: torch.Tensor,
+            text_lens: torch.Tensor, char_ids: torch.Tensor, char_counts: torch.Tensor,
+            *, max_unit_len: int, duration_factor: float = 1.0) -> NarT2UOutput:
+    return nar_t2u_forward(params["t2u"], cfg.nar_t2u, text_dec_out, text_lens,
+                           char_ids, char_counts, max_unit_len=max_unit_len,
+                           duration_factor=duration_factor)

@@ -1,0 +1,211 @@
+"""Non-autoregressive text-to-unit model of UnitY2 (counterpart of the NAR
+half of ``seamless_communication_tpu/models/unity/t2u.py``).
+
+A 6-layer transformer encoder over the text decoder's features, then a
+char-level NAR decoder: upsample the features to char length by each
+token's char count, add char embeddings and alpha-scaled sinusoidal
+positions, predict per-char durations (variance predictor), upsample to unit
+length, run the post-LN FFT layers (self-attention + two same-padded convs)
+and project to the unit vocabulary.
+
+Upsampled lengths are static (``max_unit_len``) with validity masks, as in
+the JAX package. The FiLM and prosody branches (expressive models) are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from seamless_communication_torch.ops import attention as attn_ops
+from seamless_communication_torch.ops.masks import (
+    apply_padding_mask, lengths_to_padding_mask, padding_bias,
+)
+from seamless_communication_torch.ops.modules import (
+    conv1d, conv1d_init, embedding, embedding_init, layer_norm, layer_norm_init,
+    linear, linear_init,
+)
+from seamless_communication_torch.ops.positional import sinusoidal_positions
+from seamless_communication_torch.ops.transformer import (
+    TransformerConfig, transformer_encoder, transformer_stack_init,
+)
+from seamless_communication_torch.ops.upsample import hard_upsample
+
+
+class NarT2UConfig(NamedTuple):
+    model_dim: int = 1024
+    num_encoder_layers: int = 6
+    num_decoder_layers: int = 6
+    num_heads: int = 16
+    ffn_inner_dim: int = 8192
+    unit_vocab_size: int = 10082
+    char_vocab_size: int = 10943
+    conv_kernel_size: int = 7
+    dur_predictor_hidden: int = 256
+    dur_predictor_kernel: int = 3
+    pad_idx: int = 1                 # unit vocab: bos=0 pad=1 eos=2 unk=3
+    char_pad_idx: int = 1
+    pos_pad_idx: int = 1             # sinusoidal-table offset = unit pad
+    max_seq_len: int = 4096
+    film_cond_dim: int = 0           # expressive models only
+    prosody_proj_dim: int = 0
+
+    def enc_cfg(self) -> TransformerConfig:
+        return TransformerConfig(self.model_dim, self.num_encoder_layers,
+                                 self.num_heads, self.ffn_inner_dim, "relu",
+                                 self.unit_vocab_size, self.pad_idx,
+                                 self.max_seq_len, False)
+
+
+def _check_not_expressive(cfg: NarT2UConfig) -> None:
+    if cfg.film_cond_dim or cfg.prosody_proj_dim:
+        raise NotImplementedError("FiLM / prosody conditioning of the T2U is not "
+                                  "ported yet: it comes with the expressive slice")
+
+
+# ---------------------------------------------------------------------------
+# Variance predictor
+# ---------------------------------------------------------------------------
+
+def variance_predictor_init(gen: torch.Generator, dim: int, hidden: int, kernel: int,
+                            *, dtype=torch.float32, device=None) -> dict:
+    kw = dict(dtype=dtype, device=device)
+    return {"conv1": conv1d_init(gen, dim, hidden, kernel, **kw),
+            "ln1": layer_norm_init(hidden, **kw),
+            "conv2": conv1d_init(gen, hidden, hidden, kernel, **kw),
+            "ln2": layer_norm_init(hidden, **kw),
+            "proj": linear_init(gen, hidden, 1, **kw)}
+
+
+def variance_predictor(p: dict, x: torch.Tensor,
+                       padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, T, D) -> (B, T) raw log-duration predictions."""
+    h = apply_padding_mask(x, padding_mask)
+    h = torch.relu(conv1d(p["conv1"], h, padding="SAME"))
+    h = layer_norm(p["ln1"], h)
+    h = apply_padding_mask(h, padding_mask)
+    h = torch.relu(conv1d(p["conv2"], h, padding="SAME"))
+    h = layer_norm(p["ln2"], h)
+    return linear(p["proj"], h)[..., 0]
+
+
+def durations_from_log(log_dur: torch.Tensor, padding_mask: Optional[torch.Tensor], *,
+                       duration_factor: float = 1.0, min_duration: int = 1
+                       ) -> torch.Tensor:
+    """clamp(round((exp(d) - 1) * factor), min) as int32, pad positions 0."""
+    dur = torch.round(torch.expm1(log_dur.float()) * duration_factor)
+    dur = dur.clamp_min(min_duration).to(torch.int32)
+    if padding_mask is not None:
+        dur = torch.where(padding_mask, dur, 0)
+    return dur
+
+
+# ---------------------------------------------------------------------------
+# Post-LN FFT decoder layer
+# ---------------------------------------------------------------------------
+
+def fft_layer_init(gen: torch.Generator, cfg: NarT2UConfig, *, dtype=torch.float32,
+                   device=None) -> dict:
+    kw = dict(dtype=dtype, device=device)
+    d = cfg.model_dim
+    return {"self_attn": attn_ops.mha_init(gen, d, cfg.num_heads, **kw),
+            "self_attn_layer_norm": layer_norm_init(d, **kw),
+            "conv1": conv1d_init(gen, d, d, cfg.conv_kernel_size, **kw),
+            "conv2": conv1d_init(gen, d, d, cfg.conv_kernel_size, **kw),
+            "conv_layer_norm": layer_norm_init(d, **kw)}
+
+
+def fft_layer(p: dict, x: torch.Tensor, bias: Optional[torch.Tensor],
+              padding_mask: Optional[torch.Tensor], cfg: NarT2UConfig) -> torch.Tensor:
+    h = attn_ops.multi_head_attention(p["self_attn"], x, x, cfg.num_heads, bias=bias)
+    x = layer_norm(p["self_attn_layer_norm"], x + h)
+    res = x
+    h = apply_padding_mask(x, padding_mask)
+    h = conv1d(p["conv1"], h, padding="SAME")
+    h = torch.relu(apply_padding_mask(h, padding_mask))
+    h = conv1d(p["conv2"], h, padding="SAME")
+    return layer_norm(p["conv_layer_norm"], res + h)
+
+
+# ---------------------------------------------------------------------------
+# NAR T2U model
+# ---------------------------------------------------------------------------
+
+def nar_t2u_init(gen: torch.Generator, cfg: NarT2UConfig, *, dtype=torch.float32,
+                 device=None) -> dict:
+    """Random parameters; ``decoder_layers`` is a list of per-layer dicts (the
+    JAX package stacks them for its layer scan)."""
+    _check_not_expressive(cfg)
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "encoder": transformer_stack_init(gen, cfg.enc_cfg(), **kw),
+        "embed_char": embedding_init(gen, cfg.char_vocab_size, cfg.model_dim, **kw),
+        "pos_emb_alpha_char": torch.ones((1,), **kw),
+        "pos_emb_alpha": torch.ones((1,), **kw),
+        "duration_predictor": variance_predictor_init(
+            gen, cfg.model_dim, cfg.dur_predictor_hidden, cfg.dur_predictor_kernel,
+            **kw),
+        "decoder_layers": [fft_layer_init(gen, cfg, **kw)
+                           for _ in range(cfg.num_decoder_layers)],
+        "layer_norm": layer_norm_init(cfg.model_dim, **kw),
+        "final_proj": linear_init(gen, cfg.model_dim, cfg.unit_vocab_size, **kw),
+    }
+
+
+class NarT2UOutput(NamedTuple):
+    unit_logits: torch.Tensor   # (B, U_max, unit_vocab) fp32
+    unit_lengths: torch.Tensor  # (B,)
+    durations: torch.Tensor     # (B, C_max) predicted per-char durations
+    char_lengths: torch.Tensor  # (B,)
+
+
+def _alpha_sin_pos(x: torch.Tensor, alpha: torch.Tensor, pad_idx: int) -> torch.Tensor:
+    T, D = x.shape[1], x.shape[2]
+    table = sinusoidal_positions(T + pad_idx + 2, D, padding_idx=pad_idx,
+                                 dtype=x.dtype, device=x.device)
+    pos = table[pad_idx + 1: pad_idx + 1 + T]
+    return x + alpha.to(x.dtype) * pos[None]
+
+
+def nar_t2u_decode(params: dict, cfg: NarT2UConfig, enc: torch.Tensor,
+                   char_ids: torch.Tensor, char_counts: torch.Tensor, *,
+                   max_unit_len: int, duration_factor: float = 1.0) -> NarT2UOutput:
+    """Char-level NAR decode of T2U-encoder features ``enc`` (B, T, D).
+    ``char_ids`` (B, C_max) char token ids; ``char_counts`` (B, T) chars per
+    subword token (0 on pads), both from the host char frontend."""
+    _check_not_expressive(cfg)
+    C = char_ids.shape[1]
+    char_hidden, char_total = hard_upsample(enc, char_counts, C)
+    char_mask = lengths_to_padding_mask(char_total, C)
+    char_emb = embedding(params["embed_char"], char_ids, scale=cfg.model_dim ** 0.5)
+    char_hidden = _alpha_sin_pos(char_hidden, params["pos_emb_alpha_char"],
+                                 cfg.pos_pad_idx) + char_emb
+
+    log_dur = variance_predictor(params["duration_predictor"], char_hidden, char_mask)
+    dur = durations_from_log(log_dur, char_mask, duration_factor=duration_factor)
+
+    x, unit_total = hard_upsample(char_hidden, dur, max_unit_len)
+    unit_total = torch.clamp_max(unit_total, max_unit_len)
+    x = _alpha_sin_pos(x, params["pos_emb_alpha"], cfg.pos_pad_idx)
+    unit_mask = lengths_to_padding_mask(unit_total, max_unit_len)
+    bias = padding_bias(unit_mask)
+    for lp in params["decoder_layers"]:
+        x = fft_layer(lp, x, bias, unit_mask, cfg)
+    x = layer_norm(params["layer_norm"], x)
+    logits = linear(params["final_proj"], x).float()
+    return NarT2UOutput(logits, unit_total, dur, char_total)
+
+
+def nar_t2u_forward(params: dict, cfg: NarT2UConfig, text_dec_out: torch.Tensor,
+                    text_lens: torch.Tensor, char_ids: torch.Tensor,
+                    char_counts: torch.Tensor, *, max_unit_len: int,
+                    duration_factor: float = 1.0) -> NarT2UOutput:
+    """The full NAR T2U pass: the encoder over the text decoder's features,
+    then the char-level NAR decode."""
+    text_mask = lengths_to_padding_mask(text_lens, text_dec_out.shape[1])
+    enc = transformer_encoder(params["encoder"], text_dec_out, cfg.enc_cfg(),
+                              padding_mask=text_mask)
+    return nar_t2u_decode(params, cfg, enc, char_ids, char_counts,
+                          max_unit_len=max_unit_len, duration_factor=duration_factor)

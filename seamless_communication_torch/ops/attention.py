@@ -1,7 +1,8 @@
 """Multi-head attention (counterpart of
 ``seamless_communication_tpu/ops/attention.py``): plain scaled-dot-product
 attention, Shaw clipped relative-position self-attention (the v2 speech
-encoder), and the KV-cached single-step decode paths, fp and int8.
+encoder), and the KV-cached single-step decode paths, fp, int8 and packed
+int4.
 
 Logit math is fp32; inputs and outputs keep the activation dtype. Caches are
 (B, H, T, Dh).
@@ -197,6 +198,57 @@ def self_attention_step_nocache_int8(params: dict, x_t: torch.Tensor,
     p_hist, p_cur = _joint_softmax(q, k_t, logits, step)
     out = torch.matmul((p_hist * v_scale[:, :, None, :]).to(dtype).float(),
                        v_cache.to(dtype).float())
+    out = (out + p_cur[..., None] * v_t.float()).to(dtype)
+    y = linear(params["output_proj"], _merge_heads(out))
+    return y, kq, ks, vq, vs
+
+
+def quantize_kv_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., Dh) -> packed int4 rows (..., Dh/2) int8 + per-row fp32 scales
+    absmax/7, round half to even. Split-half packing: byte j holds value j in
+    its low nibble and value j + Dh/2 in its high nibble. Packed in int32
+    (``hi * 16`` rather than a shift of a negative int8)."""
+    xf = x.float()
+    dh = xf.shape[-1]
+    s = torch.clamp_min(true_div(xf.abs().amax(dim=-1), 7.0), 1e-8)
+    q = torch.round(xf / s[..., None]).clamp(-7, 7).to(torch.int32)
+    lo, hi = q[..., :dh // 2], q[..., dh // 2:]
+    return ((lo & 0x0F) | (hi * 16)).to(torch.int8), s
+
+
+def unpack_int4(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed (..., Dh/2) int8 -> (lo, hi) int8 halves, each nibble sign
+    extended (full row = concat([lo, hi], -1)). Computed in int32."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0x0F) ^ 8) - 8
+    hi = torch.div(p, 16, rounding_mode="floor")
+    return lo.to(torch.int8), hi.to(torch.int8)
+
+
+def self_attention_step_nocache_int4(params: dict, x_t: torch.Tensor,
+                                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                                     k_scale: torch.Tensor, v_scale: torch.Tensor,
+                                     step: int, num_heads: int):
+    """Packed-int4-KV variant of :func:`self_attention_step_nocache_int8`:
+    caches are (B, H, T, Dh/2) split-half packed nibbles, and the contractions
+    split into a low-half and a high-half product. Returns (y, kq4, ks, vq4,
+    vs): the packed current row for the caller to store."""
+    dtype = x_t.dtype
+    q = _split_heads(linear(params["q_proj"], x_t), num_heads)       # (B,H,1,Dh)
+    k_t = _split_heads(linear(params["k_proj"], x_t), num_heads)
+    v_t = _split_heads(linear(params["v_proj"], x_t), num_heads)
+    kq, ks = quantize_kv_rows_int4(k_t)
+    vq, vs = quantize_kv_rows_int4(v_t)
+    dh = q.shape[-1]
+    qf = q.float()
+    k_lo, k_hi = (k.to(dtype).float().transpose(-1, -2) for k in unpack_int4(k_cache))
+    logits = (torch.matmul(qf[..., :dh // 2], k_lo)
+              + torch.matmul(qf[..., dh // 2:], k_hi))
+    logits = true_div(logits * k_scale[:, :, None, :], math.sqrt(dh))
+    p_hist, p_cur = _joint_softmax(q, k_t, logits, step)
+    pv = (p_hist * v_scale[:, :, None, :]).to(dtype).float()
+    out = torch.cat([torch.matmul(pv, v.to(dtype).float())
+                     for v in unpack_int4(v_cache)], dim=-1)
     out = (out + p_cur[..., None] * v_t.float()).to(dtype)
     y = linear(params["output_proj"], _merge_heads(out))
     return y, kq, ks, vq, vs

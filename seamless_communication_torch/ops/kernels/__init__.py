@@ -7,7 +7,8 @@ run can show that a path went through the kernel.
 
 from typing import Dict
 
-launch_counts: Dict[str, int] = {"decode_attention_int8": 0}
+launch_counts: Dict[str, int] = {"decode_attention_int8": 0,
+                                 "decode_attention_int4": 0}
 
 
 def reset_launch_counts() -> None:

@@ -1,14 +1,21 @@
-"""Fused beam-gather + int8 KV-row insert + causal decode attention.
+"""Fused beam-gather + KV-row insert + causal decode attention, over an int8
+or a packed-int4 KV cache.
 
-One decode step of int8-KV self-attention for one layer: gather the
-(B,H,T,Dh) int8 caches and their (B,H,T) scales by the beam origin ``src``,
-attend over the history rows t < step plus the unquantized current row, and
-write the current row, quantized, at ``step``.
+One decode step of quantized-KV self-attention for one layer: gather the
+caches and their (B,H,T) scales by the beam origin ``src``, attend over the
+history rows t < step plus the unquantized current row, and write the current
+row, quantized, at ``step``.
 
-``fused_decode_self_attention_int8`` launches the CUDA kernel
-``csrc/decode_attention.cu`` for tensors on the card, which replaces the TPU
-kernel ``seamless_communication_tpu/ops/kernels/decode_attention.py:75``. For
-tensors on the CPU it computes ``_reference``, the plain PyTorch version of
+- ``fused_decode_self_attention_int8``: (B,H,T,Dh) int8 caches, scales
+  absmax/127. CUDA kernel ``csrc/decode_attention.cu``, which replaces the TPU
+  kernel ``seamless_communication_tpu/ops/kernels/decode_attention.py:75``.
+- ``fused_decode_self_attention_int4``: (B,H,T,Dh/2) caches of split-half
+  packed nibbles (byte j = value j low | value j+Dh/2 high), scales absmax/7.
+  CUDA kernel ``csrc/decode_attention_int4.cu``, which replaces the TPU kernel
+  ``seamless_communication_tpu/ops/kernels/decode_attention.py:267``.
+
+For tensors on the card a wrapper launches its kernel; for tensors on the CPU
+it computes ``_reference`` / ``_reference_int4``, the plain PyTorch version of
 the same function, which is also what the kernel is held against on the card.
 """
 
@@ -19,15 +26,34 @@ import math
 
 import torch
 
-from seamless_communication_torch.ops.attention import quantize_kv_rows
+from seamless_communication_torch.ops.attention import (
+    quantize_kv_rows, quantize_kv_rows_int4, unpack_int4,
+)
 from seamless_communication_torch.ops.kernels import launch_counts
 from seamless_communication_torch.ops.modules import true_div
 
 NEG = -1e9
 KERNEL = "decode_attention_int8"
+KERNEL_INT4 = "decode_attention_int4"
 MAX_HEAD_DIM = 256
 MAX_CACHE_LEN = 8192          # logits live in 4 bytes of shared memory per row
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# kernel -> (source in csrc/, row bytes per head-dim value, vector load bytes)
+_KERNELS = {KERNEL: ("decode_attention", 1.0, 16),
+            KERNEL_INT4: ("decode_attention_int4", 0.5, 8)}
+
+
+def _softmax_parts(logits, lcur, step: int):
+    """fp32 softmax of the history ``logits`` (B,H,T) masked to t < step,
+    jointly with the current row's logit ``lcur`` (B,H). Returns (p (B,H,T),
+    pc (B,H), den (B,H))."""
+    T = logits.shape[-1]
+    valid = torch.arange(T, device=logits.device)[None, None, :] < step
+    logits = torch.where(valid, logits, NEG)
+    m = torch.maximum(logits.amax(dim=-1), lcur)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    pc = torch.exp(lcur - m)
+    return p, pc, p.sum(dim=-1) + pc
 
 
 def _reference(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, src):
@@ -35,7 +61,6 @@ def _reference(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, src):
     scales (B,H,T) f32; ``src`` (B,) beam origins; ``step`` a host int.
     Returns (out (B,H,Dh), new_k, new_v, new_k_scale, new_v_scale)."""
     dtype = q.dtype
-    T = k_cache.shape[2]
     dh = q.shape[-1]
     src = src.long()
     k_cache, v_cache = k_cache[src], v_cache[src]
@@ -44,12 +69,7 @@ def _reference(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, src):
     logits = torch.einsum("bhd,bhtd->bht", q.float(), k_cache.to(dtype).float())
     logits = true_div(logits * k_scale, math.sqrt(dh))
     lcur = true_div((q.float() * k_t.float()).sum(-1), math.sqrt(dh))
-    valid = torch.arange(T, device=q.device)[None, None, :] < step
-    logits = torch.where(valid, logits, NEG)
-    m = torch.maximum(logits.amax(dim=-1), lcur)
-    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
-    pc = torch.exp(lcur - m)
-    den = p.sum(dim=-1) + pc
+    p, pc, den = _softmax_parts(logits, lcur, step)
     out = torch.einsum("bht,bhtd->bhd", (p * v_scale).to(dtype).float(),
                        v_cache.to(dtype).float())
     out = (out + pc[..., None] * v_t.float()) / den[..., None]
@@ -64,69 +84,112 @@ def _reference(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, src):
     return out.to(dtype), k_cache, v_cache, k_scale, v_scale
 
 
-def _library():
-    from seamless_communication_torch.ops.kernels import build
+def _reference_int4(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int,
+                    src):
+    """Plain PyTorch version of the packed-int4 step: as :func:`_reference`
+    with (B,H,T,Dh/2) caches. The logits are a low-half plus a high-half
+    product; the value contraction writes the two output halves."""
+    dtype = q.dtype
+    dh = q.shape[-1]
+    src = src.long()
+    k_cache, v_cache = k_cache[src], v_cache[src]
+    k_scale, v_scale = k_scale[src], v_scale[src]
 
-    lib = build.load("decode_attention")
-    # ctypes would pass a Python int as a 32-bit int and cut the pointers
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_int8.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                          ctypes.c_float, p, p, p, p, p, p]
-    lib.decode_attention_int8.restype = i
-    lib.cuda_error_string.argtypes = [i]
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    qf = q.float()
+    k_lo, k_hi = (k.to(dtype).float() for k in unpack_int4(k_cache))
+    logits = (torch.einsum("bhd,bhtd->bht", qf[..., :dh // 2], k_lo)
+              + torch.einsum("bhd,bhtd->bht", qf[..., dh // 2:], k_hi))
+    logits = true_div(logits * k_scale, math.sqrt(dh))
+    lcur = true_div((qf * k_t.float()).sum(-1), math.sqrt(dh))
+    p, pc, den = _softmax_parts(logits, lcur, step)
+    pv = (p * v_scale).to(dtype).float()
+    out = torch.cat([torch.einsum("bht,bhtd->bhd", pv, v.to(dtype).float())
+                     for v in unpack_int4(v_cache)], dim=-1)
+    out = (out + pc[..., None] * v_t.float()) / den[..., None]
+
+    kq, ks = quantize_kv_rows_int4(k_t)
+    vq, vs = quantize_kv_rows_int4(v_t)
+    k_cache[:, :, step] = kq
+    v_cache[:, :, step] = vq
+    k_scale[:, :, step] = ks
+    v_scale[:, :, step] = vs
+    return out.to(dtype), k_cache, v_cache, k_scale, v_scale
 
 
-def _check(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src):
-    B, H, T, Dh = k_cache.shape
+_functions: dict = {}
+
+
+def _function(kernel: str):
+    """The C entry point of ``kernel``'s library, built and loaded at first
+    use, and the library's ``cuda_error_string``."""
+    if kernel not in _functions:
+        from seamless_communication_torch.ops.kernels import build
+
+        lib = build.load(_KERNELS[kernel][0])
+        fn = getattr(lib, kernel)
+        # ctypes would pass a Python int as a 32-bit int and cut the pointers
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
+                       p, p, p, p, p, p]
+        fn.restype = i
+        lib.cuda_error_string.argtypes = [i]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _functions[kernel] = (fn, lib.cuda_error_string)
+    return _functions[kernel]
+
+
+def _check(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src):
+    _, row_per_dim, vector = _KERNELS[kernel]
+    B, H, T = k_cache.shape[:3]
+    Dh = q.shape[-1]
+    row = int(Dh * row_per_dim)
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{KERNEL}: q dtype {q.dtype} is not float32 or bfloat16")
+        raise TypeError(f"{kernel}: q dtype {q.dtype} is not float32 or bfloat16")
     for name, x, shape, dtype in (
             ("q", q, (B, H, Dh), q.dtype), ("k_t", k_t, (B, H, Dh), q.dtype),
             ("v_t", v_t, (B, H, Dh), q.dtype),
-            ("k_cache", k_cache, (B, H, T, Dh), torch.int8),
-            ("v_cache", v_cache, (B, H, T, Dh), torch.int8),
+            ("k_cache", k_cache, (B, H, T, row), torch.int8),
+            ("v_cache", v_cache, (B, H, T, row), torch.int8),
             ("k_scale", k_scale, (B, H, T), torch.float32),
             ("v_scale", v_scale, (B, H, T), torch.float32),
             ("src", src, (B,), torch.int32)):
         if x.device != q.device:
-            raise ValueError(f"{KERNEL}: {name} is on {x.device}, q on {q.device}")
+            raise ValueError(f"{kernel}: {name} is on {x.device}, q on {q.device}")
         if tuple(x.shape) != shape or x.dtype != dtype:
-            raise ValueError(f"{KERNEL}: {name} is {tuple(x.shape)} {x.dtype}, "
+            raise ValueError(f"{kernel}: {name} is {tuple(x.shape)} {x.dtype}, "
                              f"expected {shape} {dtype}")
         if not x.is_contiguous():
-            raise ValueError(f"{KERNEL}: {name} is not contiguous")
+            raise ValueError(f"{kernel}: {name} is not contiguous")
     if Dh % 16 or Dh > MAX_HEAD_DIM:
-        raise ValueError(f"{KERNEL}: head dim {Dh} must be a multiple of 16, "
+        raise ValueError(f"{kernel}: head dim {Dh} must be a multiple of 16, "
                          f"at most {MAX_HEAD_DIM}")
     if T > MAX_CACHE_LEN:
-        raise ValueError(f"{KERNEL}: cache length {T} exceeds {MAX_CACHE_LEN}")
+        raise ValueError(f"{kernel}: cache length {T} exceeds {MAX_CACHE_LEN}")
     if not 0 <= step < T:
-        raise ValueError(f"{KERNEL}: step {step} outside [0, {T})")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError(f"{KERNEL}: int8 caches must be 16-byte aligned")
+        raise ValueError(f"{kernel}: step {step} outside [0, {T})")
+    if k_cache.data_ptr() % vector or v_cache.data_ptr() % vector:
+        raise ValueError(f"{kernel}: caches must be {vector}-byte aligned")
 
 
-def _launch(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, src):
-    _check(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src)
-    B, H, T, Dh = k_cache.shape
+def _launch(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, src):
+    _check(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src)
+    B, H, T = k_cache.shape[:3]
+    Dh = q.shape[-1]
     out = torch.empty_like(q)
     new_k, new_v = torch.empty_like(k_cache), torch.empty_like(v_cache)
     new_ks, new_vs = torch.empty_like(k_scale), torch.empty_like(v_scale)
-    lib = _library()
+    fn, error_string = _function(kernel)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.decode_attention_int8(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
-            k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), src.data_ptr(), B, H, T, Dh, int(step),
-            math.sqrt(Dh), out.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
-            new_ks.data_ptr(), new_vs.data_ptr(), stream)
+        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+                 k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+                 v_scale.data_ptr(), src.data_ptr(), B, H, T, Dh, int(step),
+                 math.sqrt(Dh), out.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+                 new_ks.data_ptr(), new_vs.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"{KERNEL} launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
-    launch_counts[KERNEL] += 1
+        raise RuntimeError(f"{kernel} launch failed: "
+                           f"{error_string(err).decode()} ({err})")
+    launch_counts[kernel] += 1
     return out, new_k, new_v, new_ks, new_vs
 
 
@@ -147,15 +210,29 @@ def fused_decode_self_attention_int8(q, k_t, v_t, k_cache, v_cache, k_scale,
         return _reference(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src)
     if q.device.type != "cuda":
         raise ValueError(f"{KERNEL}: no kernel for device {q.device}")
-    return _launch(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src)
+    return _launch(KERNEL, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src)
 
 
-def bound_bytes(B: int, H: int, T: int, Dh: int, *, n_src: int, elem: int) -> int:
+def fused_decode_self_attention_int4(q, k_t, v_t, k_cache, v_cache, k_scale,
+                                     v_scale, step: int, src):
+    """The same contract as :func:`fused_decode_self_attention_int8` over
+    (B,H,T,Dh/2) packed-int4 caches: half the cache bytes of int8."""
+    if q.device.type == "cpu":
+        return _reference_int4(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale,
+                               step, src)
+    if q.device.type != "cuda":
+        raise ValueError(f"{KERNEL_INT4}: no kernel for device {q.device}")
+    return _launch(KERNEL_INT4, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale,
+                   step, src)
+
+
+def bound_bytes(B: int, H: int, T: int, Dh: int, *, n_src: int, elem: int,
+                bits: int = 8) -> int:
     """Bytes the function must move, each input read once and each output
     written once: the cache rows and scales of the ``n_src`` distinct source
     beams, q/k_t/v_t (``elem`` bytes a value) and src in; the B new caches,
-    scales and out back."""
-    row = 2 * Dh + 2 * 4                       # k and v int8 rows + 2 scales
+    scales and out back. ``bits`` 8 or 4: bits per cached value."""
+    row = 2 * Dh * bits // 8 + 2 * 4           # k and v rows + 2 scales
     reads = n_src * H * T * row + 3 * B * H * Dh * elem + 4 * B
     writes = B * H * T * row + B * H * Dh * elem
     return reads + writes

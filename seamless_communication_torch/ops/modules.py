@@ -4,7 +4,8 @@
 Conventions kept from the JAX package, so the two compare like with like:
 - activations are ``(batch, time, dim)``;
 - linear weights are ``(in_dim, out_dim)``;
-- conv1d is NWC with ``(kernel, in_ch // groups, out_ch)`` ("WIO") weights;
+- conv1d is NWC with ``(kernel, in_ch // groups, out_ch)`` ("WIO") weights,
+  conv_transpose1d with ``(kernel, in_ch, out_ch)``;
 - products accumulate in fp32 and return the activation dtype. Where the JAX
   code asks for an fp32 result from bf16 operands, the port widens the
   operands to fp32 first: a bf16 x bf16 product is exact in fp32, so the
@@ -147,6 +148,33 @@ def conv1d(params: dict, x: torch.Tensor, *, stride: int = 1, padding="SAME",
     xc = F.pad(x.transpose(1, 2), (lo, hi))                  # (B, C, W)
     y = F.conv1d(xc, w.permute(2, 1, 0), stride=stride, dilation=dilation,
                  groups=groups).transpose(1, 2)
+    b = params.get("bias")
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y.to(x.dtype)
+
+
+def conv_transpose1d_init(gen: torch.Generator, in_ch: int, out_ch: int,
+                          kernel_size: int, *, bias: bool = True, dtype=torch.float32,
+                          device=None) -> dict:
+    scale = 1.0 / math.sqrt(in_ch * kernel_size)
+    params = {"weight": _uniform(gen, (kernel_size, in_ch, out_ch), scale, dtype,
+                                 device)}
+    if bias:
+        params["bias"] = _uniform(gen, (out_ch,), scale, dtype, device)
+    return params
+
+
+def conv_transpose1d(params: dict, x: torch.Tensor, *, stride: int,
+                     padding: int = 0, output_padding: int = 0) -> torch.Tensor:
+    """Transposed 1-D convolution on (batch, time, channels) with ``(kernel,
+    in_ch, out_ch)`` weights, as torch ``ConvTranspose1d(stride, padding,
+    output_padding)``: out_len = (in_len - 1) * stride - 2 * padding + kernel
+    + output_padding, the output padding on the right edge."""
+    w = params["weight"].to(x.dtype)
+    y = F.conv_transpose1d(x.transpose(1, 2), w.permute(1, 2, 0), stride=stride,
+                           padding=padding, output_padding=output_padding
+                           ).transpose(1, 2)
     b = params.get("bias")
     if b is not None:
         y = y + b.to(y.dtype)

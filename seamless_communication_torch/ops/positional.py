@@ -22,6 +22,17 @@ def _sin_cos(steps: torch.Tensor, dim: int) -> torch.Tensor:
     return table
 
 
+def sinusoidal_positions(num_positions: int, dim: int, *,
+                         padding_idx: Optional[int] = None, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """(num_positions, dim) table of positions 0..num_positions-1; the row
+    ``padding_idx`` is zero."""
+    table = _sin_cos(torch.arange(num_positions, device=device), dim)
+    if padding_idx is not None:
+        table[padding_idx] = 0.0
+    return table.to(dtype)
+
+
 def apply_sinusoidal_pos(x: torch.Tensor, *,
                          padding_mask: Optional[torch.Tensor] = None,
                          padding_idx: int = 1, start_step: int = 0) -> torch.Tensor:

@@ -66,8 +66,10 @@ def linear_quantized(params: dict, x: torch.Tensor) -> torch.Tensor:
 DEFAULT_QUANT_SUFFIXES = ("q_proj", "k_proj", "v_proj", "output_proj",
                           "inner_proj")
 
-# keys whose lists hold the layers of one stack (scan-stacked in the JAX tree)
-STACK_KEYS = ("layers", "encoder")
+# keys whose lists hold the layers of one stack (scan-stacked in the JAX tree):
+# transformer stacks, the conformer stack of the speech encoder, the FFT
+# layers of the NAR T2U
+STACK_KEYS = ("layers", "encoder", "decoder_layers")
 
 
 def quantize_params(params, *, min_size: int = 1 << 16):

@@ -6,8 +6,10 @@
     x += ffn(LN(x))
     final stack LayerNorm.
 
-A stack is ``{"layers": [per-layer params], "layer_norm": ...}``. The decode
-caches are per layer: lists of (B, H, T, Dh) tensors.
+A stack is ``{"layers": [per-layer params], "layer_norm": ...}``. The
+full-sequence forward (encoder; decoder re-decode) and the KV-cached single
+step are both here. The decode caches are per layer: lists of (B, H, T, Dh)
+tensors ((B, H, T, Dh/2) packed bytes for int4).
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ import torch
 from seamless_communication_torch.ops import attention as attn_ops
 from seamless_communication_torch.ops.attention import Int8KVCache, KVCache
 from seamless_communication_torch.ops.kernels.decode_attention import (
-    fused_decode_self_attention_int8,
+    fused_decode_self_attention_int4, fused_decode_self_attention_int8,
 )
-from seamless_communication_torch.ops.masks import padding_bias
+from seamless_communication_torch.ops.masks import (
+    causal_mask, combine_masks, padding_bias,
+)
 from seamless_communication_torch.ops.modules import (
     embedding, layer_norm, layer_norm_init, linear, linear_init,
 )
@@ -75,6 +79,50 @@ def transformer_stack_init(gen: torch.Generator, cfg: TransformerConfig, *,
 
 
 # ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+
+def _layer_forward(p: dict, x: torch.Tensor, cfg: TransformerConfig, *,
+                   self_bias: Optional[torch.Tensor],
+                   enc_out: Optional[torch.Tensor],
+                   cross_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    h = layer_norm(p["self_attn_layer_norm"], x)
+    x = x + attn_ops.multi_head_attention(p["self_attn"], h, h, cfg.num_heads,
+                                          bias=self_bias)
+    if enc_out is not None:
+        h = layer_norm(p["cross_attn_layer_norm"], x)
+        x = x + attn_ops.multi_head_attention(p["cross_attn"], h, enc_out,
+                                              cfg.num_heads, bias=cross_bias)
+    h = layer_norm(p["ffn"]["layer_norm"], x)
+    h = _ACTIVATIONS[cfg.activation](linear(p["ffn"]["inner_proj"], h))
+    return x + linear(p["ffn"]["output_proj"], h)
+
+
+def transformer_encoder(params: dict, x: torch.Tensor, cfg: TransformerConfig, *,
+                        padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    bias = padding_bias(padding_mask)
+    for lp in params["layers"]:
+        x = _layer_forward(lp, x, cfg, self_bias=bias, enc_out=None, cross_bias=None)
+    return layer_norm(params["layer_norm"], x)
+
+
+def transformer_decoder(params: dict, x: torch.Tensor, cfg: TransformerConfig, *,
+                        enc_out: torch.Tensor,
+                        enc_padding_mask: Optional[torch.Tensor] = None,
+                        self_padding_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Full-sequence causal decoder pass (the re-decode of a hypothesis into
+    the features the T2U reads)."""
+    self_bias = combine_masks(causal_mask(x.shape[1], device=x.device)[None, None],
+                              padding_bias(self_padding_mask))
+    cross_bias = padding_bias(enc_padding_mask)
+    for lp in params["layers"]:
+        x = _layer_forward(lp, x, cfg, self_bias=self_bias, enc_out=enc_out,
+                           cross_bias=cross_bias)
+    return layer_norm(params["layer_norm"], x)
+
+
+# ---------------------------------------------------------------------------
 # KV-cached decode step
 # ---------------------------------------------------------------------------
 
@@ -100,10 +148,26 @@ class DecoderCacheQ8(NamedTuple):
     cross_v_scale: list
 
 
+class DecoderCacheQ4(NamedTuple):
+    """Packed-int4 self-KV variant of :class:`DecoderCacheQ8`: (B, H, T_max,
+    Dh/2) int8 bytes, two split-half nibbles each, with (B, H, T_max) fp32
+    scales absmax/7, per layer. The cross-attention KV stays int8."""
+    self_k: list
+    self_v: list
+    self_k_scale: list
+    self_v_scale: list
+    cross_k: list
+    cross_v: list
+    cross_k_scale: list
+    cross_v_scale: list
+
+
 def decoder_cache_init(params: dict, cfg: TransformerConfig, enc_out: torch.Tensor,
-                       max_len: int, dtype=None, *, kv_int8: bool = False):
+                       max_len: int, dtype=None, *, kv_int8: bool = False,
+                       kv_bits: int = 8):
     """Empty per-layer self-attention caches of length ``max_len`` and the
-    cross-attention K/V of ``enc_out``, computed once."""
+    cross-attention K/V of ``enc_out``, computed once. With ``kv_int8``,
+    ``kv_bits`` 4 packs the self-attention KV as int4."""
     dtype = dtype or enc_out.dtype
     B, H, L = enc_out.shape[0], cfg.num_heads, cfg.num_layers
     shape = (B, H, max_len, cfg.dim // H)
@@ -116,8 +180,11 @@ def decoder_cache_init(params: dict, cfg: TransformerConfig, enc_out: torch.Tens
     if kv_int8:
         cross = [attn_ops.cross_attention_precompute_int8(lp["cross_attn"], enc_out, H)
                  for lp in layers]
-        return DecoderCacheQ8(
-            zeros(shape, torch.int8), zeros(shape, torch.int8),
+        cache_type, row = DecoderCacheQ8, shape
+        if kv_bits == 4:
+            cache_type, row = DecoderCacheQ4, shape[:3] + (shape[3] // 2,)
+        return cache_type(
+            zeros(row, torch.int8), zeros(row, torch.int8),
             zeros(shape[:3], torch.float32), zeros(shape[:3], torch.float32),
             [c.k for c in cross], [c.v for c in cross],
             [c.k_scale for c in cross], [c.v_scale for c in cross])
@@ -140,14 +207,21 @@ def transformer_decoder_step(params: dict, x_t: torch.Tensor, cache, step: int,
     origins of the previous beam selection: the caches are read through that
     gather, and the current row is written into the gathered copy.
 
-    With an int8 cache, a ``beam_src`` and tensors on the card, the self
-    attention of each layer is one launch of the fused decode-attention
-    kernel (``ops/kernels/decode_attention.py``). Otherwise it takes the
-    plain composition. The caches in ``cache`` are written in place where no
-    ``beam_src`` is given; the returned cache holds the new tensors."""
+    With a quantized cache, a ``beam_src`` and tensors on the card, the self
+    attention of each layer is one launch of a fused decode-attention kernel
+    (``ops/kernels/decode_attention.py``): the int8 one for
+    :class:`DecoderCacheQ8`, the packed-int4 one for :class:`DecoderCacheQ4`.
+    Otherwise it takes the plain composition. The caches in ``cache`` are
+    written in place where no ``beam_src`` is given; the returned cache holds
+    the new tensors."""
     cross_bias = padding_bias(enc_padding_mask)
-    int8 = isinstance(cache, DecoderCacheQ8)
+    int4 = isinstance(cache, DecoderCacheQ4)
+    int8 = isinstance(cache, DecoderCacheQ8) or int4
     fused = int8 and beam_src is not None and x_t.is_cuda
+    fused_step = (fused_decode_self_attention_int4 if int4
+                  else fused_decode_self_attention_int8)
+    plain_step = (attn_ops.self_attention_step_nocache_int4 if int4
+                  else attn_ops.self_attention_step_nocache_int8)
     src = None if beam_src is None else beam_src.long()
     sk, sv = list(cache.self_k), list(cache.self_v)
     if int8:
@@ -160,13 +234,13 @@ def transformer_decoder_step(params: dict, x_t: torch.Tensor, cache, step: int,
         if fused:
             heads = [attn_ops._split_heads(linear(ap[n], z), cfg.num_heads)[:, :, 0]
                      .contiguous() for n in ("q_proj", "k_proj", "v_proj")]
-            o, sk[i], sv[i], sks[i], svs[i] = fused_decode_self_attention_int8(
+            o, sk[i], sv[i], sks[i], svs[i] = fused_step(
                 *heads, sk[i], sv[i], sks[i], svs[i], step, beam_src)
             y = linear(ap["output_proj"], attn_ops._merge_heads(o[:, :, None]))
         elif int8:
             ski, svi, sksi, svsi = _take((sk[i], sv[i], sks[i], svs[i]), src)
-            y, kq, ks, vq, vs = attn_ops.self_attention_step_nocache_int8(
-                ap, z, ski, svi, sksi, svsi, step, cfg.num_heads)
+            y, kq, ks, vq, vs = plain_step(ap, z, ski, svi, sksi, svsi, step,
+                                           cfg.num_heads)
             ski[:, :, step], svi[:, :, step] = kq[:, :, 0], vq[:, :, 0]
             sksi[:, :, step], svsi[:, :, step] = ks[:, :, 0], vs[:, :, 0]
             sk[i], sv[i], sks[i], svs[i] = ski, svi, sksi, svsi

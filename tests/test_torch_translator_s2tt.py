@@ -97,7 +97,8 @@ def test_translator_matches_jax(models, wav, kv_int8, task):
 def test_other_tasks_name_their_slice(models, wav):
     _, _, tparams, ttok = models
     tt = Translator(tparams, get_arch("tiny_v2"), ttok, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tt.predict(wav, "s2st", "fra")
+    for task in ("t2st", "t2tt"):
+        with pytest.raises(NotImplementedError, match="slice 3"):
+            tt.predict(wav, task, "fra")
     with pytest.raises(ValueError, match="unknown task"):
         tt.predict(wav, "s2xx", "fra")
