@@ -8,22 +8,31 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
 1. Device: requires CUDA, prints the card's name and power limit, turns TF32
    off for the parity phases, builds every kernel of ``csrc/`` (one ``nvcc``
    each, all at once) and prints the build seconds.
-2. Each kernel (K1 int8-KV and K2 packed-int4-KV decode attention) against
-   its plain PyTorch version on the card, at the shapes of the main path,
-   with the stated tolerance; device times by CUDA-graph replay beside the
-   bound (bytes over 3.35 TB/s).
-3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY and
-   unit HiFi-GAN on random bf16 weights from a seeded ``torch.Generator``,
-   the UnitY tree int8 weight-only, beam 5.
-   a. ``Translator.predict(wav, "s2tt", "eng")`` with an int8 KV cache, three
+2. Each kernel against its plain PyTorch version on the card, at the shapes
+   of the main path, with the stated tolerance; device times by CUDA-graph
+   replay beside the bound (the larger of bytes over 3.35 TB/s and
+   operations over the fp32 rate): K1 int8-KV and K2 packed-int4-KV decode
+   attention; K3b ``int8_vocab_topk_v2`` and K3a ``int8_vocab_topk`` at the
+   base_v2 vocabulary (V=256102, D=1024, k=11, N=5 and 10), with the time of
+   the full-vocabulary step the candidate beam replaces.
+3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
+   its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
+   ``torch.Generator``, the UnitY tree int8 weight-only, beam 5.
+   a. ``Translator.predict(wav, "s2tt", "eng")`` with an int8 KV cache, two
       requests: K1 launched 24 times per decode step.
    b. ``Translator.predict(wav, "s2st", "eng")`` with ``kv_cache_bits=4``, a
       4 s and a 10 s request: K2 launched 24 times per decode step, K1
       never; the waveforms finite, within [-1, 1] and whole unit frames.
+   c. ``Translator.predict(text, "t2tt" | "t2st", "fra", src_lang="eng")``
+      with ``SEAMLESS_CANDIDATE_BEAM=1`` and int8 KV, three requests: K3b
+      launched once and K1 24 times per decode step, K3a and K2 never; then
+      a cut T2TT request with and without the candidate beam gives identical
+      tokens.
    Each path's launches are counted from 0 just before it.
-4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, and S2ST with
-   the tiny vocoder with int8 KV (K1) and int4 KV (K2), must give the same
-   tokens and units, and waveforms within 1e-4.
+4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
+   tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
+   the tree int8 and the candidate beam (K3b, K1), must give the same tokens
+   and units, and waveforms within 1e-4.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error, times and bound; the last line is
@@ -31,12 +40,15 @@ launches on the main path, error, times and bound; the last line is
 
     python3 chip_smoke.py --profile
 
-builds the kernels and profiles one 10 s base_v2 request instead (where the
-main path's time goes; the table lands in ``chiprun_out/profile_s2tt.txt``).
+builds the kernels and, instead, profiles one 10 s base_v2 S2TT request and
+one T2TT request with the candidate beam and without it (where the main
+path's time goes; the tables land in ``profile_*.txt`` files in the output
+directory of ``profile_main_path``).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -47,10 +59,22 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 B_MAIN, H_MAIN, T_MAIN, DH_MAIN = 5, 16, 320, 64
 STEP_TIMED = 200                   # a mid-utterance step of a T=320 cache
+V_MAIN, D_MAIN = 256102, 1024      # base_v2's vocabulary and width
+K_CAND = 11                        # candidates a beam: 2 * beam 5 + 1
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def warmup_stream():
+    """One side stream for every warm-up of ``cuda_time_ms``: cuBLAS keeps a
+    workspace (32 MiB) for each stream it has run on until the process ends,
+    so a new stream a timing would leave that much allocated each time."""
+    import torch
+
+    return torch.cuda.Stream()
 
 
 def cuda_time_ms(fn, *, calls: int = 20, reps: int = 50) -> float:
@@ -61,7 +85,7 @@ def cuda_time_ms(fn, *, calls: int = 20, reps: int = 50) -> float:
     Python prepares each launch."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = warmup_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -229,6 +253,136 @@ def phase_decode_attention(name: str) -> dict:
             "library_ms": None}
 
 
+# the vocabulary top-k kernels: (id, wrapper, launch of the kernel alone,
+# the TPU kernel it replaces)
+VOCAB_KERNELS = {
+    "vocab_topk_v2": ("K3b", "int8_vocab_topk_v2", "_launch_v2",
+                      "seamless_communication_tpu/ops/kernels/vocab_topk.py:170"),
+    "vocab_topk": ("K3a", "int8_vocab_topk", "_launch_v1",
+                   "seamless_communication_tpu/ops/kernels/vocab_topk.py:45"),
+}
+
+
+def check_topk(label: str, got, ref, plain_logits) -> int:
+    """Ids identical, except where the plain logits at the two ids are within
+    1e-5 relative (printed and counted as a tie); vals within rtol = atol =
+    1e-5; logz within rtol 1e-5. Returns the number of ties."""
+    import torch
+
+    (gv, gi, gz), (rv, ri, rz) = got, ref
+    if gi.dtype != torch.int32 or gi.shape != ri.shape:
+        raise AssertionError(f"{label}: ids {gi.dtype} {tuple(gi.shape)}")
+    ties = 0
+    for n, j in (gi != ri).nonzero().tolist():
+        a, b = int(gi[n, j]), int(ri[n, j])
+        la, lb = float(plain_logits[n, a]), float(plain_logits[n, b])
+        if abs(la - lb) > 1e-5 * max(abs(la), abs(lb)):
+            raise AssertionError(f"{label}: row {n} rank {j} id {a} ({la!r}) against "
+                                 f"the plain version's {b} ({lb!r})")
+        log(f"  {label}: tie at row {n} rank {j}: ids {a} and {b}, plain logits "
+            f"{la!r} and {lb!r}")
+        ties += 1
+    verr = (gv - rv).abs()
+    if not bool((verr <= 1e-5 * (1 + rv.abs())).all()):
+        raise AssertionError(f"{label}: vals max err {float(verr.max()):.3g}")
+    zerr = (gz - rz).abs()
+    if not bool((zerr <= 1e-5 * rz.abs()).all()):
+        raise AssertionError(f"{label}: logz max err {float(zerr.max()):.3g}")
+    return ties
+
+
+def phase_vocab_topk(smi: str) -> list:
+    """K3b and K3a against their plain version ``_reference`` at V=256102,
+    D=1024, k=11, N=5 and 10, x rows of unit variance in fp32 and bf16: on
+    the int8 table of a seeded unit-variance (V, D) matrix, and on a table
+    whose rows repeat every 1000 (equal logits across tiles, which must go to
+    the lowest id). Then device times by CUDA-graph replay of the kernel
+    launch alone, the whole function, the plain version and the
+    full-vocabulary step the candidate beam replaces (the widened tied
+    projection, the log-softmax and the stable sort over K*V)."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import vocab_topk as vt
+    from seamless_communication_torch.ops.quantization import (
+        quantize_embedding, tied_projection_quantized,
+    )
+    from seamless_communication_torch.ops.topk import top_k
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table, scale = quantize_embedding(torch.randn((V_MAIN, D_MAIN), generator=gen,
+                                                  device=dev))
+    reps = -(-V_MAIN // 1000)
+    tie_table = table[:1000].repeat(reps, 1)[:V_MAIN].contiguous()
+    tie_scale = scale[:1000].repeat(reps)[:V_MAIN].contiguous()
+    xs = {n: torch.randn((n, D_MAIN), generator=gen, device=dev) for n in (5, 10)}
+    entries = []
+    for name, (kid, wrapper, launch, replaces) in VOCAB_KERNELS.items():
+        fn, kernel_alone = getattr(vt, wrapper), getattr(vt, launch)
+        max_err, ties = 0.0, 0
+        for n, x32 in xs.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                for tname, (t, s) in (("random", (table, scale)),
+                                      ("repeated rows", (tie_table, tie_scale))):
+                    got = fn(x, t, s, K_CAND)
+                    ref = vt._reference(x, t, s, K_CAND)
+                    plain_logits = torch.matmul(x.float(), t.to(dtype).float().T) * s
+                    torch.cuda.synchronize()
+                    label = f"{kid} N={n} {str(dtype)[6:]} {tname}"
+                    ties += check_topk(label, got, ref, plain_logits)
+                    err = float((got[0] - ref[0]).abs().max())
+                    if dtype is torch.float32:
+                        max_err = max(max_err, err)
+                    log(f"{label}: ids match (ties allowed), vals max abs err {err:.3g}, "
+                        f"logz max abs err {float((got[2] - ref[2]).abs().max()):.3g}")
+        times = {}
+        for n, x32 in xs.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                times[n, dtype] = (
+                    cuda_time_ms(lambda: kernel_alone(x, table, scale, K_CAND)),
+                    cuda_time_ms(lambda: fn(x, table, scale, K_CAND)),
+                    cuda_time_ms(lambda: vt._reference(x, table, scale, K_CAND),
+                                 calls=3, reps=10))
+        bounds = {}
+        for n, dtype in times:
+            elem = torch.finfo(dtype).bits // 8
+            bytes_s = vt.bound_bytes(n, D_MAIN, V_MAIN, K_CAND, elem=elem) / HBM_BYTES_PER_S
+            flops_s = 2 * n * V_MAIN * D_MAIN / PEAK_FP32_FLOPS
+            bounds[n, dtype] = (max(bytes_s, flops_s) * 1e3,
+                                "bytes" if bytes_s >= flops_s else "operations")
+        for (n, dtype), (k_ms, f_ms, p_ms) in times.items():
+            log(f"{kid} time N={n} {str(dtype)[6:]:8s}: kernel launch alone "
+                f"{k_ms * 1e3:.2f} us, whole function {f_ms * 1e3:.2f} us, plain "
+                f"{p_ms * 1e3:.2f} us, bound {bounds[n, dtype][0] * 1e3:.2f} us "
+                f"({bounds[n, dtype][1]}); library: none (no single PyTorch call "
+                f"computes this function) [{smi}]")
+        log(f"{kid}: {ties} ties between near-equal plain logits")
+        # the decoder runs in fp32, beam 5 with B=1 gives N=5
+        _, f_ms, p_ms = times[5, torch.float32]
+        entries.append({"name": name, "route": "cuda",
+                        "source": "seamless_communication_torch/csrc/vocab_topk.cu",
+                        "replaces": replaces, "max_abs_err": max_err, "ms": f_ms,
+                        "plain_ms": p_ms, "bound_ms": bounds[5, torch.float32][0],
+                        "bound_by": bounds[5, torch.float32][1], "library_ms": None})
+    embed = {"embedding_i8": table, "row_scale": scale}
+    for n, x in xs.items():
+        B, K = n // 5, 5
+        scores = torch.zeros((B, K), device=dev)
+
+        def full_vocab_step():
+            lp = torch.log_softmax(tied_projection_quantized(embed, x[:, None])[:, 0],
+                                   dim=-1)
+            return top_k((scores[:, :, None] + lp.reshape(B, K, V_MAIN)).reshape(B, -1),
+                          2 * K)
+
+        log(f"full-vocabulary step the candidate beam replaces, N={n} (B={B}, beam "
+            f"{K}): {cuda_time_ms(full_vocab_step, calls=3, reps=10) * 1e3:.2f} us "
+            f"[{smi}]")
+    return entries
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
@@ -331,11 +485,12 @@ def build_base_v2():
     dev = torch.device("cuda")
     cfg = get_arch("base_v2")
     t0 = time.time()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = quantize_params(unity.unity_init(gen, cfg, dtype=torch.bfloat16,
-                                              device=dev))
+    kw = dict(dtype=torch.bfloat16, device=dev)
+    params = quantize_params(unity.unity_init(torch.Generator(device=dev).manual_seed(0),
+                                              cfg, **kw))
     vocoder_cfg = CodeHifiGanConfig()
-    vocoder = code_hifigan_init(gen, vocoder_cfg, dtype=torch.bfloat16, device=dev)
+    vocoder = code_hifigan_init(torch.Generator(device=dev).manual_seed(1), vocoder_cfg,
+                                **kw)
     torch.cuda.synchronize()
     log(f"base_v2 params (bf16; UnitY int8 weight-only, vocoder bf16) built in "
         f"{time.time() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
@@ -368,16 +523,19 @@ def build_base_v2():
 
 
 def phase_s2tt(translator, tok, cfg, noise, smi: str) -> dict:
-    """base_v2 (v2-large) S2TT through Translator.predict, three requests:
-    K1 launched 24 times per decode step, K2 never."""
+    """base_v2 (v2-large) S2TT through Translator.predict, a 4 s request and
+    a batch of 10 s + 7 s: K1 launched 24 times per decode step, K2 never."""
     import torch
 
     from seamless_communication_torch.ops.kernels import (
         launch_counts, reset_launch_counts,
     )
 
-    requests = [("4 s", noise(4.0)), ("10 s", noise(10.0)),
-                ("batch of 2: 10 s + 7 s", [noise(10.0), noise(7.0)])]
+    # two requests keep the whole script near 150 s of command time; the
+    # audio of a dropped 10 s request is still drawn, so that every later
+    # request gets the audio it got when this phase served three
+    four, _ = noise(4.0), noise(10.0)
+    requests = [("4 s", four), ("batch of 2: 10 s + 7 s", [noise(10.0), noise(7.0)])]
     prefix = tok.target_prefix("eng").tolist()
     stats = []
     torch.cuda.synchronize()
@@ -412,17 +570,31 @@ def phase_s2tt(translator, tok, cfg, noise, smi: str) -> dict:
     return {"launches": launch_counts["decode_attention_int8"], "requests": stats}
 
 
+def check_waveforms(label: str, speech, hop: int) -> None:
+    """Every waveform finite, within [-1, 1], and a whole number of
+    ``hop``-sample frames, at least one a unit and at most the vocoder's cap
+    of 4 a unit (of the units bucketed to 32)."""
+    import numpy as np
+
+    from seamless_communication_torch.inference.generator import _bucket
+
+    for u, w in zip(speech.units, speech.audio_wavs):
+        frames = len(w) // hop
+        if len(w) % hop or not len(u) <= frames <= 4 * _bucket(len(u), 32):
+            raise AssertionError(f"{label}: {len(w)} samples for {len(u)} units are "
+                                 f"not whole {hop}-sample frames within the cap")
+        if not (np.isfinite(w).all() and np.abs(w).max(initial=0.0) <= 1.0):
+            raise AssertionError(f"{label}: waveform not finite or outside [-1, 1]")
+
+
 def phase_s2st(translator, tok, cfg, noise, smi: str) -> dict:
     """base_v2 (v2-large) S2ST through Translator.predict with
     ``kv_cache_bits=4``, a 4 s and a 10 s request: K2 launched 24 times per
-    decode step and K1 never; every waveform finite, within [-1, 1], and a
-    whole number of 320-sample frames, at least one a unit and at most the
-    vocoder's cap of 4 a unit (of the units bucketed to 32)."""
-    import numpy as np
+    decode step and K1 never; the waveforms pass ``check_waveforms``."""
     import torch
 
     from seamless_communication_torch.inference.generator import (
-        SequenceGeneratorOptions, _bucket,
+        SequenceGeneratorOptions,
     )
     from seamless_communication_torch.ops.kernels import (
         launch_counts, reset_launch_counts,
@@ -451,15 +623,7 @@ def phase_s2st(translator, tok, cfg, noise, smi: str) -> dict:
             raise AssertionError(f"S2ST {name}: K2 launched {k2} times and K1 {k1} "
                                  f"times in {steps} decode steps, not {layers} K2 "
                                  "launches per step and no K1")
-        for u, w in zip(speech.units, speech.audio_wavs):
-            frames = len(w) // hop
-            if len(w) % hop or not len(u) <= frames <= 4 * _bucket(len(u), 32):
-                raise AssertionError(f"S2ST {name}: {len(w)} samples for {len(u)} "
-                                     f"units are not whole {hop}-sample frames "
-                                     "within the cap")
-            if not (np.isfinite(w).all() and np.abs(w).max(initial=0.0) <= 1.0):
-                raise AssertionError(f"S2ST {name}: waveform not finite or outside "
-                                     "[-1, 1]")
+        check_waveforms(f"S2ST {name}", speech, hop)
         units = sum(len(u) for u in speech.units)
         audio_s = sum(len(w) for w in speech.audio_wavs) / speech.sample_rate
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -473,6 +637,109 @@ def phase_s2st(translator, tok, cfg, noise, smi: str) -> dict:
                       "stages_ms": split, "steps": steps, "units": units,
                       "audio_s": audio_s, "peak_gib": peak, "k2_launches": k2})
     return {"launches": launch_counts["decode_attention_int4"], "requests": stats}
+
+
+def synthetic_text(tok, n_tokens: int, seed: int) -> str:
+    """A source text of seeded words of the synthetic vocabulary that encodes
+    to ``n_tokens`` source tokens (with the language token and EOS)."""
+    import numpy as np
+
+    words = [p[1:] for p in tok.spm.pieces if p.startswith("\u2581") and p[1:].isalpha()]
+    rng = np.random.default_rng(seed)
+    return " ".join(rng.choice(words, n_tokens - 2))
+
+
+def candidate_beam():
+    """``SEAMLESS_CANDIDATE_BEAM=1`` within the block, as it was after."""
+    import os
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, {"SEAMLESS_CANDIDATE_BEAM": "1"})
+
+
+def phase_t2t(translator, tok, cfg, smi: str) -> dict:
+    """base_v2 (v2-large) T2TT and T2ST through Translator.predict with the
+    candidate beam and int8 KV: a T2TT request of 20 source tokens, a T2TT
+    batch of 60 + 30 tokens (N = 10 candidate rows), a T2ST request of 40
+    tokens. K3b launched once and K1 24 times per decode step, K3a and K2
+    never; hypotheses and (T2ST) waveforms checked as in 3a and 3b. Then a
+    T2TT request cut to 63 decode steps gives identical tokens with the
+    candidate beam and without it."""
+    import torch
+
+    from seamless_communication_torch.inference.generator import (
+        SequenceGeneratorOptions,
+    )
+    from seamless_communication_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+
+    requests = [("t2tt 20 tokens", "t2tt", synthetic_text(tok, 20, 10)),
+                ("t2tt batch of 2: 60 + 30 tokens", "t2tt",
+                 [synthetic_text(tok, 60, 11), synthetic_text(tok, 30, 12)]),
+                ("t2st 40 tokens", "t2st", synthetic_text(tok, 40, 13))]
+    prefix = tok.target_prefix("fra").tolist()
+    layers = cfg.nllb.num_decoder_layers
+    hop = translator.vocoder_cfg.hifigan.total_upsample
+    stats = []
+    with candidate_beam():
+        # warm-up: the text encoder's shapes, outside the counted run
+        translator.predict(requests[0][2], "t2tt", "fra", src_lang="eng",
+                           text_generation_opts=SequenceGeneratorOptions(
+                               soft_max_seq_len=(0, 8)))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for name, task, text in requests:
+            before = dict(launch_counts)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            texts, speech = translator.predict(text, task, "fra", src_lang="eng")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            res = translator.generator.last_result
+            steps, max_len = res.steps, res.tokens.shape[-1]
+            got = {k: launch_counts[k] - before[k] for k in launch_counts}
+            check_hypotheses(res, prefix, max_len, cfg.nllb.eos_idx)
+            want = {"vocab_topk_v2": steps, "decode_attention_int8": layers * steps,
+                    "vocab_topk": 0, "decode_attention_int4": 0}
+            if got != want:
+                raise AssertionError(f"{name}: launches {got} in {steps} decode steps, "
+                                     f"expected {want}")
+            n_src = [len(tok.encode_source(t, "eng"))
+                     for t in (text if isinstance(text, list) else [text])]
+            units = audio_s = 0
+            if speech is not None:
+                check_waveforms(name, speech, hop)
+                units = sum(len(u) for u in speech.units)
+                audio_s = sum(len(w) for w in speech.audio_wavs) / speech.sample_rate
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            split = {k: v * 1e3 for k, v in translator.last_timings.items()}
+            log(f"{name.upper()} (source tokens {n_src}, candidate beam): wall "
+                f"{wall * 1e3:.1f} ms = " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                + f" ms; {steps} decode steps (max_len {max_len}), "
+                f"{split['text_decode'] / steps:.2f} ms per step of the text decode, "
+                f"K3b launches {got['vocab_topk_v2']}, K1 launches "
+                f"{got['decode_attention_int8']}, {units} units, {audio_s:.2f} s of "
+                f"audio, peak {peak:.2f} GiB, texts {[t[:40] for t in texts]} [{smi}]")
+            stats.append({"request": name, "source_tokens": n_src, "wall_ms": wall * 1e3,
+                          "stages_ms": split, "steps": steps, "units": units,
+                          "audio_s": audio_s, "peak_gib": peak, "launches": got})
+        counts = dict(launch_counts)
+        cut = SequenceGeneratorOptions(soft_max_seq_len=(0, 64))
+        translator.predict(requests[0][2], "t2tt", "fra", src_lang="eng",
+                           text_generation_opts=cut)
+        with_cand = translator.generator.last_result
+    translator.predict(requests[0][2], "t2tt", "fra", src_lang="eng",
+                       text_generation_opts=cut)
+    full = translator.generator.last_result
+    if not (torch.equal(with_cand.tokens, full.tokens)
+            and torch.equal(with_cand.lengths, full.lengths)):
+        raise AssertionError("cut T2TT: the candidate beam and the full-vocabulary "
+                             "beam gave different tokens")
+    log(f"cut T2TT ({full.steps} decode steps): tokens identical with the candidate "
+        f"beam (K3b) and the full-vocabulary beam; best scores "
+        f"{with_cand.scores[:, 0].tolist()} and {full.scores[:, 0].tolist()}")
+    return {"launches": counts, "requests": stats}
 
 
 def phase_tiny_cuda_vs_cpu() -> None:
@@ -582,23 +849,93 @@ def phase_tiny_s2st() -> None:
             f"difference {err:.3g}")
 
 
+def phase_tiny_t2t() -> None:
+    """tiny_v2 T2TT and T2ST in fp32 with the tree int8 (``quantize_params(
+    min_size=1)``, so the tied embedding is int8), int8 KV and the candidate
+    beam, on the card (K3b and K1) and on the CPU (the plain versions): text
+    tokens and units identical, waveforms within 1e-4 absolute."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.inference.generator import (
+        SequenceGeneratorOptions,
+    )
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.vocoder.codehifigan import (
+        CodeHifiGanConfig, code_hifigan_init,
+    )
+    from seamless_communication_torch.models.vocoder.hifigan import HifiGanConfig
+    from seamless_communication_torch.ops.kernels import launch_counts
+    from seamless_communication_torch.ops.quantization import quantize_params
+
+    cfg = get_arch("tiny_v2")
+    gen = torch.Generator().manual_seed(0)
+    params = quantize_params(unity.unity_init(gen, cfg), min_size=1)
+    vocoder_cfg = CodeHifiGanConfig(**TINY_VOCODER, hifigan=HifiGanConfig(**TINY_HIFIGAN))
+    vocoder = code_hifigan_init(gen, vocoder_cfg)
+    tok = synthetic_tokenizer(200)                  # fits tiny_v2's 256 ids
+    texts = [synthetic_text(tok, 14, 20), synthetic_text(tok, 9, 21)]
+    opts = SequenceGeneratorOptions(soft_max_seq_len=(1, 40), kv_cache_int8=True)
+    with candidate_beam():
+        for task in ("t2tt", "t2st"):
+            out = {}
+            for device in ("cuda", "cpu"):
+                tr = s2st_translator(params, cfg, tok, vocoder, vocoder_cfg,
+                                     text_opts=opts, device=device)
+                before = dict(launch_counts)
+                _, speech = tr.predict(texts, task, "fra", src_lang="eng")
+                res = tr.generator.last_result
+                k3b = launch_counts["vocab_topk_v2"] - before["vocab_topk_v2"]
+                k1 = (launch_counts["decode_attention_int8"]
+                      - before["decode_attention_int8"])
+                out[device] = (res.tokens[:, 0].cpu(), res.lengths[:, 0].cpu(), speech)
+                log(f"tiny_v2 {task} on {device}: {res.steps} steps, K3b launches {k3b}, "
+                    f"K1 launches {k1}, best lengths {out[device][1].tolist()}")
+                on_card = device == "cuda"
+                if (k3b, k1) != ((res.steps, cfg.nllb.num_decoder_layers * res.steps)
+                                 if on_card else (0, 0)):
+                    raise AssertionError(f"tiny_v2 {task} on {device}: K3b {k3b} and "
+                                         f"K1 {k1} launches in {res.steps} steps")
+            (tc, lc, sc), (tp, lp, sp) = out["cuda"], out["cpu"]
+            if not (torch.equal(tc, tp) and torch.equal(lc, lp)):
+                raise AssertionError(f"tiny_v2 {task}: tokens differ between the card "
+                                     f"and the CPU: {tc.tolist()} vs {tp.tolist()}")
+            err = 0.0
+            if task == "t2st":
+                if sc.units != sp.units:
+                    raise AssertionError("tiny_v2 t2st: units differ between the card "
+                                         "and the CPU")
+                for a, b in zip(sc.audio_wavs, sp.audio_wavs):
+                    if a.shape != b.shape:
+                        raise AssertionError(f"tiny_v2 t2st: waveform shapes {a.shape} "
+                                             f"and {b.shape}")
+                    err = max(err, float(np.abs(a - b).max(initial=0.0)))
+                if err > 1e-4:
+                    raise AssertionError(f"tiny_v2 t2st: waveforms differ by {err:.3g} "
+                                         "> 1e-4")
+            log(f"tiny_v2 {task} (int8 tree, candidate beam): tokens"
+                + (" and units" if task == "t2st" else "") + " identical on the card "
+                f"(K3b, K1) and the CPU (plain versions), waveform max abs difference "
+                f"{err:.3g}")
+
+
 def profile_main_path(smi: str, out_dir: str = "chiprun_out") -> None:
-    """One 10 s base_v2 request, cut to 63 decode steps, under ``torch.profiler``: where the wall time
-    of the main path goes. Prints the encoder's share, the decode's time per
-    step, the card's busy share and the kernels by device time, and writes
-    the full table to ``<out_dir>/profile_s2tt.txt``."""
+    """Where the main path's time goes, under ``torch.profiler``: one 10 s
+    base_v2 S2TT request, then one T2TT request of 20 source tokens with the
+    candidate beam and without it, each cut to 63 decode steps (the
+    profiler's own cost grows with the events it keeps). Also times the
+    speech encoder alone. Tables land in ``<out_dir>/profile_*.txt``."""
     import os
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from seamless_communication_torch.inference.generator import (
         SequenceGeneratorOptions,
     )
     from seamless_communication_torch.models.unity import model as unity
 
-    translator, _, cfg, noise = build_base_v2()
+    translator, tok, cfg, noise = build_base_v2()
     wav = noise(10.0)
     fbank, flens = translator._audio_to_fbank(wav, 16000)
     fb = torch.as_tensor(fbank, device="cuda")
@@ -611,30 +948,67 @@ def profile_main_path(smi: str, out_dir: str = "chiprun_out") -> None:
             unity.encode_speech(translator.params, cfg, fb, fl)
         torch.cuda.synchronize()
         enc_ms.append((time.perf_counter() - t0) * 1e3)
-    # 63 decode steps: the profiler's own cost grows with the events it keeps
+    log(f"speech encoder alone on the 10 s request: {statistics.median(enc_ms):.1f} ms "
+        f"(median of 3, no profiler) [{smi}]")
     opts = SequenceGeneratorOptions(soft_max_seq_len=(0, 64))
+
+    def request(*args, **kw):
+        def run():
+            translator.predict(*args, text_generation_opts=opts, **kw)
+            return translator.generator.last_result.steps
+        return run
+
+    profile_call("S2TT 10 s request", request(wav, "s2tt", "eng"),
+                 os.path.join(out_dir, "profile_s2tt.txt"), smi)
+    text = synthetic_text(tok, 20, 10)
+    with candidate_beam():
+        translator.predict(text, "t2tt", "fra", src_lang="eng",
+                           text_generation_opts=SequenceGeneratorOptions(
+                               soft_max_seq_len=(0, 8)))         # warm-up
+        cand = profile_call("T2TT 20 tokens, candidate beam",
+                            request(text, "t2tt", "fra", src_lang="eng"),
+                            os.path.join(out_dir, "profile_t2tt_candidate.txt"), smi)
+    full = profile_call("T2TT 20 tokens, full-vocabulary beam",
+                        request(text, "t2tt", "fra", src_lang="eng"),
+                        os.path.join(out_dir, "profile_t2tt_full_vocab.txt"), smi)
+    log(f"candidate beam against the full-vocabulary beam: kernels busy "
+        f"{cand['busy_ms'] / cand['steps']:.3f} against "
+        f"{full['busy_ms'] / full['steps']:.3f} ms per decode step, "
+        f"{cand['launches'] / cand['steps']:.0f} against "
+        f"{full['launches'] / full['steps']:.0f} launches per step [{smi}]")
+
+
+def profile_call(label: str, run, path: str, smi: str) -> dict:
+    """``run()`` (one request, ending in a synchronize) under
+    ``torch.profiler``: prints the wall, the kernels' busy time and share,
+    the launches per decode step and the top kernels by device time, and
+    writes the full table to ``path``. Returns the busy ms and launches."""
+    import os
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        translator.predict(wav, "s2tt", "eng", text_generation_opts=opts)
+        steps = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = translator.generator.last_result.steps
     # kernels only: the aten ops that launched them carry the same device time
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     events.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
-    log(f"profile 10 s request [{smi}]: wall {wall_ms:.1f} ms under the profiler, "
-        f"{steps} decode steps; encoder alone {statistics.median(enc_ms):.1f} ms "
-        f"(median of 3, no profiler); kernels busy {busy_ms:.1f} ms = "
-        f"{100 * busy_ms / wall_ms:.1f} % of the wall; {launches} kernel launches = "
-        f"{launches / steps:.0f} per decode step")
+    log(f"profile {label} [{smi}]: wall {wall_ms:.1f} ms under the profiler, {steps} "
+        f"decode steps; kernels busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f} % "
+        f"of the wall, {busy_ms / steps:.3f} ms per decode step; {launches} kernel "
+        f"launches = {launches / steps:.0f} per decode step")
     for e in events[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:7d} x  {e.key[:90]}")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_s2tt.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=60))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    return {"busy_ms": busy_ms, "launches": launches, "steps": steps}
 
 
 def main() -> int:
@@ -646,18 +1020,24 @@ def main() -> int:
         return 0
     k1 = phase_decode_attention("decode_attention_int8")
     k2 = phase_decode_attention("decode_attention_int4")
+    k3b, k3a = phase_vocab_topk(dev["smi"])
     base_v2 = build_base_v2()
     # each kernel's launches are counted over its own path, reset just before
     s2tt = phase_s2tt(*base_v2, dev["smi"])
     k1["launches"] = s2tt["launches"]
     s2st = phase_s2st(*base_v2, dev["smi"])
     k2["launches"] = s2st["launches"]
-    del base_v2
+    translator, tok, cfg, _ = base_v2
+    t2t = phase_t2t(translator, tok, cfg, dev["smi"])
+    k3b["launches"] = t2t["launches"]["vocab_topk_v2"]
+    k3a["launches"] = t2t["launches"]["vocab_topk"]     # not on any path: 0
+    del base_v2, translator
     phase_tiny_cuda_vs_cpu()
     phase_tiny_s2st()
-    log(json.dumps({"main_path": s2tt["requests"] + s2st["requests"],
+    phase_tiny_t2t()
+    log(json.dumps({"main_path": s2tt["requests"] + s2st["requests"] + t2t["requests"],
                     "card": dev["smi"]}))
-    log(json.dumps({"kernels": [k1, k2]}))
+    log(json.dumps({"kernels": [k1, k2, k3a, k3b]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,10 @@
 """Two-pass generation of the UnitY model (counterpart of
 ``seamless_communication_tpu/inference/generator.py``).
 
-Pass 1: beam search of the text hypothesis from the encoder output.
+Pass 1: beam search of the text hypothesis from the speech or text encoder
+        output; with ``SEAMLESS_CANDIDATE_BEAM=1`` (and no unk penalty) in
+        candidate mode, over each beam's top 2K+1 tokens from the fused
+        vocabulary kernel.
 Pass 2: re-decode the best hypothesis through the text decoder (full
         sequence) to get its features, run the NAR T2U (argmax) on them and
         detokenize the units.
@@ -10,6 +13,7 @@ Pass 2: re-decode the best hypothesis through the text decoder (full
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -110,14 +114,21 @@ class UnitYGenerator:
         B = enc.seqs.shape[0]
         enc_bk = unity.EncoderOutput(torch.repeat_interleave(enc.seqs, K, dim=0),
                                      torch.repeat_interleave(enc.lengths, K, dim=0))
-        step_fn, cache_fn = unity.make_text_decode_step(self.params, self.cfg, enc_bk)
+        # the JAX package's switch for candidate mode, read per call; exact
+        # only without an unk penalty (and without step processors, which the
+        # port does not have yet)
+        cand = (os.environ.get("SEAMLESS_CANDIDATE_BEAM") == "1"
+                and topts.unk_penalty == 0.0)
+        step_fn, cache_fn = unity.make_text_decode_step(
+            self.params, self.cfg, enc_bk, candidates=(2 * K + 1) if cand else None)
         kv_int8, kv_bits = _resolve_kv(topts, self.device)
         cache = cache_fn(max_len, kv_int8, kv_bits)
         prefix = torch.as_tensor(np.tile(self.text_tokenizer.target_prefix(tgt_lang),
                                          (B, 1)), device=self.device)
         prefix_len = torch.full((B,), prefix.shape[1], dtype=torch.int32,
                                 device=self.device)
-        res = beam_search(step_fn, cache, prefix, prefix_len, opts, nllb.vocab_size)
+        res = beam_search(step_fn, cache, prefix, prefix_len, opts, nllb.vocab_size,
+                          candidate_mode=cand)
         self.last_result = res
         return (res.tokens[:, 0].cpu().numpy(), res.lengths[:, 0].cpu().numpy(),
                 res.scores[:, 0].cpu().numpy())

@@ -1,12 +1,13 @@
 """Translator: the entry point of the port (counterpart of
 ``seamless_communication_tpu/inference/translator.py``).
 
-Speech-to-speech translation (``s2st``), speech-to-text translation
-(``s2tt``) and speech recognition (``asr``): audio -> host fbank (80-mel,
-2**15 scale, per-utterance standardization) -> speech encoder -> beam-search
-text decode -> detokenization; for ``s2st`` then the re-decode, the host char
-frontend, the NAR T2U and the unit HiFi-GAN vocoder. It runs on the CUDA
-card unless the caller passes ``device="cpu"``.
+Speech input (``s2st``, ``s2tt``, ``asr``): audio -> host fbank (80-mel,
+2**15 scale, per-utterance standardization) -> speech encoder. Text input
+(``t2st``, ``t2tt``): source tokens -> NLLB text encoder. Then the
+beam-search text decode -> detokenization; for the speech outputs (``s2st``,
+``t2st``) the re-decode, the host char frontend, the NAR T2U and the unit
+HiFi-GAN vocoder. It runs on the CUDA card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -33,11 +34,9 @@ from seamless_communication_torch.models.vocoder.codehifigan import (
 from seamless_communication_torch.text.char_tokenizer import CharTokenizer
 from seamless_communication_torch.text.nllb import NllbTokenizer
 
-TEXT_TASKS = ("s2tt", "asr")
-SPEECH_TASKS = ("s2st",)
-# tasks of the JAX package that a later slice of the port adds
-LATER_TASKS = {"t2st": "slice 3 (the text encoder)",
-               "t2tt": "slice 3 (the text encoder)"}
+TEXT_TASKS = ("s2tt", "asr", "t2tt")         # text out
+SPEECH_TASKS = ("s2st", "t2st")               # speech out
+TEXT_INPUT_TASKS = ("t2tt", "t2st")
 
 
 @dataclass
@@ -88,9 +87,9 @@ class Translator:
         self.fbank_cfg = fbank_cfg
         self.generator = UnitYGenerator(self.params, cfg, text_tokenizer, unit_tokenizer,
                                         char_tokenizer, text_opts, device=self.device)
-        # wall seconds of each stage of the last predict(): encoder,
-        # text_decode and, for s2st, redecode, t2u (the char frontend
-        # included) and vocoder
+        # wall seconds of each stage of the last predict(): encoder (speech
+        # or text, the host front end included), text_decode and, for s2st
+        # and t2st, redecode, t2u (the char frontend included) and vocoder
         self.last_timings: Dict[str, float] = {}
 
     def _audio_to_fbank(self, audio: Union[str, np.ndarray, Sequence],
@@ -115,6 +114,21 @@ class Translator:
             out[i, :f.shape[0]] = f
         return out, lens
 
+    def _encode_text_input(self, input: Union[str, Sequence[str]], src_lang: str
+                           ) -> unity.EncoderOutput:
+        """Source texts -> text encoder output: each text as [lang, tokens,
+        eos], the rows padded with ``pad_idx`` to a multiple of 16."""
+        texts = input if isinstance(input, (list, tuple)) else [input]
+        ids = [self.text_tokenizer.encode_source(t, src_lang) for t in texts]
+        lens = np.array([len(i) for i in ids], np.int32)
+        arr = np.full((len(ids), _bucket(int(lens.max()), 16)),
+                      self.text_tokenizer.vocab_info.pad_idx, np.int64)
+        for i, row in enumerate(ids):
+            arr[i, :len(row)] = row
+        return unity.encode_text(self.params, self.cfg,
+                                 torch.as_tensor(arr, device=self.device),
+                                 torch.as_tensor(lens, device=self.device))
+
     @torch.inference_mode()
     def predict(self, input, task_str: str, tgt_lang: str, *,
                 src_lang: Optional[str] = None, sample_rate: int = 16000,
@@ -122,23 +136,26 @@ class Translator:
                 text_generation_opts: Optional[SequenceGeneratorOptions] = None,
                 ngram_filtering: bool = False, max_unit_len: int = 2048
                 ) -> tuple[List[str], Optional[BatchedSpeechOutput]]:
-        """Returns (texts, None) for a text task and (texts,
-        BatchedSpeechOutput) for ``s2st``: one text, unit list and waveform
-        per input waveform (a path, an array at ``sample_rate``, or a list of
-        them)."""
+        """Returns (texts, None) for a text-output task and (texts,
+        BatchedSpeechOutput) for ``s2st``/``t2st``: one text, unit list and
+        waveform per input. Speech input is a waveform (a path, an array at
+        ``sample_rate``, or a list of them); text input is a string or a list
+        of strings in ``src_lang``, which it requires."""
         task = task_str.lower()
-        if task in LATER_TASKS:
-            raise NotImplementedError(f"task {task_str!r} is not ported yet: it comes "
-                                      f"with {LATER_TASKS[task]}")
         if task not in TEXT_TASKS + SPEECH_TASKS:
             raise ValueError(f"unknown task {task_str!r}; expected one of "
-                             f"{', '.join(TEXT_TASKS + SPEECH_TASKS + tuple(LATER_TASKS))}")
+                             f"{', '.join(TEXT_TASKS + SPEECH_TASKS)}")
+        if task in TEXT_INPUT_TASKS and src_lang is None:
+            raise ValueError("src_lang required for text input")
         self.last_timings = {}
         t0 = time.perf_counter()
-        fbank, flens = self._audio_to_fbank(input, sample_rate)
-        enc = unity.encode_speech(self.params, self.cfg,
-                                  torch.as_tensor(fbank, device=self.device),
-                                  torch.as_tensor(flens, device=self.device))
+        if task in TEXT_INPUT_TASKS:
+            enc = self._encode_text_input(input, src_lang)
+        else:
+            fbank, flens = self._audio_to_fbank(input, sample_rate)
+            enc = unity.encode_speech(self.params, self.cfg,
+                                      torch.as_tensor(fbank, device=self.device),
+                                      torch.as_tensor(flens, device=self.device))
         t0 = stage_end(self.last_timings, "encoder", t0, self.device)
         # ASR: the target language is the source language
         text_lang = (src_lang or tgt_lang) if task == "asr" else tgt_lang

@@ -6,7 +6,8 @@ port runs:
                  causal depthwise conv) + NLLB dense_1b decoder (vocab 256102)
   - ``tiny_v2``  the tiny arch of the tests
 
-Both carry a NAR T2U (``models/unity/t2u.py``).
+Both carry a NAR T2U (``models/unity/t2u.py``) and the NLLB text encoder
+(``use_text_encoder``), whose embedding is tied to the decoder's.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ class UnitYConfig:
     speech: SpeechEncoderConfig = field(default_factory=SpeechEncoderConfig)
     nllb: NllbConfig = field(default_factory=NllbConfig)
     nar_t2u: Optional[NarT2UConfig] = None
+    use_text_encoder: bool = True
     arch: str = "base_v2"
 
 

@@ -1,7 +1,8 @@
 """UnitY model functions (counterpart of
 ``seamless_communication_tpu/models/unity/model.py``): parameter init for the
-speech encoder, the text decoder and the NAR T2U; ``encode_speech``; the
-beam-search step of the X2T view; the full-sequence re-decode
+speech encoder, the text decoder, the NAR T2U and the text encoder;
+``encode_speech`` and ``encode_text``; the beam-search step of the X2T view
+(full-vocabulary or candidate form); the full-sequence re-decode
 ``decode_text``; and ``t2u_nar``."""
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from seamless_communication_torch.models.nllb.model import (
     text_decoder_cache, text_decoder_forward, text_decoder_init, text_decoder_step,
+    text_decoder_step_topk, text_encoder_forward, text_encoder_init,
 )
 from seamless_communication_torch.models.unity.builder import UnitYConfig
 from seamless_communication_torch.models.unity.t2u import (
@@ -25,14 +27,19 @@ from seamless_communication_torch.ops.masks import lengths_to_padding_mask
 
 def unity_init(gen: torch.Generator, cfg: UnitYConfig, *, dtype=torch.float32,
                device=None) -> dict:
-    """Random parameters of the speech encoder, the text decoder and (where
-    the config has one) the NAR T2U, drawn from ``gen`` in that order (``gen``
-    must live on ``device``)."""
+    """Random parameters of the speech encoder, the text decoder, (where the
+    config has them) the NAR T2U and the text encoder, drawn from ``gen`` in
+    that order (``gen`` must live on ``device``). The text encoder shares the
+    decoder's ``embed`` dict, as NLLB ties the two tables; it is drawn last, so
+    the other parts are the same draws with or without it."""
     kw = dict(dtype=dtype, device=device)
     params = {"speech_encoder": speech_encoder_init(gen, cfg.speech, **kw),
               "text_decoder": text_decoder_init(gen, cfg.nllb, **kw)}
     if cfg.nar_t2u is not None:
         params["t2u"] = nar_t2u_init(gen, cfg.nar_t2u, **kw)
+    if cfg.use_text_encoder:
+        params["text_encoder"] = text_encoder_init(
+            gen, cfg.nllb, tie_embed=params["text_decoder"]["embed"], **kw)
     return params
 
 
@@ -52,6 +59,12 @@ def encode_speech(params: dict, cfg: UnitYConfig, fbank: torch.Tensor,
     return EncoderOutput(seqs, lens)
 
 
+def encode_text(params: dict, cfg: UnitYConfig, ids: torch.Tensor,
+                lengths: torch.Tensor) -> EncoderOutput:
+    seqs, _ = text_encoder_forward(params["text_encoder"], ids, lengths, cfg.nllb)
+    return EncoderOutput(seqs, lengths)
+
+
 def decode_text(params: dict, cfg: UnitYConfig, ids: torch.Tensor, enc: EncoderOutput,
                 *, self_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence text decode -> (B, T, D) features, the T2U's input."""
@@ -62,15 +75,25 @@ def decode_text(params: dict, cfg: UnitYConfig, ids: torch.Tensor, enc: EncoderO
                                 self_padding_mask=mask)
 
 
-def make_text_decode_step(params: dict, cfg: UnitYConfig, enc: EncoderOutput):
+def make_text_decode_step(params: dict, cfg: UnitYConfig, enc: EncoderOutput, *,
+                          candidates: Optional[int] = None):
     """The beam-search ``step_fn(tok_t, cache, step, beam_src)`` and the cache
-    factory ``cache_fn(max_len, kv_int8, kv_bits)`` of the X2T view."""
+    factory ``cache_fn(max_len, kv_int8, kv_bits)`` of the X2T view.
+
+    ``candidates=k``: ``step_fn`` returns each beam's top-k candidates
+    ``(log-probs, ids, cache)`` for ``beam_search(candidate_mode=True)``
+    (``text_decoder_step_topk``) instead of the full-vocabulary logits."""
     mask = enc.padding_mask
     dec = params["text_decoder"]
 
-    def step_fn(tok_t, cache, step: int, beam_src: Optional[torch.Tensor] = None):
-        return text_decoder_step(dec, tok_t, cache, step, cfg.nllb,
-                                 enc_padding_mask=mask, beam_src=beam_src)
+    if candidates is not None:
+        def step_fn(tok_t, cache, step: int, beam_src: Optional[torch.Tensor] = None):
+            return text_decoder_step_topk(dec, tok_t, cache, step, cfg.nllb, candidates,
+                                          enc_padding_mask=mask, beam_src=beam_src)
+    else:
+        def step_fn(tok_t, cache, step: int, beam_src: Optional[torch.Tensor] = None):
+            return text_decoder_step(dec, tok_t, cache, step, cfg.nllb,
+                                     enc_padding_mask=mask, beam_src=beam_src)
 
     def cache_fn(max_len: int, kv_int8: bool = False, kv_bits: int = 8):
         return text_decoder_cache(dec, cfg.nllb, enc.seqs, max_len, kv_int8=kv_int8,

@@ -13,7 +13,11 @@ The decoder is ``step_fn(tok_t, cache, step, beam_src) -> (logits, cache)``
 over the flattened (B*K) batch. The beam reorder of the previous selection is
 not applied to the cache here: it is handed to the next ``step_fn`` call as
 ``beam_src`` (B*K,), which reads the cache through it. Ties rank the lower
-index first, as ``jax.lax.top_k`` does. Step processors (n-gram blocking,
+index first, as ``jax.lax.top_k`` does.
+
+In candidate mode the step returns each beam's top-C candidates instead of
+the full-vocabulary logits (``models/nllb/model.py text_decoder_step_topk``,
+the fused vocabulary kernel on the card). Step processors (n-gram blocking,
 banned sequences) are not ported yet.
 """
 
@@ -22,6 +26,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from seamless_communication_torch.ops.topk import top_k
 
 NEG_INF = -1e9
 
@@ -45,18 +51,20 @@ class BeamSearchResult(NamedTuple):
     steps: int             # number of decode steps run
 
 
-def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top k along the last axis, ties to the lower index."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
                 prefix_len: torch.Tensor, opts: BeamSearchOptions,
-                vocab_size: int) -> BeamSearchResult:
+                vocab_size: int, *, candidate_mode: bool = False) -> BeamSearchResult:
     """``prefix``: (B, P) forced target prefix (e.g. [eos, lang]);
     ``prefix_len``: (B,) its lengths. ``cache``: the decoder cache for the
-    B*K beams, passed through ``step_fn`` untouched."""
+    B*K beams, passed through ``step_fn`` untouched.
+
+    ``candidate_mode``: ``step_fn`` returns ``(cand_lprobs (B*K, C), cand_idx
+    (B*K, C), cache)``, each beam's top-C log-probabilities and their ids.
+    Exact for C >= 2K+1 with ``unk_penalty == 0``: every global top-2K
+    continuation is within its beam's top 2K+1, even after min-length EOS
+    suppression removes one candidate."""
+    if candidate_mode and opts.unk_penalty != 0.0:
+        raise ValueError("candidate_mode is exact only with unk_penalty == 0")
     B, P = prefix.shape
     K, T, V = opts.beam_size, opts.max_len, vocab_size
     dev = prefix.device
@@ -93,26 +101,47 @@ def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
         eos_banned = (gen_pos - plen) < opts.min_len                   # (B, 1)
         force_eos = gen_pos >= T - 1
 
-        logits, cache = step_fn(tokens[:, :, step].reshape(B * K, 1), cache, step,
-                                pending_src)
-        lprobs = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
-        lprobs[:, :, opts.unk_idx] -= opts.unk_penalty
-        lprobs[:, :, opts.eos_idx] = torch.where(
-            eos_banned, NEG_INF, lprobs[:, :, opts.eos_idx])
-        if gen_pos < max_prefix or force_eos:
-            if force_eos:
-                lprobs = torch.full_like(lprobs, NEG_INF)
-                lprobs[:, :, opts.eos_idx] = 0.0
-            nxt = prefix[:, min(gen_pos, P - 1)][:, None]               # (B, 1)
-            forced = torch.where(torch.arange(V, device=dev)[None, None, :]
-                                 == nxt[:, :, None], 0.0, NEG_INF)
-            lprobs = torch.where(in_prefix[:, :, None], forced, lprobs)
+        tok_t = tokens[:, :, step].reshape(B * K, 1)
+        if candidate_mode:
+            cand_lp, cand_ix, cache = step_fn(tok_t, cache, step, pending_src)
+            C = cand_lp.shape[-1]
+            lp = cand_lp.float().reshape(B, K, C)
+            ix = cand_ix.long().reshape(B, K, C)
+            # min-length EOS suppression on the candidate ids
+            lp = torch.where((ix == opts.eos_idx) & eos_banned[:, :, None], NEG_INF, lp)
+            if gen_pos < max_prefix or force_eos:
+                # prefix and hard-max forcing replace the candidate set outright
+                ftok = (torch.full_like(prefix[:, :1], opts.eos_idx) if force_eos
+                        else prefix[:, min(gen_pos, P - 1)][:, None])      # (B, 1)
+                first = torch.arange(C, device=dev)[None, None, :] == 0
+                use = in_prefix[:, :, None] | force_eos
+                lp = torch.where(use, torch.where(first, 0.0, NEG_INF), lp)
+                ix = torch.where(use, ftok[:, :, None].expand(B, K, C), ix)
+            # dead beams must not spawn candidates
+            cand = (scores[:, :, None] + lp).reshape(B, K * C)
+            top_scores, sel = top_k(cand, 2 * K)                           # (B, 2K)
+            src_beam = torch.div(sel, C, rounding_mode="floor")
+            tok = torch.gather(ix.reshape(B, K * C), 1, sel)
+        else:
+            logits, cache = step_fn(tok_t, cache, step, pending_src)
+            lprobs = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+            lprobs[:, :, opts.unk_idx] -= opts.unk_penalty
+            lprobs[:, :, opts.eos_idx] = torch.where(
+                eos_banned, NEG_INF, lprobs[:, :, opts.eos_idx])
+            if gen_pos < max_prefix or force_eos:
+                if force_eos:
+                    lprobs = torch.full_like(lprobs, NEG_INF)
+                    lprobs[:, :, opts.eos_idx] = 0.0
+                nxt = prefix[:, min(gen_pos, P - 1)][:, None]           # (B, 1)
+                forced = torch.where(torch.arange(V, device=dev)[None, None, :]
+                                     == nxt[:, :, None], 0.0, NEG_INF)
+                lprobs = torch.where(in_prefix[:, :, None], forced, lprobs)
 
-        # dead beams must not spawn candidates
-        cand = (scores[:, :, None] + lprobs).reshape(B, K * V)
-        top_scores, top_idx = _top_k(cand, 2 * K)                      # (B, 2K)
-        src_beam = torch.div(top_idx, V, rounding_mode="floor")
-        tok = top_idx % V
+            # dead beams must not spawn candidates
+            cand = (scores[:, :, None] + lprobs).reshape(B, K * V)
+            top_scores, top_idx = top_k(cand, 2 * K)                   # (B, 2K)
+            src_beam = torch.div(top_idx, V, rounding_mode="floor")
+            tok = top_idx % V
         is_eos = ((tok == opts.eos_idx) & ~in_prefix
                   & (top_scores > NEG_INF / 2))
         # only EOS candidates ranked within the top K finalize
@@ -130,12 +159,12 @@ def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
             all_tokens = torch.cat([fin_tokens, eos_tokens], dim=1)
             all_lengths = torch.cat(
                 [fin_lengths, torch.full((B, 2 * K), hyp_len, device=dev)], dim=1)
-            fin_scores, f_sel = _top_k(all_scores, K)
+            fin_scores, f_sel = top_k(all_scores, K)
             fin_tokens = torch.gather(all_tokens, 1, f_sel[:, :, None].expand(B, K, T))
             fin_lengths = torch.gather(all_lengths, 1, f_sel)
 
         # pick K continuing (non-EOS) beams
-        scores, cont_sel = _top_k(torch.where(is_eos, NEG_INF, top_scores), K)
+        scores, cont_sel = top_k(torch.where(is_eos, NEG_INF, top_scores), K)
         new_src = torch.gather(src_beam, 1, cont_sel)
         new_tok = torch.gather(tok, 1, cont_sel)
         tokens = torch.gather(tokens, 1, new_src[:, :, None].expand(B, K, T))

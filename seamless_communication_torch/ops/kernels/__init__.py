@@ -8,7 +8,9 @@ run can show that a path went through the kernel.
 from typing import Dict
 
 launch_counts: Dict[str, int] = {"decode_attention_int8": 0,
-                                 "decode_attention_int4": 0}
+                                 "decode_attention_int4": 0,
+                                 "vocab_topk": 0,
+                                 "vocab_topk_v2": 0}
 
 
 def reset_launch_counts() -> None:

@@ -1,7 +1,10 @@
 """The port's modules against the JAX package on the same weights, carried
 across by ``checkpoint/from_jax.py``, in fp32 on the CPU: the Shaw conformer
-speech encoder of ``tiny_v2``, int8 weight-only quantization, and the
-KV-cached decoder step with a beam reorder, int8 and fp KV."""
+speech encoder of ``tiny_v2``, the NLLB text encoder, int8 weight-only
+quantization, and the KV-cached decoder step with a beam reorder, int8 and fp
+KV."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -10,6 +13,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from seamless_communication_tpu.models.nllb.model import (
+    text_encoder_forward as j_text_encoder_forward,
+)
 from seamless_communication_tpu.models.unity import model as junity
 from seamless_communication_tpu.models.unity.builder import get_arch as jget_arch
 from seamless_communication_tpu.models.wav2vec2.encoder import (
@@ -26,6 +32,8 @@ from seamless_communication_tpu.ops.transformer import (
 )
 
 from seamless_communication_torch.checkpoint.from_jax import unity_params_from_jax
+from seamless_communication_torch.models.nllb.model import text_encoder_forward
+from seamless_communication_torch.models.unity import model as tunity
 from seamless_communication_torch.models.unity.builder import get_arch
 from seamless_communication_torch.models.wav2vec2.encoder import speech_encoder_forward
 from seamless_communication_torch.ops import quantization as tq
@@ -99,6 +107,60 @@ def test_speech_encoder(jparams, tparams):
                                         torch.from_numpy(lens), get_arch("tiny_v2").speech)
     np.testing.assert_array_equal(glens.numpy(), np.asarray(wlens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_text_encoder(jparams, quantized):
+    """NLLB text encoder of tiny_v2 (the tied embedding, fp or int8) within
+    1e-4, with a padded row; ``encode_text`` returns the same output and
+    keeps the lengths."""
+    if quantized:
+        jparams = jq.quantize_params(jparams, min_size=1)
+    tparams = unity_params_from_jax(_np_tree(jparams))
+    assert ("embedding_i8" in tparams["text_encoder"]["embed"]) == quantized
+    rng = np.random.default_rng(7)
+    ids = rng.integers(4, 256, (2, 16)).astype(np.int32)
+    lens = np.array([16, 9], np.int32)
+    ids[1, 9:] = 0
+    want, wmask = j_text_encoder_forward(jparams["text_encoder"], jnp.asarray(ids),
+                                         jnp.asarray(lens), jget_arch("tiny_v2").nllb)
+    got, gmask = text_encoder_forward(tparams["text_encoder"], torch.from_numpy(ids),
+                                      torch.from_numpy(lens), get_arch("tiny_v2").nllb)
+    np.testing.assert_array_equal(gmask.numpy(), np.asarray(wmask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    jenc = junity.encode_text(jparams, jget_arch("tiny_v2"), jnp.asarray(ids),
+                              jnp.asarray(lens))
+    tenc = tunity.encode_text(tparams, get_arch("tiny_v2"), torch.from_numpy(ids),
+                              torch.from_numpy(lens))
+    np.testing.assert_allclose(tenc.seqs.numpy(), np.asarray(jenc.seqs), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(tenc.lengths.numpy(), lens)
+
+
+def test_text_encoder_is_drawn_last():
+    """The text encoder shares the decoder's table and is drawn after every
+    other part, so the other parts are the same draws without it."""
+    cfg = get_arch("tiny_v2")
+    with_enc = tunity.unity_init(torch.Generator().manual_seed(0), cfg)
+    without = tunity.unity_init(torch.Generator().manual_seed(0),
+                                dataclasses.replace(cfg, use_text_encoder=False))
+    assert set(with_enc) == set(without) | {"text_encoder"}
+    assert with_enc["text_encoder"]["embed"] is with_enc["text_decoder"]["embed"]
+    assert len(with_enc["text_encoder"]["stack"]["layers"]) == cfg.nllb.num_encoder_layers
+
+    def walk(a, b):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                walk(a[k], b[k])
+        elif isinstance(a, list):
+            for x, y in zip(a, b):
+                walk(x, y)
+        else:
+            assert torch.equal(a, b)
+
+    for part in without:
+        walk(with_enc[part], without[part])
 
 
 def test_quantize_params_and_linear_quantized(jparams):

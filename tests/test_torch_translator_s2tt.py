@@ -95,10 +95,13 @@ def test_translator_matches_jax(models, wav, kv_int8, task):
 
 
 def test_other_tasks_name_their_slice(models, wav):
+    """The text-input tasks are ported (tests/test_torch_translator_t2t.py)
+    and, as in the JAX package, need the source language; an unknown task
+    raises."""
     _, _, tparams, ttok = models
     tt = Translator(tparams, get_arch("tiny_v2"), ttok, device="cpu")
     for task in ("t2st", "t2tt"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            tt.predict(wav, task, "fra")
+        with pytest.raises(ValueError, match="src_lang required"):
+            tt.predict("the cat sat", task, "fra")
     with pytest.raises(ValueError, match="unknown task"):
         tt.predict(wav, "s2xx", "fra")

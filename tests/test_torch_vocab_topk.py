@@ -1,0 +1,144 @@
+"""The port's fused int8 vocabulary projection + top-k + logsumexp against the
+JAX package, on the shapes of tests/unit/test_vocab_topk.py (N=5, D=32,
+V=1000 so the last 128-row tile is padded, k=11): the port's ``_reference``
+and its two wrappers on CPU tensors against JAX ``_reference`` and against
+the Pallas kernels run in interpret mode (tiles of 128 and 256), with the
+tiled-table tie case and N=1. The wrappers' combine steps, which run after the
+kernels on the card, are held to the same results here on the plain version
+of what the kernels write. Ids exactly equal; values within rtol = atol =
+1e-5 and logz within rtol 1e-5 (fp32 sums in another order)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from seamless_communication_tpu.ops.kernels import vocab_topk as jvt
+from seamless_communication_torch.ops.kernels import launch_counts
+from seamless_communication_torch.ops.kernels import vocab_topk as tvt
+
+N, D, V, K = 5, 32, 1000, 11
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(0)
+    table = rng.integers(-127, 128, (V, D)).astype(np.int8)
+    scale = (rng.random(V) * 0.01 + 0.001).astype(np.float32)
+    return dict(x=rng.standard_normal((N, D)).astype(np.float32), table=table,
+                scale=scale,
+                # repeated rows: equal logits that must go to the lowest id
+                tie_table=np.tile(table[:100], (10, 1)), tie_scale=np.tile(scale[:100], 10))
+
+
+def _inputs(d, case, lib):
+    x = d["x"][:1] if case == "n1" else d["x"]
+    t, s = ((d["tie_table"], d["tie_scale"]) if case == "ties"
+            else (d["table"], d["scale"]))
+    conv = jnp.asarray if lib == "jax" else torch.from_numpy
+    return conv(np.ascontiguousarray(x)), conv(t), conv(s)
+
+
+def _assert_same(got, want):
+    gv, gi, gz = (np.asarray(a) for a in got)
+    wv, wi, wz = (np.asarray(a) for a in want)
+    np.testing.assert_array_equal(gi, wi)
+    assert gi.dtype == np.int32
+    np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gz, wz, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "n1"])
+def test_reference_matches_jax(data, case):
+    got = tvt._reference(*_inputs(data, case, "torch"), K)
+    _assert_same(got, jvt._reference(*_inputs(data, case, "jax"), K))
+
+
+def test_reference_bf16_matches_jax(data):
+    """bf16 x: the int8 table widens exactly, products accumulate in fp32."""
+    x, t, s = _inputs(data, "random", "torch")
+    got = tvt._reference(x.to(torch.bfloat16), t, s, K)
+    jx, jt, js = _inputs(data, "random", "jax")
+    _assert_same(got, jvt._reference(jx.astype(jnp.bfloat16), jt, js, K))
+
+
+@pytest.mark.parametrize("case,tile", [("random", 128), ("random", 256), ("ties", 128),
+                                       ("n1", 128)])
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_wrappers_match_pallas_interpret(data, version, case, tile):
+    jfn, tfn = ((jvt.int8_vocab_topk, tvt.int8_vocab_topk) if version == "v1"
+                else (jvt.int8_vocab_topk_v2, tvt.int8_vocab_topk_v2))
+    want = jfn(*_inputs(data, case, "jax"), K, use_pallas=True, tile=tile,
+               interpret=True)
+    _assert_same(tfn(*_inputs(data, case, "torch"), K), want)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "n1"])
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_combine_steps_match_jax(data, version, case):
+    """What the kernels write (logits with NEG past V, per-tile top-k, tile
+    max and Σexp), as the plain version computes it, through the wrapper's
+    combine step equals JAX ``_reference``: the tie-break across 128-column
+    blocks and tiles and the padded tail."""
+    args = _inputs(data, case, "torch")
+    logits, tv, ti, m, se = tvt._tiles_reference(*args, K)
+    assert logits.shape == (args[0].shape[0], 8 * tvt.TILE)
+    assert bool((logits[:, V:] == tvt.NEG).all())
+    got = (tvt._combine_v1(tv, ti, m, se, K) if version == "v1"
+           else tvt._combine_v2(logits, m, se, K))
+    _assert_same(got, jvt._reference(*_inputs(data, case, "jax"), K))
+
+
+def test_cpu_tensors_take_the_plain_version(data):
+    before = dict(launch_counts)
+    args = _inputs(data, "random", "torch")
+    want = tvt._reference(*args, K)
+    for fn in (tvt.int8_vocab_topk, tvt.int8_vocab_topk_v2):
+        for g, w in zip(fn(*args, K), want):
+            assert torch.equal(g, w)
+    assert launch_counts == before
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tvt.int8_vocab_topk_v2(*(a.to("meta") for a in args), K)
+
+
+def test_bound_bytes_counts_each_byte_once():
+    # the int8 table, row scales and x read once; top-k values, ids and logz
+    # written once; nothing a kernel writes between its launch and the
+    # selection
+    for elem in (4, 2):
+        assert tvt.bound_bytes(N=5, D=1024, V=256102, k=11, elem=elem) == (
+            256102 * 1024 + 4 * 256102 + elem * 5 * 1024 + 5 * 11 * 8 + 4 * 5)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "n1"])
+def test_float_vocab_topk_matches_jax(data, case):
+    """The candidate step over an unquantized table: JAX ``_reference`` with
+    unit row scales, as its ``text_decoder_step_topk`` calls it."""
+    x, t, _ = _inputs(data, case, "torch")
+    w = t.float() * 0.01
+    got = tvt.float_vocab_topk(x, w, K)
+    jx, jt, _ = _inputs(data, case, "jax")
+    jw = jt.astype(jnp.float32) * 0.01
+    _assert_same(got, jvt._reference(jx, jw, jnp.ones((jw.shape[0],), jnp.float32), K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v1", "v2"])
+@pytest.mark.parametrize("n", [5, 10])
+def test_kernel_matches_plain_version_on_card(version, n):
+    """Each CUDA kernel against its plain version at V=256102, D=1024, k=11."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from seamless_communication_torch.ops.quantization import quantize_embedding
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    table, scale = quantize_embedding(torch.randn((256102, 1024), generator=gen,
+                                                  device="cuda"))
+    x = torch.randn((n, 1024), generator=gen, device="cuda")
+    fn = tvt.int8_vocab_topk if version == "v1" else tvt.int8_vocab_topk_v2
+    gv, gi, gz = fn(x, table, scale, K)
+    wv, wi, wz = tvt._reference(x, table, scale, K)
+    torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gz, wz, rtol=1e-5, atol=0)
+    assert torch.equal(gi, wi)
