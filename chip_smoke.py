@@ -12,27 +12,39 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    of the main path, with the stated tolerance; device times by CUDA-graph
    replay beside the bound (the larger of bytes over 3.35 TB/s and
    operations over the fp32 rate): K1 int8-KV and K2 packed-int4-KV decode
-   attention; K3b ``int8_vocab_topk_v2`` and K3a ``int8_vocab_topk`` at the
-   base_v2 vocabulary (V=256102, D=1024, k=11, N=5 and 10), with the time of
-   the full-vocabulary step the candidate beam replaces.
+   attention; K5 row-indexed decode attention (the lazy reorder) on a
+   uniform and a beam-history row-origin table; K4 fbank of a 4 s and a
+   10 s waveform; K3b ``int8_vocab_topk_v2`` and K3a ``int8_vocab_topk`` at
+   the base_v2 vocabulary (V=256102, D=1024, k=11, N=5 and 10), with the
+   time of the full-vocabulary step the candidate beam replaces.
+   ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
    ``torch.Generator``, the UnitY tree int8 weight-only, beam 5.
    a. ``Translator.predict(wav, "s2tt", "eng")`` with an int8 KV cache, two
-      requests: K1 launched 24 times per decode step.
+      requests cut to 127 decode steps: K1 launched 24 times per decode step.
    b. ``Translator.predict(wav, "s2st", "eng")`` with ``kv_cache_bits=4``, a
-      4 s and a 10 s request: K2 launched 24 times per decode step, K1
-      never; the waveforms finite, within [-1, 1] and whole unit frames.
+      4 s and a 10 s request cut to 127 decode steps: K2 launched 24 times
+      per decode step, K1 never; the waveforms finite, within [-1, 1] and
+      whole unit frames.
    c. ``Translator.predict(text, "t2tt" | "t2st", "fra", src_lang="eng")``
       with ``SEAMLESS_CANDIDATE_BEAM=1`` and int8 KV, three requests: K3b
       launched once and K1 24 times per decode step, K3a and K2 never; then
       a cut T2TT request with and without the candidate beam gives identical
       tokens.
+   d. The lazy beam reorder and the generation options, int8 KV, the
+      decodes cut to 127 steps: a T2TT request with SEAMLESS_LAZY_REORDER=1
+      and without (identical tokens; K5 24 times a step and K1 never, and
+      the other way round), the same with no_repeat_ngram_size=2 (no bigram
+      twice), and an S2ST request through a MinTox Translator (the ASR of
+      the input as source, a word of the first pass banned, the re-run free
+      of it).
    Each path's launches are counted from 0 just before it.
 4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
    tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
    the tree int8 and the candidate beam (K3b, K1), must give the same tokens
-   and units, and waveforms within 1e-4.
+   and units, and waveforms within 1e-4; so must the lazy reorder (K5), the
+   n-gram block, banned sequences, MinTox and FbankInput.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error, times and bound; the last line is
@@ -383,6 +395,141 @@ def phase_vocab_topk(smi: str) -> list:
     return entries
 
 
+def beam_history_table(B: int, T: int, seed: int):
+    """A (B, T) row-origin table as a beam search leaves it: at each step
+    every beam continues a random earlier beam (``row_src[src]``) and owns
+    its new row."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rs = np.tile(np.arange(B, dtype=np.int32)[:, None], (1, T))
+    for t in range(1, T):
+        rs = rs[rng.integers(0, B, B)]
+        rs[:, t] = np.arange(B)
+    return rs
+
+
+def phase_indexed(smi: str) -> dict:
+    """K5 against its plain version ``_indexed_reference`` at B=5, H=16,
+    T=320, Dh=64, fp32 and bf16, steps 0, 200 and 319, with a row_src table
+    drawn uniformly from [0, B) and one made by a beam history: ``out``
+    within rtol = atol = 2e-5 in fp32 and 1.6e-2 in bf16. Device times at
+    step 200 on the beam-history table, beside the bound of the rows that
+    table makes the function read."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    B, H, T, Dh = B_MAIN, H_MAIN, T_MAIN, DH_MAIN
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda")
+
+    def t(a, dtype):
+        return torch.as_tensor(a).to(device=dev, dtype=dtype)
+
+    kq, ks = da.quantize_kv_rows(t(rng.standard_normal((B, H, T, Dh)), torch.float32))
+    vq, vs = da.quantize_kv_rows(t(rng.standard_normal((B, H, T, Dh)), torch.float32))
+    tables = {"uniform": t(rng.integers(0, B, (B, T)), torch.int32),
+              "beam history": t(beam_history_table(B, T, 5), torch.int32)}
+    tol = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
+    max_err, times = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vecs = [t(rng.standard_normal((B, H, Dh)), dtype) for _ in range(3)]
+        for tname, rs in tables.items():
+            for step in (0, STEP_TIMED, T - 1):
+                args = (*vecs, kq, vq, ks, vs, rs, step)
+                got = da.indexed_decode_self_attention_int8(*args)
+                ref = da._indexed_reference(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs()
+                if not bool((err <= tol[dtype] * (1 + ref.float().abs())).all()):
+                    raise AssertionError(f"K5 {dtype} {tname} step {step}: out max err "
+                                         f"{float(err.max()):.3g} over tolerance")
+                if dtype is torch.float32:
+                    max_err = max(max_err, float(err.max()))
+                log(f"K5 {str(dtype):15s} {tname:12s} step {step:3d}: out max abs err "
+                    f"{float(err.max()):.3g} (rtol=atol={tol[dtype]})")
+        args = (*vecs, kq, vq, ks, vs, tables["beam history"], STEP_TIMED)
+        times[dtype] = (cuda_time_ms(lambda: da.indexed_decode_self_attention_int8(*args)),
+                        cuda_time_ms(lambda: da._indexed_reference(*args)))
+    bounds = {}
+    for dtype in times:
+        elem = torch.finfo(dtype).bits // 8
+        bytes_s = da.indexed_bound_bytes(tables["beam history"], STEP_TIMED, H, Dh,
+                                         elem=elem) / HBM_BYTES_PER_S
+        flops_s = 4 * B * H * STEP_TIMED * Dh / PEAK_FP32_FLOPS
+        bounds[dtype] = (max(bytes_s, flops_s) * 1e3,
+                         "bytes" if bytes_s >= flops_s else "operations")
+    for dtype, (k_ms, p_ms) in times.items():
+        log(f"K5 time {str(dtype):15s} at step {STEP_TIMED} (beam-history table): device "
+            f"kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
+            f"{bounds[dtype][0] * 1e3:.2f} us ({bounds[dtype][1]}); library: none (no "
+            f"single PyTorch call computes this function) [{smi}]")
+    k_ms, p_ms = times[torch.float32]
+    return {"name": "decode_attention_indexed", "route": "cuda",
+            "source": "seamless_communication_torch/csrc/decode_attention_indexed.cu",
+            "replaces": "seamless_communication_tpu/ops/kernels/decode_attention.py:534",
+            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bounds[torch.float32][0], "bound_by": bounds[torch.float32][1],
+            "library_ms": None}
+
+
+def phase_fbank(smi: str) -> dict:
+    """K4 against its plain version at 16 kHz: a 4 s waveform with
+    max_frames 512 and a 10 s one with max_frames 1024, each seeded
+    speech-like noise (noise shaped by a slow envelope) plus a tone. On the
+    energetic bins (plain log-mel > 0, as tests/unit/test_pallas_kernels.py
+    holds the JAX kernel) within atol 2e-2, rtol 1e-3 and a mean error below
+    2e-3; frames past the end within 1e-6. The bound is the larger of the bytes
+    (the samples read, the output written) over the memory rate and the fp32
+    operations of the frames that read a sample (an FFT's and the mel
+    filters' nonzero weights', ``fbank.bound``) over the fp32 rate."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.ops.kernels import fbank as fb
+
+    rng = np.random.default_rng(6)
+    max_err, results = 0.0, {}
+    for seconds, max_frames in ((4.0, 512), (10.0, 1024)):
+        n = int(16000 * seconds)
+        tt = np.arange(n) / 16000.0
+        envelope = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * tt) ** 2
+        wav = (0.1 * envelope * rng.standard_normal(n)
+               + 0.2 * np.sin(2 * np.pi * 220.0 * tt)).astype(np.float32)
+        x = torch.as_tensor(wav, device="cuda")
+        got = fb.fbank(x, max_frames=max_frames)
+        ref = fb._reference(x, max_frames)
+        torch.cuda.synchronize()
+        m = ref > 0
+        err = (got - ref).abs()
+        lim = 2e-2 + 1e-3 * ref.abs()
+        past = fb.needed_frames(n, max_frames)
+        if not (bool((err[m] <= lim[m]).all()) and float(err[m].mean()) < 2e-3
+                and bool(((got[past:] - ref[past:]).abs() <= 1e-6).all())):
+            raise AssertionError(f"K4 {seconds} s: max err {float(err[m].max()):.3g}, "
+                                 f"mean {float(err[m].mean()):.3g} on energetic bins")
+        max_err = max(max_err, float(err[m].max()))
+        k_ms = cuda_time_ms(lambda: fb.fbank(x, max_frames=max_frames))
+        p_ms = cuda_time_ms(lambda: fb._reference(x, max_frames))
+        nbytes, flops = fb.bound(n, max_frames)
+        bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+        bound = (max(bytes_s, flops_s) * 1e3, "bytes" if bytes_s >= flops_s else "operations")
+        results[seconds] = (k_ms, p_ms, bound)
+        log(f"K4 {seconds:.0f} s, max_frames {max_frames}: {int(m.sum())} energetic bins, "
+            f"max abs err {float(err[m].max()):.3g}, mean {float(err[m].mean()):.3g} "
+            f"(atol 2e-2 + rtol 1e-3, mean < 2e-3); device kernel {k_ms * 1e3:.2f} us, "
+            f"plain {p_ms * 1e3:.2f} us, bound {bound[0] * 1e3:.2f} us ({bound[1]}: "
+            f"{flops / 1e9:.3f} Gflop, {nbytes / 1e6:.3f} MB); library: none [{smi}]")
+    k_ms, p_ms, bound = results[10.0]
+    return {"name": "fbank", "route": "cuda",
+            "source": "seamless_communication_torch/csrc/fbank.cu",
+            "replaces": "seamless_communication_tpu/ops/kernels/fbank_pallas.py:74",
+            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
@@ -524,16 +671,22 @@ def build_base_v2():
 
 def phase_s2tt(translator, tok, cfg, noise, smi: str) -> dict:
     """base_v2 (v2-large) S2TT through Translator.predict, a 4 s request and
-    a batch of 10 s + 7 s: K1 launched 24 times per decode step, K2 never."""
+    a batch of 10 s + 7 s, the decodes cut to hard_max_seq_len 128: K1
+    launched 24 times per decode step, K2 never."""
     import torch
 
+    from seamless_communication_torch.inference.generator import (
+        SequenceGeneratorOptions,
+    )
     from seamless_communication_torch.ops.kernels import (
         launch_counts, reset_launch_counts,
     )
 
-    # two requests keep the whole script near 150 s of command time; the
-    # audio of a dropped 10 s request is still drawn, so that every later
-    # request gets the audio it got when this phase served three
+    # two requests of at most 127 decode steps keep the whole script near
+    # 200 s of command time; the audio of a dropped 10 s request is still
+    # drawn, so that every later request gets the audio it got when this
+    # phase served three
+    opts = SequenceGeneratorOptions(hard_max_seq_len=128)
     four, _ = noise(4.0), noise(10.0)
     requests = [("4 s", four), ("batch of 2: 10 s + 7 s", [noise(10.0), noise(7.0)])]
     prefix = tok.target_prefix("eng").tolist()
@@ -544,7 +697,7 @@ def phase_s2tt(translator, tok, cfg, noise, smi: str) -> dict:
         before = launch_counts["decode_attention_int8"]
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        texts, _ = translator.predict(wav, "s2tt", "eng")
+        texts, _ = translator.predict(wav, "s2tt", "eng", text_generation_opts=opts)
         torch.cuda.synchronize()
         wall = time.time() - t0
         res = translator.generator.last_result
@@ -589,8 +742,9 @@ def check_waveforms(label: str, speech, hop: int) -> None:
 
 def phase_s2st(translator, tok, cfg, noise, smi: str) -> dict:
     """base_v2 (v2-large) S2ST through Translator.predict with
-    ``kv_cache_bits=4``, a 4 s and a 10 s request: K2 launched 24 times per
-    decode step and K1 never; the waveforms pass ``check_waveforms``."""
+    ``kv_cache_bits=4``, a 4 s and a 10 s request, the decodes cut to
+    hard_max_seq_len 128: K2 launched 24 times per decode step and K1 never;
+    the waveforms pass ``check_waveforms``."""
     import torch
 
     from seamless_communication_torch.inference.generator import (
@@ -600,7 +754,7 @@ def phase_s2st(translator, tok, cfg, noise, smi: str) -> dict:
         launch_counts, reset_launch_counts,
     )
 
-    opts = SequenceGeneratorOptions(kv_cache_bits=4)
+    opts = SequenceGeneratorOptions(kv_cache_bits=4, hard_max_seq_len=128)
     hop = translator.vocoder_cfg.hifigan.total_upsample
     prefix = tok.target_prefix("eng").tolist()
     layers = cfg.nllb.num_decoder_layers
@@ -700,8 +854,8 @@ def phase_t2t(translator, tok, cfg, smi: str) -> dict:
             steps, max_len = res.steps, res.tokens.shape[-1]
             got = {k: launch_counts[k] - before[k] for k in launch_counts}
             check_hypotheses(res, prefix, max_len, cfg.nllb.eos_idx)
-            want = {"vocab_topk_v2": steps, "decode_attention_int8": layers * steps,
-                    "vocab_topk": 0, "decode_attention_int4": 0}
+            want = {**{k: 0 for k in launch_counts}, "vocab_topk_v2": steps,
+                    "decode_attention_int8": layers * steps}
             if got != want:
                 raise AssertionError(f"{name}: launches {got} in {steps} decode steps, "
                                      f"expected {want}")
@@ -740,6 +894,229 @@ def phase_t2t(translator, tok, cfg, smi: str) -> dict:
         f"beam (K3b) and the full-vocabulary beam; best scores "
         f"{with_cand.scores[:, 0].tolist()} and {full.scores[:, 0].tolist()}")
     return {"launches": counts, "requests": stats}
+
+
+def lazy_reorder(on: bool = True):
+    """``SEAMLESS_LAZY_REORDER=1`` within the block (or unset), as it was
+    after."""
+    import os
+    from unittest import mock
+
+    env = dict(os.environ)
+    env.pop("SEAMLESS_LAZY_REORDER", None)
+    if on:
+        env["SEAMLESS_LAZY_REORDER"] = "1"
+    return mock.patch.dict(os.environ, env, clear=True)
+
+
+def mintox_tokenizer(num_words: int, seed: int = 7):
+    """An NLLB tokenizer (eng, fra, deu) over ``num_words`` seeded lowercase
+    words, each as six pieces: the word, its upper-case and its capitalized
+    form (the variants of an ETOX word list) after a word boundary, and the
+    same three after a "★" (MinTox's mid-word form: "★word" encodes to the
+    boundary and that piece, and MinTox drops the first). So every piece
+    decodes to a word ETOX can see, and every banned row MinTox builds from
+    a word is one token long: the JAX package's banned-sequence processor,
+    which the port copies, enforces only the rows of the longest length.
+    Returns (tokenizer, words)."""
+    import numpy as np
+
+    from seamless_communication_torch.text.nllb import NllbTokenizer
+    from seamless_communication_torch.text.spm import (
+        TYPE_CONTROL, TYPE_NORMAL, TYPE_UNKNOWN, SentencePieceModel, build_spm_model,
+    )
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = set()
+    while len(words) < num_words:
+        for k, row in zip(rng.integers(3, 9, num_words), rng.integers(0, 26, (num_words, 8))):
+            words.add("".join(letters[row[:k]]))
+    words = sorted(words)[:num_words]
+    base = [("<unk>", 0.0, TYPE_UNKNOWN), ("<s>", 0.0, TYPE_CONTROL),
+            ("</s>", 0.0, TYPE_CONTROL), ("\u2581", -2.0, TYPE_NORMAL)]
+    pieces = base + [(b + c, -2.0, TYPE_NORMAL) for w in words
+                     for c in (w, w.upper(), w.capitalize()) for b in ("\u2581", "\u2605")]
+    return NllbTokenizer(SentencePieceModel.from_bytes(build_spm_model(pieces)),
+                         langs=["__eng__", "__fra__", "__deu__"]), words
+
+
+def text_words(text: str) -> list:
+    """The words ETOX matches on: lower case, non-word characters as spaces."""
+    import re
+
+    return re.sub(r"[\W+]", " ", text.lower()).split()
+
+
+def holds_sequence(tokens: list, row: list) -> bool:
+    n = len(row)
+    return any(tokens[i:i + n] == row for i in range(len(tokens) - n + 1))
+
+
+def phase_lazy(translator, tok, cfg, noise, smi: str) -> dict:
+    """base_v2 (v2-large), int8 KV, beam 5, the candidate beam off, the
+    decodes cut to hard_max_seq_len 128 (127 steps):
+      a. a T2TT request of 20 source tokens with SEAMLESS_LAZY_REORDER=1 and
+         without it: identical tokens, scores within 1e-5; K5 launched 24
+         times a decode step and K1 never in the lazy run, the other way
+         round in the classic one;
+      b. the same request with no_repeat_ngram_size=2, the lazy reorder and
+         SEAMLESS_CANDIDATE_BEAM=1: no bigram twice in the best hypothesis,
+         K3b never launched (the processor keeps the candidate beam off);
+      c. an S2ST request of 4 s noise through a Translator with
+         apply_mintox=True and src_lang "eng", the lazy reorder on: the ETOX
+         word list names a word that the first pass emits and the ASR of the
+         input lacks, so MinTox runs the ASR and re-runs with the word's
+         rows banned; the re-run's best hypothesis holds none of them; units
+         and audio are produced.
+    Launches are counted from 0 at the start; K5's total is its count."""
+    import torch
+
+    from seamless_communication_torch.inference.generator import (
+        SequenceGeneratorOptions,
+    )
+    from seamless_communication_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+    from seamless_communication_torch.toxicity.etox import ETOXBadWordChecker
+    from seamless_communication_torch.toxicity.mintox import banned_sequences_from_words
+
+    layers = cfg.nllb.num_decoder_layers
+    opts = SequenceGeneratorOptions(hard_max_seq_len=128)
+    text = synthetic_text(tok, 20, 10)
+    prefix = tok.target_prefix("fra").tolist()
+    stats = {}
+
+    def run(label, lazy, **kw):
+        before = dict(launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with lazy_reorder(lazy):
+            texts, _ = translator.predict(text, "t2tt", "fra", src_lang="eng",
+                                          text_generation_opts=kw.pop("opts", opts), **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        res = translator.generator.last_result
+        got = {k: launch_counts[k] - before[k] for k in launch_counts}
+        check_hypotheses(res, prefix, res.tokens.shape[-1], cfg.nllb.eos_idx)
+        want_k5, want_k1 = (layers * res.steps, 0) if lazy else (0, layers * res.steps)
+        if (got["decode_attention_indexed"], got["decode_attention_int8"]) != (want_k5,
+                                                                              want_k1):
+            raise AssertionError(f"{label}: K5 {got['decode_attention_indexed']} and K1 "
+                                 f"{got['decode_attention_int8']} launches in {res.steps} "
+                                 f"steps, expected {want_k5} and {want_k1}")
+        td = translator.last_timings["text_decode"] * 1e3
+        log(f"3d {label}: wall {wall * 1e3:.1f} ms, text decode {td:.1f} ms, {res.steps} "
+            f"steps, {td / res.steps:.2f} ms per step, K5 launches "
+            f"{got['decode_attention_indexed']}, K1 launches {got['decode_attention_int8']}, "
+            f"texts {[t[:40] for t in texts]} [{smi}]")
+        stats[label] = {"wall_ms": wall * 1e3, "text_decode_ms": td, "steps": res.steps,
+                        "launches": got}
+        return res, got
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    lazy, _ = run("a lazy", True)
+    classic, _ = run("a classic", False)
+    ds = (lazy.scores - classic.scores).abs()
+    if not (torch.equal(lazy.tokens, classic.tokens) and torch.equal(lazy.lengths, classic.lengths)
+            and bool((ds <= 1e-5 * (1 + classic.scores.abs())).all())):
+        raise AssertionError("3d a: the lazy and the classic reorder gave different "
+                             f"tokens or scores (max score difference {float(ds.max()):.3g})")
+    log(f"3d a: tokens identical with the lazy and the classic reorder, scores within "
+        f"{float(ds.max()):.3g}")
+
+    with candidate_beam():
+        res, got = run("b ngram 2", True, opts=SequenceGeneratorOptions(
+            hard_max_seq_len=128, no_repeat_ngram_size=2))
+    gen = res.tokens[0, 0, 2:int(res.lengths[0, 0]) - 1].tolist()
+    bigrams = list(zip(gen, gen[1:]))
+    if len(set(bigrams)) != len(bigrams) or got["vocab_topk_v2"]:
+        raise AssertionError(f"3d b: a bigram repeats or K3b ran ({got['vocab_topk_v2']})")
+    log(f"3d b: {len(bigrams)} bigrams in the best hypothesis, none twice; K3b launches 0")
+
+    # c. MinTox on an S2ST request
+    t0 = time.time()
+    mtok, words = mintox_tokenizer(42600)      # 255,600 pieces of the 256,102 ids
+    word_set = set(words)
+    log(f"3d c: MinTox tokenizer of {mtok.vocab_info.size} ids built in "
+        f"{time.time() - t0:.1f} s")
+
+    def mintox_translator(**kw):
+        return s2st_translator(translator.params, cfg, mtok, translator.vocoder_params,
+                               translator.vocoder_cfg, text_opts=opts,
+                               device=translator.device, **kw)
+
+    wav = noise(4.0)
+    plain = mintox_translator()
+    with lazy_reorder(True):
+        source = plain.predict(wav, "asr", "eng", src_lang="eng")[0][0]
+        for tgt in ("fra", "deu"):
+            first = plain.predict(wav, "s2st", tgt, src_lang="eng")[0][0]
+            added = [w for w in text_words(first)
+                     if w in word_set and w not in text_words(source)]
+            if added:
+                break
+    if not added:
+        raise AssertionError(f"3d c: no word of the first passes ({first[:60]!r}) is "
+                             f"missing from the ASR source ({source[:60]!r})")
+    checker = ETOXBadWordChecker.from_word_lists({"eng": [added[0]], tgt: [added[0]]})
+    bad = checker.extract_bad_words(source, first, "eng", tgt)
+    rows, lens = banned_sequences_from_words(mtok, sorted(set(bad)))
+    banned = [r[-n:].tolist() for r, n in zip(rows, lens)]
+    mt = mintox_translator(apply_mintox=True, etox_checker=checker)
+    steps = []
+    orig = mt.generator.generate_text
+
+    def counted(*a, **k):
+        out = orig(*a, **k)
+        steps.append(mt.generator.last_result.steps)
+        return out
+
+    mt.generator.generate_text = counted
+    hop = translator.vocoder_cfg.hifigan.total_upsample
+    before = dict(launch_counts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with lazy_reorder(True):
+        texts, speech = mt.predict(wav, "s2st", tgt, src_lang="eng")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = {k: launch_counts[k] - before[k] for k in launch_counts}
+    res = mt.generator.last_result                       # the re-run's search
+    best = res.tokens[0, 0, :int(res.lengths[0, 0])].tolist()
+    if "rerun" not in mt.last_mintox_timings or texts[0] == first:
+        raise AssertionError(f"3d c: MinTox did not re-run or its re-run gave the first "
+                             f"text again ({mt.last_mintox_timings}, {first[:60]!r}, "
+                             f"{texts[0][:60]!r}, banned {banned})")
+    if any(holds_sequence(best, row) for row in banned):
+        raise AssertionError(f"3d c: the re-run's best hypothesis holds a banned row of "
+                             f"{banned}")
+    if (got["decode_attention_indexed"], got["decode_attention_int8"]) != (
+            layers * sum(steps), 0):
+        raise AssertionError(f"3d c: K5 {got['decode_attention_indexed']} and K1 "
+                             f"{got['decode_attention_int8']} launches over decodes of "
+                             f"{steps} steps")
+    check_waveforms("3d c", speech, hop)
+    units = sum(len(u) for u in speech.units)
+    audio_s = sum(len(w) for w in speech.audio_wavs) / speech.sample_rate
+    if not units or not audio_s:
+        raise AssertionError("3d c: no units or no audio")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    passes = {**{f"first {k}": v * 1e3 for k, v in mt.last_timings.items()},
+              **{k: v * 1e3 for k, v in mt.last_mintox_timings.items()}}
+    log(f"3d c: S2ST 4 s -> {tgt} with MinTox: flagged {added[0]!r} (first pass "
+        f"{first[:40]!r}, ASR source {source[:40]!r}); banned rows {banned}; wall "
+        f"{wall * 1e3:.1f} ms = " + ", ".join(f"{k} {v:.1f}" for k, v in passes.items())
+        + f" ms; decodes of {steps} steps (first pass, ASR, re-run), K5 launches "
+        f"{got['decode_attention_indexed']}, K1 launches {got['decode_attention_int8']}; "
+        f"re-run text {texts[0][:40]!r}, none of the banned rows in its best hypothesis; "
+        f"{units} units, {audio_s:.2f} s of audio, peak {peak:.2f} GiB [{smi}]")
+    stats["c mintox"] = {"wall_ms": wall * 1e3, "passes_ms": passes, "steps": steps,
+                         "launches": got, "units": units, "audio_s": audio_s,
+                         "peak_gib": peak}
+    return {"launches": dict(launch_counts), "requests": stats}
 
 
 def phase_tiny_cuda_vs_cpu() -> None:
@@ -920,6 +1297,97 @@ def phase_tiny_t2t() -> None:
                 f"{err:.3g}")
 
 
+def phase_tiny_options() -> None:
+    """tiny_v2 in fp32 with int8 KV and the tiny vocoder, on the card and on
+    the CPU, over the six-form word vocabulary of ``mintox_tokenizer`` (40
+    words): S2TT with the lazy reorder (K5 on the card), T2TT with
+    no_repeat_ngram_size=2, T2TT with banned sequences, T2TT through a
+    MinTox Translator, and S2TT of FbankInput raw log-mels (a 0-length item
+    included) under both normalizations must give the same texts and tokens
+    on both."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.audio.fbank import fbank_numpy
+    from seamless_communication_torch.inference.generator import (
+        SequenceGeneratorOptions,
+    )
+    from seamless_communication_torch.inference.translator import FbankInput
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.vocoder.codehifigan import (
+        CodeHifiGanConfig, code_hifigan_init,
+    )
+    from seamless_communication_torch.models.vocoder.hifigan import HifiGanConfig
+    from seamless_communication_torch.ops.kernels import launch_counts
+    from seamless_communication_torch.toxicity.etox import ETOXBadWordChecker
+    from seamless_communication_torch.toxicity.mintox import banned_sequences_from_words
+
+    cfg = get_arch("tiny_v2")
+    gen = torch.Generator().manual_seed(0)
+    params = unity.unity_init(gen, cfg)
+    vocoder_cfg = CodeHifiGanConfig(**TINY_VOCODER, hifigan=HifiGanConfig(**TINY_HIFIGAN))
+    vocoder = code_hifigan_init(gen, vocoder_cfg)
+    tok, words = mintox_tokenizer(40)
+    assert tok.vocab_info.size <= cfg.nllb.vocab_size
+    opts = SequenceGeneratorOptions(soft_max_seq_len=(1, 40), kv_cache_int8=True)
+    rng = np.random.default_rng(8)
+    wav = (rng.standard_normal(3 * 16000) * 0.1).astype(np.float32)
+    text = " ".join(words[:8])
+    banned = banned_sequences_from_words(tok, words[10:14])
+    feats = [fbank_numpy(wav), fbank_numpy(wav[:20000])]
+    fb = np.zeros((3, feats[0].shape[0], 80), np.float32)
+    for i, f in enumerate(feats):
+        fb[i, :f.shape[0]] = f
+    lens = np.array([len(feats[0]), len(feats[1]), 0], np.int32)
+    checker = {"eng": words[20:], "fra": words[20:]}
+    out = {}
+    for device in ("cuda", "cpu"):
+        tr = s2st_translator(params, cfg, tok, vocoder, vocoder_cfg, text_opts=opts,
+                             device=device)
+        mt = s2st_translator(params, cfg, tok, vocoder, vocoder_cfg, text_opts=opts,
+                             device=device, apply_mintox=True,
+                             etox_checker=ETOXBadWordChecker.from_word_lists(checker))
+        got = {}
+
+        def best(t):
+            r = t.generator.last_result
+            return r.tokens[:, 0].cpu().tolist(), r.lengths[:, 0].cpu().tolist()
+
+        before = dict(launch_counts)
+        with lazy_reorder(True):
+            got["lazy s2tt"] = (tr.predict([wav, wav[:32000]], "s2tt", "eng")[0], best(tr))
+        steps = tr.generator.last_result.steps
+        k5 = launch_counts["decode_attention_indexed"] - before["decode_attention_indexed"]
+        k1 = launch_counts["decode_attention_int8"] - before["decode_attention_int8"]
+        expected = (cfg.nllb.num_decoder_layers * steps, 0) if device == "cuda" else (0, 0)
+        if (k5, k1) != expected:
+            raise AssertionError(f"tiny_v2 lazy S2TT on {device}: K5 {k5}, K1 {k1} "
+                                 f"launches in {steps} steps")
+        got["ngram t2tt"] = (tr.predict(text, "t2tt", "fra", src_lang="eng",
+                                        text_generation_opts=SequenceGeneratorOptions(
+                                            soft_max_seq_len=(1, 40), kv_cache_int8=True,
+                                            no_repeat_ngram_size=2))[0], best(tr))
+        got["banned t2tt"] = (tr.predict(text, "t2tt", "fra", src_lang="eng",
+                                         banned_sequences=banned)[0], best(tr))
+        got["mintox t2tt"] = (mt.predict(text, "t2tt", "fra", src_lang="eng")[0],
+                              sorted(mt.last_mintox_timings))
+        for mode in ("utterance", "per_mel_bin"):
+            tr.normalize_fbank = mode
+            got[f"fbank {mode}"] = (tr.predict(FbankInput(fb, lens), "s2tt", "eng")[0],
+                                    best(tr))
+        out[device] = got
+        log(f"tiny_v2 options on {device}: lazy S2TT {steps} steps (K5 {k5}, K1 {k1}); "
+            f"MinTox passes {got['mintox t2tt'][1]}; texts "
+            + "; ".join(f"{k} {[t[:24] for t in v[0]]}" for k, v in got.items()))
+    for name in out["cuda"]:
+        if out["cuda"][name] != out["cpu"][name]:
+            raise AssertionError(f"tiny_v2 {name}: the card and the CPU differ: "
+                                 f"{out['cuda'][name]} vs {out['cpu'][name]}")
+    log("tiny_v2 lazy reorder (K5), n-gram block, banned sequences, MinTox and "
+        "FbankInput: texts and tokens identical on the card and the CPU")
+
+
 def profile_main_path(smi: str, out_dir: str = "chiprun_out") -> None:
     """Where the main path's time goes, under ``torch.profiler``: one 10 s
     base_v2 S2TT request, then one T2TT request of 20 source tokens with the
@@ -1020,7 +1488,11 @@ def main() -> int:
         return 0
     k1 = phase_decode_attention("decode_attention_int8")
     k2 = phase_decode_attention("decode_attention_int4")
+    k5 = phase_indexed(dev["smi"])
+    k4 = phase_fbank(dev["smi"])
     k3b, k3a = phase_vocab_topk(dev["smi"])
+    if sys.argv[1:] == ["--kernels"]:
+        return 0
     base_v2 = build_base_v2()
     # each kernel's launches are counted over its own path, reset just before
     s2tt = phase_s2tt(*base_v2, dev["smi"])
@@ -1031,13 +1503,17 @@ def main() -> int:
     t2t = phase_t2t(translator, tok, cfg, dev["smi"])
     k3b["launches"] = t2t["launches"]["vocab_topk_v2"]
     k3a["launches"] = t2t["launches"]["vocab_topk"]     # not on any path: 0
+    lazy = phase_lazy(*base_v2, dev["smi"])
+    k5["launches"] = lazy["launches"]["decode_attention_indexed"]
+    k4["launches"] = lazy["launches"]["fbank"]          # not on any path: 0
     del base_v2, translator
     phase_tiny_cuda_vs_cpu()
     phase_tiny_s2st()
     phase_tiny_t2t()
+    phase_tiny_options()
     log(json.dumps({"main_path": s2tt["requests"] + s2st["requests"] + t2t["requests"],
-                    "card": dev["smi"]}))
-    log(json.dumps({"kernels": [k1, k2, k3a, k3b]}))
+                    "lazy": lazy["requests"], "card": dev["smi"]}))
+    log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

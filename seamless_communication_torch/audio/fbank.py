@@ -77,3 +77,11 @@ def fbank_numpy(waveform: np.ndarray, cfg: FbankConfig = FbankConfig()) -> np.nd
     mel = np.maximum(power @ mel_f, MEL_FLOOR)
     return np.log(mel).astype(np.float32)
 
+
+
+def normalize_per_mel_bin(feats: np.ndarray) -> np.ndarray:
+    """Per-mel-bin zero-mean, unit-variance normalization over the utterance
+    (the HF feature extractor's ``do_normalize_per_mel_bins``)."""
+    mean = feats.mean(axis=0, keepdims=True)
+    std = feats.std(axis=0, keepdims=True)
+    return ((feats - mean) / (std + 1e-7)).astype(np.float32)

@@ -2,9 +2,10 @@
 ``seamless_communication_tpu/inference/generator.py``).
 
 Pass 1: beam search of the text hypothesis from the speech or text encoder
-        output; with ``SEAMLESS_CANDIDATE_BEAM=1`` (and no unk penalty) in
-        candidate mode, over each beam's top 2K+1 tokens from the fused
-        vocabulary kernel.
+        output, with the optional step processors (banned sequences, n-gram
+        repeat block); with ``SEAMLESS_CANDIDATE_BEAM=1`` (and no unk
+        penalty or step processor) in candidate mode, over each beam's top
+        2K+1 tokens from the fused vocabulary kernel.
 Pass 2: re-decode the best hypothesis through the text decoder (full
         sequence) to get its features, run the NAR T2U (argmax) on them and
         detokenize the units.
@@ -25,7 +26,8 @@ from seamless_communication_torch.models.unity import model as unity
 from seamless_communication_torch.models.unity.builder import UnitYConfig
 from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
 from seamless_communication_torch.ops.beam_search import (
-    BeamSearchOptions, BeamSearchResult, beam_search,
+    BeamSearchOptions, BeamSearchResult, beam_search, make_banned_sequence_processor,
+    make_ngram_repeat_block,
 )
 from seamless_communication_torch.text.char_frontend import text_to_char_seqs
 from seamless_communication_torch.text.char_tokenizer import CharTokenizer
@@ -51,6 +53,7 @@ class SequenceGeneratorOptions:
     hard_max_seq_len: int = 1024
     len_penalty: float = 1.0
     unk_penalty: float = 0.0
+    no_repeat_ngram_size: Optional[int] = None  # n-gram repeat block
     kv_cache_int8: Optional[bool] = None  # None: int8 KV on the card, fp KV on the CPU
     kv_cache_bits: int = 8                # 4: packed-int4 self-attention KV
 
@@ -99,12 +102,20 @@ class UnitYGenerator:
         self.last_timings: dict = {}
 
     def generate_text(self, enc: unity.EncoderOutput, tgt_lang: str, *,
+                      src_len_hint: Optional[int] = None,
+                      banned: Optional[tuple] = None,
                       opts_override: Optional[SequenceGeneratorOptions] = None):
         """Beam-search text tokens. Returns (tokens (B, T), lengths (B,),
-        scores (B,)) of the best hypotheses, as numpy arrays."""
+        scores (B,)) of the best hypotheses, as numpy arrays.
+
+        ``src_len_hint``: the source length for the soft maximum length, in
+        place of the encoder output's. ``banned``: ((N, M) int array, (N,)
+        lengths) token sequences the beam must not complete
+        (``make_banned_sequence_processor``)."""
         topts = opts_override or self.text_opts
         a, b = topts.soft_max_seq_len
-        max_len = _bucket(min(topts.hard_max_seq_len, a * int(enc.seqs.shape[1]) + b))
+        src = src_len_hint or int(enc.seqs.shape[1])
+        max_len = _bucket(min(topts.hard_max_seq_len, a * src + b))
         nllb = self.cfg.nllb
         opts = BeamSearchOptions(beam_size=topts.beam_size, max_len=max_len,
                                  len_penalty=topts.len_penalty,
@@ -115,10 +126,19 @@ class UnitYGenerator:
         enc_bk = unity.EncoderOutput(torch.repeat_interleave(enc.seqs, K, dim=0),
                                      torch.repeat_interleave(enc.lengths, K, dim=0))
         # the JAX package's switch for candidate mode, read per call; exact
-        # only without an unk penalty (and without step processors, which the
-        # port does not have yet)
+        # only without an unk penalty and without step processors
         cand = (os.environ.get("SEAMLESS_CANDIDATE_BEAM") == "1"
+                and banned is None and not topts.no_repeat_ngram_size
                 and topts.unk_penalty == 0.0)
+        procs = []
+        if banned:
+            procs.append(make_banned_sequence_processor(
+                torch.as_tensor(np.asarray(banned[0]), device=self.device),
+                torch.as_tensor(np.asarray(banned[1]), device=self.device),
+                nllb.vocab_size))
+        if topts.no_repeat_ngram_size:
+            procs.append(make_ngram_repeat_block(topts.no_repeat_ngram_size,
+                                                 nllb.vocab_size))
         step_fn, cache_fn = unity.make_text_decode_step(
             self.params, self.cfg, enc_bk, candidates=(2 * K + 1) if cand else None)
         kv_int8, kv_bits = _resolve_kv(topts, self.device)
@@ -128,7 +148,7 @@ class UnitYGenerator:
         prefix_len = torch.full((B,), prefix.shape[1], dtype=torch.int32,
                                 device=self.device)
         res = beam_search(step_fn, cache, prefix, prefix_len, opts, nllb.vocab_size,
-                          candidate_mode=cand)
+                          processors=procs, candidate_mode=cand)
         self.last_result = res
         return (res.tokens[:, 0].cpu().numpy(), res.lengths[:, 0].cpu().numpy(),
                 res.scores[:, 0].cpu().numpy())

@@ -7,23 +7,27 @@ decode steps:
   - length penalty: a finalized score is sum_lprob / ((len + 1) ** len_penalty);
   - unk penalty, minimum generation length, EOS forced at the hard maximum;
   - only EOS candidates ranked within the top K finalize;
+  - step processors (n-gram repeat block, banned sequences):
+    ``(tokens, step, lprobs) -> lprobs`` functions, applied after the
+    log-softmax and before the unk and EOS edits;
   - early stop once no live beam can beat the worst finalized hypothesis.
 
-The decoder is ``step_fn(tok_t, cache, step, beam_src) -> (logits, cache)``
-over the flattened (B*K) batch. The beam reorder of the previous selection is
-not applied to the cache here: it is handed to the next ``step_fn`` call as
-``beam_src`` (B*K,), which reads the cache through it. Ties rank the lower
-index first, as ``jax.lax.top_k`` does.
+The decoder is ``step_fn(tok_t, cache, step) -> (logits, cache)`` over the
+flattened (B*K) batch. The beam reorder of each selection is handed to the
+next call as ``step_fn(tok_t, cache, step, beam_src)``, ``beam_src`` the
+(B*K,) beam origins, and the step reads the cache through it. With
+``cache_reorder`` the search applies ``cache_reorder(cache, flat_src)``
+after each selection instead and calls ``step_fn(tok_t, cache, step)``.
+Ties rank the lower index first, as ``jax.lax.top_k`` does.
 
 In candidate mode the step returns each beam's top-C candidates instead of
 the full-vocabulary logits (``models/nllb/model.py text_decoder_step_topk``,
-the fused vocabulary kernel on the card). Step processors (n-gram blocking,
-banned sequences) are not ported yet.
+the fused vocabulary kernel on the card).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -53,18 +57,28 @@ class BeamSearchResult(NamedTuple):
 
 def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
                 prefix_len: torch.Tensor, opts: BeamSearchOptions,
-                vocab_size: int, *, candidate_mode: bool = False) -> BeamSearchResult:
+                vocab_size: int, *, processors: Sequence[Callable] = (),
+                cache_reorder: Optional[Callable] = None,
+                candidate_mode: bool = False) -> BeamSearchResult:
     """``prefix``: (B, P) forced target prefix (e.g. [eos, lang]);
     ``prefix_len``: (B,) its lengths. ``cache``: the decoder cache for the
-    B*K beams, passed through ``step_fn`` untouched.
+    B*K beams.
+
+    ``processors``: step processors ``proc(tokens (B, K, T), step, lprobs
+    (B, K, V)) -> lprobs``. ``cache_reorder``: reorders the cache after
+    each selection, in place of handing ``beam_src`` to ``step_fn`` (see the
+    module).
 
     ``candidate_mode``: ``step_fn`` returns ``(cand_lprobs (B*K, C), cand_idx
     (B*K, C), cache)``, each beam's top-C log-probabilities and their ids.
-    Exact for C >= 2K+1 with ``unk_penalty == 0``: every global top-2K
-    continuation is within its beam's top 2K+1, even after min-length EOS
-    suppression removes one candidate."""
+    Exact for C >= 2K+1 with ``unk_penalty == 0`` and no step processors:
+    every global top-2K continuation is within its beam's top 2K+1, even
+    after min-length EOS suppression removes one candidate. Takes no
+    ``cache_reorder``."""
     if candidate_mode and opts.unk_penalty != 0.0:
         raise ValueError("candidate_mode is exact only with unk_penalty == 0")
+    if candidate_mode and (cache_reorder is not None or processors):
+        raise ValueError("candidate_mode takes no cache_reorder and no step processors")
     B, P = prefix.shape
     K, T, V = opts.beam_size, opts.max_len, vocab_size
     dev = prefix.device
@@ -123,8 +137,13 @@ def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
             src_beam = torch.div(sel, C, rounding_mode="floor")
             tok = torch.gather(ix.reshape(B, K * C), 1, sel)
         else:
-            logits, cache = step_fn(tok_t, cache, step, pending_src)
+            if cache_reorder is None:
+                logits, cache = step_fn(tok_t, cache, step, pending_src)
+            else:
+                logits, cache = step_fn(tok_t, cache, step)
             lprobs = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+            for proc in processors:
+                lprobs = proc(tokens, step, lprobs)
             lprobs[:, :, opts.unk_idx] -= opts.unk_penalty
             lprobs[:, :, opts.eos_idx] = torch.where(
                 eos_banned, NEG_INF, lprobs[:, :, opts.eos_idx])
@@ -171,6 +190,8 @@ def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
         tokens = torch.where(pos_is_gen, new_tok[:, :, None], tokens)
         pending_src = (torch.arange(B, device=dev)[:, None] * K + new_src
                        ).reshape(B * K).to(torch.int32)
+        if cache_reorder is not None:
+            cache = cache_reorder(cache, pending_src)
         step += 1
 
     # rows that never finalized K hypotheses fall back to live beams
@@ -186,3 +207,61 @@ def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
         scores=torch.gather(fin_scores, 1, order),
         lengths=torch.gather(fin_lengths, 1, order),
         steps=step)
+
+
+# ---------------------------------------------------------------------------
+# Step processors
+# ---------------------------------------------------------------------------
+
+def make_ngram_repeat_block(ngram_size: int, vocab_size: int) -> Callable:
+    """Ban each token that would complete an n-gram already in the beam's
+    tokens (positions 0..step, the prefix included)."""
+    n = ngram_size
+
+    def proc(tokens: torch.Tensor, step: int, lprobs: torch.Tensor) -> torch.Tensor:
+        if n <= 1 or step < n - 1:
+            return lprobs
+        # every n-gram starting at p <= step - n + 1: (B, K, P, n)
+        grams = tokens[:, :, :step + 1].unfold(2, n, 1)
+        ctx = tokens[:, :, step - n + 2:step + 1]                     # (B, K, n-1)
+        match = (grams[..., :-1] == ctx[:, :, None, :]).all(dim=-1)   # (B, K, P)
+        hits = torch.zeros(lprobs.shape, dtype=torch.float32, device=lprobs.device)
+        hits.scatter_add_(2, grams[..., -1], match.float())
+        return torch.where(hits > 0, NEG_INF, lprobs)
+
+    return proc
+
+
+def make_banned_sequence_processor(banned: torch.Tensor, banned_lens: torch.Tensor,
+                                   vocab_size: int) -> Callable:
+    """MinTox's banned-sequence processor: ban the last token of each banned
+    sequence whose other tokens are the beam's last ones (a 1-token sequence
+    is always banned). ``banned`` (N, M) with ``banned_lens`` (N,): row n
+    is read as the sequence ``banned[n, :banned_lens[n]]``, as the JAX
+    package reads it (its MinTox aligns rows right, padded with -1 on the
+    left; then a row shorter than M bans nothing it means to)."""
+    banned = banned.long()
+    lens = banned_lens.long()
+    N, M = banned.shape
+    dev = banned.device
+    plen = lens - 1
+    j = torch.arange(M - 1, device=dev)[None, :]                      # (1, M-1)
+    off = (M - 1 - plen)[:, None]                                     # (N, 1)
+    cmp = j >= off                                                    # (N, M-1)
+    prefix = torch.where(cmp, banned.gather(1, (j - off).clamp(0, M - 1)), -2)
+    last = banned.gather(1, (lens - 1).clamp(0, M - 1)[:, None])[:, 0]  # (N,)
+    hit = (last >= 0) & (last < vocab_size)                # others ban nothing
+
+    def proc(tokens: torch.Tensor, step: int, lprobs: torch.Tensor) -> torch.Tensor:
+        T = tokens.shape[2]
+        w_idx = torch.arange(step - M + 2, step + 1, device=tokens.device)  # (M-1,)
+        window = tokens[:, :, w_idx.clamp(0, T - 1)]                  # (B, K, M-1)
+        ok = (window[:, :, None, :] == prefix.to(tokens.device)) & (w_idx >= 0)
+        ok = torch.where(cmp.to(tokens.device), ok, True)             # (B, K, N, M-1)
+        matched = ok.all(dim=-1) | (plen == 0).to(tokens.device)      # (B, K, N)
+        hits = torch.zeros(lprobs.shape, dtype=torch.float32, device=lprobs.device)
+        hits.index_add_(2, last[hit].to(lprobs.device),
+                        matched[:, :, hit.to(matched.device)].float())
+        return torch.where(hits > 0, NEG_INF, lprobs)
+
+    return proc

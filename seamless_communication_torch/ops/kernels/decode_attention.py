@@ -13,10 +13,17 @@ row, quantized, at ``step``.
   packed nibbles (byte j = value j low | value j+Dh/2 high), scales absmax/7.
   CUDA kernel ``csrc/decode_attention_int4.cu``, which replaces the TPU kernel
   ``seamless_communication_tpu/ops/kernels/decode_attention.py:267``.
+- ``indexed_decode_self_attention_int8``: the lazy beam reorder. The int8
+  caches are never permuted: a (B, T) ``row_src`` table says which physical
+  slot holds row t of logical beam b, attention reads through it, and only
+  ``out`` is returned (the caller writes the new row). CUDA kernel
+  ``csrc/decode_attention_indexed.cu``, which replaces the TPU kernel
+  ``seamless_communication_tpu/ops/kernels/decode_attention.py:534``.
 
 For tensors on the card a wrapper launches its kernel; for tensors on the CPU
-it computes ``_reference`` / ``_reference_int4``, the plain PyTorch version of
-the same function, which is also what the kernel is held against on the card.
+it computes ``_reference`` / ``_reference_int4`` / ``_indexed_reference``,
+the plain PyTorch version of the same function, which is also what the kernel
+is held against on the card.
 """
 
 from __future__ import annotations
@@ -35,12 +42,14 @@ from seamless_communication_torch.ops.modules import true_div
 NEG = -1e9
 KERNEL = "decode_attention_int8"
 KERNEL_INT4 = "decode_attention_int4"
+KERNEL_INDEXED = "decode_attention_indexed"
 MAX_HEAD_DIM = 256
 MAX_CACHE_LEN = 8192          # logits live in 4 bytes of shared memory per row
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel -> (source in csrc/, row bytes per head-dim value, vector load bytes)
 _KERNELS = {KERNEL: ("decode_attention", 1.0, 16),
-            KERNEL_INT4: ("decode_attention_int4", 0.5, 8)}
+            KERNEL_INT4: ("decode_attention_int4", 0.5, 8),
+            KERNEL_INDEXED: ("decode_attention_indexed", 1.0, 16)}
 
 
 def _softmax_parts(logits, lcur, step: int):
@@ -116,6 +125,36 @@ def _reference_int4(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int,
     return out.to(dtype), k_cache, v_cache, k_scale, v_scale
 
 
+def gather_rows(x: torch.Tensor, row_src: torch.Tensor) -> torch.Tensor:
+    """Row t of logical beam b taken from physical slot ``row_src[b, t]``:
+    ``x`` (B, H, T, ...) per-slot rows, ``row_src`` (B, T)."""
+    B, H, T = x.shape[:3]
+    heads = torch.arange(H, device=x.device)[None, :, None]
+    pos = torch.arange(T, device=x.device)[None, None, :]
+    return x[row_src.long()[:, None, :], heads, pos]
+
+
+def _indexed_reference(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, row_src,
+                       step: int):
+    """Plain PyTorch version of the lazy-reorder step: row t of logical beam
+    b is read from physical slot ``row_src[b, t]``, then the arithmetic of
+    :func:`_reference`. q/k_t/v_t (B,H,Dh); caches (B,H,T,Dh) int8, scales
+    (B,H,T) f32, neither written; ``row_src`` (B,T) int32; ``step`` a host
+    int. Returns out (B,H,Dh)."""
+    dtype = q.dtype
+    dh = q.shape[-1]
+    kc, vc, ks, vs = (gather_rows(x, row_src) for x in (k_cache, v_cache, k_scale, v_scale))
+
+    logits = torch.einsum("bhd,bhtd->bht", q.float(), kc.to(dtype).float())
+    logits = true_div(logits * ks, math.sqrt(dh))
+    lcur = true_div((q.float() * k_t.float()).sum(-1), math.sqrt(dh))
+    p, pc, den = _softmax_parts(logits, lcur, step)
+    out = torch.einsum("bht,bhtd->bhd", (p * vs).to(dtype).float(),
+                       vc.to(dtype).float())
+    out = (out + pc[..., None] * v_t.float()) / den[..., None]
+    return out.to(dtype)
+
+
 _functions: dict = {}
 
 
@@ -129,8 +168,12 @@ def _function(kernel: str):
         fn = getattr(lib, kernel)
         # ctypes would pass a Python int as a 32-bit int and cut the pointers
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
-                       p, p, p, p, p, p]
+        if kernel == KERNEL_INDEXED:
+            fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
+                           p, p]
+        else:
+            fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
+                           p, p, p, p, p, p]
         fn.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -139,12 +182,15 @@ def _function(kernel: str):
 
 
 def _check(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src):
+    """Raise on what the kernel does not take. ``src`` is the (B,) beam
+    origins, or for the indexed kernel the (B, T) ``row_src`` table."""
     _, row_per_dim, vector = _KERNELS[kernel]
     B, H, T = k_cache.shape[:3]
     Dh = q.shape[-1]
     row = int(Dh * row_per_dim)
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{kernel}: q dtype {q.dtype} is not float32 or bfloat16")
+    src_shape = (B, T) if kernel == KERNEL_INDEXED else (B,)
     for name, x, shape, dtype in (
             ("q", q, (B, H, Dh), q.dtype), ("k_t", k_t, (B, H, Dh), q.dtype),
             ("v_t", v_t, (B, H, Dh), q.dtype),
@@ -152,7 +198,7 @@ def _check(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src):
             ("v_cache", v_cache, (B, H, T, row), torch.int8),
             ("k_scale", k_scale, (B, H, T), torch.float32),
             ("v_scale", v_scale, (B, H, T), torch.float32),
-            ("src", src, (B,), torch.int32)):
+            ("src", src, src_shape, torch.int32)):
         if x.device != q.device:
             raise ValueError(f"{kernel}: {name} is on {x.device}, q on {q.device}")
         if tuple(x.shape) != shape or x.dtype != dtype:
@@ -193,6 +239,27 @@ def _launch(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, 
     return out, new_k, new_v, new_ks, new_vs
 
 
+def _launch_indexed(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, row_src,
+                    step: int):
+    _check(KERNEL_INDEXED, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step,
+           row_src)
+    B, H, T = k_cache.shape[:3]
+    Dh = q.shape[-1]
+    out = torch.empty_like(q)
+    fn, error_string = _function(KERNEL_INDEXED)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+                 k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+                 v_scale.data_ptr(), row_src.data_ptr(), B, H, T, Dh, int(step),
+                 math.sqrt(Dh), out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"{KERNEL_INDEXED} launch failed: "
+                           f"{error_string(err).decode()} ({err})")
+    launch_counts[KERNEL_INDEXED] += 1
+    return out
+
+
 def fused_decode_self_attention_int8(q, k_t, v_t, k_cache, v_cache, k_scale,
                                      v_scale, step: int, src):
     """Fused gather + insert + attend decode step over an int8 KV cache.
@@ -226,6 +293,29 @@ def fused_decode_self_attention_int4(q, k_t, v_t, k_cache, v_cache, k_scale,
                    step, src)
 
 
+def indexed_decode_self_attention_int8(q, k_t, v_t, k_cache, v_cache, k_scale,
+                                       v_scale, row_src, step: int):
+    """Decode attention of the lazy beam reorder over an int8 KV cache.
+
+    q/k_t/v_t: (B,H,Dh) current-token tensors (float32 or bfloat16); caches
+    (B,H,T,Dh) int8 with (B,H,T) f32 scales, never permuted and not written
+    here; ``row_src`` (B,T) int32 maps (logical beam, position) to the
+    physical slot that wrote the row; ``step`` the current position, a host
+    int. Reads only rows t < step. Returns out (B,H,Dh); the caller writes
+    the quantized new row at [b, :, step] and keeps ``row_src``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, and
+    anything the kernel does not take raises.
+    """
+    if q.device.type == "cpu":
+        return _indexed_reference(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale,
+                                  row_src, step)
+    if q.device.type != "cuda":
+        raise ValueError(f"{KERNEL_INDEXED}: no kernel for device {q.device}")
+    return _launch_indexed(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, row_src,
+                           step)
+
+
 def bound_bytes(B: int, H: int, T: int, Dh: int, *, n_src: int, elem: int,
                 bits: int = 8) -> int:
     """Bytes the function must move, each input read once and each output
@@ -236,3 +326,17 @@ def bound_bytes(B: int, H: int, T: int, Dh: int, *, n_src: int, elem: int,
     reads = n_src * H * T * row + 3 * B * H * Dh * elem + 4 * B
     writes = B * H * T * row + B * H * Dh * elem
     return reads + writes
+
+
+def indexed_bound_bytes(row_src, step: int, H: int, Dh: int, *, elem: int) -> int:
+    """Bytes the lazy-reorder function must move for this ``row_src`` (B,T)
+    and ``step``: each distinct (slot, position) row that some beam reads at
+    t < step (k and v rows and their two scales, over the H heads) once, the
+    table's columns t < step, and q/k_t/v_t in; ``out`` back. No cache is
+    written."""
+    B = row_src.shape[0]
+    hist = row_src[:, :step].long()
+    pos = torch.arange(step, device=hist.device)[None, :]
+    rows = int(torch.unique(hist * step + pos).numel()) if step else 0
+    reads = rows * H * (2 * Dh + 2 * 4) + 4 * B * step + 3 * B * H * Dh * elem
+    return reads + B * H * Dh * elem

@@ -14,6 +14,7 @@ tensors ((B, H, T, Dh/2) packed bytes for int4).
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -21,7 +22,8 @@ import torch
 from seamless_communication_torch.ops import attention as attn_ops
 from seamless_communication_torch.ops.attention import Int8KVCache, KVCache
 from seamless_communication_torch.ops.kernels.decode_attention import (
-    fused_decode_self_attention_int4, fused_decode_self_attention_int8,
+    fused_decode_self_attention_int4, fused_decode_self_attention_int8, gather_rows,
+    indexed_decode_self_attention_int8,
 )
 from seamless_communication_torch.ops.masks import (
     causal_mask, combine_masks, padding_bias,
@@ -137,7 +139,13 @@ class DecoderCache(NamedTuple):
 
 class DecoderCacheQ8(NamedTuple):
     """int8 variant: (B, H, T_max, Dh) int8 rows with (B, H, T_max) fp32
-    scales, per layer."""
+    scales, per layer.
+
+    ``row_src``: the (B, T_max) int32 row-origin table of the lazy beam
+    reorder, shared by all layers. The self-attention buffers are then never
+    permuted: row t of logical beam b is read from physical slot
+    ``row_src[b, t]`` (``indexed_decode_self_attention_int8``). None: the
+    classic reorder, which gathers the buffers."""
     self_k: list
     self_v: list
     self_k_scale: list
@@ -146,6 +154,7 @@ class DecoderCacheQ8(NamedTuple):
     cross_v: list
     cross_k_scale: list
     cross_v_scale: list
+    row_src: Optional[torch.Tensor] = None
 
 
 class DecoderCacheQ4(NamedTuple):
@@ -167,7 +176,9 @@ def decoder_cache_init(params: dict, cfg: TransformerConfig, enc_out: torch.Tens
                        kv_bits: int = 8):
     """Empty per-layer self-attention caches of length ``max_len`` and the
     cross-attention K/V of ``enc_out``, computed once. With ``kv_int8``,
-    ``kv_bits`` 4 packs the self-attention KV as int4."""
+    ``kv_bits`` 4 packs the self-attention KV as int4. An int8 cache carries
+    the identity ``row_src`` table of the lazy beam reorder when
+    ``SEAMLESS_LAZY_REORDER=1`` (opt-in, as in the JAX package)."""
     dtype = dtype or enc_out.dtype
     B, H, L = enc_out.shape[0], cfg.num_heads, cfg.num_layers
     shape = (B, H, max_len, cfg.dim // H)
@@ -180,14 +191,19 @@ def decoder_cache_init(params: dict, cfg: TransformerConfig, enc_out: torch.Tens
     if kv_int8:
         cross = [attn_ops.cross_attention_precompute_int8(lp["cross_attn"], enc_out, H)
                  for lp in layers]
-        cache_type, row = DecoderCacheQ8, shape
+        fields = [[c.k for c in cross], [c.v for c in cross],
+                  [c.k_scale for c in cross], [c.v_scale for c in cross]]
+        scales = [zeros(shape[:3], torch.float32), zeros(shape[:3], torch.float32)]
         if kv_bits == 4:
-            cache_type, row = DecoderCacheQ4, shape[:3] + (shape[3] // 2,)
-        return cache_type(
-            zeros(row, torch.int8), zeros(row, torch.int8),
-            zeros(shape[:3], torch.float32), zeros(shape[:3], torch.float32),
-            [c.k for c in cross], [c.v for c in cross],
-            [c.k_scale for c in cross], [c.v_scale for c in cross])
+            row = shape[:3] + (shape[3] // 2,)
+            return DecoderCacheQ4(zeros(row, torch.int8), zeros(row, torch.int8),
+                                  *scales, *fields)
+        row_src = None
+        if os.environ.get("SEAMLESS_LAZY_REORDER", "0") == "1":
+            row_src = torch.arange(B, dtype=torch.int32, device=dev)[:, None].repeat(
+                1, max_len)
+        return DecoderCacheQ8(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                              *scales, *fields, row_src)
     cross = [attn_ops.cross_attention_precompute(lp["cross_attn"], enc_out, H)
              for lp in layers]
     return DecoderCache(zeros(shape, dtype), zeros(shape, dtype),
@@ -196,6 +212,27 @@ def decoder_cache_init(params: dict, cfg: TransformerConfig, enc_out: torch.Tens
 
 def _take(xs: list, src: Optional[torch.Tensor]) -> list:
     return list(xs) if src is None else [x[src] for x in xs]
+
+
+def decoder_cache_beam_reorder(cache, flat_src: torch.Tensor):
+    """The beam reorder of a search that does not read the cache through
+    ``beam_src``: gather every self-attention buffer of each layer by the
+    (B*K,) ``flat_src`` on its beam axis. The cross-attention K/V is the
+    same for the K beams of a batch row and is left as it is. A cache with a
+    ``row_src`` table is gathered row by row through the composed table
+    ``row_src[flat_src]``, and the table is reset to the identity; with an
+    identity table this is the plain gather."""
+    src = flat_src.long()
+    names = [n for n in ("self_k", "self_v", "self_k_scale", "self_v_scale")
+             if n in cache._fields]
+    row_src = getattr(cache, "row_src", None)
+    if row_src is None:
+        return cache._replace(**{n: _take(getattr(cache, n), src) for n in names})
+    rs = row_src[src]
+    ident = torch.arange(rs.shape[0], dtype=torch.int32, device=rs.device)[:, None]
+    return cache._replace(row_src=ident.repeat(1, rs.shape[1]),
+                          **{n: [gather_rows(x, rs) for x in getattr(cache, n)]
+                             for n in names})
 
 
 def transformer_decoder_step(params: dict, x_t: torch.Tensor, cache, step: int,
@@ -213,10 +250,26 @@ def transformer_decoder_step(params: dict, x_t: torch.Tensor, cache, step: int,
     :class:`DecoderCacheQ8`, the packed-int4 one for :class:`DecoderCacheQ4`.
     Otherwise it takes the plain composition. The caches in ``cache`` are
     written in place where no ``beam_src`` is given; the returned cache holds
-    the new tensors."""
+    the new tensors.
+
+    The lazy beam reorder: an int8 cache with a ``row_src`` table and a
+    ``beam_src``. The cache alone decides it: it carries a table only when
+    ``SEAMLESS_LAZY_REORDER`` was "1" at its creation, and the variable is
+    not read again. The table inherits the source beams' rows and marks
+    row ``step`` as each beam's own; each layer's attention reads through it
+    (``indexed_decode_self_attention_int8``, a kernel on the card), and the
+    only cache write is each beam's quantized new row, in place at
+    [b, :, step] of the unpermuted buffers."""
     cross_bias = padding_bias(enc_padding_mask)
     int4 = isinstance(cache, DecoderCacheQ4)
     int8 = isinstance(cache, DecoderCacheQ8) or int4
+    lazy = (isinstance(cache, DecoderCacheQ8) and beam_src is not None
+            and cache.row_src is not None)
+    row_src = None
+    if lazy:
+        B = x_t.shape[0]
+        row_src = cache.row_src[beam_src.long()]
+        row_src[:, step] = torch.arange(B, dtype=row_src.dtype, device=row_src.device)
     fused = int8 and beam_src is not None and x_t.is_cuda
     fused_step = (fused_decode_self_attention_int4 if int4
                   else fused_decode_self_attention_int8)
@@ -231,7 +284,18 @@ def transformer_decoder_step(params: dict, x_t: torch.Tensor, cache, step: int,
     for i, lp in enumerate(params["layers"]):
         z = layer_norm(lp["self_attn_layer_norm"], h)
         ap = lp["self_attn"]
-        if fused:
+        if lazy:
+            qh, kh, vh = (attn_ops._split_heads(linear(ap[n], z), cfg.num_heads)[:, :, 0]
+                          .contiguous() for n in ("q_proj", "k_proj", "v_proj"))
+            o = indexed_decode_self_attention_int8(qh, kh, vh, sk[i], sv[i], sks[i],
+                                                   svs[i], row_src, step)
+            # safe in place: the attention above read only rows t < step
+            kq, ks = attn_ops.quantize_kv_rows(kh)
+            vq, vs = attn_ops.quantize_kv_rows(vh)
+            sk[i][:, :, step], sv[i][:, :, step] = kq, vq
+            sks[i][:, :, step], svs[i][:, :, step] = ks, vs
+            y = linear(ap["output_proj"], attn_ops._merge_heads(o[:, :, None]))
+        elif fused:
             heads = [attn_ops._split_heads(linear(ap[n], z), cfg.num_heads)[:, :, 0]
                      .contiguous() for n in ("q_proj", "k_proj", "v_proj")]
             o, sk[i], sv[i], sks[i], svs[i] = fused_step(
@@ -266,6 +330,8 @@ def transformer_decoder_step(params: dict, x_t: torch.Tensor, cache, step: int,
         z = act(linear(lp["ffn"]["inner_proj"], z))
         h = h + linear(lp["ffn"]["output_proj"], z)
     out = layer_norm(params["layer_norm"], h)
+    if lazy:
+        return out, cache._replace(row_src=row_src)
     if int8:
         return out, cache._replace(self_k=sk, self_v=sv, self_k_scale=sks,
                                    self_v_scale=svs)

@@ -1,0 +1,4 @@
+"""Added-toxicity detection (ETOX) and mitigation (MinTox), host-side."""
+
+from seamless_communication_torch.toxicity.etox import ETOXBadWordChecker  # noqa: F401
+from seamless_communication_torch.toxicity.mintox import mintox_pipeline  # noqa: F401
