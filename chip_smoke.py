@@ -16,8 +16,11 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    uniform and a beam-history row-origin table; K4 fbank of a 4 s and a
    10 s waveform; K3b ``int8_vocab_topk_v2`` and K3a ``int8_vocab_topk`` at
    the base_v2 vocabulary (V=256102, D=1024, k=11, N=5 and 10), with the
-   time of the full-vocabulary step the candidate beam replaces.
-   ``python3 chip_smoke.py --kernels`` stops after this phase.
+   time of the full-vocabulary step the candidate beam replaces; K6 flash
+   attention at the fused option's main-path shapes (the Shaw encoder at 4
+   and 10 s, the re-decode, the NAR T2U's FFT layers) in fp32 and bf16,
+   beside the library's ``scaled_dot_product_attention`` with the same
+   float mask. ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
    ``torch.Generator``, the UnitY tree int8 weight-only, beam 5.
@@ -39,12 +42,24 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
       twice), and an S2ST request through a MinTox Translator (the ASR of
       the input as source, a word of the first pass banned, the re-run free
       of it).
+   e. ``SEAMLESS_FUSED_ATTN=1``: the speech encoder with the option on and
+      off (outputs within 2e-3), then an S2ST request of 10 s and a T2ST
+      request of a 140-token source: K6 launched as often as the requests'
+      shapes make attentions eligible (both lengths at least 128: the 24
+      encoder layers, the re-decode, the T2U), K1 24 times a text step.
+   f. The port's ``base`` (SeamlessM4T v1-large: XL conformer, AR T2U) with
+      the option on: an S2TT and an S2ST request of 10 s, the text and the
+      unit decodes cut to 127 steps: K1 24 times a text step and 6 times a
+      unit step, K6 24 times in the XL encoder and where the re-decode and
+      the AR T2U's encoder reach 128.
    Each path's launches are counted from 0 just before it.
 4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
    tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
    the tree int8 and the candidate beam (K3b, K1), must give the same tokens
    and units, and waveforms within 1e-4; so must the lazy reorder (K5), the
-   n-gram block, banned sequences, MinTox and FbankInput.
+   n-gram block, banned sequences, MinTox and FbankInput; and, with the
+   fused option on (K6), ``tiny_v1`` S2ST and T2ST (the AR unit decode on
+   K1) and ``tiny_v2`` S2ST.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error, times and bound; the last line is
@@ -61,6 +76,7 @@ directory of ``profile_main_path``).
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -528,6 +544,91 @@ def phase_fbank(smi: str) -> dict:
             "replaces": "seamless_communication_tpu/ops/kernels/fbank_pallas.py:74",
             "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": None}
+
+
+# K6 at the shapes of the main path with the fused option on (B=1, H=16,
+# Dh=64; the Translator pads the fbank to a multiple of 128 frames, so 4 s
+# and 10 s of audio reach the conformer as 256 and 512 frames):
+# (label, Tq = Tk, bias, valid keys) with bias "shaw" (relative logits and
+# key padding folded into ab), "causal" (the re-decode's causal and padding
+# ab) or "segments" (key padding as segment ids, no ab)
+FLASH_SHAPES = (("Shaw encoder 4 s", 256, "shaw", 249),
+                ("Shaw encoder 10 s", 512, "shaw", 499),
+                ("re-decode self-attention", 128, "causal", 120),
+                ("NAR T2U FFT layers", 2048, "segments", 636))
+FLASH_MAIN = "Shaw encoder 10 s"      # the shape of the kernels line
+
+
+def phase_flash_attention(smi: str) -> dict:
+    """K6 ``flash_attention`` against its plain version ``_reference`` at
+    ``FLASH_SHAPES`` in fp32 and bf16: ``out`` within rtol = atol = 1e-5 in
+    fp32 and 1.6e-2 in bf16. Device times by CUDA-graph replay of the
+    kernel's wrapper, the plain version and the library yardstick
+    ``torch.nn.functional.scaled_dot_product_attention`` with the same float
+    mask (ab, or the segment mask as a float), beside the bound (the
+    products of the logits these inputs leave unmasked, ``unmasked_pairs``)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    B, H, Dh = 1, H_MAIN, DH_MAIN
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    rows, max_err = {}, 0.0
+    for label, T, kind, valid in FLASH_SHAPES:
+        qkv = [torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32,
+                               device=dev) for _ in range(3)]
+        qkv[0] = qkv[0] / Dh ** 0.5
+        pad = torch.where(torch.arange(T, device=dev) < valid, 0.0, -1e9)
+        ab32 = seg = None
+        if kind == "shaw":
+            ab32 = torch.as_tensor(rng.standard_normal((B, H, T, T)) * 0.5,
+                                   dtype=torch.float32, device=dev) + pad
+        elif kind == "causal":
+            causal = torch.triu(torch.full((T, T), -1e9, device=dev), diagonal=1)
+            ab32 = (causal + pad).expand(B, H, T, T).contiguous()
+        else:
+            seg = (torch.ones((B, T), dtype=torch.int32, device=dev),
+                   (pad > -1e8).to(torch.int32)[None].contiguous())
+        for dtype in (torch.float32, torch.bfloat16):
+            qs, k, v = (x.to(dtype) for x in qkv)
+            ab = None if ab32 is None else ab32.to(dtype)
+            args = (qs, k, v, ab, *(seg or (None, None)))
+            got = fl.flash_attention(*args)
+            ref = fl._reference(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs()
+            if not bool((err <= tol[dtype] * (1 + ref.float().abs())).all()):
+                raise AssertionError(f"K6 {label} {dtype}: out max err "
+                                     f"{float(err.max()):.3g} over tolerance")
+            if dtype is torch.float32:
+                max_err = max(max_err, float(err.max()))
+            mask = ab if ab is not None else torch.where(
+                seg[0][:, None, :, None] == seg[1][:, None, None, :], 0.0,
+                fl.MASK_VALUE).to(dtype)
+            k_ms = cuda_time_ms(lambda: fl.flash_attention(*args))
+            p_ms = cuda_time_ms(lambda: fl._reference(*args), calls=5, reps=20)
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=mask, scale=1.0), calls=5, reps=20)
+            pairs = fl.unmasked_pairs(B, H, T, T, ab, *(seg or (None, None)))
+            bound = fl.bound(B, H, T, T, Dh, dtype, ab is not None, seg is not None,
+                             pairs)
+            rows[label, dtype] = (k_ms, p_ms, lib_ms, bound)
+            log(f"K6 {label}, T={T} ({valid} valid keys), {str(dtype)[6:]}: out max abs "
+                f"err {float(err.max()):.3g} (rtol=atol={tol[dtype]}); device kernel "
+                f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, library SDPA with "
+                f"the float mask {lib_ms * 1e3:.2f} us, bound {bound[0] * 1e3:.2f} us "
+                f"({bound[1]}; {pairs} unmasked logits of {H * T * T}), kernel at "
+                f"{k_ms / bound[0]:.1f}x its bound [{smi}]")
+    k_ms, p_ms, lib_ms, bound = rows[FLASH_MAIN, torch.float32]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "seamless_communication_torch/csrc/flash_attention.cu",
+            "replaces": "seamless_communication_tpu/ops/fused_attention.py:54",
+            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1119,6 +1220,243 @@ def phase_lazy(translator, tok, cfg, noise, smi: str) -> dict:
     return {"launches": dict(launch_counts), "requests": stats}
 
 
+def fused_attention(on: bool = True):
+    """``SEAMLESS_FUSED_ATTN=1`` within the block (or unset), as it was
+    after."""
+    import os
+    from unittest import mock
+
+    env = dict(os.environ)
+    env.pop("SEAMLESS_FUSED_ATTN", None)
+    if on:
+        env["SEAMLESS_FUSED_ATTN"] = "1"
+    return mock.patch.dict(os.environ, env, clear=True)
+
+
+def k6_expected(cfg, *, src_len: int, speech: bool, text_len=None,
+                max_unit_len=None) -> dict:
+    """K6 launches of one request with the fused option on, counted from its
+    shapes: a full-sequence attention is eligible when its query and key
+    lengths are both at least 128. ``src_len``: the conformer's frames
+    (speech input) or the padded source tokens (text input); ``text_len``:
+    the re-decode's padded length (speech output); ``max_unit_len``: the NAR
+    T2U's unit positions. Returns the launches of each part."""
+    ok = lambda *lens: all(n >= 128 for n in lens)
+    parts = {}
+    if speech:
+        sc = cfg.speech
+        parts["speech encoder"] = sc.conformer.num_layers * ok(src_len)
+        enc_len = src_len
+        k, s = sc.adaptor_kernel_size, sc.adaptor_stride
+        for _ in range(sc.adaptor_layers):    # its strided conv's output length
+            enc_len = (enc_len + 2 * (s // 2) - k) // s + 1
+            parts["adaptor"] = parts.get("adaptor", 0) + ok(enc_len)
+    else:
+        parts["text encoder"] = cfg.nllb.num_encoder_layers * ok(src_len)
+        enc_len = src_len
+    if text_len is not None:
+        L = cfg.nllb.num_decoder_layers
+        parts["re-decode"] = L * ok(text_len) + L * ok(text_len, enc_len)
+        t2u = cfg.nar_t2u or cfg.ar_t2u
+        parts["t2u encoder"] = t2u.num_encoder_layers * ok(text_len)
+        if cfg.nar_t2u is not None:
+            parts["t2u decoder"] = cfg.nar_t2u.num_decoder_layers * ok(max_unit_len)
+    return parts
+
+
+def phase_fused(translator, tok, cfg, noise, smi: str) -> dict:
+    """3e. base_v2 (v2-large) with SEAMLESS_FUSED_ATTN=1, int8 KV, the
+    decodes cut to hard_max_seq_len 128: first the speech encoder on a 10 s
+    input with the option on and off (outputs within atol 2e-3 + rtol 2e-3:
+    24 layers of fp32 attention summed in another order, then a layer
+    norm); then an S2ST request of 10 s and a T2ST request of a 140-token
+    source. K6 launched as ``k6_expected`` counts from each request's
+    shapes, K1 24 times a text decode step. Launches are counted from 0
+    just before the two requests."""
+    import torch
+
+    from seamless_communication_torch.inference.generator import (
+        SequenceGeneratorOptions, _bucket,
+    )
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+
+    opts = SequenceGeneratorOptions(hard_max_seq_len=128)
+    layers = cfg.nllb.num_decoder_layers
+    hop = translator.vocoder_cfg.hifigan.total_upsample
+    wav = noise(10.0)
+    fbank, flens = translator._audio_to_fbank(wav, 16000)
+    fb, fl = (torch.as_tensor(a, device="cuda") for a in (fbank, flens))
+    outs = {}
+    with torch.inference_mode():
+        for on in (True, False):
+            with fused_attention(on):
+                outs[on] = unity.encode_speech(translator.params, cfg, fb, fl).seqs.float()
+    err = (outs[True] - outs[False]).abs()
+    if not bool((err <= 2e-3 + 2e-3 * outs[False].abs()).all()):
+        raise AssertionError(f"3e: speech encoder output with and without the fused "
+                             f"option differs by up to {float(err.max()):.3g}")
+    log(f"3e: base_v2 speech encoder on 10 s ({fbank.shape[1] // 2} conformer frames) with "
+        f"the fused option (K6) and without: max abs difference {float(err.max()):.3g} "
+        f"(atol 2e-3 + rtol 2e-3)")
+    requests = [("s2st 10 s", wav, "s2st", "eng", {}),
+                ("t2st 140-token source", synthetic_text(tok, 140, 14), "t2st", "fra",
+                 {"src_lang": "eng"})]
+    stats = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with fused_attention(True):
+        for name, inp, task, lang, kw in requests:
+            before = dict(launch_counts)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            texts, speech = translator.predict(inp, task, lang, text_generation_opts=opts,
+                                               **kw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            res = translator.generator.last_result
+            got = {k: launch_counts[k] - before[k] for k in launch_counts}
+            check_hypotheses(res, tok.target_prefix(lang).tolist(), res.tokens.shape[-1],
+                             cfg.nllb.eos_idx)
+            check_waveforms(f"3e {name}", speech, hop)
+            if task == "s2st":
+                src_len = fbank.shape[1] // 2
+            else:
+                src_len = _bucket(len(tok.encode_source(inp, "eng")), 16)
+            text_len = _bucket(int(res.lengths[:, 0].max()), 16)
+            parts = k6_expected(cfg, src_len=src_len, speech=task == "s2st",
+                                text_len=text_len, max_unit_len=2048)
+            want_k6 = sum(parts.values())
+            if (got["flash_attention"], got["decode_attention_int8"]) != (
+                    want_k6, layers * res.steps):
+                raise AssertionError(f"3e {name}: K6 {got['flash_attention']} launches "
+                                     f"(expected {parts}), K1 {got['decode_attention_int8']} "
+                                     f"in {res.steps} steps")
+            units = sum(len(u) for u in speech.units)
+            audio_s = sum(len(w) for w in speech.audio_wavs) / speech.sample_rate
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            split = {k: v * 1e3 for k, v in translator.last_timings.items()}
+            log(f"3e {name.upper()} with the fused option: wall {wall * 1e3:.1f} ms = "
+                + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                + f" ms; source {src_len}, re-decode length {text_len}; K6 launches "
+                f"{got['flash_attention']} = {parts}; {res.steps} decode steps, K1 "
+                f"launches {got['decode_attention_int8']}; {units} units, {audio_s:.2f} s "
+                f"of audio, peak {peak:.2f} GiB, texts {[t[:40] for t in texts]} [{smi}]")
+            stats.append({"request": f"fused {name}", "wall_ms": wall * 1e3,
+                          "stages_ms": split, "steps": res.steps, "units": units,
+                          "audio_s": audio_s, "peak_gib": peak, "k6_parts": parts,
+                          "launches": got})
+    return {"launches": dict(launch_counts), "requests": stats}
+
+
+def build_base_v1(vocoder, vocoder_cfg):
+    """The port's ``base`` (v1-large) UnitY on the card: the XL conformer
+    speech encoder (24 layers, 1024-d), the NLLB dense_1b decoder and text
+    encoder and the AR T2U (6 + 6 layers, 1024-d, unit vocabulary 10082),
+    random bf16 weights from a seeded generator (seed 2), the tree int8
+    weight-only, with the given unit HiFi-GAN. Returns (translator, cfg)."""
+    import torch
+
+    from seamless_communication_torch.inference.translator import Translator
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
+    from seamless_communication_torch.ops.quantization import quantize_params
+
+    dev = torch.device("cuda")
+    cfg = get_arch("base")
+    t0 = time.time()
+    params = quantize_params(unity.unity_init(torch.Generator(device=dev).manual_seed(2),
+                                              cfg, dtype=torch.bfloat16, device=dev))
+    torch.cuda.synchronize()
+    log(f"base (v1-large) params (bf16, int8 weight-only) built in {time.time() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    unit_tok = UnitTokenizer(vocoder_cfg.num_units, ["eng", "fra"], "base")
+    assert unit_tok.vocab_size <= cfg.ar_t2u.unit_vocab_size
+    return Translator(params, cfg, synthetic_tokenizer(), unit_tok, vocoder_params=vocoder,
+                      vocoder_cfg=vocoder_cfg, lang_spkr_idx_map=LANG_SPKR), cfg
+
+
+def phase_v1(translator, cfg, noise, smi: str) -> dict:
+    """3f. base (v1-large) with SEAMLESS_FUSED_ATTN=1 and int8 KV: an S2TT and
+    an S2ST request of 10 s, the text decode cut to hard_max_seq_len 128 and
+    the unit decode, with the bigram block, to max_unit_len 128 (127 steps
+    each at most): units and audio produced; K1 24
+    times a text step and 6 times a unit step, K6 as ``k6_expected`` counts
+    (24 in the XL encoder; the re-decode and the AR T2U's encoder where
+    their length reaches 128); the waveforms pass ``check_waveforms``.
+    Launches are counted from 0 just before the requests."""
+    import torch
+
+    from seamless_communication_torch.inference.generator import (
+        SequenceGeneratorOptions, _bucket,
+    )
+    from seamless_communication_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+
+    opts = SequenceGeneratorOptions(hard_max_seq_len=128)
+    # random weights make the AR T2U repeat its last token, the language
+    # symbol, which is no unit; the bigram block moves it on to units
+    unit_opts = SequenceGeneratorOptions(no_repeat_ngram_size=2)
+    wav = noise(10.0)
+    hop = translator.vocoder_cfg.hifigan.total_upsample
+    src_len = translator._audio_to_fbank(wav, 16000)[0].shape[1] // 2
+    with fused_attention(True):       # warm-up outside the counted run
+        translator.predict(noise(1.0), "s2st", "eng", max_unit_len=8,
+                           text_generation_opts=SequenceGeneratorOptions(
+                               soft_max_seq_len=(0, 8)))
+    stats = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with fused_attention(True):
+        for task in ("s2tt", "s2st"):
+            before = dict(launch_counts)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            texts, speech = translator.predict(wav, task, "eng", text_generation_opts=opts,
+                                               unit_generation_opts=unit_opts,
+                                               max_unit_len=128)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            got = {k: launch_counts[k] - before[k] for k in launch_counts}
+            res = translator.generator.last_result
+            check_hypotheses(res, translator.text_tokenizer.target_prefix("eng").tolist(),
+                             res.tokens.shape[-1], cfg.nllb.eos_idx)
+            text_len = _bucket(int(res.lengths[:, 0].max()), 16) if speech else None
+            parts = k6_expected(cfg, src_len=src_len, speech=True, text_len=text_len)
+            unit_steps = translator.generator.last_unit_result.steps if speech else 0
+            want = (sum(parts.values()), cfg.nllb.num_decoder_layers * res.steps
+                    + cfg.ar_t2u.num_decoder_layers * unit_steps)
+            if (got["flash_attention"], got["decode_attention_int8"]) != want:
+                raise AssertionError(f"3f {task}: K6 {got['flash_attention']} and K1 "
+                                     f"{got['decode_attention_int8']} launches, expected "
+                                     f"{want} ({parts}, {res.steps} text steps, "
+                                     f"{unit_steps} unit steps)")
+            units = audio_s = 0
+            if speech is not None:
+                check_waveforms(f"3f {task}", speech, hop)
+                units = sum(len(u) for u in speech.units)
+                audio_s = sum(len(w) for w in speech.audio_wavs) / speech.sample_rate
+                if not units or not audio_s:
+                    raise AssertionError(f"3f {task}: no units or no audio")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            split = {k: v * 1e3 for k, v in translator.last_timings.items()}
+            log(f"3f v1-large {task.upper()} 10 s with the fused option: wall "
+                f"{wall * 1e3:.1f} ms = " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                + f" ms; {res.steps} text steps, {unit_steps} unit steps; K1 launches "
+                f"{got['decode_attention_int8']}, K6 launches {got['flash_attention']} = "
+                f"{parts}; {units} units, {audio_s:.2f} s of audio, peak {peak:.2f} GiB, "
+                f"texts {[t[:40] for t in texts]} [{smi}]")
+            stats.append({"request": f"v1 {task} 10 s", "wall_ms": wall * 1e3,
+                          "stages_ms": split, "text_steps": res.steps,
+                          "unit_steps": unit_steps, "units": units, "audio_s": audio_s,
+                          "peak_gib": peak, "launches": got})
+    return {"launches": dict(launch_counts), "requests": stats}
+
+
 def phase_tiny_cuda_vs_cpu() -> None:
     """tiny_v2 in fp32 with int8 KV: the card (K1) and the CPU (the plain
     composition) must give the same tokens."""
@@ -1388,6 +1726,107 @@ def phase_tiny_options() -> None:
         "FbankInput: texts and tokens identical on the card and the CPU")
 
 
+def tiny_speech_parity(label: str, cfg, params, vocoder, vocoder_cfg, unit_tok, runs,
+                       expect) -> None:
+    """Each ``(task, input, kwargs)`` of ``runs`` through a Translator on the
+    card and on the CPU (int8 KV, the fused option on): texts, best text
+    tokens and units identical, waveforms within 1e-4 absolute (fp32
+    convolutions of cuDNN and of the CPU summed in other orders, then a
+    tanh). ``expect(task, translator, input, kwargs)`` gives the (K1, K6)
+    launches the card's run must make; the CPU's make none."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.inference.generator import (
+        SequenceGeneratorOptions,
+    )
+    from seamless_communication_torch.inference.translator import Translator
+    from seamless_communication_torch.ops.kernels import launch_counts
+
+    opts = SequenceGeneratorOptions(soft_max_seq_len=(1, 40), kv_cache_int8=True)
+    for task, inp, kw in runs:
+        out = {}
+        for device in ("cuda", "cpu"):
+            tr = Translator(params, cfg, synthetic_tokenizer(200), unit_tok,
+                            synthetic_char_tokenizer(), vocoder_params=vocoder,
+                            vocoder_cfg=vocoder_cfg, lang_spkr_idx_map=LANG_SPKR,
+                            text_opts=opts, unit_opts=opts, device=device)
+            before = dict(launch_counts)
+            with fused_attention(True):
+                texts, speech = tr.predict(inp, task, "fra", **kw)
+            got = (launch_counts["decode_attention_int8"] - before["decode_attention_int8"],
+                   launch_counts["flash_attention"] - before["flash_attention"])
+            res = tr.generator.last_result
+            want = expect(task, tr, inp, kw) if device == "cuda" else (0, 0)
+            log(f"{label} {task} on {device}: {res.steps} text steps, (K1, K6) launches "
+                f"{got}, units {[len(u) for u in speech.units]}")
+            if got != want:
+                raise AssertionError(f"{label} {task} on {device}: (K1, K6) launches {got}, "
+                                     f"expected {want}")
+            out[device] = (texts, res.tokens[:, 0].cpu(), res.lengths[:, 0].cpu(), speech)
+        (xc, tc, lc, sc), (xp, tp, lp, sp) = out["cuda"], out["cpu"]
+        if not (xc == xp and torch.equal(tc, tp) and torch.equal(lc, lp)
+                and sc.units == sp.units):
+            raise AssertionError(f"{label} {task}: texts, tokens or units differ between "
+                                 f"the card and the CPU")
+        err = max((float(np.abs(a - b).max(initial=0.0))
+                   for a, b in zip(sc.audio_wavs, sp.audio_wavs)), default=0.0)
+        if err > 1e-4 or [a.shape for a in sc.audio_wavs] != [b.shape for b in sp.audio_wavs]:
+            raise AssertionError(f"{label} {task}: waveforms differ by {err:.3g} > 1e-4")
+        log(f"{label} {task}: texts, tokens and units identical on the card and the CPU, "
+            f"waveform max abs difference {err:.3g}")
+
+
+def phase_tiny_v1_and_fused() -> None:
+    """tiny_v1 (XL conformer, AR T2U) S2ST of 3 s and T2ST, and tiny_v2 S2ST
+    of 3 s, in fp32 with the fused option on and int8 KV, with the tiny
+    vocoder: the card (K1 for the text and the unit decodes, K6 where a
+    sequence reaches 128) and the CPU (the plain versions) agree as
+    ``tiny_speech_parity`` holds them."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.inference.generator import _bucket
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
+    from seamless_communication_torch.models.vocoder.codehifigan import (
+        CodeHifiGanConfig, code_hifigan_init,
+    )
+    from seamless_communication_torch.models.vocoder.hifigan import HifiGanConfig
+
+    vocoder_cfg = CodeHifiGanConfig(**TINY_VOCODER, hifigan=HifiGanConfig(**TINY_HIFIGAN))
+    wav = (np.random.default_rng(10).standard_normal(3 * 16000) * 0.1).astype(np.float32)
+    frames = 192        # 3 s: 300 fbank frames padded to 384, stacked by 2
+
+    for arch in ("tiny_v1", "tiny_v2"):
+        cfg = get_arch(arch)
+        gen = torch.Generator().manual_seed(0)
+        params = unity.unity_init(gen, cfg)
+        vocoder = code_hifigan_init(gen, vocoder_cfg)
+        unit_tok = UnitTokenizer(100, ["eng", "fra"], "base" if arch == "tiny_v1" else arch)
+
+        def expect(task, tr, inp, kw, cfg=cfg):
+            res = tr.generator.last_result
+            k1 = cfg.nllb.num_decoder_layers * res.steps
+            if cfg.ar_t2u is not None:
+                k1 += cfg.ar_t2u.num_decoder_layers * tr.generator.last_unit_result.steps
+            src = (frames if task == "s2st"
+                   else _bucket(len(tr.text_tokenizer.encode_source(inp, "eng")), 16))
+            parts = k6_expected(cfg, src_len=src, speech=task == "s2st",
+                                text_len=_bucket(int(res.lengths[:, 0].max()), 16),
+                                max_unit_len=kw.get("max_unit_len", 2048))
+            return k1, sum(parts.values())
+
+        # the AR unit decodes cut to 63 steps; the NAR T2U at its default 2048
+        cut = {"max_unit_len": 64} if arch == "tiny_v1" else {}
+        runs = [("s2st", wav, cut)]
+        if arch == "tiny_v1":
+            runs.append(("t2st", synthetic_text(synthetic_tokenizer(200), 9, 22),
+                         {"src_lang": "eng", **cut}))
+        tiny_speech_parity(arch, cfg, params, vocoder, vocoder_cfg, unit_tok, runs, expect)
+
+
 def profile_main_path(smi: str, out_dir: str = "chiprun_out") -> None:
     """Where the main path's time goes, under ``torch.profiler``: one 10 s
     base_v2 S2TT request, then one T2TT request of 20 source tokens with the
@@ -1491,6 +1930,7 @@ def main() -> int:
     k5 = phase_indexed(dev["smi"])
     k4 = phase_fbank(dev["smi"])
     k3b, k3a = phase_vocab_topk(dev["smi"])
+    k6 = phase_flash_attention(dev["smi"])
     if sys.argv[1:] == ["--kernels"]:
         return 0
     base_v2 = build_base_v2()
@@ -1499,21 +1939,31 @@ def main() -> int:
     k1["launches"] = s2tt["launches"]
     s2st = phase_s2st(*base_v2, dev["smi"])
     k2["launches"] = s2st["launches"]
-    translator, tok, cfg, _ = base_v2
+    translator, tok, cfg, noise = base_v2
     t2t = phase_t2t(translator, tok, cfg, dev["smi"])
     k3b["launches"] = t2t["launches"]["vocab_topk_v2"]
     k3a["launches"] = t2t["launches"]["vocab_topk"]     # not on any path: 0
     lazy = phase_lazy(*base_v2, dev["smi"])
     k5["launches"] = lazy["launches"]["decode_attention_indexed"]
     k4["launches"] = lazy["launches"]["fbank"]          # not on any path: 0
+    fused = phase_fused(*base_v2, dev["smi"])
+    vocoder = (translator.vocoder_params, translator.vocoder_cfg)
     del base_v2, translator
+    gc.collect()        # 3d's MinTox translator holds base_v2's tree in a cycle
+    log(f"base_v2 released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    v1_translator, v1_cfg = build_base_v1(*vocoder)
+    v1 = phase_v1(v1_translator, v1_cfg, noise, dev["smi"])
+    k6["launches"] = fused["launches"]["flash_attention"] + v1["launches"]["flash_attention"]
+    del v1_translator, vocoder
     phase_tiny_cuda_vs_cpu()
     phase_tiny_s2st()
     phase_tiny_t2t()
     phase_tiny_options()
+    phase_tiny_v1_and_fused()
     log(json.dumps({"main_path": s2tt["requests"] + s2st["requests"] + t2t["requests"],
-                    "lazy": lazy["requests"], "card": dev["smi"]}))
-    log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5]}))
+                    "lazy": lazy["requests"], "fused": fused["requests"],
+                    "v1": v1["requests"], "card": dev["smi"]}))
+    log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -50,7 +50,17 @@ def unstack_layers(stacked: dict) -> list:
     return [take(stacked, i) for i in range(n)]
 
 
+def _stack(tree: dict) -> dict:
+    """A transformer stack {"layers": stacked, "layer_norm"} with its layers
+    as a list."""
+    return dict(tree, layers=unstack_layers(tree["layers"]))
+
+
 def speech_encoder_from_jax(tree: dict, device=None) -> dict:
+    """The conformer stack's layers become a list. A v1 (XL) layer carries
+    ``r_proj``, ``u_bias`` and ``v_bias`` in its attention and the folded
+    batch norm ``{scale, bias}`` as ``conv.norm``; they come across as they
+    are."""
     out = {k: v for k, v in tree.items() if k != "encoder"}
     out["encoder"] = unstack_layers(tree["encoder"])     # the conformer stack
     return to_torch(out, device)
@@ -59,22 +69,24 @@ def speech_encoder_from_jax(tree: dict, device=None) -> dict:
 def text_stack_from_jax(tree: dict, device=None) -> dict:
     """{"embed", "stack": {"layers": stacked, "layer_norm"}} of a text encoder
     or decoder."""
-    stack = dict(tree["stack"], layers=unstack_layers(tree["stack"]["layers"]))
-    return to_torch(dict(tree, stack=stack), device)
+    return to_torch(dict(tree, stack=_stack(tree["stack"])), device)
 
 
 def t2u_from_jax(tree: dict, device=None) -> dict:
-    """A NAR T2U tree: the encoder stack's layers and the scan-stacked
-    ``decoder_layers`` become lists of per-layer dicts."""
-    out = dict(tree, encoder=dict(tree["encoder"],
-                                  layers=unstack_layers(tree["encoder"]["layers"])),
-               decoder_layers=unstack_layers(tree["decoder_layers"]))
+    """A NAR T2U tree (the encoder stack's layers and the scan-stacked
+    ``decoder_layers`` become lists of per-layer dicts) or an AR T2U tree
+    (``encoder``, ``embed`` and the ``decoder`` stack)."""
+    if "decoder_layers" in tree:
+        out = dict(tree, encoder=_stack(tree["encoder"]),
+                   decoder_layers=unstack_layers(tree["decoder_layers"]))
+    else:
+        out = dict(tree, encoder=_stack(tree["encoder"]), decoder=_stack(tree["decoder"]))
     return to_torch(out, device)
 
 
 def unity_params_from_jax(tree: dict, device=None) -> dict:
     """The parts of a UnitY tree that the port runs: the speech encoder, the
-    text decoder and the NAR T2U. NLLB ties the text encoder's embedding, the
+    text decoder and the T2U (NAR or AR). NLLB ties the text encoder's embedding, the
     decoder's embedding and the output projection to one table: where the
     tree has a text encoder, the port's text encoder shares the decoder's
     ``embed`` dict (the numpy copy of the tree no longer knows they were

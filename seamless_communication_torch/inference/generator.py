@@ -7,8 +7,11 @@ Pass 1: beam search of the text hypothesis from the speech or text encoder
         penalty or step processor) in candidate mode, over each beam's top
         2K+1 tokens from the fused vocabulary kernel.
 Pass 2: re-decode the best hypothesis through the text decoder (full
-        sequence) to get its features, run the NAR T2U (argmax) on them and
-        detokenize the units.
+        sequence) to get its features, run the T2U on them and detokenize
+        the units: the NAR T2U of the v2 models (argmax), or the AR T2U of
+        the v1 models, a beam search over unit tokens from the prefix
+        [eos, lang] over its KV-cached decoder (int8 KV on the card: the
+        decode-attention kernel at every layer of every step).
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ import torch
 
 from seamless_communication_torch.models.unity import model as unity
 from seamless_communication_torch.models.unity.builder import UnitYConfig
+from seamless_communication_torch.models.unity.t2u import (
+    ar_t2u_cache, ar_t2u_decoder_step, ar_t2u_encode,
+)
 from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
 from seamless_communication_torch.ops.beam_search import (
     BeamSearchOptions, BeamSearchResult, beam_search, make_banned_sequence_processor,
@@ -88,16 +94,23 @@ class UnitYGenerator:
     def __init__(self, params: dict, cfg: UnitYConfig, text_tokenizer: NllbTokenizer,
                  unit_tokenizer: Optional[UnitTokenizer] = None,
                  char_tokenizer: Optional[CharTokenizer] = None,
-                 text_opts: Optional[SequenceGeneratorOptions] = None, *,
+                 text_opts: Optional[SequenceGeneratorOptions] = None,
+                 unit_opts: Optional[SequenceGeneratorOptions] = None, *,
                  device: torch.device):
+        """``unit_opts``: the AR T2U's beam (size, length penalty, n-gram
+        block, KV cache); its maximum length is ``generate_units``'s
+        ``max_unit_len``, as in the JAX package, so its length fields are
+        not read."""
         self.params = params
         self.cfg = cfg
         self.text_tokenizer = text_tokenizer
         self.unit_tokenizer = unit_tokenizer
         self.char_tokenizer = char_tokenizer
         self.text_opts = text_opts or SequenceGeneratorOptions()
+        self.unit_opts = unit_opts or SequenceGeneratorOptions()
         self.device = device
         self.last_result: Optional[BeamSearchResult] = None
+        self.last_unit_result: Optional[BeamSearchResult] = None   # AR T2U
         # wall seconds of the re-decode and the T2U in the last generate_units
         self.last_timings: dict = {}
 
@@ -156,13 +169,12 @@ class UnitYGenerator:
     def generate_units(self, text_tokens: np.ndarray, text_lens: np.ndarray,
                        enc: unity.EncoderOutput, tgt_lang: str, *,
                        duration_factor: float = 1.0, max_unit_len: int = 2048,
-                       ngram_filtering: bool = False) -> List[List[int]]:
-        """Pass 2: re-decode the text, run the NAR T2U, detokenize to raw
-        units. Returns one list of unit ids per utterance."""
-        if self.cfg.nar_t2u is None:
-            raise NotImplementedError(
-                "the AR T2U of the v1 models is not ported yet: it comes with the "
-                "v1 slice (ROADMAP Queue 1, entry 8)")
+                       ngram_filtering: bool = False,
+                       unit_opts_override: Optional[SequenceGeneratorOptions] = None
+                       ) -> List[List[int]]:
+        """Pass 2: re-decode the text, run the T2U (NAR or AR), detokenize
+        to raw units. Returns one list of unit ids per utterance.
+        ``unit_opts_override``: the AR T2U's beam options for this call."""
         if "prosody_encoder" in self.params:
             raise NotImplementedError("expressive models (prosody encoder, FiLM) "
                                       "are not ported yet")
@@ -179,17 +191,26 @@ class UnitYGenerator:
         feats = unity.decode_text(self.params, self.cfg, torch.as_tensor(ids, device=dev),
                                   enc, self_lengths=lens)
         t0 = stage_end(self.last_timings, "redecode", t0, dev)
-        char_ids, _, char_counts = text_to_char_seqs(
-            self.text_tokenizer, self.char_tokenizer, ids,
-            max_char_len=_bucket(max_text * 12, 64))
-        out = unity.t2u_nar(self.params, self.cfg, feats, lens,
-                            torch.as_tensor(char_ids, device=dev),
-                            torch.as_tensor(char_counts, device=dev),
-                            max_unit_len=max_unit_len, duration_factor=duration_factor)
-        units = out.unit_logits.argmax(dim=-1).cpu().numpy()
-        unit_lens = out.unit_lengths.cpu().numpy()
+        if self.cfg.nar_t2u is not None:
+            char_ids, _, char_counts = text_to_char_seqs(
+                self.text_tokenizer, self.char_tokenizer, ids,
+                max_char_len=_bucket(max_text * 12, 64))
+            out = unity.t2u_nar(self.params, self.cfg, feats, lens,
+                                torch.as_tensor(char_ids, device=dev),
+                                torch.as_tensor(char_counts, device=dev),
+                                max_unit_len=max_unit_len,
+                                duration_factor=duration_factor)
+            units = out.unit_logits.argmax(dim=-1).cpu().numpy()
+            unit_lens = out.unit_lengths.cpu().numpy()
+            raw = self.unit_tokenizer.decode(units)     # offset -4, EOS -> pad
+        else:
+            res = self._ar_units(feats, lens, tgt_lang, max_unit_len,
+                                 unit_opts_override or self.unit_opts)
+            raw = self.unit_tokenizer.decode(res.tokens[:, 0].cpu().numpy())
+            raw = raw[:, 1:]    # the lang symbol the decoder keeps at position 0
+            # the hypothesis is [eos, lang, units..., eos]: 3 tokens not units
+            unit_lens = np.maximum(res.lengths[:, 0].cpu().numpy() - 3, 0)
         stage_end(self.last_timings, "t2u", t0, dev)
-        raw = self.unit_tokenizer.decode(units)     # offset -4, EOS -> pad
         out_units = []
         for b in range(raw.shape[0]):
             u = [int(t) for t in raw[b, :unit_lens[b]]
@@ -198,3 +219,39 @@ class UnitYGenerator:
                 u = remove_consecutive_repeated_ngrams(u)
             out_units.append(u)
         return out_units
+
+    def _ar_units(self, feats: torch.Tensor, lens: torch.Tensor, tgt_lang: str,
+                  max_len: int, uopts: SequenceGeneratorOptions) -> BeamSearchResult:
+        """The AR T2U's beam search over unit tokens: the encoder over the
+        re-decoded features, then ``uopts.beam_size`` beams from the prefix
+        [eos, lang] up to ``max_len`` tokens over the KV-cached decoder,
+        with the n-gram block where the options ask for it."""
+        tcfg = self.cfg.ar_t2u
+        t2u = self.params["t2u"]
+        K = uopts.beam_size
+        enc, mask = ar_t2u_encode(t2u, tcfg, feats, lens)
+        enc_bk = torch.repeat_interleave(enc, K, dim=0)
+        mask_bk = torch.repeat_interleave(mask, K, dim=0)
+        # the AR T2U's cache is int8 or fp: the packed-int4 option is the
+        # text decoder's only, as in the JAX package
+        kv_int8, _ = _resolve_kv(uopts, self.device)
+        cache = ar_t2u_cache(t2u, tcfg, enc_bk, max_len, kv_int8)
+
+        def step_fn(tok_t, cache, step: int, beam_src: Optional[torch.Tensor] = None):
+            return ar_t2u_decoder_step(t2u, tok_t, cache, step, tcfg,
+                                       enc_padding_mask=mask_bk, beam_src=beam_src)
+
+        V = tcfg.unit_vocab_size
+        procs = ([make_ngram_repeat_block(uopts.no_repeat_ngram_size, V)]
+                 if uopts.no_repeat_ngram_size else [])
+        opts = BeamSearchOptions(beam_size=K, max_len=max_len,
+                                 len_penalty=uopts.len_penalty, pad_idx=tcfg.pad_idx,
+                                 unk_idx=tcfg.unk_idx, eos_idx=tcfg.eos_idx,
+                                 bos_idx=tcfg.bos_idx)
+        B = feats.shape[0]
+        prefix = torch.tensor([[tcfg.eos_idx, self.unit_tokenizer.lang_to_index(tgt_lang)]],
+                              dtype=torch.int32, device=self.device).repeat(B, 1)
+        prefix_len = torch.full((B,), 2, dtype=torch.int32, device=self.device)
+        res = beam_search(step_fn, cache, prefix, prefix_len, opts, V, processors=procs)
+        self.last_unit_result = res
+        return res

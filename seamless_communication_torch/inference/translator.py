@@ -6,11 +6,12 @@ Speech input (``s2st``, ``s2tt``, ``asr``): audio -> host fbank (80-mel,
 raw log-mels (:class:`FbankInput`) -> speech encoder. Text input (``t2st``,
 ``t2tt``): source tokens -> NLLB text encoder. Then the beam-search text
 decode -> detokenization; for the speech outputs (``s2st``, ``t2st``) the
-re-decode, the host char frontend, the NAR T2U and the unit HiFi-GAN
-vocoder. With ``apply_mintox`` the outputs are checked for added toxicity
-against the source (ETOX) and the offending items re-generated with the
-toxic words banned in the beam (MinTox). It runs on the CUDA card unless the
-caller passes ``device="cpu"``.
+re-decode, the T2U (the v2 models' host char frontend and NAR T2U, or the v1
+models' AR T2U beam search) and the unit HiFi-GAN vocoder. With
+``apply_mintox`` the outputs are checked for added toxicity against the
+source (ETOX) and the offending items re-generated with the toxic words
+banned in the beam (MinTox). It runs on the CUDA card unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -88,12 +89,14 @@ class Translator:
                  vocoder_cfg: Optional[CodeHifiGanConfig] = None,
                  lang_spkr_idx_map: Optional[dict] = None, *,
                  text_opts: Optional[SequenceGeneratorOptions] = None,
+                 unit_opts: Optional[SequenceGeneratorOptions] = None,
                  fbank_cfg: FbankConfig = FbankConfig(),
                  normalize_fbank: str = "utterance",
                  apply_mintox: bool = False, etox_checker=None,
                  device: Optional[Union[str, torch.device]] = None):
         """``normalize_fbank``: "utterance" (one mean and standard deviation
-        over the utterance) or "per_mel_bin". ``apply_mintox`` needs an
+        over the utterance) or "per_mel_bin". ``unit_opts``: the AR T2U's
+        beam options (v1 models). ``apply_mintox`` needs an
         ``etox_checker`` (``toxicity.etox.ETOXBadWordChecker``)."""
         if apply_mintox and etox_checker is None:
             raise ValueError("apply_mintox=True requires an etox_checker "
@@ -111,7 +114,8 @@ class Translator:
         self.lang_spkr_idx_map = lang_spkr_idx_map or {}
         self.fbank_cfg = fbank_cfg
         self.generator = UnitYGenerator(self.params, cfg, text_tokenizer, unit_tokenizer,
-                                        char_tokenizer, text_opts, device=self.device)
+                                        char_tokenizer, text_opts, unit_opts,
+                                        device=self.device)
         # wall seconds of each stage of the last predict(): encoder (speech
         # or text, the host front end included), text_decode and, for s2st
         # and t2st, redecode, t2u (the char frontend included) and vocoder;
@@ -179,6 +183,7 @@ class Translator:
                 src_lang: Optional[str] = None, sample_rate: int = 16000,
                 spkr: int = -1, duration_factor: float = 1.0,
                 text_generation_opts: Optional[SequenceGeneratorOptions] = None,
+                unit_generation_opts: Optional[SequenceGeneratorOptions] = None,
                 banned_sequences: Optional[tuple] = None,
                 ngram_filtering: bool = False, max_unit_len: int = 2048,
                 src_text: Optional[str] = None,
@@ -191,8 +196,9 @@ class Translator:
         input is a string or a list of strings in ``src_lang``, which it
         requires.
 
-        ``banned_sequences``: ((N, M) int array, (N,) lengths) token
-        sequences the text beam must not complete. With MinTox on
+        ``unit_generation_opts``: the AR T2U's beam options for this call
+        (v1 models). ``banned_sequences``: ((N, M) int array, (N,) lengths)
+        token sequences the text beam must not complete. With MinTox on
         (``apply_mintox``, or ``_apply_mintox`` for this call) the source
         text is ``src_text``, the text input, or the ASR of the speech input
         in ``src_lang``."""
@@ -232,7 +238,8 @@ class Translator:
 
         units = self.generator.generate_units(
             tokens, tok_lens, enc, tgt_lang, duration_factor=duration_factor,
-            max_unit_len=max_unit_len, ngram_filtering=ngram_filtering)
+            max_unit_len=max_unit_len, ngram_filtering=ngram_filtering,
+            unit_opts_override=unit_generation_opts)
         self.last_timings.update(self.generator.last_timings)
         if do_mintox:
             texts, units = self._run_mintox(

@@ -2,12 +2,17 @@
 ``seamless_communication_tpu/models/unity/builder.py``) for the archs the
 port runs:
 
+  - ``base``     v1 large: w2v-BERT 600m speech encoder (XL rel-pos, SAME
+                 depthwise conv, batch norm) + NLLB dense_1b (vocab 256102) +
+                 AR T2U (unit vocab 10082)
   - ``base_v2``  v2 large: conformer_shaw 600m speech encoder (Shaw rel-pos,
                  causal depthwise conv) + NLLB dense_1b decoder (vocab 256102)
-  - ``tiny_v2``  the tiny arch of the tests
+                 + NAR T2U
+  - ``tiny_v1``, ``tiny_v2``  the tiny archs of the tests
 
-Both carry a NAR T2U (``models/unity/t2u.py``) and the NLLB text encoder
-(``use_text_encoder``), whose embedding is tied to the decoder's.
+Each carries one T2U (``models/unity/t2u.py``: ``ar_t2u`` for v1,
+``nar_t2u`` for v2) and the NLLB text encoder (``use_text_encoder``), whose
+embedding is tied to the decoder's.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
 from seamless_communication_torch.models.nllb.model import NllbConfig
-from seamless_communication_torch.models.unity.t2u import NarT2UConfig
+from seamless_communication_torch.models.unity.t2u import ArT2UConfig, NarT2UConfig
 from seamless_communication_torch.models.wav2vec2.encoder import SpeechEncoderConfig
 from seamless_communication_torch.ops.conformer import ConformerConfig
 
@@ -26,8 +31,10 @@ class UnitYConfig:
     model_dim: int = 1024
     speech: SpeechEncoderConfig = field(default_factory=SpeechEncoderConfig)
     nllb: NllbConfig = field(default_factory=NllbConfig)
-    nar_t2u: Optional[NarT2UConfig] = None
     use_text_encoder: bool = True
+    # exactly one of these set
+    nar_t2u: Optional[NarT2UConfig] = None
+    ar_t2u: Optional[ArT2UConfig] = None
     arch: str = "base_v2"
 
 
@@ -52,6 +59,22 @@ def _shaw_conformer(dim=1024, layers=24, heads=16, ffn=4096) -> ConformerConfig:
                            num_layers=layers, pos_type="shaw",
                            causal_depthwise_conv=True, conv_norm="layer_norm",
                            shaw_max_left=64, shaw_max_right=8)
+
+
+def _xl_conformer(dim=1024, layers=24, heads=16, ffn=4096) -> ConformerConfig:
+    return ConformerConfig(dim=dim, ffn_inner_dim=ffn, num_heads=heads,
+                           num_layers=layers, pos_type="xl",
+                           causal_depthwise_conv=False, conv_norm="batch_norm")
+
+
+@register_arch("base")
+def _base_v1() -> UnitYConfig:
+    return UnitYConfig(
+        speech=SpeechEncoderConfig(conformer=_xl_conformer()),
+        nllb=NllbConfig(vocab_size=256102, max_seq_len=1024),
+        ar_t2u=ArT2UConfig(unit_vocab_size=10082),
+        arch="base",
+    )
 
 
 @register_arch("base_v2")
@@ -82,4 +105,24 @@ def _tiny_v2() -> UnitYConfig:
                              char_vocab_size=64, dur_predictor_hidden=32,
                              max_seq_len=512),
         arch="tiny_v2",
+    )
+
+
+@register_arch("tiny_v1")
+def _tiny_v1() -> UnitYConfig:
+    return UnitYConfig(
+        model_dim=64,
+        speech=SpeechEncoderConfig(
+            model_dim=64, feature_dim=160, ffn_inner_dim=128, num_adaptor_heads=4,
+            conformer=ConformerConfig(dim=64, ffn_inner_dim=128, num_heads=4,
+                                      num_layers=2, depthwise_kernel_size=7,
+                                      pos_type="xl", causal_depthwise_conv=False,
+                                      conv_norm="batch_norm")),
+        nllb=NllbConfig(dim=64, num_encoder_layers=2, num_decoder_layers=2,
+                        num_heads=4, ffn_inner_dim=128, vocab_size=256,
+                        max_seq_len=512),
+        ar_t2u=ArT2UConfig(model_dim=64, num_encoder_layers=2, num_decoder_layers=2,
+                           num_heads=4, ffn_inner_dim=128, unit_vocab_size=112,
+                           max_seq_len=256),
+        arch="tiny_v1",
     )

@@ -1,9 +1,10 @@
 """UnitY model functions (counterpart of
 ``seamless_communication_tpu/models/unity/model.py``): parameter init for the
-speech encoder, the text decoder, the NAR T2U and the text encoder;
-``encode_speech`` and ``encode_text``; the beam-search step of the X2T view
-(full-vocabulary or candidate form); the full-sequence re-decode
-``decode_text``; and ``t2u_nar``."""
+speech encoder, the text decoder, the T2U (NAR for v2, AR for v1) and the
+text encoder; ``encode_speech`` and ``encode_text``; the beam-search step of
+the X2T view (full-vocabulary or candidate form); the full-sequence
+re-decode ``decode_text``; and ``t2u_nar``. The AR T2U's decode is in
+``inference/generator.py``."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from seamless_communication_torch.models.nllb.model import (
 )
 from seamless_communication_torch.models.unity.builder import UnitYConfig
 from seamless_communication_torch.models.unity.t2u import (
-    NarT2UOutput, nar_t2u_forward, nar_t2u_init,
+    NarT2UOutput, ar_t2u_init, nar_t2u_forward, nar_t2u_init,
 )
 from seamless_communication_torch.models.wav2vec2.encoder import (
     speech_encoder_forward, speech_encoder_init,
@@ -28,7 +29,7 @@ from seamless_communication_torch.ops.masks import lengths_to_padding_mask
 def unity_init(gen: torch.Generator, cfg: UnitYConfig, *, dtype=torch.float32,
                device=None) -> dict:
     """Random parameters of the speech encoder, the text decoder, (where the
-    config has them) the NAR T2U and the text encoder, drawn from ``gen`` in
+    config has them) the NAR or the AR T2U and the text encoder, drawn from ``gen`` in
     that order (``gen`` must live on ``device``). The text encoder shares the
     decoder's ``embed`` dict, as NLLB ties the two tables; it is drawn last, so
     the other parts are the same draws with or without it."""
@@ -37,6 +38,8 @@ def unity_init(gen: torch.Generator, cfg: UnitYConfig, *, dtype=torch.float32,
               "text_decoder": text_decoder_init(gen, cfg.nllb, **kw)}
     if cfg.nar_t2u is not None:
         params["t2u"] = nar_t2u_init(gen, cfg.nar_t2u, **kw)
+    elif cfg.ar_t2u is not None:
+        params["t2u"] = ar_t2u_init(gen, cfg.ar_t2u, **kw)
     if cfg.use_text_encoder:
         params["text_encoder"] = text_encoder_init(
             gen, cfg.nllb, tie_embed=params["text_decoder"]["embed"], **kw)

@@ -1,12 +1,17 @@
-"""Non-autoregressive text-to-unit model of UnitY2 (counterpart of the NAR
-half of ``seamless_communication_tpu/models/unity/t2u.py``).
+"""Text-to-unit models (counterpart of
+``seamless_communication_tpu/models/unity/t2u.py``).
 
-A 6-layer transformer encoder over the text decoder's features, then a
-char-level NAR decoder: upsample the features to char length by each
-token's char count, add char embeddings and alpha-scaled sinusoidal
-positions, predict per-char durations (variance predictor), upsample to unit
-length, run the post-LN FFT layers (self-attention + two same-padded convs)
-and project to the unit vocabulary.
+The AR T2U of the v1 models: a transformer encoder over the text decoder's
+features and a KV-cached transformer decoder over unit tokens with a tied
+embedding, decoded by beam search (``inference/generator.py``).
+
+The NAR T2U of UnitY2: a 6-layer transformer encoder over the text
+decoder's features, then a char-level NAR decoder: upsample the features to
+char length by each token's char count, add char embeddings and
+alpha-scaled sinusoidal positions, predict per-char durations (variance
+predictor), upsample to unit length, run the post-LN FFT layers
+(self-attention + two same-padded convs) and project to the unit
+vocabulary.
 
 Upsampled lengths are static (``max_unit_len``) with validity masks, as in
 the JAX package. The FiLM and prosody branches (expressive models) are not
@@ -29,7 +34,8 @@ from seamless_communication_torch.ops.modules import (
 )
 from seamless_communication_torch.ops.positional import sinusoidal_positions
 from seamless_communication_torch.ops.transformer import (
-    TransformerConfig, transformer_encoder, transformer_stack_init,
+    TransformerConfig, decoder_cache_init, embedding_frontend, tied_projection,
+    transformer_decoder_step, transformer_encoder, transformer_stack_init,
 )
 from seamless_communication_torch.ops.upsample import hard_upsample
 
@@ -209,3 +215,71 @@ def nar_t2u_forward(params: dict, cfg: NarT2UConfig, text_dec_out: torch.Tensor,
                               padding_mask=text_mask)
     return nar_t2u_decode(params, cfg, enc, char_ids, char_counts,
                           max_unit_len=max_unit_len, duration_factor=duration_factor)
+
+
+# ---------------------------------------------------------------------------
+# AR T2U model (v1)
+# ---------------------------------------------------------------------------
+
+class ArT2UConfig(NamedTuple):
+    model_dim: int = 1024
+    num_encoder_layers: int = 6
+    num_decoder_layers: int = 6
+    num_heads: int = 16
+    ffn_inner_dim: int = 8192
+    unit_vocab_size: int = 10082
+    pad_idx: int = 1
+    eos_idx: int = 2
+    unk_idx: int = 3
+    bos_idx: int = 0
+    max_seq_len: int = 2048
+
+    def enc_cfg(self) -> TransformerConfig:
+        return TransformerConfig(self.model_dim, self.num_encoder_layers,
+                                 self.num_heads, self.ffn_inner_dim, "relu",
+                                 self.unit_vocab_size, self.pad_idx,
+                                 self.max_seq_len, False)
+
+    def dec_cfg(self) -> TransformerConfig:
+        return TransformerConfig(self.model_dim, self.num_decoder_layers,
+                                 self.num_heads, self.ffn_inner_dim, "relu",
+                                 self.unit_vocab_size, self.pad_idx,
+                                 self.max_seq_len, True)
+
+
+def ar_t2u_init(gen: torch.Generator, cfg: ArT2UConfig, *, dtype=torch.float32,
+                device=None) -> dict:
+    kw = dict(dtype=dtype, device=device)
+    return {"encoder": transformer_stack_init(gen, cfg.enc_cfg(), **kw),
+            "embed": embedding_init(gen, cfg.unit_vocab_size, cfg.model_dim, **kw),
+            "decoder": transformer_stack_init(gen, cfg.dec_cfg(), **kw)}
+
+
+def ar_t2u_encode(params: dict, cfg: ArT2UConfig, text_dec_out: torch.Tensor,
+                  text_lens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder over the text decoder's features -> ((B, T, D) output,
+    (B, T) padding mask, True on real positions)."""
+    mask = lengths_to_padding_mask(text_lens, text_dec_out.shape[1])
+    return transformer_encoder(params["encoder"], text_dec_out, cfg.enc_cfg(),
+                               padding_mask=mask), mask
+
+
+def ar_t2u_decoder_step(params: dict, tok_t: torch.Tensor, cache, step: int,
+                        cfg: ArT2UConfig, *,
+                        enc_padding_mask: Optional[torch.Tensor] = None,
+                        beam_src: Optional[torch.Tensor] = None):
+    """One KV-cached unit decode step -> ((B, V) fp32 logits through the
+    tied embedding, cache); with an int8 cache, a ``beam_src`` and tensors
+    on the card, each layer's self-attention is a decode-attention kernel
+    (``transformer_decoder_step``)."""
+    x = embedding_frontend(params["embed"], tok_t, cfg.dec_cfg(), start_step=step)
+    h, cache = transformer_decoder_step(params["decoder"], x, cache, step,
+                                        cfg.dec_cfg(), enc_padding_mask=enc_padding_mask,
+                                        beam_src=beam_src)
+    return tied_projection(params["embed"], h)[:, 0], cache
+
+
+def ar_t2u_cache(params: dict, cfg: ArT2UConfig, enc_out: torch.Tensor, max_len: int,
+                 kv_int8: bool = False):
+    return decoder_cache_init(params["decoder"], cfg.dec_cfg(), enc_out, max_len,
+                              kv_int8=kv_int8)

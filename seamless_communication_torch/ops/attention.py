@@ -1,8 +1,11 @@
 """Multi-head attention (counterpart of
 ``seamless_communication_tpu/ops/attention.py``): plain scaled-dot-product
 attention, Shaw clipped relative-position self-attention (the v2 speech
-encoder), and the KV-cached single-step decode paths, fp, int8 and packed
-int4.
+encoder), Transformer-XL u/v-bias relative-position self-attention (the v1
+speech encoder), and the KV-cached single-step decode paths, fp, int8 and
+packed int4. With ``SEAMLESS_FUSED_ATTN`` on, every full-sequence attention
+goes through the flash-attention kernel where it is eligible
+(``ops/fused_attention.py``).
 
 Logit math is fp32; inputs and outputs keep the activation dtype. Caches are
 (B, H, T, Dh).
@@ -15,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from seamless_communication_torch.ops.fused_attention import try_flash
 from seamless_communication_torch.ops.modules import linear, linear_init, true_div
 
 
@@ -66,11 +70,16 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           bias: Optional[torch.Tensor], *, extra_logits: Optional[torch.Tensor] = None,
           scale: Optional[float] = None) -> torch.Tensor:
-    """Scaled-dot-product attention on (B, H, T, Dh) tensors, fp32 softmax.
-    Plain matmul + softmax, as the JAX package computes it with its fused
-    attention switched off (its default)."""
+    """Scaled-dot-product attention on (B, H, T, Dh) tensors, fp32 softmax:
+    ``softmax(q @ k^T * scale + extra_logits + bias) @ v``. With the fused
+    option on, an eligible call goes through the flash-attention kernel
+    (``try_flash``); otherwise the plain matmul + softmax, as the JAX package
+    computes it with the option off (its default)."""
     dh = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    fused = try_flash(q, k, v, bias, extra_logits, scale)
+    if fused is not None:
+        return fused
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if extra_logits is not None:
         logits = logits + extra_logits
@@ -114,6 +123,97 @@ def shaw_self_attention(params: dict, x: torch.Tensor, num_heads: int, *,
     onehot = (idx[:, :, None] == torch.arange(P, device=x.device)).float()
     rel_logits = torch.einsum("bhqp,qjp->bhqj", rel_logits_full, onehot)
     out = _sdpa(q, k, v, bias, extra_logits=rel_logits / math.sqrt(dh))
+    return linear(params["output_proj"], _merge_heads(out))
+
+
+# ---------------------------------------------------------------------------
+# Transformer-XL u/v-bias relative attention (the v1 w2v-BERT conformer)
+# ---------------------------------------------------------------------------
+
+def xl_rel_table(seq_len: int, dim: int, dtype=torch.float32, device=None
+                 ) -> torch.Tensor:
+    """(2*seq_len - 1, dim) interleaved sin/cos encodings of the signed
+    distance; row m encodes d = (seq_len - 1) - m (positive: the key left of
+    the query). The table form of the relative positions that
+    ``_xl_rel_bias`` factorises."""
+    half = torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+    inv_freq = torch.exp(half * (-math.log(10000.0) / dim))
+    d = torch.arange(seq_len - 1, -seq_len, -1, dtype=torch.float32,
+                     device=device)[:, None]
+    ang = d * inv_freq[None, :]
+    table = torch.zeros((2 * seq_len - 1, dim), dtype=torch.float32, device=device)
+    table[:, 0::2] = torch.sin(ang)
+    table[:, 1::2] = torch.cos(ang)
+    return table.to(dtype)
+
+
+def xl_attention_init(gen: torch.Generator, dim: int, num_heads: int, *,
+                      dtype=torch.float32, device=None) -> dict:
+    params = mha_init(gen, dim, num_heads, dtype=dtype, device=device)
+    head_dim = dim // num_heads
+    params["r_proj"] = linear_init(gen, dim, dim, bias=False, dtype=dtype,
+                                   device=device)
+    params["u_bias"] = torch.zeros((num_heads, head_dim), dtype=dtype, device=device)
+    params["v_bias"] = torch.zeros((num_heads, head_dim), dtype=dtype, device=device)
+    return params
+
+
+def _xl_rel_bias(qv: torch.Tensor, w_r: torch.Tensor) -> torch.Tensor:
+    """The relative-position term bd[b,h,i,j] = (q+v)[b,h,i] . r(i-j)[h] in
+    the factorised form of the JAX package: the sinusoids of the signed
+    distance split by the addition formula
+
+        sin((i-j)w) = sin(iw)cos(jw) - cos(iw)sin(jw)
+        cos((i-j)w) = cos(iw)cos(jw) + sin(iw)sin(jw)
+
+    so with z = (q+v) routed back through the sin and cos input rows of the
+    r-projection (z_s, z_c):
+
+        a = z_s*sin_i + z_c*cos_i ;  b = z_c*sin_i - z_s*cos_i
+        bd = a @ cos_j^T + b @ sin_j^T
+
+    z, a and b are rounded to the model dtype where the JAX package rounds
+    them; the table-and-skew form is the same function in exact arithmetic
+    but not in rounding.
+
+    qv: (B, H, T, Dh) = q + v_bias; w_r: the (E, D) r_proj weight, (in,
+    out). Returns (B, H, T, T) fp32."""
+    _, H, T, dh = qv.shape
+    E = w_r.shape[0]
+    dtype, dev = qv.dtype, qv.device
+    inv_freq = torch.exp(torch.arange(0, E, 2, dtype=torch.float32, device=dev)
+                         * (-math.log(10000.0) / E))                  # (E/2,)
+    ang = torch.arange(T, dtype=torch.float32, device=dev)[:, None] * inv_freq[None, :]
+    sin_p, cos_p = torch.sin(ang), torch.cos(ang)                      # (T, E/2)
+    # r(d)[h] = rel(d) @ W_r split to heads; rel's even columns are sin, odd cos
+    w_s = w_r[0::2].reshape(E // 2, H, dh).to(dtype).float()
+    w_c = w_r[1::2].reshape(E // 2, H, dh).to(dtype).float()
+    qf = qv.float()
+    z_s = torch.einsum("bhid,khd->bhik", qf, w_s).to(dtype)
+    z_c = torch.einsum("bhid,khd->bhik", qf, w_c).to(dtype)
+    si, ci = sin_p.to(dtype), cos_p.to(dtype)
+    a = z_s * si + z_c * ci
+    b = z_c * si - z_s * ci
+    return (torch.matmul(a.float(), ci.float().T)
+            + torch.matmul(b.float(), si.float().T))
+
+
+def xl_self_attention(params: dict, x: torch.Tensor, num_heads: int, *,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits = ((q+u).k^T + (q+v).r(i-j)^T) / sqrt(dh), through ``_sdpa``
+    as ``_sdpa(q + u, k, v, bias, extra_logits=bd * scale, scale=scale)``:
+    u is added before the scaling, and the relative term is the post-scale
+    additive logit."""
+    D = x.shape[-1]
+    dh = D // num_heads
+    q = _split_heads(linear(params["q_proj"], x), num_heads)
+    k = _split_heads(linear(params["k_proj"], x), num_heads)
+    v = _split_heads(linear(params["v_proj"], x), num_heads)
+    u = params["u_bias"].to(x.dtype)[None, :, None, :]
+    vb = params["v_bias"].to(x.dtype)[None, :, None, :]
+    bd = _xl_rel_bias(q + vb, params["r_proj"]["weight"])
+    scale = 1.0 / math.sqrt(dh)
+    out = _sdpa(q + u, k, v, bias, extra_logits=bd * scale, scale=scale)
     return linear(params["output_proj"], _merge_heads(out))
 
 

@@ -2,14 +2,17 @@
 ``seamless_communication_tpu/ops/conformer.py``):
 
     x += 0.5 * ffn1(LN(x))
-    x += self_attn(LN(x))        # Shaw clipped relative positions (v2)
+    x += self_attn(LN(x))        # XL (v1) or Shaw clipped (v2) relative positions
     x += conv_module(LN(x))      # pointwise(2x) + GLU -> depthwise -> norm -> swish -> pointwise
     x += 0.5 * ffn2(LN(x))
     x = LN(x)
 
-The stack is a list of per-layer parameter dicts, run in a Python loop. The
-v2 variant (Shaw attention, causal depthwise conv, layer-norm conv norm) is
-the one ``base_v2`` uses; the v1 Transformer-XL attention is not ported yet.
+The two variants of SeamlessM4T's speech encoder:
+    v1: XL attention, SAME-padded depthwise conv, batch norm folded to a
+        per-channel affine at load time;
+    v2: Shaw attention, causal depthwise conv (left pad k-1), layer norm.
+Both store the conv norm as ``{"scale", "bias"}`` under ``norm``. The stack
+is a list of per-layer parameter dicts, run in a Python loop.
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ class ConformerConfig(NamedTuple):
     num_heads: int = 16
     depthwise_kernel_size: int = 31
     num_layers: int = 24
-    pos_type: str = "shaw"          # v1's "xl" is not ported yet
-    causal_depthwise_conv: bool = True
-    conv_norm: str = "layer_norm"   # v1's "batch_norm" is not ported yet
+    pos_type: str = "shaw"          # "shaw" (v2) | "xl" (v1) | "none"
+    causal_depthwise_conv: bool = True   # v2: causal; v1: SAME
+    conv_norm: str = "layer_norm"   # v2: layer_norm; v1: batch_norm
     shaw_max_left: int = 64
     shaw_max_right: int = 8
 
@@ -44,25 +47,24 @@ def _ffn_init(gen, dim, inner, kw):
             "output_proj": linear_init(gen, inner, dim, **kw)}
 
 
-def _check_v2(cfg: ConformerConfig) -> None:
-    if (cfg.pos_type, cfg.causal_depthwise_conv, cfg.conv_norm) != (
-            "shaw", True, "layer_norm"):
-        raise NotImplementedError(f"conformer variant {cfg} is not ported yet: only "
-                                  "Shaw attention, causal conv and layer-norm")
-
-
 def conformer_layer_init(gen: torch.Generator, cfg: ConformerConfig, *,
                          dtype=torch.float32, device=None) -> dict:
-    _check_v2(cfg)
     kw = dict(dtype=dtype, device=device)
-    sa = attn_ops.shaw_attention_init(gen, cfg.dim, cfg.num_heads,
-                                      max_left=cfg.shaw_max_left,
-                                      max_right=cfg.shaw_max_right, **kw)
+    if cfg.pos_type == "shaw":
+        sa = attn_ops.shaw_attention_init(gen, cfg.dim, cfg.num_heads,
+                                          max_left=cfg.shaw_max_left,
+                                          max_right=cfg.shaw_max_right, **kw)
+    elif cfg.pos_type == "xl":
+        sa = attn_ops.xl_attention_init(gen, cfg.dim, cfg.num_heads, **kw)
+    else:
+        sa = attn_ops.mha_init(gen, cfg.dim, cfg.num_heads, **kw)
     conv = {
         "layer_norm": layer_norm_init(cfg.dim, **kw),
         "pointwise_conv1": linear_init(gen, cfg.dim, 2 * cfg.dim, bias=False, **kw),
         "depthwise_conv": conv1d_init(gen, cfg.dim, cfg.dim, cfg.depthwise_kernel_size,
                                       groups=cfg.dim, bias=False, **kw),
+        # v1's batch norm is folded to a per-channel affine at load time, so
+        # both variants store {scale, bias} here
         "norm": layer_norm_init(cfg.dim, **kw),
         "pointwise_conv2": linear_init(gen, cfg.dim, cfg.dim, bias=False, **kw),
     }
@@ -94,8 +96,13 @@ def _conv_module(params: dict, x: torch.Tensor, cfg: ConformerConfig,
     # zero padded steps so the depthwise conv cannot leak padding
     h = apply_padding_mask(h, padding_mask)
     h = glu(linear(params["pointwise_conv1"], h), dim=-1)
-    h = conv1d(params["depthwise_conv"], h, padding="CAUSAL", groups=cfg.dim)
-    h = layer_norm(params["norm"], h)
+    pad = "CAUSAL" if cfg.causal_depthwise_conv else "SAME"
+    h = conv1d(params["depthwise_conv"], h, padding=pad, groups=cfg.dim)
+    if cfg.conv_norm == "batch_norm":
+        # v1: inference-mode batch norm folded to a per-channel affine
+        h = h * params["norm"]["scale"].to(h.dtype) + params["norm"]["bias"].to(h.dtype)
+    else:
+        h = layer_norm(params["norm"], h)
     return linear(params["pointwise_conv2"], swish(h))
 
 
@@ -104,9 +111,17 @@ def conformer_layer(params: dict, x: torch.Tensor, cfg: ConformerConfig, *,
                     padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
     x = x + 0.5 * _ffn(params["ffn1"], x)
     h = layer_norm(params["self_attn_layer_norm"], x)
-    x = x + attn_ops.shaw_self_attention(params["self_attn"], h, cfg.num_heads,
+    if cfg.pos_type == "shaw":
+        h = attn_ops.shaw_self_attention(params["self_attn"], h, cfg.num_heads,
                                          max_left=cfg.shaw_max_left,
                                          max_right=cfg.shaw_max_right, bias=attn_bias)
+    elif cfg.pos_type == "xl":
+        h = attn_ops.xl_self_attention(params["self_attn"], h, cfg.num_heads,
+                                       bias=attn_bias)
+    else:
+        h = attn_ops.multi_head_attention(params["self_attn"], h, h, cfg.num_heads,
+                                          bias=attn_bias)
+    x = x + h
     x = x + _conv_module(params["conv"], x, cfg, padding_mask)
     x = x + 0.5 * _ffn(params["ffn2"], x)
     return layer_norm(params["layer_norm"], x)
@@ -115,7 +130,6 @@ def conformer_layer(params: dict, x: torch.Tensor, cfg: ConformerConfig, *,
 def conformer_encoder(layers: list, x: torch.Tensor, cfg: ConformerConfig, *,
                       padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run the conformer stack (a list of per-layer params) over (B, T, D)."""
-    _check_v2(cfg)
     bias = padding_bias(padding_mask)
     for layer_params in layers:
         x = conformer_layer(layer_params, x, cfg, attn_bias=bias,

@@ -11,6 +11,7 @@ launch_counts: Dict[str, int] = {"decode_attention_int8": 0,
                                  "decode_attention_int4": 0,
                                  "decode_attention_indexed": 0,
                                  "fbank": 0,
+                                 "flash_attention": 0,
                                  "vocab_topk": 0,
                                  "vocab_topk_v2": 0}
 
