@@ -20,7 +20,10 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    attention at the fused option's main-path shapes (the Shaw encoder at 4
    and 10 s, the re-decode, the NAR T2U's FFT layers) in fp32 and bf16,
    beside the library's ``scaled_dot_product_attention`` with the same
-   float mask. ``python3 chip_smoke.py --kernels`` stops after this phase.
+   float mask; K6b and K6c (the backward, ``flash_attention_bwd.cu``) at the
+   same shapes against the plain backward, K6 with its residuals, and the
+   library's SDPA backward and forward + backward as yardsticks.
+   ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
    ``torch.Generator``, the UnitY tree int8 weight-only, beam 5.
@@ -52,6 +55,14 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
       unit decodes cut to 127 steps: K1 24 times a text step and 6 times a
       unit step, K6 24 times in the XL encoder and where the re-decode and
       the AR T2U's encoder reach 128.
+   g. The finetune trainer (``UnitYFinetune``) on ``base_v2`` at full width
+      and depth, bf16 params not quantized, the text encoder frozen, the
+      option on: 3 S2T steps (K6, K6b and K6c 48 times a step, the third
+      loss below the first), a step under the profiler, a
+      ``remat="full"`` step (K6 twice), 2 v2 S2S steps (the NAR T2U; the
+      loss's parts before and after each) and the same with the option off;
+      then gradient parity at 4 conformer + 4 decoder layers in fp32, S2T
+      and S2S with the whole T2U, the option on against off.
    Each path's launches are counted from 0 just before it.
 4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
    tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
@@ -59,7 +70,9 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    and units, and waveforms within 1e-4; so must the lazy reorder (K5), the
    n-gram block, banned sequences, MinTox and FbankInput; and, with the
    fused option on (K6), ``tiny_v1`` S2ST and T2ST (the AR unit decode on
-   K1) and ``tiny_v2`` S2ST.
+   K1) and ``tiny_v2`` S2ST; and two ``tiny_v2`` train steps with the option
+   on (K6, K6b, K6c on the card) give the CPU's losses within 1e-5 and its
+   params within 1e-4.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error, times and bound; the last line is
@@ -75,13 +88,16 @@ directory of ``profile_main_path``).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
@@ -559,6 +575,29 @@ FLASH_SHAPES = (("Shaw encoder 4 s", 256, "shaw", 249),
 FLASH_MAIN = "Shaw encoder 10 s"      # the shape of the kernels line
 
 
+def flash_inputs(rng, T: int, kind: str, valid: int, dev):
+    """fp32 qs (scaled), k, v, the fp32 ``ab`` (or None) and the segment ids
+    (or None) of one ``FLASH_SHAPES`` entry."""
+    import torch
+
+    B, H, Dh = 1, H_MAIN, DH_MAIN
+    qkv = [torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32,
+                           device=dev) for _ in range(3)]
+    qkv[0] = qkv[0] / Dh ** 0.5
+    pad = torch.where(torch.arange(T, device=dev) < valid, 0.0, -1e9)
+    ab32 = seg = None
+    if kind == "shaw":
+        ab32 = torch.as_tensor(rng.standard_normal((B, H, T, T)) * 0.5,
+                               dtype=torch.float32, device=dev) + pad
+    elif kind == "causal":
+        causal = torch.triu(torch.full((T, T), -1e9, device=dev), diagonal=1)
+        ab32 = (causal + pad).expand(B, H, T, T).contiguous()
+    else:
+        seg = (torch.ones((B, T), dtype=torch.int32, device=dev),
+               (pad > -1e8).to(torch.int32)[None].contiguous())
+    return qkv, ab32, seg
+
+
 def phase_flash_attention(smi: str) -> dict:
     """K6 ``flash_attention`` against its plain version ``_reference`` at
     ``FLASH_SHAPES`` in fp32 and bf16: ``out`` within rtol = atol = 1e-5 in
@@ -579,20 +618,7 @@ def phase_flash_attention(smi: str) -> dict:
     tol = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
     rows, max_err = {}, 0.0
     for label, T, kind, valid in FLASH_SHAPES:
-        qkv = [torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32,
-                               device=dev) for _ in range(3)]
-        qkv[0] = qkv[0] / Dh ** 0.5
-        pad = torch.where(torch.arange(T, device=dev) < valid, 0.0, -1e9)
-        ab32 = seg = None
-        if kind == "shaw":
-            ab32 = torch.as_tensor(rng.standard_normal((B, H, T, T)) * 0.5,
-                                   dtype=torch.float32, device=dev) + pad
-        elif kind == "causal":
-            causal = torch.triu(torch.full((T, T), -1e9, device=dev), diagonal=1)
-            ab32 = (causal + pad).expand(B, H, T, T).contiguous()
-        else:
-            seg = (torch.ones((B, T), dtype=torch.int32, device=dev),
-                   (pad > -1e8).to(torch.int32)[None].contiguous())
+        qkv, ab32, seg = flash_inputs(rng, T, kind, valid, dev)
         for dtype in (torch.float32, torch.bfloat16):
             qs, k, v = (x.to(dtype) for x in qkv)
             ab = None if ab32 is None else ab32.to(dtype)
@@ -629,6 +655,164 @@ def phase_flash_attention(smi: str) -> dict:
             "replaces": "seamless_communication_tpu/ops/fused_attention.py:54",
             "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": lib_ms}
+
+
+def bwd_error(name: str, got, ref, dtype) -> float:
+    """The largest error of one gradient of K6b/K6c against the plain
+    backward; raises over the tolerance. fp32: 1e-4 * (1 + |ref|). bf16, where
+    the kernels round p and dS at the plain backward's points: each element
+    within one bf16 ulp (2^-7 * |ref| + 1e-5 * max |ref|) and ||err|| <=
+    2^-9 * ||ref||, so a missed rounding point (about 0.4 % on most
+    elements) fails."""
+    import torch
+
+    err = (got.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    if dtype is torch.float32:
+        ok = bool((err <= 1e-4 * (1 + mag)).all())
+    else:
+        ok = (bool((err <= 2.0 ** -7 * mag + 1e-5 * mag.max()).all())
+              and float(err.norm()) <= 2.0 ** -9 * float(mag.norm()))
+    if not ok:
+        raise AssertionError(f"K6b/K6c {name} {dtype}: max err {float(err.max()):.3g}, "
+                             f"||err|| {float(err.norm()):.3g} of ||ref|| "
+                             f"{float(mag.norm()):.3g}: over tolerance")
+    return float(err.max())
+
+
+def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
+    """K6b ``flash_attention_bwd_dkv`` and K6c ``flash_attention_bwd_dq``
+    against the plain backward ``_reference_bwd`` at ``FLASH_SHAPES`` in fp32
+    and bf16, both fed K6's own ``out``, ``m`` and ``l`` and one seeded dO:
+    dq, dk, dv and dab within ``bwd_error``'s tolerance. K6's ``out`` with
+    residuals must equal its ``out`` without them bit for bit, and ``m``,
+    ``l`` agree with ``_reference_fwd``. Device times by CUDA-graph replay:
+    each kernel, K6 with residuals, each kernel's plain version
+    (``_reference_bwd`` of its part) and the whole plain backward; beside them
+    each kernel's bound (``bound_bwd`` of its part) and the backward's. The
+    library yardstick, also by CUDA-graph replay, each forward + backward
+    captured whole: ``scaled_dot_product_attention`` with the same float
+    mask, forward + backward beside K6 + K6b + K6c through
+    ``FlashAttention``, and its backward alone (forward + backward less
+    forward). No one PyTorch call computes one kernel's part (SDPA's backward
+    computes dq, dk, dv and, with ``ab``, the mask's gradient), so each
+    kernel's ``library_ms`` is null and both rows carry ``pair``: K6b + K6c
+    together against the whole plain backward and SDPA's backward."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    B, H, Dh = 1, H_MAIN, DH_MAIN
+    rows, max_err = {}, {"dkv": 0.0, "dq": 0.0}
+    for label, T, kind, valid in FLASH_SHAPES:
+        qkv, ab32, seg = flash_inputs(rng, T, kind, valid, dev)
+        do32 = torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32,
+                               device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            qs, k, v = (x.to(dtype) for x in qkv)
+            ab = None if ab32 is None else ab32.to(dtype)
+            segs = seg or (None, None)
+            do = do32.to(dtype)
+            need_dab = kind == "shaw"       # the decoder's causal ab needs none
+            out, m, l = fl._launch(qs, k, v, ab, *segs, residuals=True)
+            plain_out = fl._launch(qs, k, v, ab, *segs)[0]
+            _, m_ref, l_ref = fl._reference_fwd(qs, k, v, ab, *segs)
+            got = fl.flash_attention_bwd(qs, k, v, ab, *segs, out, m, l, do,
+                                         need_dab=need_dab)
+            ref = fl._reference_bwd(qs, k, v, ab, *segs, out, m, l, do)
+            torch.cuda.synchronize()
+            if not torch.equal(out, plain_out):
+                raise AssertionError(f"K6 {label} {dtype}: out with residuals differs "
+                                     f"from out without them")
+            res_err = max(float(((m - m_ref).abs() / (1 + m_ref.abs())).max()),
+                          float(((l - l_ref).abs() / (1 + l_ref.abs())).max()))
+            if res_err > 1e-5:
+                raise AssertionError(f"K6 {label} {dtype}: m, l off by {res_err:.3g}")
+            errs = {}
+            for name, g, r in zip(("dq", "dk", "dv", "dab"), got, ref):
+                if name == "dab" and not need_dab:
+                    if g is not None:
+                        raise AssertionError("K6c wrote dab that nobody asked for")
+                    continue
+                errs[name] = bwd_error(f"{label} {name}", g, r, dtype)
+            if dtype is torch.float32:
+                max_err["dkv"] = max(max_err["dkv"], errs["dk"], errs["dv"])
+                max_err["dq"] = max(max_err["dq"], errs["dq"], errs.get("dab", 0.0))
+            args = fl._bwd_args(qs, k, v, ab, *segs, out, m, l, do)
+            dq, dk, dv, dab = (torch.empty_like(x) if x is not None else None for x in got)
+            dkv_ms = cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DKV, args, dk, dv))
+            dq_ms = cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DQ, args, dq, dab))
+            fwd_res_ms = cuda_time_ms(
+                lambda: fl._launch(qs, k, v, ab, *segs, residuals=True))
+            plain_ms = {part: cuda_time_ms(
+                lambda: fl._reference_bwd(qs, k, v, ab, *segs, out, m, l, do, part=part),
+                calls=5, reps=20) for part in ("all", "dkv", "dq")}
+            pairs = fl.unmasked_pairs(B, H, T, T, ab, *segs)
+            bargs = (B, H, T, T, Dh, dtype, ab is not None, seg is not None, pairs,
+                     need_dab)
+            b_all = fl.bound_bwd(*bargs)
+            b_dkv = fl.bound_bwd(*bargs, part="dkv")
+            b_dq = fl.bound_bwd(*bargs, part="dq")
+            # the library yardstick: SDPA with the same float mask; each
+            # forward + backward is captured whole into the CUDA graph (the
+            # backward runs on the forward's stream), and SDPA's backward
+            # alone is its forward + backward less its forward
+            mask = ab if ab is not None else torch.where(
+                seg[0][:, None, :, None] == seg[1][:, None, None, :], 0.0,
+                fl.MASK_VALUE).to(dtype)
+            leaves = [x.detach().clone().requires_grad_() for x in (qs, k, v)]
+            lmask = mask.detach().clone().requires_grad_(need_dab)
+            lib_in = leaves + ([lmask] if need_dab else [])
+            ab_leaf = None if ab is None else ab.detach().clone().requires_grad_(need_dab)
+            k6_in = leaves + ([ab_leaf] if need_dab else [])
+
+            def lib_fwd():
+                return F.scaled_dot_product_attention(*leaves, attn_mask=lmask, scale=1.0)
+
+            def lib_step():
+                torch.autograd.grad(lib_fwd(), lib_in, do)
+
+            def k6_step():
+                torch.autograd.grad(fl.flash_attention(*leaves, ab_leaf, *segs), k6_in, do)
+
+            lib_fwd_ms = cuda_time_ms(lib_fwd, calls=5, reps=20)
+            lib_step_ms = cuda_time_ms(lib_step, calls=5, reps=20)
+            k6_step_ms = cuda_time_ms(k6_step, calls=5, reps=20)
+            lib_bwd_ms = lib_step_ms - lib_fwd_ms
+            rows[label, dtype] = (dkv_ms, dq_ms, plain_ms, lib_bwd_ms, b_dkv, b_dq)
+            log(f"K6b/K6c {label}, T={T} ({valid} valid keys), {str(dtype)[6:]}: max abs "
+                f"err " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+                + f" ({'1e-4 * (1 + |ref|)' if dtype is torch.float32 else 'one bf16 ulp'}"
+                f"); m, l within {res_err:.2g}; device K6b {dkv_ms * 1e3:.2f} us (bound "
+                f"{b_dkv[0] * 1e3:.2f}, {b_dkv[1]}; plain {plain_ms['dkv'] * 1e3:.2f}), "
+                f"K6c {dq_ms * 1e3:.2f} us (bound {b_dq[0] * 1e3:.2f}, {b_dq[1]}; plain "
+                f"{plain_ms['dq'] * 1e3:.2f}), together {(dkv_ms + dq_ms) * 1e3:.2f} us "
+                f"against the backward's bound {b_all[0] * 1e3:.2f} us ({b_all[1]}; {pairs} "
+                f"unmasked logits), whole plain backward {plain_ms['all'] * 1e3:.2f} us; K6 "
+                f"with residuals {fwd_res_ms * 1e3:.2f} us (CUDA-graph replay) [{smi}]")
+            log(f"  yardstick (CUDA-graph replay of whole forward + backward steps): "
+                f"SDPA forward {lib_fwd_ms * 1e3:.2f} us, forward + backward "
+                f"{lib_step_ms * 1e3:.2f} us, so its backward {lib_bwd_ms * 1e3:.2f} us; "
+                f"K6 + K6b + K6c through FlashAttention {k6_step_ms * 1e3:.2f} us")
+    dkv_ms, dq_ms, plain_ms, lib_ms, b_dkv, b_dq = rows[FLASH_MAIN, torch.float32]
+    src = "seamless_communication_torch/csrc/flash_attention_bwd.cu"
+    lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    via = "seamless_communication_tpu/ops/fused_attention.py:54 -> "
+    pair = {"kernels": "flash_attention_bwd_dkv + flash_attention_bwd_dq",
+            "ms": dkv_ms + dq_ms, "plain_ms": plain_ms["all"], "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention backward (dq, dk, dv, d mask)"}
+    return ({"name": "flash_attention_bwd_dkv", "route": "cuda", "source": src,
+             "replaces": f"{via}{lib}:941", "max_abs_err": max_err["dkv"],
+             "ms": dkv_ms, "plain_ms": plain_ms["dkv"], "bound_ms": b_dkv[0],
+             "bound_by": b_dkv[1], "library_ms": None, "pair": pair},
+            {"name": "flash_attention_bwd_dq", "route": "cuda", "source": src,
+             "replaces": f"{via}{lib}:1287", "max_abs_err": max_err["dq"],
+             "ms": dq_ms, "plain_ms": plain_ms["dq"], "bound_ms": b_dq[0],
+             "bound_by": b_dq[1], "library_ms": None, "pair": pair})
 
 
 # ---------------------------------------------------------------------------
@@ -1457,6 +1641,580 @@ def phase_v1(translator, cfg, noise, smi: str) -> dict:
     return {"launches": dict(launch_counts), "requests": stats}
 
 
+# ---------------------------------------------------------------------------
+# phase 3g: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "base_v2"
+TRAIN_DEVICE = "cuda"
+TRAIN_FRAMES = (1000, 700)       # 10 s and 7 s of fbank frames: 500 conformer frames
+TRAIN_TOKENS = (160, 120)        # target lengths; the batch is padded to 160
+
+
+def train_batch(cfg, seed: int, *, frames=None, tokens=None, s2s: bool = False) -> dict:
+    """A synthetic S2T batch of numpy arrays: seeded fbank of ``frames``
+    frames, target tokens of ``tokens`` lengths (padded with the pad id), the
+    previous tokens the language-token-shifted targets. ``s2s`` adds the NAR
+    T2U's inputs: 2-5 chars a token, ground-truth durations of 1-3 units a
+    char, random target units padded to the longest total."""
+    import numpy as np
+
+    frames, tokens = frames or TRAIN_FRAMES, tokens or TRAIN_TOKENS
+    rng = np.random.default_rng(seed)
+    B, T, L = len(frames), max(frames), max(tokens)
+    V = cfg.nllb.vocab_size
+    fbank = rng.standard_normal((B, T, 80)).astype(np.float32)
+    target = rng.integers(4, V, (B, L)).astype(np.int32)
+    prev = np.concatenate([np.full((B, 1), cfg.nllb.eos_idx, np.int32), target[:, :-1]], 1)
+    for b, n in enumerate(tokens):
+        target[b, n:] = cfg.nllb.pad_idx
+        prev[b, n:] = cfg.nllb.pad_idx
+    batch = {"fbank": fbank, "fbank_lens": np.array(frames, np.int32),
+             "prev_tokens": prev, "target_tokens": target,
+             "target_lens": np.array(tokens, np.int32)}
+    if s2s:
+        tc = cfg.nar_t2u
+        counts = np.zeros((B, L), np.int32)
+        for b, n in enumerate(tokens):
+            counts[b, :n] = rng.integers(2, 6, n)
+        C = int(counts.sum(1).max())
+        durs = np.zeros((B, C), np.int32)
+        for b in range(B):
+            durs[b, :counts[b].sum()] = rng.integers(1, 4, counts[b].sum())
+        U = int(durs.sum(1).max())
+        units = rng.integers(4, tc.unit_vocab_size, (B, U)).astype(np.int32)
+        for b in range(B):
+            units[b, durs[b].sum():] = tc.pad_idx
+        batch.update(char_ids=rng.integers(4, tc.char_vocab_size, (B, C)).astype(np.int32),
+                     char_counts=counts, target_durations=durs, target_units=units)
+    return batch
+
+
+def k6_train_expected(cfg, batch: dict, s2s: bool) -> dict:
+    """K6 launches of one train step's forward with the fused option on
+    (K6b and K6c launch as often in its backward), counted from the batch's
+    shapes: eligible where both lengths are at least 128. The adaptor's
+    attention and the decoder's cross-attention see the adaptor's ~T/8
+    keys."""
+    ok = lambda *lens: int(all(n >= 128 for n in lens))
+    frames = batch["fbank"].shape[1] // cfg.speech.fbank_stride
+    k, s = cfg.speech.adaptor_kernel_size, cfg.speech.adaptor_stride
+    enc_len = frames
+    adaptor = 0
+    for _ in range(cfg.speech.adaptor_layers):
+        enc_len = (enc_len + 2 * (s // 2) - k) // s + 1
+        adaptor += ok(enc_len)
+    L = batch["prev_tokens"].shape[1]
+    n_dec = cfg.nllb.num_decoder_layers
+    parts = {"conformer": cfg.speech.conformer.num_layers * ok(frames),
+             "adaptor": adaptor,
+             "decoder": n_dec * ok(L) + n_dec * ok(L, enc_len)}
+    if s2s:
+        tc = cfg.nar_t2u
+        parts["t2u encoder"] = tc.num_encoder_layers * ok(L)
+        parts["t2u fft"] = tc.num_decoder_layers * ok(batch["target_units"].shape[1])
+    return parts
+
+
+def train_steps(trainer, batch: dict, n: int, label: str, smi: str, *,
+                expect: dict, first: int = 1) -> list:
+    """``n`` steps of ``trainer`` on ``batch``, numbered from ``first``: each
+    step's wall (ending in a
+    synchronize), its loss, the target tokens a second and the peak device
+    memory of the step; the launches of K6, K6b and K6c in each step must
+    equal ``expect``."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import launch_counts
+
+    names = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    rows = []
+    for i in range(first, first + n):
+        before = dict(launch_counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = trainer.step(batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: launch_counts[k] - before[k] for k in names}
+        if got != expect:
+            raise AssertionError(f"{label} step {i}: launches {got}, expected {expect}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{label} step {i}: loss {loss}")
+        tokens = float(m["n_tokens"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{label} step {i}: loss {loss:.5f}, grad norm {m['grad_norm']:.4g}, wall "
+            f"{wall * 1e3:.1f} ms, {tokens:.0f} loss tokens, {tokens / wall:.1f} tokens/s, "
+            f"peak {peak:.2f} GiB; K6 {got['flash_attention']}, K6b "
+            f"{got['flash_attention_bwd_dkv']}, K6c {got['flash_attention_bwd_dq']} "
+            f"[{smi}]")
+        rows.append({"step": i, "loss": loss, "wall_ms": wall * 1e3,
+                     "tokens": tokens, "tokens_per_s": tokens / wall, "peak_gib": peak,
+                     "launches": got})
+    return rows
+
+
+def profile_train_step(trainer, batch: dict, smi: str) -> dict:
+    """One more train step under ``torch.profiler``: the kernels' busy time
+    and share of the step's wall, the device time of K6, K6b and K6c (the
+    ``flash_attention*`` kernels) within it, and the kernels that take most
+    of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: a user annotation's range (AdamW's step) spans kernels
+    # that are counted on their own
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    flash = {name: sum(e.self_device_time_total for e in events
+                       if f"{name}_kernel" in e.key) / 1e3
+             for name in ("flash_attention", "flash_attention_bwd_dkv",
+                          "flash_attention_bwd_dq")}
+    flash_ms = sum(flash.values())
+    log(f"3g profile of one S2T step [{smi}]: wall {wall_ms:.1f} ms under the profiler, "
+        f"kernels busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f} % of the wall, "
+        f"{sum(e.count for e in events)} kernel launches; K6 {flash['flash_attention']:.2f}"
+        f" ms, K6b {flash['flash_attention_bwd_dkv']:.2f} ms, K6c "
+        f"{flash['flash_attention_bwd_dq']:.2f} ms, together {flash_ms:.2f} ms = "
+        f"{100 * flash_ms / busy_ms:.1f} % of the kernels' time; top kernels:")
+    top = []
+    for e in events[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
+        top.append((e.key[:90], e.self_device_time_total / 1e3, e.count))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "flash_ms": flash, "top": top}
+
+
+def fwd_bwd_peak(params: dict, cfg, batch: dict, dev, policy) -> float:
+    """GiB allocated above the parameters at the peak of one S2T loss and
+    its backward (no optimizer step) on a fresh copy of ``params``, under
+    ``remat_layers(policy)`` or without remat (None): what remat trades."""
+    import contextlib
+
+    import torch
+
+    from seamless_communication_torch.ops.remat import remat_layers
+    from seamless_communication_torch.train.trainer import (
+        batch_to, s2t_loss, trainable_copy,
+    )
+
+    p = trainable_copy(params, dev)
+    b = batch_to(batch, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with remat_layers(policy) if policy else contextlib.nullcontext():
+        loss, n = s2t_loss(p, cfg, b)
+        (loss / n).backward()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del p, loss
+    return peak
+
+
+@contextlib.contextmanager
+def flash_versions(forward: str, backward: str, record: Optional[list] = None):
+    """Within the block, CUDA tensors take K6 (``forward="kernel"``) or its
+    plain version ``_reference_fwd`` (``"plain"``; ``"plain, out +-1 ulp"``:
+    its ``out`` then scaled by 1 + 2^-23 * u, u uniform in [-1, 1] from a
+    seeded generator, a rounding of about one ulp), and K6b + K6c
+    (``backward="kernel"``) or their plain version ``_reference_bwd``: the
+    library's contract in PyTorch. With ``record``, every backward call's
+    inputs and (dq, dk, dv) are appended to it."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    saved = fl._forward, fl.flash_attention_bwd
+    gen = None
+
+    def fwd(qs, k, v, ab, q_seg, kv_seg, residuals):
+        nonlocal gen
+        out, m, l = fl._reference_fwd(qs, k, v, ab, q_seg, kv_seg)
+        if forward == "plain, out +-1 ulp":
+            if gen is None:
+                gen = torch.Generator(device=out.device).manual_seed(11)
+            u = torch.rand(out.shape, generator=gen, device=out.device) * 2 - 1
+            out = out * (1 + 2.0 ** -23 * u)
+        return (out, m, l) if residuals else (out, None, None)
+
+    def plain_bwd(qs, k, v, ab, q_seg, kv_seg, o, m, l, do, need_dab=True):
+        dq, dk, dv, dab = fl._reference_bwd(qs, k, v, ab, q_seg, kv_seg, o, m, l, do)
+        return dq, dk, dv, dab if need_dab else None
+
+    inner = saved[1] if backward == "kernel" else plain_bwd
+
+    def bwd(*args, need_dab=True):
+        grads = inner(*args, need_dab=need_dab)
+        if record is not None:
+            record.append(([None if x is None else x.detach().clone() for x in args],
+                           [g.detach().clone() for g in grads[:3]]))
+        return grads
+
+    if forward != "kernel":
+        fl._forward = fwd
+    fl.flash_attention_bwd = bwd
+    try:
+        yield
+    finally:
+        fl._forward, fl.flash_attention_bwd = saved
+
+
+def attention_grads(qs, k, v, ab, q_seg, kv_seg, do, dtype) -> tuple:
+    """dq, dk, dv of ``softmax(qs k^T + ab + segmask) v`` for ``do``, by
+    autograd of the plain attention in ``dtype``."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    qs, k, v = (x.detach().to(dtype).requires_grad_() for x in (qs, k, v))
+    s = qs @ k.transpose(-1, -2)
+    if ab is not None:
+        s = s + ab.to(dtype)
+    if q_seg is not None:
+        s = torch.where(q_seg[:, None, :, None] == kv_seg[:, None, None, :], s,
+                        torch.tensor(fl.MASK_VALUE, dtype=dtype, device=s.device))
+    return torch.autograd.grad(torch.softmax(s, -1) @ v, (qs, k, v), do.to(dtype))
+
+
+def grad_parity(cfg, dev, smi: str, s2s: bool = False) -> dict:
+    """Gradient parity at full width, depth cut to 4 conformer and 4 decoder
+    layers (no text encoder, which no loss reaches), fp32, TF32 off. S2T:
+    ``s2t_loss``, no T2U. ``s2s``: the v2 ``s2st_loss`` with the whole NAR
+    T2U (6 encoder layers at L = 160, 6 FFT layers on the segment-id path at
+    U >= 1000), so the unit NLL and the duration MSE are held too.
+
+    One loss and backward in five ways, the fused option on unless said:
+    "kernels" (K6, K6b, K6c, launched as ``k6_train_expected`` counts); "K6,
+    plain backward" (K6, then ``_reference_bwd``); "plain versions"
+    (``_reference_fwd``, ``_reference_bwd``: the library's contract in
+    PyTorch); "plain, out +-1 ulp" (the same with each attention's output
+    rounded otherwise by about one ulp, ``flash_versions``); "off" (the
+    plain attention). The losses within 1e-5 relative. Every gradient leaf
+    (``||dg|| / ||g||``) within 1e-4 between "kernels" and "K6, plain
+    backward" (K6b and K6c on the same residuals) and between "plain
+    versions" and "off" (the contract against the plain attention), and
+    between "kernels" and "off" (the fused path) except where the gradient
+    is that sensitive to rounding: there K6's residuals ("K6, plain
+    backward" against "plain versions") may move the leaf at most 10 times
+    as far as the one-ulp rounding of the attention's output does ("plain,
+    out +-1 ulp" against "plain versions"): K6's ``out`` differs from its
+    plain version's by rounding (phase 2), so a leaf that K6 moves past 1e-4
+    must be as sensitive to the plain attention's own rounding. Such leaves
+    are counted and the worst shown. Each attention's ``k_proj`` bias, whose
+    exact gradient is 0 (a bias on the keys adds the same logit to a whole softmax
+    row), is held to 1e-4 of the norm of the same projection's weight
+    gradient. Each attention's dq, dk and dv from the kernels, on K6's
+    residuals, must be within 1e-5 of the norm of the fp64 autograd of the
+    plain attention on the same inputs; the fp32 plain attention's own error
+    is shown beside."""
+    import dataclasses
+
+    import torch
+
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.ops.kernels import launch_counts
+    from seamless_communication_torch.train.trainer import (
+        batch_to, named_leaves, s2st_loss, s2t_loss, trainable_copy,
+    )
+
+    label = "S2S (v2, NAR T2U)" if s2s else "S2T"
+    conf = cfg.speech.conformer._replace(num_layers=4)
+    cut = dataclasses.replace(cfg, speech=cfg.speech._replace(conformer=conf),
+                              nllb=cfg.nllb._replace(num_decoder_layers=4),
+                              nar_t2u=cfg.nar_t2u if s2s else None,
+                              use_text_encoder=False)
+    params = unity.unity_init(torch.Generator(device=dev).manual_seed(5), cut,
+                              dtype=torch.float32, device=dev)
+    np_batch = train_batch(cut, 32 if s2s else 31, s2s=s2s)
+    batch = batch_to(np_batch, dev)
+    loss_fn = s2st_loss if s2s else s2t_loss
+    names = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    want = sum(k6_train_expected(cut, np_batch, s2s=s2s).values())
+    calls: list = []
+    ulp = "plain, out +-1 ulp"
+    ways = {"kernels": (True, flash_versions("kernel", "kernel", calls), (want,) * 3),
+            "K6, plain backward": (True, flash_versions("kernel", "plain"), (want, 0, 0)),
+            "plain versions": (True, flash_versions("plain", "plain"), (0, 0, 0)),
+            ulp: (True, flash_versions(ulp, "plain"), (0, 0, 0)),
+            "off": (False, contextlib.nullcontext(), (0, 0, 0))}
+    grads, losses = {}, {}
+    for way, (on, ctx, launches) in ways.items():
+        p = trainable_copy(params, dev)
+        before = dict(launch_counts)
+        with fused_attention(on), ctx:
+            loss, n = loss_fn(p, cut, batch)
+            loss = loss / n
+            leaves = list(named_leaves(p))
+            gs = torch.autograd.grad(loss, [t for _, t in leaves], allow_unused=True)
+        got = tuple(launch_counts[k] - before[k] for k in names)
+        if got != launches:
+            raise AssertionError(f"3g {label} parity, {way}: launches of K6, K6b, K6c "
+                                 f"{got}, expected {launches}")
+        losses[way] = float(loss.detach())
+        grads[way] = {path: torch.zeros_like(t) if g is None else g
+                      for (path, t), g in zip(leaves, gs)}
+        del p
+    rel = max(abs(losses[w] - losses["off"]) / abs(losses["off"]) for w in ways)
+    if rel > 1e-5:
+        raise AssertionError(f"3g {label} parity: losses {losses} differ by {rel:.3g} "
+                             f"relative")
+
+    def off_by(way: str, ref_way: str, path) -> float:
+        ref = grads[ref_way][path]
+        if path[-2:] == ("k_proj", "bias"):
+            ref = grads[ref_way][path[:-1] + ("weight",)]
+        d = grads[way][path] - grads[ref_way][path]
+        return float(d.norm()) / max(float(ref.norm()), 1e-30)
+
+    pairs = {"K6b, K6c": ("kernels", "K6, plain backward"),
+             "contract": ("plain versions", "off"),
+             "K6 residuals": ("K6, plain backward", "plain versions"),
+             "rounding": (ulp, "plain versions"),
+             "fused": ("kernels", "off")}
+    worst = dict.fromkeys(pairs, (-1.0, ""))
+    departs, ratio = [], (0.0, "")
+    for path in grads["off"]:
+        name = "/".join(path)
+        d = {what: off_by(*ways_, path) for what, ways_ in pairs.items()}
+        for what in ("K6b, K6c", "contract"):
+            if d[what] > 1e-4:
+                raise AssertionError(f"3g {label} parity: gradient {name} off by "
+                                     f"{d[what]:.3g} of its norm between "
+                                     f"{' and '.join(pairs[what])}")
+        if d["fused"] > 1e-4:
+            if not d["K6 residuals"] <= 10 * d["rounding"]:
+                raise AssertionError(f"3g {label} parity: gradient {name} off by "
+                                     f"{d['fused']:.3g} of its norm with the option on; "
+                                     f"K6's residuals move it {d['K6 residuals']:.3g}, "
+                                     f"one ulp of the attention's output {d['rounding']:.3g}")
+            departs.append((d["fused"], name, d["K6 residuals"], d["rounding"]))
+            ratio = max(ratio, (d["K6 residuals"] / d["rounding"], name))
+        for what in pairs:
+            worst[what] = max(worst[what], (d[what], name))
+    errs = {"kernels": 0.0, "plain fp32": 0.0}
+    for args, kern in calls:
+        qs, k, v, ab, q_seg, kv_seg, o, m, l, do = args
+        truth = attention_grads(qs, k, v, ab, q_seg, kv_seg, do, torch.float64)
+        plain = attention_grads(qs, k, v, ab, q_seg, kv_seg, do, torch.float32)
+        for got, fp32, t in zip(kern, plain, truth):
+            e = float((got.double() - t).norm() / t.norm())
+            if e > 1e-5:
+                raise AssertionError(f"3g {label} parity: an attention's gradient from the "
+                                     f"kernels off by {e:.3g} of the fp64 truth's norm")
+            errs["kernels"] = max(errs["kernels"], e)
+            errs["plain fp32"] = max(errs["plain fp32"], float((fp32.double() - t).norm()
+                                                                / t.norm()))
+    del calls
+    log(f"3g {label} gradient parity (4 conformer + 4 decoder layers at full width"
+        f"{', the whole T2U' if s2s else ''}, fp32, TF32 off; {want} launches each of K6, "
+        f"K6b, K6c): losses " + ", ".join(f"{w} {x:.7f}" for w, x in losses.items())
+        + f" ({rel:.2g} relative); {len(grads['off'])} gradient leaves, largest "
+        f"||dg|| / ||g||: " + ", ".join(f"{what} ({' against '.join(pairs[what])}) "
+                                        f"{worst[what][0]:.3g} ({worst[what][1]})"
+                                        for what in pairs)
+        + f"; the fused path over 1e-4 on {len(departs)} leaves, K6's residuals at most "
+        f"{ratio[0]:.3g} times the one-ulp rounding's ({ratio[1]}); the worst: "
+        + ", ".join(f"{n} {f:.3g} (K6's residuals {k:.3g}, one ulp {r:.3g})"
+                    for f, n, k, r in sorted(departs, reverse=True)[:4])
+        + f"; each attention's dq, dk, dv against the "
+        f"fp64 plain attention: kernels within {errs['kernels']:.3g}, the fp32 plain "
+        f"attention {errs['plain fp32']:.3g} of the norm [{smi}]")
+    return {"losses": losses, "loss_rel": rel, "worst": worst, "departs": len(departs),
+            "ratio": ratio, "fp64": errs, "launches": want}
+
+
+def s2s_loss_parts(params: dict, cfg, batch: dict, dev) -> dict:
+    """The v2 S2S loss of ``params`` on ``batch`` (no gradient) in its two
+    parts: the text NLL per target token, and the T2U's (the unit NLL plus
+    the duration MSE) per unit and char."""
+    import torch
+
+    from seamless_communication_torch.train.trainer import batch_to, s2st_loss, s2t_loss
+
+    b = batch_to(batch, dev)
+    with torch.no_grad():
+        text, n_text = s2t_loss(params, cfg, b)
+        total, n_all = s2st_loss(params, cfg, b)
+    return {"text": float(text / n_text),
+            "t2u": float((total - text) / (n_all - n_text))}
+
+
+def phase_train(smi: str) -> dict:
+    """3g. The finetune trainer at v2-large: ``base_v2`` at full width and
+    depth, bf16 params from a seeded generator (seed 3), not quantized, the
+    text encoder frozen, ``SEAMLESS_FUSED_ATTN=1``, learning rate 1e-4 after
+    a warm-up of 1 step. S2T: 3 ``UnitYFinetune`` steps on one batch (10 s
+    and 7 s, 160 and 120 target tokens), each launching K6, K6b and K6c as
+    ``k6_train_expected`` counts (48 each), the losses finite and the third
+    below the first, then one step under the profiler. One S2T step with
+    ``remat="full"`` from the same params: the first step's loss within 2e-2
+    (bf16), twice the K6 forwards, and a lower peak of the loss and
+    backward (``fwd_bwd_peak``). v2 S2S: 2 steps with the NAR T2U on
+    ground-truth durations, the loss's two parts (``s2s_loss_parts``) before
+    and after each, then the same 2 steps with the option off (the first
+    step's loss within 2e-2 of the option's). Then ``grad_parity`` of S2T
+    and of S2S."""
+    import torch
+
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seamless_communication_torch.train.trainer import (
+        FinetuneMode, FinetuneParams, UnitYFinetune, named_leaves,
+    )
+
+    dev = torch.device(TRAIN_DEVICE)
+    cfg = get_arch(TRAIN_ARCH)
+    t0 = time.time()
+    params = unity.unity_init(torch.Generator(device=dev).manual_seed(3), cfg,
+                              dtype=torch.bfloat16, device=dev)
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    log(f"3g {TRAIN_ARCH} params (bf16, {n_params / 1e9:.3f} B) built in {time.time() - t0:.1f} "
+        f"s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    ft = dict(learning_rate=1e-4, warmup_steps=1, freeze_text_encoder=True)
+    s2t = train_batch(cfg, 21)
+    s2s = train_batch(cfg, 22, s2s=True)
+    out = {}
+    reset_launch_counts()
+    with fused_attention(True):
+        parts = k6_train_expected(cfg, s2t, s2s=False)
+        k6 = sum(parts.values())
+        expect = dict.fromkeys(("flash_attention", "flash_attention_bwd_dkv",
+                                "flash_attention_bwd_dq"), k6)
+        log(f"3g S2T: K6, K6b, K6c expected {k6} a step = {parts}")
+        trainer = UnitYFinetune(params, cfg, FinetuneParams(**ft), device=dev)
+        rows = train_steps(trainer, s2t, 3, "3g S2T", smi, expect=expect)
+        if not rows[2]["loss"] < rows[0]["loss"]:
+            raise AssertionError(f"3g S2T: loss did not fall: {[r['loss'] for r in rows]}")
+        out["s2t"] = rows
+        out["profile"] = profile_train_step(trainer, s2t, smi)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        remat = UnitYFinetune(params, cfg, FinetuneParams(**ft, remat="full"), device=dev)
+        (row,) = train_steps(remat, s2t, 1, "3g S2T remat=full", smi,
+                             expect={**expect, "flash_attention": 2 * k6})
+        del remat
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the step's peak is AdamW's (its moments and temporaries), after
+        # the activations are gone; remat's saving shows in the loss and
+        # backward alone
+        peaks = {policy: fwd_bwd_peak(params, cfg, s2t, dev, policy)
+                 for policy in (None, "full")}
+        if abs(row["loss"] - rows[0]["loss"]) > 2e-2 or not peaks["full"] < peaks[None]:
+            raise AssertionError(f"3g remat: loss {row['loss']} against {rows[0]['loss']}, "
+                                 f"loss + backward peak {peaks}")
+        log(f"3g remat=full: loss {row['loss']:.5f} against {rows[0]['loss']:.5f} without; "
+            f"the loss and backward alone peak {peaks['full']:.2f} GiB above the params "
+            f"against {peaks[None]:.2f} without remat; the whole step {row['peak_gib']:.2f} "
+            f"against {rows[0]['peak_gib']:.2f} GiB (AdamW's first step sets both) [{smi}]")
+        out["remat"] = dict(row, fwd_bwd_peak_gib=peaks["full"],
+                            fwd_bwd_peak_gib_no_remat=peaks[None])
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        parts = k6_train_expected(cfg, s2s, s2s=True)
+        k6 = sum(parts.values())
+        log(f"3g S2S (v2, NAR T2U; {s2s['char_ids'].shape[1]} chars, "
+            f"{s2s['target_units'].shape[1]} units): K6, K6b, K6c expected {k6} a step "
+            f"= {parts}")
+        s2s_ft = FinetuneParams(**ft, finetune_mode=FinetuneMode.SPEECH_TO_SPEECH)
+        trainer = UnitYFinetune(params, cfg, s2s_ft, device=dev)
+        parts = [s2s_loss_parts(trainer.params, cfg, s2s, dev)]
+        out["s2s"] = []
+        for i in range(2):
+            out["s2s"] += train_steps(trainer, s2s, 1, "3g S2S", smi,
+                                      expect=dict.fromkeys(expect, k6), first=i + 1)
+            parts.append(s2s_loss_parts(trainer.params, cfg, s2s, dev))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the same steps with the option off: the plain attention
+    trainer = UnitYFinetune(params, cfg, s2s_ft, device=dev)
+    with fused_attention(False):
+        off = train_steps(trainer, s2s, 2, "3g S2S, option off", smi,
+                          expect=dict.fromkeys(expect, 0))
+    del trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    floor = math.log(cfg.nar_t2u.unit_vocab_size)
+    log("3g S2S loss parts before and after each step (text NLL per token; T2U unit NLL "
+        "+ duration MSE per unit and char): "
+        + "; ".join(f"{i}: text {p['text']:.5f}, T2U {p['t2u']:.5f}"
+                    for i, p in enumerate(parts))
+        + f". The target units are random: no model that has not learnt them scores "
+        f"below ln({cfg.nar_t2u.unit_vocab_size}) = {floor:.4f} a unit on average. "
+        f"Option off, the same steps: losses {off[0]['loss']:.5f}, {off[1]['loss']:.5f} "
+        f"against {out['s2s'][0]['loss']:.5f}, {out['s2s'][1]['loss']:.5f} with it [{smi}]")
+    if abs(off[0]["loss"] - out["s2s"][0]["loss"]) > 2e-2:
+        raise AssertionError(f"3g S2S: first loss {out['s2s'][0]['loss']} with the option, "
+                             f"{off[0]['loss']} without")
+    out["s2s_parts"] = parts
+    out["s2s_off"] = off
+    out["parity"] = grad_parity(cfg, dev, smi)
+    out["parity_s2s"] = grad_parity(cfg, dev, smi, s2s=True)
+    out["launches"] = dict(launch_counts)
+    return out
+
+
+def phase_tiny_train() -> None:
+    """tiny_v2 S2T with inputs long enough for the fused path (300 fbank
+    frames, 150 conformer frames; 130 target tokens), fp32, the option on:
+    two ``UnitYFinetune`` steps on the card (K6, K6b, K6c) and on the CPU
+    (the plain versions) from the same params: the losses within 1e-5 and
+    every parameter within 1e-4."""
+    import torch
+
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.ops.kernels import launch_counts
+    from seamless_communication_torch.train.trainer import (
+        FinetuneParams, UnitYFinetune, named_leaves,
+    )
+
+    cfg = get_arch("tiny_v2")
+    params = unity.unity_init(torch.Generator().manual_seed(0), cfg)
+    batches = [train_batch(cfg, 40 + i, frames=(300, 260), tokens=(130, 100))
+               for i in range(2)]
+    ft = FinetuneParams(learning_rate=1e-3, warmup_steps=2, weight_decay=0.01,
+                        float_dtype=torch.float32)
+    runs = {}
+    with fused_attention(True):
+        for where, device in (("card", TRAIN_DEVICE), ("cpu", "cpu")):
+            before = dict(launch_counts)
+            tr = UnitYFinetune(params, cfg, ft, device=device)
+            losses = [float(tr.step(b)["loss"]) for b in batches]
+            runs[where] = (losses, tr.params,
+                           {k: launch_counts[k] - before[k] for k in launch_counts})
+    k6 = {k: runs["card"][2][k] for k in ("flash_attention", "flash_attention_bwd_dkv",
+                                          "flash_attention_bwd_dq")}
+    want = 2 * sum(k6_train_expected(cfg, batches[0], s2s=False).values())
+    if set(k6.values()) != {want} or any(runs["cpu"][2].values()):
+        raise AssertionError(f"tiny train: launches {k6} (expected {want} each), CPU "
+                             f"{runs['cpu'][2]}")
+    dl = max(abs(a - b) for a, b in zip(runs["card"][0], runs["cpu"][0]))
+    dp = max(float((a.detach().cpu() - b.detach()).abs().max())
+             for (_, a), (_, b) in zip(named_leaves(runs["card"][1]),
+                                       named_leaves(runs["cpu"][1])))
+    if dl > 1e-5 or dp > 1e-4:
+        raise AssertionError(f"tiny train: card and CPU differ: loss {dl:.3g}, params {dp:.3g}")
+    log(f"tiny_v2 train, 2 steps with the fused option: losses {runs['card'][0]} on the "
+        f"card, {runs['cpu'][0]} on the CPU (max diff {dl:.3g}); params within {dp:.3g}; "
+        f"K6, K6b, K6c {want} launches each on the card, none on the CPU")
+
+
 def phase_tiny_cuda_vs_cpu() -> None:
     """tiny_v2 in fp32 with int8 KV: the card (K1) and the CPU (the plain
     composition) must give the same tokens."""
@@ -1931,6 +2689,7 @@ def main() -> int:
     k4 = phase_fbank(dev["smi"])
     k3b, k3a = phase_vocab_topk(dev["smi"])
     k6 = phase_flash_attention(dev["smi"])
+    k6b, k6c = phase_flash_attention_bwd(dev["smi"])
     if sys.argv[1:] == ["--kernels"]:
         return 0
     base_v2 = build_base_v2()
@@ -1955,15 +2714,21 @@ def main() -> int:
     v1 = phase_v1(v1_translator, v1_cfg, noise, dev["smi"])
     k6["launches"] = fused["launches"]["flash_attention"] + v1["launches"]["flash_attention"]
     del v1_translator, vocoder
+    gc.collect()
+    train = phase_train(dev["smi"])
+    k6["launches"] += train["launches"]["flash_attention"]
+    k6b["launches"] = train["launches"]["flash_attention_bwd_dkv"]
+    k6c["launches"] = train["launches"]["flash_attention_bwd_dq"]
     phase_tiny_cuda_vs_cpu()
     phase_tiny_s2st()
     phase_tiny_t2t()
     phase_tiny_options()
     phase_tiny_v1_and_fused()
+    phase_tiny_train()
     log(json.dumps({"main_path": s2tt["requests"] + s2st["requests"] + t2t["requests"],
                     "lazy": lazy["requests"], "fused": fused["requests"],
-                    "v1": v1["requests"], "card": dev["smi"]}))
-    log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5, k6]}))
+                    "v1": v1["requests"], "train": train, "card": dev["smi"]}))
+    log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5, k6, k6b, k6c]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

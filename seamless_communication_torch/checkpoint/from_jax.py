@@ -7,6 +7,10 @@ weights WIO), quantized leaves included (``weight_i8``/``scale``,
 ``embedding_i8``/``row_scale``). The JAX package stacks the layers of a
 stack on a leading axis for ``lax.scan``; the port keeps a list of per-layer
 dicts, so those leaves are split along their first axis.
+
+``unity_params_to_numpy`` goes the other way: a port tree (parameters, or
+their gradients in the same layout) as numpy leaves in the JAX tree's
+layout, the layers stacked again, so that the two compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -100,3 +104,56 @@ def unity_params_from_jax(tree: dict, device=None) -> dict:
     if "t2u" in tree:
         params["t2u"] = t2u_from_jax(tree["t2u"], device)
     return params
+
+
+# ---------------------------------------------------------------------------
+# port -> JAX layout
+# ---------------------------------------------------------------------------
+
+def to_numpy(tree):
+    """Every tensor leaf of ``tree`` as a numpy array (dicts and lists kept);
+    bfloat16 leaves come out widened to float32 (exact), numpy having no
+    bfloat16 of its own."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def stack_layers(layers: list) -> dict:
+    """A list of L per-layer dicts of numpy leaves -> one dict of (L, ...)
+    stacked leaves (the inverse of ``unstack_layers``)."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([layer[k] for layer in layers]) for k in first}
+    return np.stack(layers)
+
+
+def _restack(tree: dict) -> dict:
+    return dict(tree, layers=stack_layers(tree["layers"]))
+
+
+def unity_params_to_numpy(params: dict) -> dict:
+    """A port UnitY tree (``unity_params_from_jax``'s layout; parameters or
+    gradients) as numpy leaves in the JAX tree's layout: the conformer
+    stack, the text stacks' layers and the T2U's stacks and FFT layers
+    stacked on a leading axis again."""
+    tree = to_numpy(params)
+    out = {"speech_encoder": dict(tree["speech_encoder"],
+                                  encoder=stack_layers(tree["speech_encoder"]["encoder"])),
+           "text_decoder": dict(tree["text_decoder"],
+                                stack=_restack(tree["text_decoder"]["stack"]))}
+    if "text_encoder" in tree:
+        out["text_encoder"] = dict(tree["text_encoder"],
+                                   stack=_restack(tree["text_encoder"]["stack"]))
+    if "t2u" in tree:
+        t2u = tree["t2u"]
+        if "decoder_layers" in t2u:
+            out["t2u"] = dict(t2u, encoder=_restack(t2u["encoder"]),
+                              decoder_layers=stack_layers(t2u["decoder_layers"]))
+        else:
+            out["t2u"] = dict(t2u, encoder=_restack(t2u["encoder"]),
+                              decoder=_restack(t2u["decoder"]))
+    return out

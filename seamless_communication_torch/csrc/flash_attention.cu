@@ -43,6 +43,13 @@
 // serves the 4 rows. Every input byte is read once from device memory;
 // ragged tails of Tq and Tk are masked in the kernel, so no operand is
 // padded.
+//
+// Residuals for the backward (K6b, K6c in flash_attention_bwd.cu): where the
+// caller passes m and l, the kernel also writes each row's final running
+// maximum m and softmax denominator l = sum_j exp(s[j] - m), fp32 (B,H,Tq),
+// the two the library saves with save_residuals (_flash_attention_fwd
+// :229-245). They are what the online softmax already holds in registers,
+// so `out` is computed exactly as without them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,7 +110,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ ab,
                        const int32_t* __restrict__ q_seg,
                        const int32_t* __restrict__ kv_seg, Strides st, int H,
-                       int Tq, int Tk, float mask_value, T* __restrict__ out) {
+                       int Tq, int Tk, float mask_value, T* __restrict__ out,
+                       float* __restrict__ m_out, float* __restrict__ l_out) {
   constexpr int R = kRowsPerWarp;
   constexpr int BK = DH <= 64 ? 64 : 32;      // keys of a tile
   constexpr int KPL = BK / 32;                // keys of a lane
@@ -262,19 +270,23 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = lane + 32 * e;
       if (d < DH) out[(bh * Tq + i) * DH + d] = from_f32<T>(acc[r][e] * inv);
     }
+    if (m_out != nullptr && lane == 0) {
+      m_out[bh * Tq + i] = m[r];
+      l_out[bh * Tq + i] = l[r];
+    }
   }
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* ab,
                    const int32_t* q_seg, const int32_t* kv_seg, Strides st, int B,
-                   int H, int Tq, int Tk, float mask_value, void* out,
-                   cudaStream_t stream) {
+                   int H, int Tq, int Tk, float mask_value, void* out, float* m,
+                   float* l, cudaStream_t stream) {
   const dim3 grid((Tq + kRows - 1) / kRows, H, B);
   flash_attention_kernel<T, DH><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(ab), q_seg, kv_seg, st, H, Tq, Tk, mask_value,
-      static_cast<T*>(out));
+      static_cast<T*>(out), m, l);
   return cudaGetLastError();
 }
 
@@ -282,20 +294,20 @@ template <typename T>
 cudaError_t dispatch(int Dh, const void* q, const void* k, const void* v,
                      const void* ab, const int32_t* q_seg, const int32_t* kv_seg,
                      Strides st, int B, int H, int Tq, int Tk, float mask_value,
-                     void* out, cudaStream_t stream) {
+                     void* out, float* m, float* l, cudaStream_t stream) {
   switch (Dh) {
     case 16:
       return launch<T, 16>(q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk, mask_value,
-                           out, stream);
+                           out, m, l, stream);
     case 32:
       return launch<T, 32>(q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk, mask_value,
-                           out, stream);
+                           out, m, l, stream);
     case 64:
       return launch<T, 64>(q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk, mask_value,
-                           out, stream);
+                           out, m, l, stream);
     case 128:
       return launch<T, 128>(q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk, mask_value,
-                            out, stream);
+                            out, m, l, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -308,25 +320,27 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, ab and out). q (B,H,Tq,Dh), k
 // and v (B,H,Tk,Dh) with the given element strides of their first three
 // dimensions; ab (B,H,Tq,Tk) contiguous or null; q_seg (B,Tq) and kv_seg
-// (B,Tk) int32, both or neither; out (B,H,Tq,Dh) contiguous. Launches on
+// (B,Tk) int32, both or neither; out (B,H,Tq,Dh) contiguous; m and l
+// (B,H,Tq) fp32, both or neither: the residuals of the backward. Launches on
 // `stream` and returns cudaGetLastError() as an int (0 = launched).
 int flash_attention(int dtype, const void* q, const void* k, const void* v,
                     const void* ab, const int32_t* q_seg, const int32_t* kv_seg,
                     long long q_sb, long long q_sh, long long q_st, long long k_sb,
                     long long k_sh, long long k_st, long long v_sb, long long v_sh,
                     long long v_st, int B, int H, int Tq, int Tk, int Dh,
-                    float mask_value, void* out, void* stream) {
-  if ((q_seg == nullptr) != (kv_seg == nullptr) || Tq < 1 || Tk < 1)
+                    float mask_value, void* out, float* m, float* l, void* stream) {
+  if ((q_seg == nullptr) != (kv_seg == nullptr) || (m == nullptr) != (l == nullptr) ||
+      Tq < 1 || Tk < 1)
     return (int)cudaErrorInvalidValue;
   const Strides st{q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
     err = dispatch<float>(Dh, q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk,
-                          mask_value, out, s);
+                          mask_value, out, m, l, s);
   } else if (dtype == 1) {
     err = dispatch<__nv_bfloat16>(Dh, q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk,
-                                  mask_value, out, s);
+                                  mask_value, out, m, l, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -3,8 +3,8 @@
 speech encoder, the text decoder, the T2U (NAR for v2, AR for v1) and the
 text encoder; ``encode_speech`` and ``encode_text``; the beam-search step of
 the X2T view (full-vocabulary or candidate form); the full-sequence
-re-decode ``decode_text``; and ``t2u_nar``. The AR T2U's decode is in
-``inference/generator.py``."""
+re-decode ``decode_text``; ``project``, the tied output projection; and
+``t2u_nar``. The AR T2U's decode is in ``inference/generator.py``."""
 
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from seamless_communication_torch.models.wav2vec2.encoder import (
     speech_encoder_forward, speech_encoder_init,
 )
 from seamless_communication_torch.ops.masks import lengths_to_padding_mask
+from seamless_communication_torch.ops.transformer import tied_projection
 
 
 def unity_init(gen: torch.Generator, cfg: UnitYConfig, *, dtype=torch.float32,
@@ -76,6 +77,12 @@ def decode_text(params: dict, cfg: UnitYConfig, ids: torch.Tensor, enc: EncoderO
     return text_decoder_forward(params["text_decoder"], ids, enc.seqs, cfg.nllb,
                                 enc_padding_mask=enc.padding_mask,
                                 self_padding_mask=mask)
+
+
+def project(params: dict, features: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) decoder features -> (B, T, V) fp32 logits through the tied
+    text embedding."""
+    return tied_projection(params["text_decoder"]["embed"], features)
 
 
 def make_text_decode_step(params: dict, cfg: UnitYConfig, enc: EncoderOutput, *,

@@ -13,6 +13,10 @@ predictor), upsample to unit length, run the post-LN FFT layers
 (self-attention + two same-padded convs) and project to the unit
 vocabulary.
 
+``nar_t2u_train`` is the teacher-forced NAR pass of finetuning: the
+ground-truth per-char durations upsample to units, and the duration
+predictor's raw output is returned for its loss.
+
 Upsampled lengths are static (``max_unit_len``) with validity masks, as in
 the JAX package. The FiLM and prosody branches (expressive models) are not
 ported yet.
@@ -215,6 +219,49 @@ def nar_t2u_forward(params: dict, cfg: NarT2UConfig, text_dec_out: torch.Tensor,
                               padding_mask=text_mask)
     return nar_t2u_decode(params, cfg, enc, char_ids, char_counts,
                           max_unit_len=max_unit_len, duration_factor=duration_factor)
+
+
+class NarT2UTrainOutput(NamedTuple):
+    unit_logits: torch.Tensor   # (B, U_max, unit_vocab) fp32 (ground-truth durations)
+    log_dur_pred: torch.Tensor  # (B, C_max) the duration predictor's raw output
+    unit_lengths: torch.Tensor  # (B,) from the ground-truth durations
+    char_mask: torch.Tensor     # (B, C_max) True on real chars
+
+
+def nar_t2u_train(params: dict, cfg: NarT2UConfig, text_dec_out: torch.Tensor,
+                  text_lens: torch.Tensor, char_ids: torch.Tensor,
+                  char_counts: torch.Tensor, gt_durations: torch.Tensor, *,
+                  max_unit_len: int) -> NarT2UTrainOutput:
+    """The teacher-forced NAR T2U pass of finetuning: the encoder over the
+    text decoder's features, the char-level upsampling by ``char_counts``
+    with the char embedding and positions, the duration predictor's raw
+    log-durations, then the upsampling by the ground-truth durations
+    ``gt_durations`` (B, C_max) (0 past each row's chars, the total capped
+    at ``max_unit_len``), the FFT layers and ``final_proj``."""
+    _check_not_expressive(cfg)
+    text_mask = lengths_to_padding_mask(text_lens, text_dec_out.shape[1])
+    enc = transformer_encoder(params["encoder"], text_dec_out, cfg.enc_cfg(),
+                              padding_mask=text_mask)
+    C = char_ids.shape[1]
+    char_hidden, char_total = hard_upsample(enc, char_counts, C)
+    char_mask = lengths_to_padding_mask(char_total, C)
+    char_emb = embedding(params["embed_char"], char_ids, scale=cfg.model_dim ** 0.5)
+    char_hidden = _alpha_sin_pos(char_hidden, params["pos_emb_alpha_char"],
+                                 cfg.pos_pad_idx) + char_emb
+
+    log_dur = variance_predictor(params["duration_predictor"], char_hidden, char_mask)
+
+    dur = torch.where(char_mask, gt_durations.to(torch.int32), 0)
+    x, unit_total = hard_upsample(char_hidden, dur, max_unit_len)
+    unit_total = torch.clamp_max(unit_total, max_unit_len)
+    x = _alpha_sin_pos(x, params["pos_emb_alpha"], cfg.pos_pad_idx)
+    unit_mask = lengths_to_padding_mask(unit_total, max_unit_len)
+    bias = padding_bias(unit_mask)
+    for lp in params["decoder_layers"]:
+        x = fft_layer(lp, x, bias, unit_mask, cfg)
+    x = layer_norm(params["layer_norm"], x)
+    logits = linear(params["final_proj"], x).float()
+    return NarT2UTrainOutput(logits, log_dur, unit_total, char_mask)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from seamless_communication_torch.ops import attention as attn_ops
+from seamless_communication_torch.ops import remat
 from seamless_communication_torch.ops.masks import apply_padding_mask, padding_bias
 from seamless_communication_torch.ops.modules import (
     conv1d, conv1d_init, glu, layer_norm, layer_norm_init, linear, linear_init, swish,
@@ -129,9 +130,10 @@ def conformer_layer(params: dict, x: torch.Tensor, cfg: ConformerConfig, *,
 
 def conformer_encoder(layers: list, x: torch.Tensor, cfg: ConformerConfig, *,
                       padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Run the conformer stack (a list of per-layer params) over (B, T, D)."""
+    """Run the conformer stack (a list of per-layer params) over (B, T, D);
+    each layer is a checkpoint region under ``ops/remat.py remat_layers``."""
     bias = padding_bias(padding_mask)
     for layer_params in layers:
-        x = conformer_layer(layer_params, x, cfg, attn_bias=bias,
-                            padding_mask=padding_mask)
+        x = remat.layer_call(conformer_layer, layer_params, x, cfg, attn_bias=bias,
+                             padding_mask=padding_mask)
     return x

@@ -18,6 +18,12 @@ The JAX wrapper pads Tq and Tk to multiples of 128 for its TPU kernel and
 segment-masks the padded keys; K6 masks ragged tails itself, which is the
 same function, so nothing is padded here.
 
+Under autograd the call is differentiable as JAX's ``custom_vjp`` is: K6
+forward, then K6b and K6c backward (``FlashAttention``). The gradient of
+``ab`` flows back through the cast to q's dtype and the broadcast into
+``extra_logits``: that is how the Shaw ``rel_k_embed`` and the XL
+relative-position parameters get theirs; q's flows through the scale.
+
 ``SEAMLESS_FUSED_ATTN``: ``0`` (the default, as in the JAX package), ``1``,
 or ``auto``, which turns the option on for tensors on the card (the JAX
 package's "TPU backends only"). It is read at every call.
@@ -55,7 +61,8 @@ def try_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     path is not taken: the option is off, q is not a 4-d float32 or bfloat16
     tensor, a sequence is shorter than 128, or the bias is not of rank 4.
     The choice depends on the option, shapes and dtype only; on the card an
-    eligible call launches K6 or raises."""
+    eligible call launches K6 (and, in the backward, K6b and K6c) or
+    raises."""
     if not enabled(q):
         return None
     if q.dim() != 4 or q.dtype not in (torch.bfloat16, torch.float32):

@@ -12,6 +12,8 @@ launch_counts: Dict[str, int] = {"decode_attention_int8": 0,
                                  "decode_attention_indexed": 0,
                                  "fbank": 0,
                                  "flash_attention": 0,
+                                 "flash_attention_bwd_dkv": 0,
+                                 "flash_attention_bwd_dq": 0,
                                  "vocab_topk": 0,
                                  "vocab_topk_v2": 0}
 

@@ -18,12 +18,21 @@ fused_attention.py:54`` (``try_flash``, JAX 0.9.0's Pallas flash attention).
 For tensors on the card the wrapper launches it; for tensors on the CPU it
 computes ``_reference``, the plain PyTorch version of the same function,
 which is also what the kernel is held against on the card.
+
+The gradient (``FlashAttention``, a ``torch.autograd.Function``, the
+counterpart of the library's ``custom_vjp``): the forward also keeps each
+row's softmax maximum ``m`` and denominator ``l`` (fp32, (B, H, Tq)), and
+the backward is two kernels of ``csrc/flash_attention_bwd.cu``, K6b (dK,
+dV; the library's ``_flash_attention_bwd_dkv``) and K6c (dQ and the bias
+gradient dS; ``_flash_attention_bwd_dq``), held against ``_reference_bwd``.
+``flash_attention`` goes through the Function only where autograd needs it,
+so an inference call computes no residuals.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,6 +40,8 @@ import torch
 from seamless_communication_torch.ops.kernels import launch_counts
 
 KERNEL = "flash_attention"
+KERNEL_DKV = "flash_attention_bwd_dkv"    # K6b
+KERNEL_DQ = "flash_attention_bwd_dq"      # K6c
 MASK_VALUE = float(np.float32(-0.7 * float(np.finfo(np.float32).max)))
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,40 +50,108 @@ PEAK_FLOPS = {torch.float32: 67e12,       # fp32 outside the tensor cores
               torch.bfloat16: 989e12}     # bf16 dense tensor cores
 
 
-def _reference(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               ab: Optional[torch.Tensor] = None, q_seg: Optional[torch.Tensor] = None,
-               kv_seg: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version: the logits materialized, the same contract."""
+def _logits(qs: torch.Tensor, k: torch.Tensor, ab: Optional[torch.Tensor],
+            q_seg: Optional[torch.Tensor], kv_seg: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+    """fp32 ``qs @ k^T + ab + segmask``, (B, H, Tq, Tk)."""
     logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     if ab is not None:
         logits = logits + ab.float()
     if q_seg is not None:
         same = q_seg[:, None, :, None] == kv_seg[:, None, None, :]
         logits = logits + torch.where(same, 0.0, MASK_VALUE)
+    return logits
+
+
+def _reference_fwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   ab: Optional[torch.Tensor] = None,
+                   q_seg: Optional[torch.Tensor] = None,
+                   kv_seg: Optional[torch.Tensor] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version, the logits materialized, the same contract:
+    ``out`` and the residuals of the backward, each row's maximum logit
+    ``m`` and ``l = sum exp(logits - m)``, fp32 (B, H, Tq)."""
+    logits = _logits(qs, k, ab, q_seg, kv_seg)
     probs = torch.softmax(logits, dim=-1)
-    return torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+    out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+    m = logits.amax(dim=-1)
+    l = torch.exp(logits - m[..., None]).sum(dim=-1)
+    return out, m, l
+
+
+def _reference(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               ab: Optional[torch.Tensor] = None, q_seg: Optional[torch.Tensor] = None,
+               kv_seg: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version's ``out`` alone."""
+    return _reference_fwd(qs, k, v, ab, q_seg, kv_seg)[0]
+
+
+def _reference_bwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   ab: Optional[torch.Tensor], q_seg: Optional[torch.Tensor],
+                   kv_seg: Optional[torch.Tensor], o: torch.Tensor, m: torch.Tensor,
+                   l: torch.Tensor, do: torch.Tensor, part: str = "all"
+                   ) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+                              Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Plain PyTorch version of the backward, step by step as the library's
+    kernels compute it (``_flash_attention_bwd`` :254-316, the dkv body
+    :796-940 and the dq body :1146-1286), every product in fp32:
+
+    di = sum_d o*dO; p = exp(s - m) * (1 / l) with s the forward's logits
+    (0 where m is -inf, a row of -inf logits); dV = p^T dO with p cast to
+    dO's dtype; dP = dO v^T; dS = (dP - di) * p; dK = dS^T qs with dS cast
+    to dO's dtype; dQ = dS k with dS cast to k's dtype; dab = dS in ab's
+    dtype. Returns (dq, dk, dv, dab), dab None without ``ab``.
+
+    ``part``: "all", or the function of one kernel alone, the others' results
+    None: "dkv" (K6b: dk, dv) or "dq" (K6c: dq, dab)."""
+    f32 = torch.float32
+    s = _logits(qs, k, ab, q_seg, kv_seg)
+    live = m != float("-inf")
+    p = torch.exp(s - torch.where(live, m, 0.0)[..., None]) * (1.0 / l)[..., None]
+    p = torch.where(live[..., None], p, 0.0)
+    di = (o.to(f32) * do.to(f32)).sum(dim=-1)
+    dp = torch.matmul(do.to(f32), v.to(f32).transpose(-1, -2))
+    ds = (dp - di[..., None]) * p
+    dq = dk = dv = dab = None
+    if part in ("all", "dkv"):
+        dv = torch.matmul(p.to(do.dtype).to(f32).transpose(-1, -2), do.to(f32)).to(v.dtype)
+        dk = torch.matmul(ds.to(do.dtype).to(f32).transpose(-1, -2), qs.to(f32)).to(k.dtype)
+    if part in ("all", "dq"):
+        dq = torch.matmul(ds.to(k.dtype).to(f32), k.to(f32)).to(qs.dtype)
+        dab = None if ab is None else ds.to(ab.dtype)
+    return dq, dk, dv, dab
 
 
 _functions: dict = {}
 
+# ctypes would pass a Python int as a 32-bit int and cut the pointers
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the C entry points: (library, argument types)
+_ENTRY = {
+    KERNEL: ("flash_attention",
+             [_I] + [_P] * 6 + [_LL] * 9 + [_I] * 5 + [ctypes.c_float] + [_P] * 4),
+    KERNEL_DKV: ("flash_attention_bwd",
+                 [_I] + [_P] * 10 + [_LL] * 9 + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
+    KERNEL_DQ: ("flash_attention_bwd",
+                [_I] + [_P] * 10 + [_LL] * 9 + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
+}
 
-def _function():
-    """The C entry point, built and loaded at first use, and the library's
-    ``cuda_error_string``."""
-    if KERNEL not in _functions:
+
+def _function(name: str = KERNEL):
+    """The C entry point ``name``, built and loaded at first use, and its
+    library's ``cuda_error_string``."""
+    if name not in _functions:
         from seamless_communication_torch.ops.kernels import build
 
-        lib = build.load("flash_attention")
-        fn = lib.flash_attention
-        # ctypes would pass a Python int as a 32-bit int and cut the pointers
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, p, p, p, p, p, p] + [ll] * 9 + [i] * 5 + [ctypes.c_float,
-                                                                   p, p]
-        fn.restype = i
-        lib.cuda_error_string.argtypes = [i]
+        source, argtypes = _ENTRY[name]
+        lib = build.load(source)
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+        lib.cuda_error_string.argtypes = [_I]
         lib.cuda_error_string.restype = ctypes.c_char_p
-        _functions[KERNEL] = (fn, lib.cuda_error_string)
-    return _functions[KERNEL]
+        _functions[name] = (fn, lib.cuda_error_string)
+    return _functions[name]
 
 
 def _check(qs, k, v, ab, q_seg, kv_seg) -> None:
@@ -109,27 +188,142 @@ def _check(qs, k, v, ab, q_seg, kv_seg) -> None:
             raise ValueError(f"{KERNEL}: {name} is not contiguous")
 
 
-def _launch(qs, k, v, ab, q_seg, kv_seg) -> torch.Tensor:
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _raise_on(err: int, name: str, error_string) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: {error_string(err).decode()} ({err})")
+
+
+def _launch(qs, k, v, ab, q_seg, kv_seg, residuals: bool = False
+            ) -> tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K6 -> (out, m, l); m and l are None unless ``residuals``."""
     _check(qs, k, v, ab, q_seg, kv_seg)
     B, H, Tq, Dh = qs.shape
     Tk = k.shape[2]
     out = torch.empty((B, H, Tq, Dh), dtype=qs.dtype, device=qs.device)
-    fn, error_string = _function()
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
+    m = l = None
+    if residuals:
+        m = torch.empty((B, H, Tq), dtype=torch.float32, device=qs.device)
+        l = torch.empty_like(m)
+    fn, error_string = _function(KERNEL)
     strides = [s for x in (qs, k, v) for s in x.stride()[:3]]
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
         err = fn(_DTYPE_CODES[qs.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 ptr(ab), ptr(q_seg), ptr(kv_seg), *strides, B, H, Tq, Tk, Dh,
-                 MASK_VALUE, out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"{KERNEL} launch failed: {error_string(err).decode()} "
-                           f"({err})")
+                 _ptr(ab), _ptr(q_seg), _ptr(kv_seg), *strides, B, H, Tq, Tk, Dh,
+                 MASK_VALUE, out.data_ptr(), _ptr(m), _ptr(l), stream)
+    _raise_on(err, KERNEL, error_string)
     launch_counts[KERNEL] += 1
-    return out
+    return out, m, l
+
+
+class _BwdArgs(NamedTuple):
+    """The C arguments the two backward kernels share, and the tensors they
+    point into (kept alive with them)."""
+    common: tuple
+    keep: tuple
+    shapes: tuple         # (B, H, Tq, Tk, Dh)
+
+
+def _bwd_args(qs, k, v, ab, q_seg, kv_seg, o, m, l, do) -> _BwdArgs:
+    _check(qs, k, v, ab, q_seg, kv_seg)
+    B, H, Tq, Dh = qs.shape
+    Tk = k.shape[2]
+    for name, x, dtype in (("o", o, qs.dtype), ("do", do, qs.dtype),
+                           ("m", m, torch.float32), ("l", l, torch.float32)):
+        want = (B, H, Tq, Dh) if name in ("o", "do") else (B, H, Tq)
+        if tuple(x.shape) != want or x.dtype != dtype or x.device != qs.device:
+            raise ValueError(f"{KERNEL_DKV}: {name} is {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device}, expected {want} {dtype} on {qs.device}")
+    do, m, l = do.contiguous(), m.contiguous(), l.contiguous()
+    # the one reduction the library computes outside its kernels (:273-275)
+    di = (o.float() * do.float()).sum(dim=-1).contiguous()
+    strides = [s for x in (qs, k, v) for s in x.stride()[:3]]
+    common = (_DTYPE_CODES[qs.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ab),
+              _ptr(q_seg), _ptr(kv_seg), do.data_ptr(), m.data_ptr(), l.data_ptr(),
+              di.data_ptr(), *strides, B, H, Tq, Tk, Dh, MASK_VALUE)
+    return _BwdArgs(common, (qs, k, v, ab, q_seg, kv_seg, do, m, l, di),
+                    (B, H, Tq, Tk, Dh))
+
+
+def _launch_one(name: str, args: _BwdArgs, out0: torch.Tensor,
+                out1: Optional[torch.Tensor]) -> None:
+    """One backward kernel: K6b (``KERNEL_DKV``) into dk, dv or K6c
+    (``KERNEL_DQ``) into dq and dab (None: no bias gradient)."""
+    fn, error_string = _function(name)
+    device = out0.device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _raise_on(fn(*args.common, out0.data_ptr(), _ptr(out1), stream), name,
+                  error_string)
+    launch_counts[name] += 1
+
+
+def _launch_bwd(qs, k, v, ab, q_seg, kv_seg, o, m, l, do, need_dab: bool):
+    """K6b then K6c -> (dq, dk, dv, dab); dab None unless ``need_dab``."""
+    args = _bwd_args(qs, k, v, ab, q_seg, kv_seg, o, m, l, do)
+    B, H, Tq, Tk, Dh = args.shapes
+    dq = torch.empty((B, H, Tq, Dh), dtype=qs.dtype, device=qs.device)
+    dk = torch.empty((B, H, Tk, Dh), dtype=qs.dtype, device=qs.device)
+    dv = torch.empty_like(dk)
+    dab = (torch.empty((B, H, Tq, Tk), dtype=qs.dtype, device=qs.device)
+           if need_dab and ab is not None else None)
+    _launch_one(KERNEL_DKV, args, dk, dv)
+    _launch_one(KERNEL_DQ, args, dq, dab)
+    return dq, dk, dv, dab
+
+
+def _forward(qs, k, v, ab, q_seg, kv_seg, residuals: bool):
+    """(out, m, l) on the tensors' device: the plain version on the CPU, K6
+    on the card. m and l are None unless ``residuals``."""
+    if qs.device.type == "cpu":
+        out, m, l = _reference_fwd(qs, k, v, ab, q_seg, kv_seg)
+        return (out, m, l) if residuals else (out, None, None)
+    if qs.device.type != "cuda":
+        raise ValueError(f"{KERNEL}: no kernel for device {qs.device}")
+    return _launch(qs, k, v, ab, q_seg, kv_seg, residuals)
+
+
+def flash_attention_bwd(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        ab: Optional[torch.Tensor], q_seg: Optional[torch.Tensor],
+                        kv_seg: Optional[torch.Tensor], o: torch.Tensor, m: torch.Tensor,
+                        l: torch.Tensor, do: torch.Tensor, *, need_dab: bool = True):
+    """The backward of ``flash_attention`` from its residuals ``o``, ``m``,
+    ``l`` and the output gradient ``do`` -> (dq, dk, dv, dab) in q's dtype
+    (dq with respect to ``qs``; dab None without ``ab`` or unless
+    ``need_dab``). CPU tensors take ``_reference_bwd``; CUDA tensors launch
+    K6b and K6c, and anything they do not take raises."""
+    if qs.device.type == "cpu":
+        dq, dk, dv, dab = _reference_bwd(qs, k, v, ab, q_seg, kv_seg, o, m, l, do)
+        return dq, dk, dv, dab if need_dab else None
+    if qs.device.type != "cuda":
+        raise ValueError(f"{KERNEL_DKV}: no kernel for device {qs.device}")
+    return _launch_bwd(qs, k, v, ab, q_seg, kv_seg, o, m, l, do, need_dab)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient (the library's ``custom_vjp``):
+    K6 forward and K6b + K6c backward on the card, the plain versions on the
+    CPU. The forward keeps ``qs, k, v, ab, q_seg, kv_seg, out, m, l`` for the
+    backward. Gradients flow to qs, k, v and, where it requires one, ab;
+    never to the segment ids."""
+
+    @staticmethod
+    def forward(ctx, qs, k, v, ab, q_seg, kv_seg):
+        out, m, l = _forward(qs, k, v, ab, q_seg, kv_seg, residuals=True)
+        ctx.save_for_backward(qs, k, v, ab, q_seg, kv_seg, out, m, l)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, k, v, ab, q_seg, kv_seg, out, m, l = ctx.saved_tensors
+        need_dab = ab is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dab = flash_attention_bwd(qs, k, v, ab, q_seg, kv_seg, out, m, l,
+                                              do, need_dab=need_dab)
+        return dq, dk, dv, dab, None, None
 
 
 def flash_attention(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -141,13 +335,16 @@ def flash_attention(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dimension is contiguous (heads split from (B, T, D) activations); ``ab``,
     ``q_seg`` (B, Tq) and ``kv_seg`` (B, Tk) int32 are contiguous.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, and
-    anything the kernel does not take raises."""
-    if qs.device.type == "cpu":
-        return _reference(qs, k, v, ab, q_seg, kv_seg)
-    if qs.device.type != "cuda":
-        raise ValueError(f"{KERNEL}: no kernel for device {qs.device}")
-    return _launch(qs, k, v, ab, q_seg, kv_seg)
+    Where autograd records (grad mode on and an input that requires grad)
+    the call goes through ``FlashAttention``, which keeps the residuals of
+    the backward; otherwise it computes ``out`` alone (inference, and
+    ``torch.inference_mode``). CPU tensors take the plain versions; CUDA
+    tensors launch the kernels, and anything the kernels do not take
+    raises."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad
+                                       for x in (qs, k, v, ab)):
+        return FlashAttention.apply(qs, k, v, ab, q_seg, kv_seg)
+    return _forward(qs, k, v, ab, q_seg, kv_seg, residuals=False)[0]
 
 
 def unmasked_pairs(B: int, H: int, Tq: int, Tk: int,
@@ -185,4 +382,40 @@ def bound(B: int, H: int, Tq: int, Tk: int, Dh: int, dtype: torch.dtype,
     pairs = B * H * Tq * Tk if pairs is None else pairs
     bytes_s = nbytes / HBM_BYTES_PER_S
     flops_s = 4 * pairs * Dh / PEAK_FLOPS[dtype]
+    return max(bytes_s, flops_s) * 1e3, "bytes" if bytes_s >= flops_s else "operations"
+
+
+def bound_bwd(B: int, H: int, Tq: int, Tk: int, Dh: int, dtype: torch.dtype,
+              has_ab: bool, has_seg: bool, pairs: Optional[int] = None,
+              has_dab: Optional[bool] = None, part: str = "all") -> tuple[float, str]:
+    """The least time (ms) the card could take for the backward, and what
+    bounds it: the larger of the bytes it must move over the memory rate and
+    its flops over the peak rate for the dtype, counting ``pairs`` logits
+    (by default all B*H*Tq*Tk). ``has_dab`` (default ``has_ab``): the bias
+    needs a gradient.
+
+    ``part="all"``, the backward as a whole: 10*Dh flops a pair (the
+    recomputed logits, dV, dP, dK and dQ); q, k, v, o, dO, m, l, ``ab`` and
+    the segment ids read once, dq, dk, dv and dab written once.
+    ``part="dkv"`` (K6b's function alone): 8*Dh (logits, dP, dV, dK); q, k,
+    v, dO, m, l, di, ``ab`` and the segment ids read, dk and dv written.
+    ``part="dq"`` (K6c's): 6*Dh (logits, dP, dQ); the same reads, dq and
+    dab written."""
+    elem = torch.finfo(dtype).bits // 8
+    has_dab = has_ab if has_dab is None else has_dab
+    q_rows, k_rows, rows = B * H * Tq * Dh, B * H * Tk * Dh, B * H * Tq
+    ab_bytes = B * H * Tq * Tk * elem
+    flops_per_dh = {"all": 10, "dkv": 8, "dq": 6}[part]
+    if part == "all":
+        nbytes = (4 * q_rows + 4 * k_rows) * elem + 2 * 4 * rows
+        nbytes += ab_bytes * (int(has_ab) + int(has_dab))
+    else:
+        nbytes = (2 * q_rows + 2 * k_rows) * elem + 3 * 4 * rows + ab_bytes * int(has_ab)
+        nbytes += (2 * k_rows * elem if part == "dkv"
+                   else q_rows * elem + ab_bytes * int(has_dab))
+    if has_seg:
+        nbytes += 4 * B * (Tq + Tk)
+    pairs = B * H * Tq * Tk if pairs is None else pairs
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    flops_s = flops_per_dh * pairs * Dh / PEAK_FLOPS[dtype]
     return max(bytes_s, flops_s) * 1e3, "bytes" if bytes_s >= flops_s else "operations"

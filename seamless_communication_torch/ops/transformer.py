@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from seamless_communication_torch.ops import attention as attn_ops
+from seamless_communication_torch.ops import remat
 from seamless_communication_torch.ops.attention import Int8KVCache, KVCache
 from seamless_communication_torch.ops.kernels.decode_attention import (
     fused_decode_self_attention_int4, fused_decode_self_attention_int8, gather_rows,
@@ -102,9 +103,12 @@ def _layer_forward(p: dict, x: torch.Tensor, cfg: TransformerConfig, *,
 
 def transformer_encoder(params: dict, x: torch.Tensor, cfg: TransformerConfig, *,
                         padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence encoder stack; each layer is a checkpoint region under
+    ``ops/remat.py remat_layers``."""
     bias = padding_bias(padding_mask)
     for lp in params["layers"]:
-        x = _layer_forward(lp, x, cfg, self_bias=bias, enc_out=None, cross_bias=None)
+        x = remat.layer_call(_layer_forward, lp, x, cfg, self_bias=bias, enc_out=None,
+                             cross_bias=None)
     return layer_norm(params["layer_norm"], x)
 
 
@@ -114,13 +118,14 @@ def transformer_decoder(params: dict, x: torch.Tensor, cfg: TransformerConfig, *
                         self_padding_mask: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """Full-sequence causal decoder pass (the re-decode of a hypothesis into
-    the features the T2U reads)."""
+    the features the T2U reads; the training forward); each layer is a
+    checkpoint region under ``ops/remat.py remat_layers``."""
     self_bias = combine_masks(causal_mask(x.shape[1], device=x.device)[None, None],
                               padding_bias(self_padding_mask))
     cross_bias = padding_bias(enc_padding_mask)
     for lp in params["layers"]:
-        x = _layer_forward(lp, x, cfg, self_bias=self_bias, enc_out=enc_out,
-                           cross_bias=cross_bias)
+        x = remat.layer_call(_layer_forward, lp, x, cfg, self_bias=self_bias,
+                             enc_out=enc_out, cross_bias=cross_bias)
     return layer_norm(params["layer_norm"], x)
 
 
