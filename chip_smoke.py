@@ -22,7 +22,12 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    beside the library's ``scaled_dot_product_attention`` with the same
    float mask; K6b and K6c (the backward, ``flash_attention_bwd.cu``) at the
    same shapes against the plain backward, K6 with its residuals, and the
-   library's SDPA backward and forward + backward as yardsticks.
+   library's SDPA backward and forward + backward as yardsticks. In bf16,
+   K6 and K6b are the tensor-core kernels (``wgmma`` fed by TMA); then a
+   sweep of every head dim they specialise (16, 32, 64, 128) x a key count
+   that is and one that is not a multiple of 8 x a bias, segment ids and
+   neither, and the attention shapes of phase 3g's train steps
+   (``phase_flash_sweep``).
    ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
@@ -60,7 +65,8 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
       option on: 3 S2T steps (K6, K6b and K6c 48 times a step, the third
       loss below the first), a step under the profiler, a
       ``remat="full"`` step (K6 twice), 2 v2 S2S steps (the NAR T2U; the
-      loss's parts before and after each) and the same with the option off;
+      loss's parts before and after each) and the same with the option off
+      (the first loss within 1e-3 relative of the option's);
       then gradient parity at 4 conformer + 4 decoder layers in fp32, S2T
       and S2S with the whole T2U, the option on against off.
    Each path's launches are counted from 0 just before it.
@@ -84,6 +90,11 @@ builds the kernels and, instead, profiles one 10 s base_v2 S2TT request and
 one T2TT request with the candidate beam and without it (where the main
 path's time goes; the tables land in ``profile_*.txt`` files in the output
 directory of ``profile_main_path``).
+
+    python3 chip_smoke.py --k6b-parts
+
+times bf16 K6b at the 10 s Shaw shape as built and with one part left out
+at a time (``k6b_parts``): where its time goes.
 """
 
 from __future__ import annotations
@@ -194,7 +205,7 @@ def phase_device() -> dict:
     log(f"kernels built in {time.time() - t0:.2f} s: {build.kernel_sources()}")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     return {"smi": smi}
 
@@ -650,20 +661,24 @@ def phase_flash_attention(smi: str) -> dict:
                 f"({bound[1]}; {pairs} unmasked logits of {H * T * T}), kernel at "
                 f"{k_ms / bound[0]:.1f}x its bound [{smi}]")
     k_ms, p_ms, lib_ms, bound = rows[FLASH_MAIN, torch.float32]
+    b_ms, b_p_ms, b_lib_ms, b_bound = rows[FLASH_MAIN, torch.bfloat16]
     return {"name": "flash_attention", "route": "cuda",
             "source": "seamless_communication_torch/csrc/flash_attention.cu",
             "replaces": "seamless_communication_tpu/ops/fused_attention.py:54",
             "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": lib_ms}
+            "bound_by": bound[1], "library_ms": lib_ms,
+            # the bf16 kernel (wgmma, TMA) at the same shape
+            "bf16": {"ms": b_ms, "plain_ms": b_p_ms, "bound_ms": b_bound[0],
+                     "bound_by": b_bound[1], "library_ms": b_lib_ms}}
 
 
 def bwd_error(name: str, got, ref, dtype) -> float:
     """The largest error of one gradient of K6b/K6c against the plain
     backward; raises over the tolerance. fp32: 1e-4 * (1 + |ref|). bf16, where
     the kernels round p and dS at the plain backward's points: each element
-    within one bf16 ulp (2^-7 * |ref| + 1e-5 * max |ref|) and ||err|| <=
-    2^-9 * ||ref||, so a missed rounding point (about 0.4 % on most
-    elements) fails."""
+    within one bf16 ulp (2^-7 * |ref| + 1e-5 * max |ref|) and ||err|| <= 2^-9
+    * ||ref||, so a missed rounding point (about 0.4 % on most elements)
+    fails."""
     import torch
 
     err = (got.float() - ref.float()).abs()
@@ -784,10 +799,10 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
             k6_step_ms = cuda_time_ms(k6_step, calls=5, reps=20)
             lib_bwd_ms = lib_step_ms - lib_fwd_ms
             rows[label, dtype] = (dkv_ms, dq_ms, plain_ms, lib_bwd_ms, b_dkv, b_dq)
+            tol_label = "1e-4 * (1 + |ref|)" if dtype is torch.float32 else "one bf16 ulp"
             log(f"K6b/K6c {label}, T={T} ({valid} valid keys), {str(dtype)[6:]}: max abs "
                 f"err " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
-                + f" ({'1e-4 * (1 + |ref|)' if dtype is torch.float32 else 'one bf16 ulp'}"
-                f"); m, l within {res_err:.2g}; device K6b {dkv_ms * 1e3:.2f} us (bound "
+                + f" ({tol_label}); m, l within {res_err:.2g}; device K6b {dkv_ms * 1e3:.2f} us (bound "
                 f"{b_dkv[0] * 1e3:.2f}, {b_dkv[1]}; plain {plain_ms['dkv'] * 1e3:.2f}), "
                 f"K6c {dq_ms * 1e3:.2f} us (bound {b_dq[0] * 1e3:.2f}, {b_dq[1]}; plain "
                 f"{plain_ms['dq'] * 1e3:.2f}), together {(dkv_ms + dq_ms) * 1e3:.2f} us "
@@ -799,6 +814,12 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
                 f"{lib_step_ms * 1e3:.2f} us, so its backward {lib_bwd_ms * 1e3:.2f} us; "
                 f"K6 + K6b + K6c through FlashAttention {k6_step_ms * 1e3:.2f} us")
     dkv_ms, dq_ms, plain_ms, lib_ms, b_dkv, b_dq = rows[FLASH_MAIN, torch.float32]
+    bf = rows[FLASH_MAIN, torch.bfloat16]
+    bf16 = {"dkv": {"ms": bf[0], "plain_ms": bf[2]["dkv"], "bound_ms": bf[4][0],
+                    "bound_by": bf[4][1]},
+            "dq": {"ms": bf[1], "plain_ms": bf[2]["dq"], "bound_ms": bf[5][0],
+                   "bound_by": bf[5][1]},
+            "pair": {"ms": bf[0] + bf[1], "plain_ms": bf[2]["all"], "library_ms": bf[3]}}
     src = "seamless_communication_torch/csrc/flash_attention_bwd.cu"
     lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     via = "seamless_communication_tpu/ops/fused_attention.py:54 -> "
@@ -808,11 +829,206 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
     return ({"name": "flash_attention_bwd_dkv", "route": "cuda", "source": src,
              "replaces": f"{via}{lib}:941", "max_abs_err": max_err["dkv"],
              "ms": dkv_ms, "plain_ms": plain_ms["dkv"], "bound_ms": b_dkv[0],
-             "bound_by": b_dkv[1], "library_ms": None, "pair": pair},
+             "bound_by": b_dkv[1], "library_ms": None, "pair": pair,
+             # the bf16 kernel (wgmma, TMA) at the same shape, and the pair
+             # with K6c in bf16 against SDPA's bf16 backward
+             "bf16": {**bf16["dkv"], "pair": bf16["pair"]}},
             {"name": "flash_attention_bwd_dq", "route": "cuda", "source": src,
              "replaces": f"{via}{lib}:1287", "max_abs_err": max_err["dq"],
              "ms": dq_ms, "plain_ms": plain_ms["dq"], "bound_ms": b_dq[0],
-             "bound_by": b_dq[1], "library_ms": None, "pair": pair})
+             "bound_by": b_dq[1], "library_ms": None, "pair": pair,
+             "bf16": {**bf16["dq"], "pair": bf16["pair"]}})
+
+
+# the bf16 kernels' head dims, each with a key count that is a multiple of 8
+# and one that is not (130: ab's rows padded, the last key tile ragged)
+SWEEP_DH = (16, 32, 64, 128)
+SWEEP_TK = (136, 130)
+SWEEP_BIAS = ("ab", "segments", "none")
+# the attentions of phase 3g's bf16 train steps on base_v2 (B=2, H=16,
+# Dh=64; two valid lengths a batch): (label, T = Tq = Tk, bias, valid
+# lengths) with bias "ab" (the conformer's relative logits and key padding),
+# "causal" (the decoder's causal and padding ab) or "segments" (the NAR
+# T2U's FFT layers, key padding as segment ids)
+TRAIN_SHAPES = (("3g conformer", 500, "ab", (500, 350)),
+                ("3g decoder self-attention", 160, "causal", (160, 120)),
+                ("3g T2U FFT layers", 1136, "segments", (1136, 850)))
+
+
+def hold_flash_case(label: str, qkv, ab32, segs, do32, dtype) -> dict:
+    """K6, K6b and K6c on one case against their plain versions: K6's out
+    within rtol = atol = 1.6e-2 (bf16) or 1e-5 (fp32) of ``_reference`` and
+    bit-equal with and without residuals; K6b (on K6's residuals) and K6c
+    within ``bwd_error`` of ``_reference_bwd``. ``ab32`` goes into rows
+    padded to 8 elements, as ``try_flash`` makes it. Returns the largest
+    error of out, dq, dk and dv."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    qs, k, v = (x.to(dtype) for x in qkv)
+    ab = None
+    if ab32 is not None:
+        ab = fl.empty_bias(*ab32.shape, dtype, ab32.device).copy_(ab32)
+    sg = segs or (None, None)
+    do = do32.to(dtype)
+    out, m, l = fl._launch(qs, k, v, ab, *sg, residuals=True)
+    alone = fl._launch(qs, k, v, ab, *sg)[0]
+    ref = fl._reference(qs, k, v, ab, *sg)
+    got = fl.flash_attention_bwd(qs, k, v, ab, *sg, out, m, l, do, need_dab=ab is not None)
+    want = fl._reference_bwd(qs, k, v, ab, *sg, out, m, l, do)
+    torch.cuda.synchronize()
+    tol = 1.6e-2 if dtype is torch.bfloat16 else 1e-5
+    err = (out.float() - ref.float()).abs()
+    if not bool((err <= tol * (1 + ref.float().abs())).all()):
+        raise AssertionError(f"K6 {label}: out max err {float(err.max()):.3g}")
+    if not torch.equal(out, alone):
+        raise AssertionError(f"K6 {label}: out with residuals differs")
+    errs = {"out": float(err.max())}
+    for name, g, r in zip(("dq", "dk", "dv", "dab"), got, want):
+        if r is not None:
+            errs[name] = bwd_error(f"{label} {name}", g, r, dtype)
+    return errs
+
+
+def phase_flash_sweep(smi: str) -> None:
+    """K6, K6b and K6c (``hold_flash_case``) at every head dim the kernels
+    specialise (``SWEEP_DH``) x ``SWEEP_TK`` x ``SWEEP_BIAS``, Tq from 130 to
+    200, B=2, H=3, bf16, and fp32 too at Tk = 130 with ab (the kernels read
+    ab's rows by their stride); then in bf16 at the shapes of phase 3g's
+    train steps (``TRAIN_SHAPES``). q, k and v heads are split from (B, T,
+    H * Dh) activations as the model hands them over; ab is Shaw-like, with
+    key padding."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    worst = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+
+    def case(B, H, dh, tq, tk, kind, valid):
+        heads = lambda t, sc=1.0: torch.as_tensor(
+            rng.standard_normal((B, t, H, dh)) * sc, dtype=torch.float32,
+            device=dev).transpose(1, 2)
+        qkv = [heads(tq, dh ** -0.5), heads(tk), heads(tk)]
+        do32 = torch.as_tensor(rng.standard_normal((B, H, tq, dh)), dtype=torch.float32,
+                               device=dev)
+        keep = (torch.arange(tk, device=dev)[None]
+                < torch.tensor(valid, device=dev)[:, None])                  # (B, Tk)
+        pad = torch.where(keep, 0.0, -1e9)[:, None, None, :]
+        ab32 = segs = None
+        if kind == "ab":
+            ab32 = torch.as_tensor(rng.standard_normal((B, H, tq, tk)) * 0.5,
+                                   dtype=torch.float32, device=dev) + pad
+        elif kind == "causal":
+            causal = torch.triu(torch.full((tq, tk), -1e9, device=dev), diagonal=1)
+            ab32 = (causal + pad).expand(B, H, tq, tk)
+        elif kind == "segments":
+            segs = (torch.ones((B, tq), dtype=torch.int32, device=dev),
+                    keep.to(torch.int32).contiguous())
+        return qkv, ab32, segs, do32
+
+    n = 0
+    for dh in SWEEP_DH:
+        for tk in SWEEP_TK:
+            for kind in SWEEP_BIAS:
+                tq = 130 + 10 * n % 80
+                n += 1
+                qkv, ab32, segs, do32 = case(2, 3, dh, tq, tk, kind, (tk, tk - 21))
+                dtypes = (torch.bfloat16,) + ((torch.float32,) if kind == "ab" and tk == 130
+                                              else ())
+                for dtype in dtypes:
+                    label = f"sweep Dh={dh} Tq={tq} Tk={tk} {kind} {str(dtype)[6:]}"
+                    errs = hold_flash_case(label, qkv, ab32, segs, do32, dtype)
+                    if dtype is torch.bfloat16:
+                        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+    log(f"K6/K6b/K6c sweep: {n} cases (Dh {SWEEP_DH} x Tk {SWEEP_TK} x {SWEEP_BIAS}, "
+        f"fp32 too at Tk=130 with ab) within tolerance; bf16 max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" [{smi}]")
+    for label, T, kind, valid in TRAIN_SHAPES:
+        qkv, ab32, segs, do32 = case(2, H_MAIN, DH_MAIN, T, T, kind, valid)
+        errs = hold_flash_case(label, qkv, ab32, segs, do32, torch.bfloat16)
+        log(f"K6/K6b/K6c {label}, B=2, T={T} (valid {valid}), {kind}, bf16: within "
+            f"tolerance; max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" [{smi}]")
+
+
+# Parts of bf16 K6b left out one at a time (text replaced in a copy of its
+# source): where its time goes. The results of all but the first are wrong.
+K6B_PARTS = {
+    "as built": [],
+    "no fp32 products (S^T, dP^T)": [(
+        "    if (warp < 2)\n      dots<DH, BQ>(k32, q32, tr_s, warp, lane);\n    else\n"
+        "      dots<DH, BQ>(v32, do32, tr_d, warp - 2, lane);\n", "")],
+    "no expf": [("const float ex = expf(x - mi);", "const float ex = x - mi;")],
+    "no widening of Q, dO": [(
+        "    widen<DH, BQ>(st, q32, tid);\n    widen<DH, BQ>(st + S::kRowBytes, do32, tid);\n",
+        "")],
+    "no ab reads": [("if (HAS_AB) x += ab_at(ab_s, c, r0 + 8 * u);", "if (HAS_AB) x += 0.5f;")],
+    "no dV, dK wgmma (and so no p, dS)": [
+        (f"    for (int kk = 0; kk < BQ / 16; ++kk)\n      hopper::Wgmma<DH>::rs(\n          {g},",
+         f"    for (int kk = 0; kk < 0; ++kk)\n      hopper::Wgmma<DH>::rs(\n          {g},")
+        for g in ("dv", "dk")],
+}
+
+
+def k6b_parts(smi: str) -> None:
+    """``python3 chip_smoke.py --k6b-parts``: bf16 K6b at ``FLASH_MAIN`` as
+    built and with each part of ``K6B_PARTS`` left out, each a copy of
+    ``flash_attention_bwd.cu`` built with the package's nvcc flags into a
+    temporary directory and loaded in place of the built library; device µs
+    by CUDA-graph replay, the best of three."""
+    import ctypes
+    import concurrent.futures
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.ops.kernels import build
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    src = build.CSRC_DIR / "flash_attention_bwd.cu"
+    tmp = Path(tempfile.mkdtemp())
+    for header in build._sources(src, [])[1:]:
+        (tmp / header.name).write_bytes(header.read_bytes())
+
+    def compile_part(i_name):
+        i, name = i_name
+        text = src.read_text()
+        for old, new in K6B_PARTS[name]:
+            if old not in text:
+                raise AssertionError(f"k6b-parts {name}: the source has changed")
+            text = text.replace(old, new)
+        cu, lib = tmp / f"part{i}.cu", tmp / f"part{i}.so"
+        cu.write_text(text)
+        subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+                       check=True, capture_output=True)
+        return name, lib
+
+    with concurrent.futures.ThreadPoolExecutor(len(K6B_PARTS)) as pool:
+        libs = list(pool.map(compile_part, enumerate(K6B_PARTS)))
+    dev = torch.device("cuda")
+    label, T, kind, valid = next(x for x in FLASH_SHAPES if x[0] == FLASH_MAIN)
+    qkv, ab32, seg = flash_inputs(np.random.default_rng(19), T, kind, valid, dev)
+    qs, k, v = (x.to(torch.bfloat16) for x in qkv)
+    ab = fl.empty_bias(*ab32.shape, torch.bfloat16, dev).copy_(ab32)
+    do = torch.randn_like(qs)
+    out, m, l = fl._launch(qs, k, v, ab, None, None, residuals=True)
+    args = fl._bwd_args(qs, k, v, ab, None, None, out, m, l, do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for name, lib in libs:
+        so = ctypes.CDLL(str(lib))
+        fn = getattr(so, fl.KERNEL_DKV)
+        fn.argtypes, fn.restype = fl._ENTRY[fl.KERNEL_DKV][1], ctypes.c_int
+        so.cuda_error_string.argtypes = [ctypes.c_int]
+        so.cuda_error_string.restype = ctypes.c_char_p
+        fl._functions[fl.KERNEL_DKV] = (fn, so.cuda_error_string)
+        us = min(cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DKV, args, dk, dv))
+                 for _ in range(3)) * 1e3
+        log(f"K6b bf16 {label}, {name}: {us:.2f} us [{smi}]")
+    fl._functions.pop(fl.KERNEL_DKV)
 
 
 # ---------------------------------------------------------------------------
@@ -1776,8 +1992,10 @@ def profile_train_step(trainer, batch: dict, smi: str) -> dict:
               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     events.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    # each kernel by its name: the SIMT kernel (fp32; K6c) or the
+    # tensor-core one (bf16 K6, K6b)
     flash = {name: sum(e.self_device_time_total for e in events
-                       if f"{name}_kernel" in e.key) / 1e3
+                       if f"{name}_kernel" in e.key or f"{name}_tc_kernel" in e.key) / 1e3
              for name in ("flash_attention", "flash_attention_bwd_dkv",
                           "flash_attention_bwd_dq")}
     flash_ms = sum(flash.values())
@@ -2062,8 +2280,8 @@ def phase_train(smi: str) -> dict:
     backward (``fwd_bwd_peak``). v2 S2S: 2 steps with the NAR T2U on
     ground-truth durations, the loss's two parts (``s2s_loss_parts``) before
     and after each, then the same 2 steps with the option off (the first
-    step's loss within 2e-2 of the option's). Then ``grad_parity`` of S2T
-    and of S2S."""
+    step's loss within 1e-3 relative of the option's). Then ``grad_parity``
+    of S2T and of S2S."""
     import torch
 
     from seamless_communication_torch.models.unity import model as unity
@@ -2158,7 +2376,13 @@ def phase_train(smi: str) -> dict:
         f"below ln({cfg.nar_t2u.unit_vocab_size}) = {floor:.4f} a unit on average. "
         f"Option off, the same steps: losses {off[0]['loss']:.5f}, {off[1]['loss']:.5f} "
         f"against {out['s2s'][0]['loss']:.5f}, {out['s2s'][1]['loss']:.5f} with it [{smi}]")
-    if abs(off[0]["loss"] - out["s2s"][0]["loss"]) > 2e-2:
+    # the bf16 kernels against the plain bf16 attention: the first step's
+    # loss (before any update) within 1e-3 relative
+    rel = abs(off[0]["loss"] - out["s2s"][0]["loss"]) / abs(off[0]["loss"])
+    log(f"3g first losses with the option: S2T {out['s2t'][0]['loss']:.5f}, S2S "
+        f"{out['s2s'][0]['loss']:.5f} against {off[0]['loss']:.5f} off ({rel:.3g} relative, "
+        f"limit 1e-3) [{smi}]")
+    if rel > 1e-3:
         raise AssertionError(f"3g S2S: first loss {out['s2s'][0]['loss']} with the option, "
                              f"{off[0]['loss']} without")
     out["s2s_parts"] = parts
@@ -2683,6 +2907,9 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_main_path(dev["smi"])
         return 0
+    if sys.argv[1:] == ["--k6b-parts"]:
+        k6b_parts(dev["smi"])
+        return 0
     k1 = phase_decode_attention("decode_attention_int8")
     k2 = phase_decode_attention("decode_attention_int4")
     k5 = phase_indexed(dev["smi"])
@@ -2690,6 +2917,7 @@ def main() -> int:
     k3b, k3a = phase_vocab_topk(dev["smi"])
     k6 = phase_flash_attention(dev["smi"])
     k6b, k6c = phase_flash_attention_bwd(dev["smi"])
+    phase_flash_sweep(dev["smi"])
     if sys.argv[1:] == ["--kernels"]:
         return 0
     base_v2 = build_base_v2()

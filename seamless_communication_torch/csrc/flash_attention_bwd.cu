@@ -35,6 +35,9 @@
 // loops over all key tiles. No atomics: the results are the same from run to
 // run.
 //
+// K6b has one kernel per dtype, chosen by `dtype` in the C entry: the SIMT
+// kernel in fp32, the tensor-core kernel in bf16.
+//
 // Bound on the card (`bound_bwd`): both kernels together recompute the logits
 // and do the dV, dP, dK and dQ products, 10*Dh flops an unmasked pair; they
 // read q, k, v, o, dO, m, l and ab once and write dq, dk, dv and dab once. At
@@ -44,8 +47,34 @@
 // by bytes). Each kernel recomputes the logits and dP, so together they do
 // 14*Dh flops a pair, 1.4x the function's.
 //
-// Design (simple first; wgmma, TMA and bf16 tensor-core products are later
-// work). Both kernels keep their tiles in shared memory as fp32 and use the
+// K6b in bf16 (flash_attention_bwd_dkv_tc_kernel): dV and dK on the tensor
+// cores (wgmma, bf16 operands, fp32 accumulators), the tiles fed by TMA. A
+// block owns 64 keys of one (b, h): a producer warp loads their K and V
+// once, then streams the Q and dO tiles of every query tile (64 rows, 32 at
+// Dh = 128, where the accumulators would not fit the registers), the ab tile
+// (128-byte swizzled) and the rows' m, 1/l, di and segment ids through a
+// ring of 3 shared-memory stages guarded by mbarriers. A warpgroup computes
+// transposed, keys as wgmma's M. S^T = K Q^T and dP^T = V dO^T are fp32 FMAs
+// from fp32 copies of the tiles, one term after another in the order of d,
+// the order of the plain version's fp32 products: p and dS are rounded to
+// bf16 before dV and dK, and a logit or dP summed in any other order (the
+// tensor cores' among them) moves the p or dS next to a rounding boundary to
+// the other bf16 neighbour, which an element of dk or dv that cancels to near
+// 0 shows as many of its own ulps. Two warps sum S^T and two dP^T, a lane
+// 8 keys x 8 rows (16 shared loads a 256 FMAs: the shared-memory pipe keeps
+// pace with the FMAs), and the sums pass through shared memory into the
+// m64nBQ accumulator layout, where p and dS (expf, as the plain version)
+// are computed and, rounded to bf16, are the A operands of dV += P^T dO and
+// dK += dS^T Q, whose B operands dO and Q are read MN-major from the ring.
+// No atomics: the block owns its keys. At the 10 s shape that is 128
+// blocks, one wave, one a multiprocessor (about 200 KB of shared memory at
+// Dh = 64). The bias and the segment ids are template arguments, so the
+// element loop holds no branch. What holds it back now: the two fp32
+// products, 4 Dh FMAs a (key, row) pair, and expf, each on one warpgroup a
+// block with nothing to overlap them.
+//
+// Design of the SIMT kernels (K6b in fp32; K6c in both dtypes). Both keep
+// their tiles in shared memory as fp32 and use the
 // access pattern of K6's forward: a product whose lanes read different rows
 // reads rows padded by 4 floats with 16-byte loads (conflict-free), a product
 // whose lanes read one row reads it as a broadcast.
@@ -53,7 +82,7 @@
 //   loaded once. For each tile of 32 query rows (q, dO, m, 1/l, di staged in
 //   shared memory) a lane owns one row and computes s and dp against the
 //   warp's keys, then p and dS (ab read from device memory, each lane its
-//   row's consecutive keys); the rounded p and dS go to shared memory, and a
+//   row's consecutive keys); p and dS go to shared memory, and a
 //   lane then owns output dimensions (lane, lane + 32, ...) and accumulates
 //   dV and dK of the warp's keys in registers over the 32 rows.
 //   K6c: 128 threads own 16 query rows (4 a warp, computed together), as in
@@ -66,6 +95,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -97,9 +128,10 @@ __device__ __forceinline__ float round_to(float x) {
 }
 
 // Strides are in elements; the last dimension of q, k and v is contiguous.
-// dO, m, l, di and every output are contiguous.
+// The bias's rows are `abt` apart (its last dimension contiguous). dO, m, l,
+// di and every output (dab too) are contiguous.
 struct Strides {
-  long long qb, qh, qt, kb, kh, kt, vb, vh, vt;
+  long long qb, qh, qt, kb, kh, kt, vb, vh, vt, abt;
 };
 
 // Per-row values of the backward: m, 1/l (0 for a row past Tq or whose m is
@@ -140,17 +172,17 @@ struct DkvShape {
   static constexpr size_t kSmemBytes = (size_t)kSmemFloats * 4 + BQ * 4;
 };
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                               const T* __restrict__ v, const T* __restrict__ ab,
+flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ ab,
                                const int32_t* __restrict__ q_seg,
                                const int32_t* __restrict__ kv_seg,
-                               const T* __restrict__ dout, const float* __restrict__ m,
+                               const float* __restrict__ dout, const float* __restrict__ m,
                                const float* __restrict__ l,
                                const float* __restrict__ di, Strides st, int H, int Tq,
-                               int Tk, float mask_value, T* __restrict__ dk,
-                               T* __restrict__ dv) {
+                               int Tk, float mask_value, float* __restrict__ dk,
+                               float* __restrict__ dv) {
   using S = DkvShape<DH>;
   constexpr int KW = S::KW, BK = S::BK, BQ = S::BQ, LDQ = S::LDQ, DPL = S::DPL;
   extern __shared__ __align__(16) float smem[];
@@ -168,18 +200,18 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * BK;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const T* qb = q + b * st.qb + h * st.qh;
-  const T* kb = k + b * st.kb + h * st.kh;
-  const T* vb = v + b * st.vb + h * st.vh;
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
   const size_t bh = (size_t)b * H + h;
-  const T* dob = dout + bh * Tq * DH;
+  const float* dob = dout + bh * Tq * DH;
   const bool seg = q_seg != nullptr;
 
   for (int idx = tid; idx < BK * DH; idx += kThreads) {
     const int j = idx / DH, d = idx % DH, key = k0 + j;
     const bool ok = key < Tk;
-    k_s[idx] = ok ? to_f32<T>(kb[key * st.kt + d]) : 0.f;
-    v_s[idx] = ok ? to_f32<T>(vb[key * st.vt + d]) : 0.f;
+    k_s[idx] = ok ? kb[key * st.kt + d] : 0.f;
+    v_s[idx] = ok ? vb[key * st.vt + d] : 0.f;
   }
   // the warp's keys: k0 + warp * KW + c
   int kseg[KW];
@@ -204,8 +236,8 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BQ * DH; idx += kThreads) {
       const int r = idx / DH, d = idx % DH, i = q0 + r;
       const bool ok = i < Tq;
-      q_s[r * LDQ + d] = ok ? to_f32<T>(qb[i * st.qt + d]) : 0.f;
-      do_s[r * LDQ + d] = ok ? to_f32<T>(dob[(size_t)i * DH + d]) : 0.f;
+      q_s[r * LDQ + d] = ok ? qb[i * st.qt + d] : 0.f;
+      do_s[r * LDQ + d] = ok ? dob[(size_t)i * DH + d] : 0.f;
     }
     if (tid < BQ) {
       row_values(m, l, di, q_seg, bh, b, q0 + tid, Tq, m_s[tid], il_s[tid], di_s[tid],
@@ -240,20 +272,20 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // ---- p and dS of the lane's row; a row past Tq has 1/l = 0, so p = 0
     const float mi = m_s[lane], il = il_s[lane], dii = di_s[lane];
     const int qseg = seg_s[lane];
-    const T* abr = (ab && i < Tq) ? ab + (bh * Tq + i) * (size_t)Tk + k0 + warp * KW
-                                  : nullptr;
+    const float* abr =
+        (ab && i < Tq) ? ab + (bh * Tq + i) * (size_t)st.abt + k0 + warp * KW : nullptr;
 #pragma unroll
     for (int c = 0; c < KW; ++c) {
       float p = 0.f, ds = 0.f;
       if (kok[c] && il != 0.f) {
         float x = s[c];
-        if (abr) x += to_f32<T>(abr[c]);
+        if (abr) x += abr[c];
         if (seg) x += (qseg == kseg[c]) ? 0.f : mask_value;
         p = expf(x - mi) * il;
         ds = (dp[c] - dii) * p;
       }
-      p_w[c * BQ + lane] = round_to<T>(p);
-      ds_w[c * BQ + lane] = round_to<T>(ds);
+      p_w[c * BQ + lane] = p;
+      ds_w[c * BQ + lane] = ds;
     }
     __syncwarp();
 
@@ -299,8 +331,8 @@ flash_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < DPL; ++e) {
       const int d = lane + 32 * e;
       if (d < DH) {
-        dk[row * DH + d] = from_f32<T>(acc_dk[c][e]);
-        dv[row * DH + d] = from_f32<T>(acc_dv[c][e]);
+        dk[row * DH + d] = acc_dk[c][e];
+        dv[row * DH + d] = acc_dv[c][e];
       }
     }
   }
@@ -424,14 +456,15 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = q0 + row0 + r;
-      const size_t rowoff = (bh * Tq + i) * (size_t)Tk + k0;
+      const size_t rowoff = (bh * Tq + i) * (size_t)Tk + k0;      // dab
+      const size_t aboff = (bh * Tq + i) * (size_t)st.abt + k0;   // ab
 #pragma unroll
       for (int c = 0; c < KPL; ++c) {
         const int j = lane + 32 * c;
         float ds = 0.f;
         if (kok[c] && il[r] != 0.f) {
           float x = s[r][c];
-          if (ab) x += to_f32<T>(ab[rowoff + j]);
+          if (ab) x += to_f32<T>(ab[aboff + j]);
           if (seg) x += (qseg[r] == kseg[c]) ? 0.f : mask_value;
           const float p = expf(x - mi[r]) * il[r];
           ds = (dp[r][c] - dii[r]) * p;
@@ -483,6 +516,345 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// K6b in bf16: tensor cores (wgmma) fed by TMA. A block owns 64 keys.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kConsumers = 128;               // one warpgroup: the products
+constexpr int kThreadsTc = kConsumers + 32;   // and one producer warp: TMA
+
+template <int DH>
+struct DkvShape {
+  static constexpr int BK = 64;                        // keys of a block (wgmma M)
+  static constexpr int BQ = DH <= 64 ? 64 : 32;        // query rows of a tile
+  static constexpr int kStages = 3;                    // ring of Q, dO, ab tiles
+  static constexpr int kSwz = DH >= 64 ? 128 : DH * 2; // bytes of a swizzled row
+  static constexpr int kCols = kSwz / 2;               // its columns (TMA box)
+  static constexpr int kHalves = DH / kCols;           // 2 at Dh = 128, else 1
+  static constexpr int kKvBytes = BK * DH * 2;         // K or V, loaded once
+  static constexpr int kRowBytes = BQ * DH * 2;        // one Q or dO tile
+  static constexpr int kAbBytes = BQ * 64 * 2;         // one ab tile
+  static constexpr int kValBytes = 1024;               // m, 1/l, di, q_seg of BQ rows
+  static constexpr int kStageBytes = 2 * kRowBytes + kAbBytes + kValBytes;
+  static constexpr int LD = DH + 4;                    // padded fp32 row
+  static constexpr int QPL = BQ / 8;                   // query rows of a lane (dots)
+  static constexpr int LT = BQ + 8;                    // padded row of S^T, dP^T
+  // fp32 copies of K, V (once) and of the tile's Q, dO for the logits and
+  // dP; then S^T and dP^T on their way to the accumulator layout
+  static constexpr int kF32Offset = 2 * kKvBytes + kStages * kStageBytes;
+  static constexpr int kTrOffset = kF32Offset + (2 * BK + 2 * BQ) * LD * 4;
+  static constexpr int kBarOffset = kTrOffset + 2 * BK * LT * 4;
+  // 1024 bytes of slack align the tiles (the swizzle atom)
+  static constexpr size_t kSmemBytes = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+};
+
+// ab[row][col] of a tile of 64-key rows stored with the 128-byte swizzle
+__device__ __forceinline__ float ab_at(const uint8_t* tile, int row, int col) {
+  const int off = hopper::swizzled(row, col >> 3, 128) + (col & 7) * 2;
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(tile + off));
+}
+
+// A bf16 tile of ROWS x DH as TMA stored it (kHalves column halves, each
+// ROWS rows of kSwz bytes, swizzled) widened into fp32 rows of LD floats;
+// the consumer warpgroup's threads share the work, consecutive lanes on
+// consecutive rows (conflict-free on both sides).
+template <int DH, int ROWS>
+__device__ __forceinline__ void widen(const uint8_t* src, float* dst, int tid) {
+  using S = DkvShape<DH>;
+  constexpr int CPR = DH / 8, CPH = S::kSwz / 16;   // 16-byte chunks of a row, a half's row
+  for (int c = tid; c < ROWS * CPR; c += kConsumers) {
+    const int row = c % ROWS, ch = c / ROWS;
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        src + (ch / CPH) * ROWS * S::kSwz + hopper::swizzled(row, ch % CPH, S::kSwz));
+    float4* o = reinterpret_cast<float4*>(dst + row * S::LD + 8 * ch);
+    const auto lo = [](uint32_t w) { return __uint_as_float(w << 16); };
+    const auto hi = [](uint32_t w) { return __uint_as_float(w & 0xffff0000u); };
+    o[0] = make_float4(lo(x.x), hi(x.x), lo(x.y), hi(x.y));
+    o[1] = make_float4(lo(x.z), hi(x.z), lo(x.w), hi(x.w));
+  }
+}
+
+// One warp's half of S^T = K Q^T (or of dP^T = V dO^T): the 64 keys against
+// query rows h BQ / 2 .. (h + 1) BQ / 2 - 1, from fp32 rows of LD floats,
+// one fp32 FMA a term in the order d = 0, 1, ..., Dh - 1: the order in which
+// the plain version's fp32 products (cuBLAS) sum, so that p and dS round to
+// bf16 exactly where the plain version's do. Lane (kg, qg) = (lane / 4,
+// lane % 4) sums keys kg + 8 a (a < 8) against the row pairs 8 i + 2 qg +
+// {0, 1} of the half: 8 + QPL 16-byte loads (conflict-free) a 32 QPL FMAs,
+// so that at Dh <= 64 the shared-memory pipe keeps pace with the FMAs of
+// the four warps. The sums go to tr[key][row] (rows of LT floats).
+template <int DH, int BQ>
+__device__ __forceinline__ void dots(const float* a_s, const float* b_s, float* tr, int h,
+                                     int lane) {
+  using S = DkvShape<DH>;
+  constexpr int LD = S::LD, QPL = S::QPL;
+  const int kg = lane / 4, q0 = h * BQ / 2 + 2 * (lane % 4);
+  const float* a0 = a_s + kg * LD;
+  const float* b0 = b_s + q0 * LD;
+  float acc[8][QPL];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int i = 0; i < QPL; ++i) acc[r][i] = 0.f;
+#pragma unroll 1
+  for (int d = 0; d < DH; d += 4) {
+    float4 x[8], y[QPL];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) x[r] = *reinterpret_cast<const float4*>(a0 + 8 * r * LD + d);
+#pragma unroll
+    for (int i = 0; i < QPL; ++i)
+      y[i] = *reinterpret_cast<const float4*>(b0 + (8 * (i / 2) + i % 2) * LD + d);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int i = 0; i < QPL; ++i) {
+        float t = acc[r][i];
+        t = fmaf(y[i].x, x[r].x, t);
+        t = fmaf(y[i].y, x[r].y, t);
+        t = fmaf(y[i].z, x[r].z, t);
+        t = fmaf(y[i].w, x[r].w, t);
+        acc[r][i] = t;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int i = 0; i < QPL; i += 2)
+      *reinterpret_cast<float2*>(tr + (kg + 8 * r) * S::LT + q0 + 4 * i) =
+          make_float2(acc[r][i], acc[r][i + 1]);
+}
+
+struct DkvArgs {
+  const int32_t* q_seg;
+  const int32_t* kv_seg;
+  const float* m;
+  const float* l;
+  const float* di;
+  int H, Tq, Tk;
+  float mask_value;
+  bool q_swap, k_swap, v_swap;  // th_swap of each map (dO is contiguous)
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+};
+
+// One block: 64 keys of one (b, h), their K and V loaded once. Warps 0-3
+// (one warpgroup) compute; warp 4 streams the Q, dO and ab tiles of every
+// query tile, with the rows' m, 1/l, di and segment ids, through a ring of
+// kStages stages. Transposed, so that the keys are wgmma's M: S^T = K Q^T
+// and dP^T = V dO^T by fp32 FMAs (``dots``) from fp32 copies of the tiles,
+// then dV += P^T dO and dK += dS^T Q by wgmma with P^T and dS^T rounded to
+// bf16 in registers as the A operands and dO, Q read MN-major from the
+// ring. HAS_AB and SEG (a bias; segment ids) are template arguments, so
+// that the element loop holds no branch.
+template <int DH, bool HAS_AB, bool SEG>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+flash_attention_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                                  const __grid_constant__ CUtensorMap k_map,
+                                  const __grid_constant__ CUtensorMap v_map,
+                                  const __grid_constant__ CUtensorMap do_map,
+                                  const __grid_constant__ CUtensorMap ab_map,
+                                  const DkvArgs a) {
+  using S = DkvShape<DH>;
+  constexpr int BK = S::BK, BQ = S::BQ, NS = S::kStages, SWZ = S::kSwz, COLS = S::kCols,
+                LD = S::LD;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = smem + S::kKvBytes;
+  uint8_t* stages = smem + 2 * S::kKvBytes;
+  float* k32 = reinterpret_cast<float*>(smem + S::kF32Offset);   // [BK][LD]
+  float* v32 = k32 + BK * LD;                                     // [BK][LD]
+  float* q32 = v32 + BK * LD;                                     // [BQ][LD]
+  float* do32 = q32 + BQ * LD;                                    // [BQ][LD]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBarOffset);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;        // [NS]: the stage's tiles have landed
+  uint64_t* empty = bars + 1 + NS;  // [NS]: the consumers are done with it
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_tiles = (a.Tq + BQ - 1) / BQ;
+  const size_t bh = (size_t)b * a.H + h;
+
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // ---- producer warp
+    if (lane == 0) {
+      hopper::prefetch_map(&q_map);
+      hopper::prefetch_map(&do_map);
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * S::kKvBytes);
+      for (int half = 0; half < S::kHalves; ++half) {
+        hopper::load_rows(k_s + half * BK * SWZ, &k_map, kv_full, half * COLS, k0, h, b,
+                          a.k_swap);
+        hopper::load_rows(v_s + half * BK * SWZ, &v_map, kv_full, half * COLS, k0, h, b,
+                          a.v_swap);
+      }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % NS, i0 = t * BQ;
+      if (t >= NS) hopper::mbar_wait(&empty[s], ((t / NS) - 1) & 1);
+      uint8_t* st = stages + s * S::kStageBytes;
+      float* m_s = reinterpret_cast<float*>(st + 2 * S::kRowBytes + S::kAbBytes);
+      for (int r = lane; r < BQ; r += 32)
+        row_values(a.m, a.l, a.di, a.q_seg, bh, b, i0 + r, a.Tq, m_s[r], m_s[BQ + r],
+                   m_s[2 * BQ + r], reinterpret_cast<int*>(m_s + 3 * BQ)[r]);
+      __syncwarp();
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(
+            &full[s], 2 * S::kRowBytes + (HAS_AB ? S::kAbBytes : 0));
+        for (int half = 0; half < S::kHalves; ++half) {
+          hopper::load_rows(st + half * BQ * SWZ, &q_map, &full[s], half * COLS, i0, h, b,
+                            a.q_swap);
+          hopper::load_rows(st + S::kRowBytes + half * BQ * SWZ, &do_map, &full[s],
+                            half * COLS, i0, h, b, false);
+        }
+        if (HAS_AB)
+          hopper::tma_load_4d(st + 2 * S::kRowBytes, &ab_map, &full[s], k0, i0, h, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: thread (warp, lane) holds key rows r0 and r0 + 8
+  // of every accumulator, and in its 8-column chunk j the columns 8 j + kc + {0, 1}
+  const int r0 = 16 * warp + lane / 4, kc = 2 * (lane % 4);
+  const int key0 = k0 + r0, key1 = key0 + 8;
+  // S^T and dP^T: [BK][LT] each
+  float* tr_s = reinterpret_cast<float*>(smem + S::kTrOffset);
+  float* tr_d = tr_s + BK * S::LT;
+  const bool kok0 = key0 < a.Tk, kok1 = key1 < a.Tk;
+  const int kseg0 = (SEG && kok0) ? a.kv_seg[(size_t)b * a.Tk + key0] : 0;
+  const int kseg1 = (SEG && kok1) ? a.kv_seg[(size_t)b * a.Tk + key1] : 0;
+  float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+  float sc[BQ / 2], dp[BQ / 2];
+  uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+
+  // keys past Tk come zero-filled from TMA; they are selected away below
+  hopper::mbar_wait(kv_full, 0);
+  widen<DH, BK>(k_s, k32, tid);
+  widen<DH, BK>(v_s, v32, tid);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % NS;
+    const uint8_t* st = stages + s * S::kStageBytes;
+    hopper::mbar_wait(&full[s], (t / NS) & 1);
+
+    // ---- S^T = K Q^T, dP^T = V dO^T in fp32, summed as the plain version sums
+    widen<DH, BQ>(st, q32, tid);
+    widen<DH, BQ>(st + S::kRowBytes, do32, tid);
+    hopper::named_sync(1, kConsumers);   // the fp32 tiles are written
+    // warps 0, 1: the halves of S^T; warps 2, 3: the halves of dP^T
+    if (warp < 2)
+      dots<DH, BQ>(k32, q32, tr_s, warp, lane);
+    else
+      dots<DH, BQ>(v32, do32, tr_d, warp - 2, lane);
+    hopper::named_sync(1, kConsumers);   // S^T, dP^T written; the fp32 tiles read
+    // the accumulator layout: key rows r0 and r0 + 8, columns 8 j + kc + {0, 1}
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int o = (r0 + 8 * u) * S::LT + 8 * j + kc;
+        const float2 x = *reinterpret_cast<const float2*>(tr_s + o);
+        const float2 y = *reinterpret_cast<const float2*>(tr_d + o);
+        sc[4 * j + 2 * u] = x.x;
+        sc[4 * j + 2 * u + 1] = x.y;
+        dp[4 * j + 2 * u] = y.x;
+        dp[4 * j + 2 * u + 1] = y.y;
+      }
+
+    // ---- p and dS of each (key, row); a row past Tq, or whose logits are all
+    // -inf, has m = 0 and 1/l = 0, so p = 0 (its logits are 0 or below); a
+    // key past Tk is selected away
+    const uint8_t* ab_s = st + 2 * S::kRowBytes;
+    const float* m_s = reinterpret_cast<const float*>(ab_s + S::kAbBytes);
+    const int* qseg_s = reinterpret_cast<const int*>(m_s + 3 * BQ);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + kc + e;
+        const float mi = m_s[c], il = m_s[BQ + c], dii = m_s[2 * BQ + c];
+        const int qs = qseg_s[c];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int idx = 4 * j + 2 * u + e;
+          float x = sc[idx];
+          if (HAS_AB) x += ab_at(ab_s, c, r0 + 8 * u);
+          if (SEG) x += (qs == (u ? kseg1 : kseg0)) ? 0.f : a.mask_value;
+          // expf of every element, kept or not (no branch around it), so
+          // that the exponentials of a thread overlap
+          const float ex = expf(x - mi);
+          const float p = (u ? kok1 : kok0) ? ex * il : 0.f;
+          sc[idx] = p;
+          dp[idx] = (dp[idx] - dii) * p;
+        }
+      }
+    }
+    // P^T and dS^T rounded to bf16: the register A fragments
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = hopper::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+        da[kk][r] = hopper::pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+    }
+
+    // ---- dV += P^T dO, dK += dS^T Q (dO and Q MN-major from shared memory)
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hopper::Wgmma<DH>::rs(
+          dv, pa[kk],
+          hopper::make_desc(st + S::kRowBytes + kk * 16 * SWZ, BQ * SWZ, 8 * SWZ, SWZ), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hopper::Wgmma<DH>::rs(
+          dk, da[kk], hopper::make_desc(st + kk * 16 * SWZ, BQ * SWZ, 8 * SWZ, SWZ), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: dK and dV of the block's keys in bf16
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int d = 8 * j + kc;
+    if (kok0) {
+      const size_t o = (bh * a.Tk + key0) * DH + d;
+      *reinterpret_cast<uint32_t*>(&a.dk[o]) = hopper::pack_bf16(dk[4 * j], dk[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(&a.dv[o]) = hopper::pack_bf16(dv[4 * j], dv[4 * j + 1]);
+    }
+    if (kok1) {
+      const size_t o = (bh * a.Tk + key1) * DH + d;
+      *reinterpret_cast<uint32_t*>(&a.dk[o]) =
+          hopper::pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(&a.dv[o]) =
+          hopper::pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+    }
+  }
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -510,18 +882,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_dkv(const Args& a) {
   using S = DkvShape<DH>;
-  auto kernel = flash_attention_bwd_dkv_kernel<T, DH>;
-  cudaError_t err = allow_smem<T, DH, true>(kernel, S::kSmemBytes);
+  auto kernel = flash_attention_bwd_dkv_kernel<DH>;
+  cudaError_t err = allow_smem<float, DH, true>(kernel, S::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Tk + S::BK - 1) / S::BK, a.H, a.B);
   kernel<<<grid, kThreads, S::kSmemBytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.ab), a.q_seg, a.kv_seg, static_cast<const T*>(a.dout), a.m,
-      a.l, a.di, a.st, a.H, a.Tq, a.Tk, a.mask_value, static_cast<T*>(a.out0),
-      static_cast<T*>(a.out1));
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const float*>(a.ab), a.q_seg, a.kv_seg, static_cast<const float*>(a.dout), a.m,
+      a.l, a.di, a.st, a.H, a.Tq, a.Tk, a.mask_value, static_cast<float*>(a.out0),
+      static_cast<float*>(a.out1));
   return cudaGetLastError();
 }
 
@@ -540,23 +912,81 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(bool dkv, int Dh, const Args& a) {
+template <int DH>
+cudaError_t launch_dkv_tc(const Args& a) {
+  using S = tc::DkvShape<DH>;
+  tc::DkvArgs d{a.q_seg, a.kv_seg, a.m, a.l, a.di, a.H, a.Tq, a.Tk, a.mask_value,
+                false, false, false,
+                static_cast<__nv_bfloat16*>(a.out0), static_cast<__nv_bfloat16*>(a.out1)};
+  const Strides& st = a.st;
+  const long long do_sh = (long long)a.Tq * DH;
+  CUtensorMap qm, km, vm, dom, abm;
+  bool do_swap = false;
+  cudaError_t err = hopper::map_rows(&qm, a.q, st.qb, st.qh, st.qt, a.B, a.H, a.Tq, DH,
+                                     S::kCols, S::BQ, S::kSwz, &d.q_swap);
+  if (err == cudaSuccess)
+    err = hopper::map_rows(&km, a.k, st.kb, st.kh, st.kt, a.B, a.H, a.Tk, DH, S::kCols,
+                           S::BK, S::kSwz, &d.k_swap);
+  if (err == cudaSuccess)
+    err = hopper::map_rows(&vm, a.v, st.vb, st.vh, st.vt, a.B, a.H, a.Tk, DH, S::kCols,
+                           S::BK, S::kSwz, &d.v_swap);
+  if (err == cudaSuccess)
+    err = hopper::map_rows(&dom, a.dout, a.H * do_sh, do_sh, DH, a.B, a.H, a.Tq, DH,
+                           S::kCols, S::BQ, S::kSwz, &do_swap);
+  if (err == cudaSuccess && do_swap) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) {
+    if (a.ab != nullptr)
+      err = hopper::map_bias(&abm, a.ab, st.abt, a.B, a.H, a.Tq, a.Tk, S::BQ);
+    else
+      abm = qm;  // not read
+  }
+  if (err != cudaSuccess) return err;
+  const bool has_ab = a.ab != nullptr, seg = a.q_seg != nullptr;
+  auto kernel = has_ab ? (seg ? tc::flash_attention_bwd_dkv_tc_kernel<DH, true, true>
+                              : tc::flash_attention_bwd_dkv_tc_kernel<DH, true, false>)
+                       : (seg ? tc::flash_attention_bwd_dkv_tc_kernel<DH, false, true>
+                              : tc::flash_attention_bwd_dkv_tc_kernel<DH, false, false>);
+  static bool smem_allowed[4] = {false, false, false, false};
+  const int variant = 2 * has_ab + seg;
+  if (!smem_allowed[variant]) {
+    err = hopper::allow_smem(kernel, S::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    smem_allowed[variant] = true;
+  }
+  const dim3 grid((a.Tk + S::BK - 1) / S::BK, a.H, a.B);
+  kernel<<<grid, tc::kThreadsTc, S::kSmemBytes, a.stream>>>(qm, km, vm, dom, abm, d);
+  return cudaGetLastError();
+}
+
+// K6b: fp32 SIMT (dtype 0) or bf16 tensor cores (dtype 1)
+cudaError_t dispatch_dkv(int dtype, int Dh, const Args& a) {
   switch (Dh) {
-    case 16: return dkv ? launch_dkv<T, 16>(a) : launch_dq<T, 16>(a);
-    case 32: return dkv ? launch_dkv<T, 32>(a) : launch_dq<T, 32>(a);
-    case 64: return dkv ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
-    case 128: return dkv ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
+    case 16: return dtype == 0 ? launch_dkv<16>(a) : launch_dkv_tc<16>(a);
+    case 32: return dtype == 0 ? launch_dkv<32>(a) : launch_dkv_tc<32>(a);
+    case 64: return dtype == 0 ? launch_dkv<64>(a) : launch_dkv_tc<64>(a);
+    case 128: return dtype == 0 ? launch_dkv<128>(a) : launch_dkv_tc<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K6c: SIMT in both dtypes
+template <typename T>
+cudaError_t dispatch_dq(int Dh, const Args& a) {
+  switch (Dh) {
+    case 16: return launch_dq<T, 16>(a);
+    case 32: return launch_dq<T, 32>(a);
+    case 64: return launch_dq<T, 64>(a);
+    case 128: return launch_dq<T, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int run(bool dkv, int dtype, const Args& a, int Dh) {
-  if ((a.q_seg == nullptr) != (a.kv_seg == nullptr) || a.Tq < 1 || a.Tk < 1)
+  if ((a.q_seg == nullptr) != (a.kv_seg == nullptr) || a.Tq < 1 || a.Tk < 1 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)dispatch<float>(dkv, Dh, a);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(dkv, Dh, a);
-  return (int)cudaErrorInvalidValue;
+  if (dkv) return (int)dispatch_dkv(dtype, Dh, a);
+  return (int)(dtype == 0 ? dispatch_dq<float>(Dh, a) : dispatch_dq<__nv_bfloat16>(Dh, a));
 }
 
 }  // namespace
@@ -565,7 +995,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, ab, dout and the gradients). q
 // (B,H,Tq,Dh), k and v (B,H,Tk,Dh) with the given element strides of their
-// first three dimensions; ab (B,H,Tq,Tk) contiguous or null; q_seg (B,Tq) and
+// first three dimensions (bf16: multiples of 8, 16-byte aligned bases); ab
+// (B,H,Tq,Tk) with rows ab_st elements apart (bf16: a multiple of 8) and a
+// contiguous last dimension, or null; q_seg (B,Tq) and
 // kv_seg (B,Tk) int32, both or neither; dout (B,H,Tq,Dh) contiguous; m, l
 // and di (B,H,Tq) fp32 contiguous. Launch on `stream` and return
 // cudaGetLastError() as an int (0 = launched).
@@ -577,10 +1009,11 @@ int flash_attention_bwd_dkv(int dtype, const void* q, const void* k, const void*
                             const float* di, long long q_sb, long long q_sh,
                             long long q_st, long long k_sb, long long k_sh,
                             long long k_st, long long v_sb, long long v_sh,
-                            long long v_st, int B, int H, int Tq, int Tk, int Dh,
-                            float mask_value, void* dk, void* dv, void* stream) {
+                            long long v_st, long long ab_st, int B, int H, int Tq,
+                            int Tk, int Dh, float mask_value, void* dk, void* dv,
+                            void* stream) {
   const Args a{q, k, v, ab, q_seg, kv_seg, dout, m, l, di,
-               Strides{q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st},
+               Strides{q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, ab_st},
                B, H, Tq, Tk, mask_value, dk, dv, static_cast<cudaStream_t>(stream)};
   return run(true, dtype, a, Dh);
 }
@@ -593,10 +1026,11 @@ int flash_attention_bwd_dq(int dtype, const void* q, const void* k, const void* 
                            const float* di, long long q_sb, long long q_sh,
                            long long q_st, long long k_sb, long long k_sh,
                            long long k_st, long long v_sb, long long v_sh,
-                           long long v_st, int B, int H, int Tq, int Tk, int Dh,
-                           float mask_value, void* dq, void* dab, void* stream) {
+                           long long v_st, long long ab_st, int B, int H, int Tq,
+                           int Tk, int Dh, float mask_value, void* dq, void* dab,
+                           void* stream) {
   const Args a{q, k, v, ab, q_seg, kv_seg, dout, m, l, di,
-               Strides{q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st},
+               Strides{q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, ab_st},
                B, H, Tq, Tk, mask_value, dq, dab, static_cast<cudaStream_t>(stream)};
   return run(false, dtype, a, Dh);
 }

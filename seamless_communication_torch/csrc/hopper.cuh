@@ -1,0 +1,358 @@
+// Hopper (sm_90a) building blocks shared by the bf16 tensor-core kernels of
+// flash_attention.cu (K6) and flash_attention_bwd.cu (K6b): mbarriers, TMA
+// tile loads, shared-memory matrix descriptors and warpgroup matrix
+// multiplies (wgmma), and the host-side encoding of a TMA tensor map.
+//
+// Layouts. Every bf16 tile that a wgmma reads is stored as TMA writes it
+// with a swizzle: rows of `kSwizzle` bytes (the row of a tile of width Dh
+// <= 64, or one 64-column half of a Dh = 128 tile), 8 rows making one
+// swizzle atom of 8 * kSwizzle bytes, the atom's 16-byte chunks XOR-ed with
+// the row index. A tile's base is 1024-byte aligned, so the swizzle phase
+// starts at 0. The same tile is read two ways:
+//   K-major (the contraction runs along the row: S = Q K^T reads Q and K
+//     so), descriptor SBO = 8 rows = 8 * kSwizzle bytes between 8-row
+//     groups, LBO unused; a k16 step advances the start by 32 bytes;
+//   MN-major (the contraction runs down the rows: O += P V reads V so),
+//     SBO = 8 * kSwizzle between groups of 8 contraction rows, LBO between
+//     64-column halves; a k16 step advances the start by 16 rows.
+// The fp32 accumulator of m64nNk16 gives thread t of warp w the rows
+// 16 w + t / 4 and 16 w + t / 4 + 8 and, in each 8-column chunk j, the
+// columns 8 j + 2 (t % 4) + {0, 1}: d[4 j + {0, 1}] on the first row and
+// d[4 j + {2, 3}] on the second. Rounded to bf16 pairwise, the four chunks
+// 2 kk, 2 kk + 1 of one 16-column step are the register A fragment of a
+// k16 product, so a probability tile goes from one product to the next
+// without shared memory.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// one arrival, and `bytes` more to come from TMA before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits until the phase of parity `parity` has completed; a phase that never
+// completes (a lost arrival or copy) traps after about 10 s of clocks, a
+// launch error the caller sees, instead of holding the card forever
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    if (clock64() - start > 20000000000LL) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// ---- TMA --------------------------------------------------------------------
+
+// one box of a 4-d tensor map into shared memory, completion reported to `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The 4-d tensor map coordinates of (d, t, h, b): `th_swap` when the map's
+// second dimension is h (strides sorted ascending, as a head split from
+// (B, T, H * Dh) activations has them).
+__device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int d, int t, int h, int b, bool th_swap) {
+  if (th_swap)
+    tma_load_4d(dst, map, bar, d, h, t, b);
+  else
+    tma_load_4d(dst, map, bar, d, t, h, b);
+}
+
+// barrier `id` (not 0, which __syncthreads uses) among `count` threads
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle mode (bits 62-63: 1 = 128 B, 2 = 64 B,
+// 3 = 32 B).
+__device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes, int swizzle_bytes) {
+  const uint64_t mode = swizzle_bytes == 128 ? 1 : swizzle_bytes == 64 ? 2 : 3;
+  return (uint64_t)((smem_addr(smem) >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) | (mode << 62);
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of `swz`-byte
+// rows (1024-byte aligned) as TMA stores it with the swizzle of that span:
+// address bits 4.. XOR-ed with bits 7.. (log2(swz / 16) of them).
+__device__ __forceinline__ int swizzled(int row, int chunk, int swz) {
+  const int o = row * swz + chunk * 16;
+  return o ^ (((o >> 7) & (swz / 16 - 1)) << 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of an accumulator across the
+// asynchronous products that write it
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x by the hardware (about 2^-22 relative error), results below 2^-126
+// flushed to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// m64nNk16 products: ss (A and B from shared memory) for the score tiles
+// (N = 32, 64), rs (A from registers) for the value products (N = Dh).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // D (64 x 16, fp32) (+)= A (64 x 16, bf16 in registers) * B (16 x 16,
+  // MN-major in shared memory)
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  // D (64 x 32, fp32) (+)= A (64 x 16, K-major in shared memory) * B (32 x 16,
+  // K-major in shared memory)^T
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // D (64 x 32, fp32) (+)= A (64 x 16, bf16 in registers) * B (16 x 32,
+  // MN-major in shared memory)
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // D (64 x 64, fp32) (+)= A (64 x 16, K-major in shared memory) * B (64 x 16,
+  // K-major in shared memory)^T
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // D (64 x 64, fp32) (+)= A (64 x 16, bf16 in registers) * B (16 x 64,
+  // MN-major in shared memory)
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // D (64 x 128, fp32) (+)= A (64 x 16, bf16 in registers) * B (16 x 128,
+  // MN-major in shared memory)
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// ---- host: TMA tensor maps --------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up at run time through the runtime API, so
+// that nothing links libcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor of 4 dimensions, innermost first (dims[0] contiguous),
+// strides of dims 1-3 in elements (multiples of 8: TMA takes 16-byte
+// strides), read in boxes of box[0] x ... x box[3] elements, the box[0] * 2
+// bytes of a row swizzled by `swizzle_bytes` (0 for none, or 32, 64, 128,
+// equal to the row). Reads past a dimension's end come back as zeros.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, const long long dims[4],
+                            const long long strides[3], const int box_dims[4],
+                            int swizzle_bytes) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t gdim[4], gstride[3];
+  for (int i = 0; i < 4; ++i) gdim[i] = (cuuint64_t)dims[i];
+  for (int i = 0; i < 3; ++i) gstride[i] = (cuuint64_t)strides[i] * 2;
+  cuuint32_t box[4];
+  for (int i = 0; i < 4; ++i) box[i] = (cuuint32_t)box_dims[i];
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                            : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<void*>(base), gdim, gstride, box, estride,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a (B, H, T, Dh) bf16 operand with element strides
+// (sb, sh, st) and a contiguous last dimension, read in boxes of `rows` rows
+// of `cols` columns: its dimensions are ordered (d, t, h, b), or (d, h, t, b)
+// (`swap`) where h has the smaller stride. A dimension of extent 1 has its
+// coordinate at 0, so its stride is set to one TMA takes.
+inline cudaError_t map_rows(CUtensorMap* map, const void* base, long long sb, long long sh,
+                            long long st, int B, int H, int T, int Dh, int cols, int rows,
+                            int swizzle, bool* swap) {
+  if (T == 1) st = Dh;
+  if (H == 1) sh = st * T;
+  if (B == 1) sb = st * T > sh * H ? st * T : sh * H;
+  if (st % 8 || sh % 8 || sb % 8 || reinterpret_cast<uintptr_t>(base) % 16)
+    return cudaErrorInvalidValue;
+  *swap = sh < st;
+  const long long dims[4] = {Dh, *swap ? H : T, *swap ? T : H, B};
+  const long long strides[3] = {*swap ? sh : st, *swap ? st : sh, sb};
+  // a swapped map reads a box of 1 head by `rows` rows
+  const int box[4] = {cols, *swap ? 1 : rows, *swap ? rows : 1, 1};
+  return make_map(map, base, dims, strides, box, swizzle);
+}
+
+// The tensor map of a (B, H, Tq, Tk) bf16 bias whose rows are `rs` elements
+// apart (a multiple of 8), read in boxes of `rows` rows of 64 keys, 128-byte
+// swizzled.
+inline cudaError_t map_bias(CUtensorMap* map, const void* base, long long rs, int B, int H,
+                            int Tq, int Tk, int rows) {
+  if (rs % 8 || rs < Tk || reinterpret_cast<uintptr_t>(base) % 16)
+    return cudaErrorInvalidValue;
+  const long long dims[4] = {Tk, Tq, H, B};
+  const long long strides[3] = {rs, rs * Tq, rs * Tq * H};
+  const int box[4] = {64, rows, 1, 1};
+  return make_map(map, base, dims, strides, box, 128);
+}
+
+
+// Allows `bytes` of dynamic shared memory for `kernel` (needed above 48 KB).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace hopper

@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from seamless_communication_torch.ops.kernels.flash_attention import flash_attention
+from seamless_communication_torch.ops.kernels.flash_attention import flash_attention, padded_bias
 
 _MASK_THRESHOLD = -1e8   # biases at or below this mean "masked"
 
@@ -86,7 +86,9 @@ def try_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         abf = None if extra_logits is None else extra_logits.float()
         if bias is not None:
             abf = bias.float() if abf is None else abf + bias.float()
-        ab = abf.broadcast_to((B, H, Tq, Tk)).to(q.dtype).contiguous()
+        # one materialisation, into rows padded to 16 bytes (the kernels'
+        # TMA loads); the kernels read the [..., :Tk] view
+        ab = padded_bias(abf.broadcast_to((B, H, Tq, Tk)), q.dtype)
 
     q_seg = kv_seg = None
     if kv_valid is not None:

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, loaded with ``ctypes``. Sources
 include no PyTorch header, so a build takes seconds. A library builds at first
 use into ``seamless_communication_torch/_build/``, named by a hash of its
-source and flags, so an edited source rebuilds and an unchanged one is reused.
+source, the ``csrc/*.cuh`` headers it includes and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.
 ``build()`` compiles several sources at once, one ``nvcc`` process each.
 
 No ``--use_fast_math``: the int8 rows and scales the kernels write must equal
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,10 +48,30 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every local header it includes, directly or not, each
+    once, in the order first met."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        header = path.parent / inc.decode()
+        if header.exists():
+            _sources(header, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source, the
+    local headers it includes (``#include "x.cuh"``) and the flags."""
+    digest = hashlib.sha256()
+    for path in _sources(CSRC_DIR / f"{name}.cu", []):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

@@ -6,13 +6,17 @@ full-sequence attention of the fused-attention option
 
 - ``qs`` (B, H, Tq, Dh) is q already scaled, in q's dtype; k, v (B, H, Tk,
   Dh) in the same dtype, float32 or bfloat16.
-- ``ab``: an optional (B, H, Tq, Tk) additive bias in q's dtype.
+- ``ab``: an optional (B, H, Tq, Tk) additive bias in q's dtype, its last
+  dimension contiguous and its rows 16-byte aligned: a ``[..., :Tk]`` view
+  of a buffer whose rows are padded to a multiple of 8 elements
+  (``empty_bias``), since the bf16 kernels read it by TMA.
 - ``segmask`` adds ``MASK_VALUE`` (-0.7 * float32 max, the library's
   ``DEFAULT_MASK_VALUE``) wherever ``q_seg[b, i] != kv_seg[b, j]``.
 - The probabilities are cast to v's dtype before the value product, which
   accumulates in fp32; the output is in v's dtype.
 
-CUDA kernel ``csrc/flash_attention.cu``, which replaces the TPU kernel the
+CUDA kernel ``csrc/flash_attention.cu`` (bf16: wgmma tensor-core products
+fed by TMA; fp32: SIMT FMAs), which replaces the TPU kernel the
 JAX package reaches through ``seamless_communication_tpu/ops/
 fused_attention.py:54`` (``try_flash``, JAX 0.9.0's Pallas flash attention).
 For tensors on the card the wrapper launches it; for tensors on the CPU it
@@ -129,11 +133,11 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the C entry points: (library, argument types)
 _ENTRY = {
     KERNEL: ("flash_attention",
-             [_I] + [_P] * 6 + [_LL] * 9 + [_I] * 5 + [ctypes.c_float] + [_P] * 4),
+             [_I] + [_P] * 6 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float] + [_P] * 4),
     KERNEL_DKV: ("flash_attention_bwd",
-                 [_I] + [_P] * 10 + [_LL] * 9 + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
+                 [_I] + [_P] * 10 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
     KERNEL_DQ: ("flash_attention_bwd",
-                [_I] + [_P] * 10 + [_LL] * 9 + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
+                [_I] + [_P] * 10 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
 }
 
 
@@ -152,6 +156,42 @@ def _function(name: str = KERNEL):
         lib.cuda_error_string.restype = ctypes.c_char_p
         _functions[name] = (fn, lib.cuda_error_string)
     return _functions[name]
+
+
+def empty_bias(B: int, H: int, Tq: int, Tk: int, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    """An uninitialised (B, H, Tq, Tk) bias as the kernels take it: the
+    ``[..., :Tk]`` view of a buffer whose rows are padded to a multiple of 8
+    elements, so that each row starts 16-byte aligned (TMA's rule for the
+    bf16 kernels' tile loads). Fill it in place: no second copy is made."""
+    padded = -(-Tk // 8) * 8
+    return torch.empty((B, H, Tq, padded), dtype=dtype, device=device)[..., :Tk]
+
+
+class _PaddedBias(torch.autograd.Function):
+    """``ab`` in ``dtype`` in the rows of ``empty_bias``, one copy. The
+    gradient goes back as it comes, cast to ``ab``'s dtype: no zero-filled
+    padded buffer and no slice of it, as an in-place copy into the buffer
+    would record."""
+
+    @staticmethod
+    def forward(ctx, ab: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        ctx.in_dtype = ab.dtype
+        return empty_bias(*ab.shape, dtype, ab.device).copy_(ab)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.to(ctx.in_dtype), None
+
+
+def padded_bias(ab: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A (B, H, Tq, Tk) bias (a broadcast view will do) materialised once in
+    ``dtype`` into the rows of ``empty_bias``, differentiable."""
+    return _PaddedBias.apply(ab, dtype)
+
+
+def _row_stride(ab: Optional[torch.Tensor]) -> int:
+    return 0 if ab is None else ab.stride(2)
 
 
 def _check(qs, k, v, ab, q_seg, kv_seg) -> None:
@@ -183,9 +223,26 @@ def _check(qs, k, v, ab, q_seg, kv_seg) -> None:
         if x.stride(-1) != 1:
             raise ValueError(f"{KERNEL}: the last dimension of {name} is not "
                              "contiguous")
-    for name, x in (("ab", ab), ("q_seg", q_seg), ("kv_seg", kv_seg)):
+    for name, x in (("q_seg", q_seg), ("kv_seg", kv_seg)):
         if x is not None and not x.is_contiguous():
             raise ValueError(f"{KERNEL}: {name} is not contiguous")
+    elem = torch.finfo(qs.dtype).bits // 8
+    if ab is not None:
+        rs = ab.stride(2)
+        if (ab.stride() != (H * Tq * rs, Tq * rs, rs, 1) or rs * elem % 16
+                or ab.data_ptr() % 16):
+            raise ValueError(f"{KERNEL}: ab has strides {ab.stride()}: its rows must be "
+                             "16-byte aligned, as in a [..., :Tk] view of a buffer "
+                             "whose rows are padded to 8 elements (empty_bias)")
+    if qs.dtype == torch.bfloat16:
+        # TMA: 16-byte aligned bases and strides (a dimension of extent 1 has
+        # its coordinate at 0, its stride unread)
+        for name, x in (("q", qs), ("k", k), ("v", v)):
+            if x.data_ptr() % 16 or any(
+                    s * elem % 16 for n, s in zip(x.shape[:3], x.stride()[:3]) if n > 1):
+                raise ValueError(f"{KERNEL}: {name} has strides {x.stride()}: bf16 "
+                                 "takes multiples of 8 elements and 16-byte aligned "
+                                 "bases")
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -213,8 +270,8 @@ def _launch(qs, k, v, ab, q_seg, kv_seg, residuals: bool = False
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
         err = fn(_DTYPE_CODES[qs.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 _ptr(ab), _ptr(q_seg), _ptr(kv_seg), *strides, B, H, Tq, Tk, Dh,
-                 MASK_VALUE, out.data_ptr(), _ptr(m), _ptr(l), stream)
+                 _ptr(ab), _ptr(q_seg), _ptr(kv_seg), *strides, _row_stride(ab), B, H,
+                 Tq, Tk, Dh, MASK_VALUE, out.data_ptr(), _ptr(m), _ptr(l), stream)
     _raise_on(err, KERNEL, error_string)
     launch_counts[KERNEL] += 1
     return out, m, l
@@ -244,7 +301,7 @@ def _bwd_args(qs, k, v, ab, q_seg, kv_seg, o, m, l, do) -> _BwdArgs:
     strides = [s for x in (qs, k, v) for s in x.stride()[:3]]
     common = (_DTYPE_CODES[qs.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ab),
               _ptr(q_seg), _ptr(kv_seg), do.data_ptr(), m.data_ptr(), l.data_ptr(),
-              di.data_ptr(), *strides, B, H, Tq, Tk, Dh, MASK_VALUE)
+              di.data_ptr(), *strides, _row_stride(ab), B, H, Tq, Tk, Dh, MASK_VALUE)
     return _BwdArgs(common, (qs, k, v, ab, q_seg, kv_seg, do, m, l, di),
                     (B, H, Tq, Tk, Dh))
 

@@ -6,9 +6,9 @@ numpy inputs.
 Cases: a pure key-padding bias (segment ids; one batch row shorter than 128
 in a batch with Tk = 256, so whole key tiles are masked), Shaw-like
 relative logits plus padding, a causal plus padding bias, the XL form (q+u,
-its own scale, the relative term as post-scale logits), Tq != Tk, and
-lengths that are not multiples of 128; fp32 within 1e-5 and bf16 within
-1e-2. ``try_flash`` returns None in exactly the cases where JAX's does.
+its own scale, the relative term as post-scale logits), Tq != Tk, lengths
+that are not multiples of 128, and head dims 16, 32, 64 and 128; fp32 within
+1e-5 and bf16 within 1e-2. ``try_flash`` returns None in exactly the cases where JAX's does.
 The CUDA kernel against its plain version runs only where there is a card."""
 
 import contextlib
@@ -35,6 +35,9 @@ CASES = {
     "xl_q_plus_u": (2, 2, 150, 150, 16, "xl", 0.25),
     "tq_ne_tk": (2, 2, 130, 200, 16, "padding", 0.25),
     "ragged_no_bias": (1, 2, 130, 130, 32, "none", 0.125),
+    # the head dims the bf16 kernels specialise, with ragged tiles
+    "dh64_extra_padding": (1, 2, 150, 150, 64, "extra+padding", 0.125),
+    "dh128_padding": (1, 1, 130, 136, 128, "padding", 0.0884),
 }
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           # bf16 keeps 8 bits: 1e-2 relative, and 1e-2 absolute for outputs
@@ -194,6 +197,79 @@ def test_kernel_raises_on_what_it_does_not_take():
     seg = torch.ones((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="both segment"):
         tfl._check(x, x, x, None, seg, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_raises_on_a_misaligned_bias_row(dtype):
+    """The kernels read ``ab``'s rows by their stride, and the bf16 kernels
+    by TMA, which takes 16-byte aligned rows: a contiguous bias of 150 keys
+    (300 or 600 bytes a row) raises, the same values in rows padded to 152
+    (``empty_bias``) pass, and so does a contiguous bias of 152 keys."""
+    x = torch.zeros((1, 2, 130, 16), dtype=dtype)
+    kv = torch.zeros((1, 2, 150, 16), dtype=dtype)
+    ab = torch.randn((1, 2, 130, 150)).to(dtype)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfl._check(x, kv, kv, ab, None, None)
+    padded = tfl.empty_bias(1, 2, 130, 150, dtype, "cpu")
+    padded.copy_(ab)
+    assert padded.stride() == (2 * 130 * 152, 130 * 152, 152, 1)
+    tfl._check(x, kv, kv, padded, None, None)
+    kv152 = torch.zeros((1, 2, 152, 16), dtype=dtype)
+    tfl._check(x, kv152, kv152, torch.zeros((1, 2, 130, 152), dtype=dtype), None, None)
+    with pytest.raises(ValueError, match="16-byte aligned"):    # keys not contiguous
+        tfl._check(x, kv152, kv152, torch.zeros((1, 2, 152, 130), dtype=dtype)
+                   .transpose(2, 3), None, None)
+
+
+@pytest.mark.parametrize("tk", [130, 150])
+def test_try_flash_pads_the_bias_rows_in_its_one_copy(fused_on, monkeypatch, tk):
+    """``try_flash`` hands the kernel an ``ab`` whose row stride is a
+    multiple of 8 elements (16-byte rows for TMA), holding the values of the
+    bias plus the extra logits: the [..., :Tk] view of the one buffer it
+    materialises, no second copy."""
+    seen = {}
+
+    def capture(qs, k, v, ab, q_seg, kv_seg):
+        seen["ab"] = ab
+        return tfl._reference(qs, k, v, ab, q_seg, kv_seg)
+
+    monkeypatch.setattr(tfa, "flash_attention", capture)
+    rng = np.random.default_rng(tk)
+    B, H, T, Dh = 2, 2, 140, 16
+    q = torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32)
+    k, v = (torch.as_tensor(rng.standard_normal((B, H, tk, Dh)), dtype=torch.float32)
+            for _ in range(2))
+    bias = torch.as_tensor(np.where(np.arange(tk) < tk - 9, 0.0, -1e9),
+                           dtype=torch.float32).expand(B, 1, T, tk)
+    extra = torch.as_tensor(rng.standard_normal((B, H, T, tk)), dtype=torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = tfa.try_flash(q.to(dtype), k.to(dtype), v.to(dtype), bias, extra, 0.25)
+        assert out is not None
+        ab = seen["ab"]
+        padded = -(-tk // 8) * 8
+        assert ab.shape == (B, H, T, tk) and ab.dtype == dtype
+        assert ab.stride() == (H * T * padded, T * padded, padded, 1)
+        # the view's storage is the one padded buffer
+        assert ab.untyped_storage().nbytes() == B * H * T * padded * ab.element_size()
+        torch.testing.assert_close(ab, (extra + bias).to(dtype), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_bias_passes_its_gradient_straight_back(dtype):
+    """``padded_bias`` (``try_flash``'s one copy of ``ab``) gives the padded
+    rows' view, and its gradient goes back as it came, cast to the bias's
+    dtype and summed over the broadcast heads, with no slice of a padded
+    buffer in the graph."""
+    rng = np.random.default_rng(3)
+    bias = torch.as_tensor(rng.standard_normal((2, 1, 5, 130)), dtype=torch.float32)
+    bias.requires_grad_()
+    ab = tfl.padded_bias(bias.broadcast_to((2, 3, 5, 130)), dtype)
+    assert ab.stride() == (3 * 5 * 136, 5 * 136, 136, 1) and ab.dtype == dtype
+    assert type(ab.grad_fn).__name__ == "_PaddedBiasBackward"
+    torch.testing.assert_close(ab, bias.broadcast_to(ab.shape).to(dtype), rtol=0, atol=0)
+    w = torch.as_tensor(rng.standard_normal((2, 3, 5, 130)), dtype=torch.float32)
+    (ab.float() * w).sum().backward()
+    torch.testing.assert_close(bias.grad, w.to(dtype).float().sum(1, keepdim=True))
 
 
 @pytest.mark.cuda

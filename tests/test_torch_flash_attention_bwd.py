@@ -291,6 +291,8 @@ def test_kernels_match_plain_backward_on_card(case, dtype):
     dev = torch.device("cuda")
     qs, k, v, ab, q_seg, kv_seg, do = (
         None if x is None else _tt(x, tdt).to(dev) for x in _kernel_inputs(case))
+    if ab is not None:      # in rows padded to 16 bytes, as try_flash makes it
+        ab = tfl.empty_bias(*ab.shape, ab.dtype, dev).copy_(ab)
     out, m, l = tfl._launch(qs, k, v, ab, q_seg, kv_seg, residuals=True)
     before = dict(launch_counts)
     got = tfl.flash_attention_bwd(qs, k, v, ab, q_seg, kv_seg, out, m, l, do)
