@@ -14,20 +14,23 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    operations over the fp32 rate): K1 int8-KV and K2 packed-int4-KV decode
    attention; K5 row-indexed decode attention (the lazy reorder) on a
    uniform and a beam-history row-origin table; K4 fbank of a 4 s and a
-   10 s waveform; K3b ``int8_vocab_topk_v2`` and K3a ``int8_vocab_topk`` at
-   the base_v2 vocabulary (V=256102, D=1024, k=11, N=5 and 10), with the
-   time of the full-vocabulary step the candidate beam replaces; K6 flash
+   10 s waveform; K3b ``int8_vocab_topk_v2`` (two launches: the stream,
+   then the selection; its first launch timed alone too, and k=128 on the
+   repeated rows) and K3a ``int8_vocab_topk`` at the base_v2 vocabulary
+   (V=256102, D=1024, k=11, N=5 and 10), with the time of the
+   full-vocabulary step the candidate beam replaces; K6 flash
    attention at the fused option's main-path shapes (the Shaw encoder at 4
    and 10 s, the re-decode, the NAR T2U's FFT layers) in fp32 and bf16,
    beside the library's ``scaled_dot_product_attention`` with the same
    float mask; K6b and K6c (the backward, ``flash_attention_bwd.cu``) at the
    same shapes against the plain backward, K6 with its residuals, and the
    library's SDPA backward and forward + backward as yardsticks. In bf16,
-   K6 and K6b are the tensor-core kernels (``wgmma`` fed by TMA); then a
-   sweep of every head dim they specialise (16, 32, 64, 128) x a key count
+   K6, K6b and K6c are the tensor-core kernels (``wgmma`` fed by TMA); then
+   a sweep of every head dim they specialise (16, 32, 64, 128) x a key count
    that is and one that is not a multiple of 8 x a bias, segment ids and
-   neither, and the attention shapes of phase 3g's train steps
-   (``phase_flash_sweep``).
+   neither, the attention shapes of phase 3g's train steps, and the NAR
+   T2U's FFT shape with rows in a segment no key has, whose key tiles bf16
+   K6c may not skip (``phase_flash_sweep``).
    ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
@@ -40,7 +43,8 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
       whole unit frames.
    c. ``Translator.predict(text, "t2tt" | "t2st", "fra", src_lang="eng")``
       with ``SEAMLESS_CANDIDATE_BEAM=1`` and int8 KV, three requests: K3b
-      launched once and K1 24 times per decode step, K3a and K2 never; then
+      launched twice (stream, selection) and K1 24 times per decode step, K3a
+      and K2 never; then
       a cut T2TT request with and without the candidate beam gives identical
       tokens.
    d. The lazy beam reorder and the generation options, int8 KV, the
@@ -92,9 +96,12 @@ path's time goes; the tables land in ``profile_*.txt`` files in the output
 directory of ``profile_main_path``).
 
     python3 chip_smoke.py --k6b-parts
+    python3 chip_smoke.py --k6c-parts
+    python3 chip_smoke.py --k3b-parts
 
-times bf16 K6b at the 10 s Shaw shape as built and with one part left out
-at a time (``k6b_parts``): where its time goes.
+time bf16 K6b (K6c) at the 10 s Shaw shape, or K3b's stream at the base_v2
+vocabulary, as built and with one part left out at a time
+(``kernel_parts``): where its time goes.
 """
 
 from __future__ import annotations
@@ -308,10 +315,10 @@ def phase_decode_attention(name: str) -> dict:
             "library_ms": None}
 
 
-# the vocabulary top-k kernels: (id, wrapper, launch of the kernel alone,
-# the TPU kernel it replaces)
+# the vocabulary top-k kernels: (id, wrapper, its first launch alone, the
+# TPU kernel it replaces)
 VOCAB_KERNELS = {
-    "vocab_topk_v2": ("K3b", "int8_vocab_topk_v2", "_launch_v2",
+    "vocab_topk_v2": ("K3b", "int8_vocab_topk_v2", "_launch_stream",
                       "seamless_communication_tpu/ops/kernels/vocab_topk.py:170"),
     "vocab_topk": ("K3a", "int8_vocab_topk", "_launch_v1",
                    "seamless_communication_tpu/ops/kernels/vocab_topk.py:45"),
@@ -391,6 +398,17 @@ def phase_vocab_topk(smi: str) -> list:
                         max_err = max(max_err, err)
                     log(f"{label}: ids match (ties allowed), vals max abs err {err:.3g}, "
                         f"logz max abs err {float((got[2] - ref[2]).abs().max()):.3g}")
+        if kid == "K3b":
+            # the largest k K3b takes, on the repeated rows: the 128 best are
+            # copies of one row, ids ascending
+            for n, x32 in xs.items():
+                got = fn(x32, tie_table, tie_scale, vt.MAX_K)
+                ref = vt._reference(x32, tie_table, tie_scale, vt.MAX_K)
+                plain_logits = torch.matmul(x32, tie_table.float().T) * tie_scale
+                torch.cuda.synchronize()
+                ties += check_topk(f"K3b N={n} float32 repeated rows k={vt.MAX_K}", got, ref,
+                                   plain_logits)
+            log(f"K3b k={vt.MAX_K} on the repeated rows: ids match")
         times = {}
         for n, x32 in xs.items():
             for dtype in (torch.float32, torch.bfloat16):
@@ -408,7 +426,7 @@ def phase_vocab_topk(smi: str) -> list:
             bounds[n, dtype] = (max(bytes_s, flops_s) * 1e3,
                                 "bytes" if bytes_s >= flops_s else "operations")
         for (n, dtype), (k_ms, f_ms, p_ms) in times.items():
-            log(f"{kid} time N={n} {str(dtype)[6:]:8s}: kernel launch alone "
+            log(f"{kid} time N={n} {str(dtype)[6:]:8s}: first launch alone "
                 f"{k_ms * 1e3:.2f} us, whole function {f_ms * 1e3:.2f} us, plain "
                 f"{p_ms * 1e3:.2f} us, bound {bounds[n, dtype][0] * 1e3:.2f} us "
                 f"({bounds[n, dtype][1]}); library: none (no single PyTorch call "
@@ -758,7 +776,8 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
                 max_err["dkv"] = max(max_err["dkv"], errs["dk"], errs["dv"])
                 max_err["dq"] = max(max_err["dq"], errs["dq"], errs.get("dab", 0.0))
             args = fl._bwd_args(qs, k, v, ab, *segs, out, m, l, do)
-            dq, dk, dv, dab = (torch.empty_like(x) if x is not None else None for x in got)
+            dq, dk, dv = (torch.empty_like(x) for x in got[:3])
+            dab = None if got[3] is None else fl.empty_bias(B, H, T, T, dtype, dev)
             dkv_ms = cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DKV, args, dk, dv))
             dq_ms = cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DQ, args, dq, dab))
             fwd_res_ms = cuda_time_ms(
@@ -951,10 +970,29 @@ def phase_flash_sweep(smi: str) -> None:
         log(f"K6/K6b/K6c {label}, B=2, T={T} (valid {valid}), {kind}, bf16: within "
             f"tolerance; max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
             + f" [{smi}]")
+    # the NAR T2U's FFT shape with rows in a segment no key has: their keys
+    # are all masked (m at the mask level), so bf16 K6c may skip none of
+    # their row tiles' key tiles, while it skips the padding's elsewhere
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    T, valid = 2048, 636
+    qkv, _, segs, do32 = case(1, H_MAIN, DH_MAIN, T, T, "segments", (valid,))
+    q_seg = segs[0].clone()
+    q_seg[:, 1500:1564] = 7
+    segs = (q_seg, segs[1])
+    _, m, _ = fl._reference_fwd(*(x.to(torch.bfloat16) for x in qkv), None, *segs)
+    skip = fl.skippable_tiles(m, *segs, T)
+    for dtype in (torch.bfloat16, torch.float32):
+        errs = hold_flash_case("FFT all-masked rows", qkv, None, segs, do32, dtype)
+        log(f"K6/K6b/K6c NAR T2U FFT, T={T} ({valid} valid keys), rows 1500-1563 in a "
+            f"segment no key has, {str(dtype)[6:]}: within tolerance; max abs err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"; bf16 K6c skips {int(skip.sum())} of {skip.numel()} tile pairs [{smi}]")
 
 
-# Parts of bf16 K6b left out one at a time (text replaced in a copy of its
-# source): where its time goes. The results of all but the first are wrong.
+# Parts of bf16 K6b and K6c left out one at a time (text replaced in a copy
+# of their source): where their time goes. The results of all but the first
+# are wrong.
 K6B_PARTS = {
     "as built": [],
     "no fp32 products (S^T, dP^T)": [(
@@ -970,14 +1008,41 @@ K6B_PARTS = {
          f"    for (int kk = 0; kk < 0; ++kk)\n      hopper::Wgmma<DH>::rs(\n          {g},")
         for g in ("dv", "dk")],
 }
+K6C_PARTS = {
+    "as built": [],
+    "no fp32 products (S, dP)": [(
+        "    if (wl < 2)\n      dots_dq<DH>(q_s, st, tr_s, wl, lane);\n    else\n"
+        "      dots_dq<DH>(do_s, st + S::kKvBytes, tr_d, wl - 2, lane);\n", "")],
+    "no expf": [("const float p = kok ? expf(x - mi[u]) * il[u] : 0.f;",
+                 "const float p = kok ? (x - mi[u]) * il[u] : 0.f;")],
+    "no ab reads": [("        ab0 = ab_pair(ab_s, r0, col);\n        ab1 = ab_pair(ab_s, r0 + 8, col);",
+                     "        ab0 = make_float2(0.5f, 0.5f);\n        ab1 = ab0;")],
+    "no dab stores": [("    if (a.dab != nullptr) {\n      // while the product runs",
+                       "    if (false) {\n      // while the product runs")],
+    "no dQ wgmma": [("    for (int kk = 0; kk < BK / 16; ++kk)\n      hopper::Wgmma<DH>::rs(dq, da[kk],",
+                     "    for (int kk = 0; kk < 0; ++kk)\n      hopper::Wgmma<DH>::rs(dq, da[kk],")],
+}
 
 
-def k6b_parts(smi: str) -> None:
-    """``python3 chip_smoke.py --k6b-parts``: bf16 K6b at ``FLASH_MAIN`` as
-    built and with each part of ``K6B_PARTS`` left out, each a copy of
-    ``flash_attention_bwd.cu`` built with the package's nvcc flags into a
-    temporary directory and loaded in place of the built library; device µs
-    by CUDA-graph replay, the best of three."""
+# Parts of K3b's stream (its first launch) left out: the products (the
+# widening and the FMAs), so that what remains is the table's stream, the
+# logits' bookkeeping and the lists.
+K3B_PARTS = {
+    "as built": [],
+    "no products (the stream alone)": [(
+        "#pragma unroll\n        for (int u = 0; u < 4; ++u) {\n          float w[8][4];",
+        "#pragma unroll\n        for (int u = 0; u < 0; ++u) {\n          float w[8][4];")],
+}
+
+
+def kernel_parts(smi: str, which: str) -> None:
+    """``python3 chip_smoke.py --k6b-parts`` (``--k6c-parts``,
+    ``--k3b-parts``): bf16 K6b (K6c) at ``FLASH_MAIN``, or K3b's stream at
+    N = 5 and 10 in fp32, as built and with each part of ``K6B_PARTS``
+    (``K6C_PARTS``, ``K3B_PARTS``) left out, each a copy of its source built
+    with the package's nvcc flags into a temporary directory and loaded in
+    place of the built library; device µs by CUDA-graph replay, the best of
+    three."""
     import ctypes
     import concurrent.futures
     import tempfile
@@ -989,7 +1054,12 @@ def k6b_parts(smi: str) -> None:
     from seamless_communication_torch.ops.kernels import build
     from seamless_communication_torch.ops.kernels import flash_attention as fl
 
-    src = build.CSRC_DIR / "flash_attention_bwd.cu"
+    from seamless_communication_torch.ops.kernels import vocab_topk as vt
+
+    parts, kernel, kid = {"k6b": (K6B_PARTS, fl.KERNEL_DKV, "K6b"),
+                          "k6c": (K6C_PARTS, fl.KERNEL_DQ, "K6c"),
+                          "k3b": (K3B_PARTS, vt.KERNEL, "K3b")}[which]
+    src = build.CSRC_DIR / ("vocab_topk.cu" if which == "k3b" else "flash_attention_bwd.cu")
     tmp = Path(tempfile.mkdtemp())
     for header in build._sources(src, [])[1:]:
         (tmp / header.name).write_bytes(header.read_bytes())
@@ -997,9 +1067,9 @@ def k6b_parts(smi: str) -> None:
     def compile_part(i_name):
         i, name = i_name
         text = src.read_text()
-        for old, new in K6B_PARTS[name]:
-            if old not in text:
-                raise AssertionError(f"k6b-parts {name}: the source has changed")
+        for old, new in parts[name]:
+            if text.count(old) != 1:
+                raise AssertionError(f"{which}-parts {name}: the source has changed")
             text = text.replace(old, new)
         cu, lib = tmp / f"part{i}.cu", tmp / f"part{i}.so"
         cu.write_text(text)
@@ -1007,9 +1077,35 @@ def k6b_parts(smi: str) -> None:
                        check=True, capture_output=True)
         return name, lib
 
-    with concurrent.futures.ThreadPoolExecutor(len(K6B_PARTS)) as pool:
-        libs = list(pool.map(compile_part, enumerate(K6B_PARTS)))
+    with concurrent.futures.ThreadPoolExecutor(len(parts)) as pool:
+        libs = list(pool.map(compile_part, enumerate(parts)))
     dev = torch.device("cuda")
+    if which == "k3b":
+        from seamless_communication_torch.ops.quantization import quantize_embedding
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        table, scale = quantize_embedding(torch.randn((V_MAIN, D_MAIN), generator=gen,
+                                                      device=dev))
+        xs = {n: torch.randn((n, D_MAIN), generator=gen, device=dev) for n in (5, 10)}
+        try:
+            for name, lib in libs:
+                so = ctypes.CDLL(str(lib))
+                vt._functions.clear()
+                vt._grids.clear()
+                for entry, argtypes in vt._ENTRY.items():
+                    fn = getattr(so, entry)
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                    so.cuda_error_string.argtypes = [ctypes.c_int]
+                    so.cuda_error_string.restype = ctypes.c_char_p
+                    vt._functions[entry] = (fn, so.cuda_error_string)
+                us = {n: min(cuda_time_ms(lambda: vt._launch_stream(x, table, scale, K_CAND))
+                             for _ in range(3)) * 1e3 for n, x in xs.items()}
+                log(f"K3b stream, fp32, {name}: N=5 {us[5]:.2f} us, N=10 {us[10]:.2f} us "
+                    f"[{smi}]")
+        finally:
+            vt._functions.clear()
+            vt._grids.clear()
+        return
     label, T, kind, valid = next(x for x in FLASH_SHAPES if x[0] == FLASH_MAIN)
     qkv, ab32, seg = flash_inputs(np.random.default_rng(19), T, kind, valid, dev)
     qs, k, v = (x.to(torch.bfloat16) for x in qkv)
@@ -1017,18 +1113,23 @@ def k6b_parts(smi: str) -> None:
     do = torch.randn_like(qs)
     out, m, l = fl._launch(qs, k, v, ab, None, None, residuals=True)
     args = fl._bwd_args(qs, k, v, ab, None, None, out, m, l, do)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    for name, lib in libs:
-        so = ctypes.CDLL(str(lib))
-        fn = getattr(so, fl.KERNEL_DKV)
-        fn.argtypes, fn.restype = fl._ENTRY[fl.KERNEL_DKV][1], ctypes.c_int
-        so.cuda_error_string.argtypes = [ctypes.c_int]
-        so.cuda_error_string.restype = ctypes.c_char_p
-        fl._functions[fl.KERNEL_DKV] = (fn, so.cuda_error_string)
-        us = min(cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DKV, args, dk, dv))
-                 for _ in range(3)) * 1e3
-        log(f"K6b bf16 {label}, {name}: {us:.2f} us [{smi}]")
-    fl._functions.pop(fl.KERNEL_DKV)
+    if which == "k6b":
+        outs = (torch.empty_like(k), torch.empty_like(v))
+    else:
+        outs = (torch.empty_like(qs), fl.empty_bias(*ab32.shape, torch.bfloat16, dev))
+    try:
+        for name, lib in libs:
+            so = ctypes.CDLL(str(lib))
+            fn = getattr(so, kernel)
+            fn.argtypes, fn.restype = fl._ENTRY[kernel][1], ctypes.c_int
+            so.cuda_error_string.argtypes = [ctypes.c_int]
+            so.cuda_error_string.restype = ctypes.c_char_p
+            fl._functions[kernel] = (fn, so.cuda_error_string)
+            us = min(cuda_time_ms(lambda: fl._launch_one(kernel, args, *outs))
+                     for _ in range(3)) * 1e3
+            log(f"{kid} bf16 {label}, {name}: {us:.2f} us [{smi}]")
+    finally:
+        fl._functions.pop(kernel, None)
 
 
 # ---------------------------------------------------------------------------
@@ -1316,7 +1417,8 @@ def phase_t2t(translator, tok, cfg, smi: str) -> dict:
     """base_v2 (v2-large) T2TT and T2ST through Translator.predict with the
     candidate beam and int8 KV: a T2TT request of 20 source tokens, a T2TT
     batch of 60 + 30 tokens (N = 10 candidate rows), a T2ST request of 40
-    tokens. K3b launched once and K1 24 times per decode step, K3a and K2
+    tokens. K3b launched twice (its stream and its selection) and K1 24 times
+    per decode step, K3a and K2
     never; hypotheses and (T2ST) waveforms checked as in 3a and 3b. Then a
     T2TT request cut to 63 decode steps gives identical tokens with the
     candidate beam and without it."""
@@ -1355,7 +1457,8 @@ def phase_t2t(translator, tok, cfg, smi: str) -> dict:
             steps, max_len = res.steps, res.tokens.shape[-1]
             got = {k: launch_counts[k] - before[k] for k in launch_counts}
             check_hypotheses(res, prefix, max_len, cfg.nllb.eos_idx)
-            want = {**{k: 0 for k in launch_counts}, "vocab_topk_v2": steps,
+            # K3b: the stream and the selection, two launches a step
+            want = {**{k: 0 for k in launch_counts}, "vocab_topk_v2": 2 * steps,
                     "decode_attention_int8": layers * steps}
             if got != want:
                 raise AssertionError(f"{name}: launches {got} in {steps} decode steps, "
@@ -2590,7 +2693,7 @@ def phase_tiny_t2t() -> None:
                 log(f"tiny_v2 {task} on {device}: {res.steps} steps, K3b launches {k3b}, "
                     f"K1 launches {k1}, best lengths {out[device][1].tolist()}")
                 on_card = device == "cuda"
-                if (k3b, k1) != ((res.steps, cfg.nllb.num_decoder_layers * res.steps)
+                if (k3b, k1) != ((2 * res.steps, cfg.nllb.num_decoder_layers * res.steps)
                                  if on_card else (0, 0)):
                     raise AssertionError(f"tiny_v2 {task} on {device}: K3b {k3b} and "
                                          f"K1 {k1} launches in {res.steps} steps")
@@ -2907,8 +3010,8 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_main_path(dev["smi"])
         return 0
-    if sys.argv[1:] == ["--k6b-parts"]:
-        k6b_parts(dev["smi"])
+    if sys.argv[1:] in (["--k6b-parts"], ["--k6c-parts"], ["--k3b-parts"]):
+        kernel_parts(dev["smi"], sys.argv[1][2:5])
         return 0
     k1 = phase_decode_attention("decode_attention_int8")
     k2 = phase_decode_attention("decode_attention_int4")

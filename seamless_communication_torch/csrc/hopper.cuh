@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the bf16 tensor-core kernels of
-// flash_attention.cu (K6) and flash_attention_bwd.cu (K6b): mbarriers, TMA
-// tile loads, shared-memory matrix descriptors and warpgroup matrix
-// multiplies (wgmma), and the host-side encoding of a TMA tensor map.
+// Hopper (sm_90a) building blocks shared by the kernels fed by TMA:
+// flash_attention.cu (K6), flash_attention_bwd.cu (K6b, K6c) and
+// vocab_topk.cu (K3b): mbarriers, TMA tile loads, shared-memory matrix
+// descriptors and warpgroup matrix multiplies (wgmma), and the host-side
+// encoding of a TMA tensor map.
 //
 // Layouts. Every bf16 tile that a wgmma reads is stored as TMA writes it
 // with a swizzle: rows of `kSwizzle` bytes (the row of a tile of width Dh
@@ -92,6 +93,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of a 2-d tensor map (columns c0, rows c1) into shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -309,6 +320,26 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, const long long 
                             const_cast<void*>(base), gdim, gstride, box, estride,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-d byte matrix of `rows` rows of `cols` bytes, rows `stride` bytes
+// apart (a multiple of 16, as is the base's address), read in boxes of
+// box_rows rows of 128 bytes with the 128-byte swizzle. Reads past an end
+// come back as zeros.
+inline cudaError_t make_map_u8(CUtensorMap* map, const void* base, long long cols,
+                               long long rows, long long stride, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (stride % 16 || reinterpret_cast<uintptr_t>(base) % 16) return cudaErrorInvalidValue;
+  const cuuint64_t gdim[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t gstride[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t estride[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+                            gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -1,49 +1,77 @@
-// Fused int8 tied-vocabulary projection with per-tile logsumexp stats and
-// top-k inputs, for one beam-search step (Hopper, sm_90a).
+// The int8 tied-vocabulary projection with logsumexp and top-k of one
+// beam-search step (Hopper, sm_90a): K3b (vocab_topk_v2 and
+// vocab_topk_v2_select) and K3a (vocab_topk).
 //
 // Replaces the TPU kernels of
 // seamless_communication_tpu/ops/kernels/vocab_topk.py:
-//   vocab_topk_v2  <- `_kernel_v2` (:170, pallas_call :202; wrapper
-//                     `int8_vocab_topk_v2`, :231)
-//   vocab_topk     <- `_kernel`    (:45, pallas_call :91; wrapper
-//                     `int8_vocab_topk`, :120)
-// The plain PyTorch versions are `_reference` (the whole function) and
-// `_tiles_reference` (what these kernels write) in
-// seamless_communication_torch/ops/kernels/vocab_topk.py.
+//   K3b  <- `_kernel_v2` (:170, pallas_call :202; wrapper
+//           `int8_vocab_topk_v2`, :231), which writes the (N, V) logits, the
+//           per-tile stats and block maxima and leaves the selection to XLA
+//   K3a  <- `_kernel`    (:45, pallas_call :91; wrapper `int8_vocab_topk`,
+//           :120)
+// The plain PyTorch versions are in
+// seamless_communication_torch/ops/kernels/vocab_topk.py: `_reference` (the
+// whole function), `_tiles_reference` (what K3a and K3b's first stage write)
+// and `_select_reference` (K3b's second stage).
 //
-// For the vocabulary tile g (rows v = 128 g + r, r < 128) and each x row n:
-//   l[n, v] = (sum_d x[n, d] * q[v, d]) * row_scale[v]   for v < V, NEG past V
-//   tile_max[g, n] = max_r l[n, v]
-//   tile_se[g, n]  = sum_{v < V} exp(l[n, v] - tile_max[g, n])
-// vocab_topk_v2 writes l as (N, G*128) logits. vocab_topk writes no logits
-// but the tile's k largest l and their ids, found in k rounds of: the
-// largest value, the lowest id among its equals, that entry masked to NEG.
+// For the table row v and each x row n:
+//   l[n, v] = (sum_d x[n, d] * q[v, d]) * row_scale[v]
+// out: each x row's k largest l with their ids (equal values to the lowest
+// id) and logz[n] = log sum_v exp(l[n, v]). The products are fp32, as in the
+// plain version.
 //
 // Bound on the card: the int8 table is read once, V*D bytes (262 MB at
-// V = 256102, D = 1024); vocab_topk_v2 also writes 4*N*V bytes of logits
-// (5 MB at N = 5). That is about 80 us at 3.35 TB/s. The 2*N*V*D operations
-// (2.6 GFLOP at N = 5) take 39 us at the fp32 rate, so both kernels are
-// bound by bytes.
+// V = 256102, D = 1024), 78.6 us at 3.35 TB/s. The 2*N*V*D operations take
+// 39 us at N = 5 and 78 us at N = 10 at the fp32 rate outside the tensor
+// cores, so at N = 5 the function is bound by bytes, at N = 10 level.
 //
-// Design: one block of 256 threads (8 warps) per tile of 128 rows, 2001
-// blocks at V = 256102. The x rows are staged in shared memory as fp32, up
-// to 10 rows a pass (more rows take more passes, which read the tile again,
-// from L2). A warp owns 16 table rows and takes them 4 at a time: each lane
-// loads 16 bytes of each of the 4 rows (neighbouring lanes on neighbouring
-// addresses) and multiplies them with the staged x rows, so each x value read
-// from shared memory serves 4 table rows. The staged rows are laid out so
-// that the 32 lanes of a warp read 32 consecutive float4s (no bank
-// conflict). The int8 values are widened exactly by placing q + 128 in the
-// mantissa of 2^23 (one byte permute) and subtracting 2^23 + 128, which
-// keeps the integer-to-float converter, at a quarter of the fp32 rate, off
-// the path. Shuffles reduce each dot product in fp32; the tile's logits go
-// through shared memory to coalesced stores and to the stats, one warp per
-// x row. No TMA and no tensor cores: the table is read once with plain
-// loads, and the products are fp32 as in the plain version.
+// K3b, two launches a call.
+//
+// vocab_topk_v2 (stage 1, the stream): a grid sized to the card (as many
+// blocks as fit at once: two an SM up to 8 x rows, one above) walks
+// contiguous ranges of 128-row tiles of the table. A producer warp keeps TMA
+// copies in flight through a ring of 3 stages of 16 KB, each a box of 128 rows x 128 bytes
+// (one slice of d) with the 128-byte swizzle. Four consumer warps share a
+// stage: lane (warp, lane) takes the 16-byte chunk 2 warp + lane / 16 of
+// the rows lane % 16 + 16 j (j < 8), so that each x value read from shared
+// memory (staged once a block as fp32, a broadcast read) serves 8 rows,
+// 32 FMAs in 8 independent chains. The int8 values widen exactly by placing
+// q + 128 in the mantissa of 2^23 (one byte permute, one subtraction); the
+// swizzle puts the 8 lanes of a 16-byte phase on 8 distinct bank groups.
+// After a tile's slices, the two half-warps' sums join by one shuffle and
+// the four warps' meet in shared memory. Warp w then finishes the x rows
+// w, w + 4, ... of the tile's 128 logits: a running (max, sum of exp), and
+// the block's sorted list of its k best (value, id), into which a logit goes
+// only when it beats the list's last entry (a ballot, then one insertion at
+// a time; rare after the first rows). A block writes its lists and stats: a
+// few hundred KB for the whole grid, and no (N, V) logits. Up to 12 x rows a
+// pass (fewer for large k or D); more rows take more passes, each streaming
+// the range again. What holds it back (chip_smoke.py --k3b-parts): the
+// stream alone, without the products, is most of the time; the products,
+// limited by the instruction rate of the widening and the FMAs, overlap it
+// only in part.
+//
+// vocab_topk_v2_select (stage 2): one block per x row combines the
+// blocks' stats into logz and caches the head of each block's sorted list
+// in shared memory; then one warp merges the lists into the top k, k rounds
+// of a warp argmax over the lanes' best heads (ties to the lowest id), in
+// which only the winning lane reads its lists again.
+//
+// K3a (vocab_tile_kernel): one block of 256 threads (8 warps) per tile of
+// 128 rows, 2001 blocks at V = 256102. The x rows are staged in shared memory
+// as fp32, up to 10 rows a pass (more rows take more passes, which read the
+// tile again, from L2). A warp owns 16 table rows and takes them 4 at a
+// time: each lane loads 16 bytes of each of the 4 rows and multiplies them
+// with the staged x rows; shuffles reduce each dot product, and each tile's
+// k best, found in k rounds of a warp-wide argmax, and its (max, sum of exp)
+// are written per x row. The wrapper selects the top k of the tiles'
+// candidates.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -98,11 +126,11 @@ __host__ __device__ __forceinline__ int staged_row(int D) {
   return (D + 511) / 512 * 512;
 }
 
-template <typename T, bool kTopK>
+template <typename T>
 __global__ void __launch_bounds__(kThreads) vocab_tile_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ table,
     const float* __restrict__ row_scale, int N, int D, int V, int rows_per_pass,
-    int k, float* __restrict__ logits, float* __restrict__ top_vals,
+    int k, float* __restrict__ top_vals,
     int32_t* __restrict__ top_idx, float* __restrict__ tile_max,
     float* __restrict__ tile_se) {
   __shared__ __align__(16) float x_s[kXFloats];
@@ -111,7 +139,6 @@ __global__ void __launch_bounds__(kThreads) vocab_tile_kernel(
   const int g = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int chunks = D >> 4;
   const int Dp = staged_row(D);
-  const size_t Vp = (size_t)gridDim.x * kTile;
 
   for (int n0 = 0; n0 < N; n0 += rows_per_pass) {
     const int nc = min(rows_per_pass, N - n0);
@@ -182,17 +209,12 @@ __global__ void __launch_bounds__(kThreads) vocab_tile_kernel(
     }
     __syncthreads();
 
-    // ---- per x row: logits out, tile stats, and (v1) the tile's top k ------
+    // ---- per x row: tile stats and the tile's top k ----------------------
     for (int n = warp; n < nc; n += kWarps) {
       const size_t row = (size_t)(n0 + n);
       float l[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) l[j] = l_s[n][lane + 32 * j];
-      if (!kTopK) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          logits[row * Vp + (size_t)g * kTile + lane + 32 * j] = l[j];
-      }
       const float m = warp_max(fmaxf(fmaxf(l[0], l[1]), fmaxf(l[2], l[3])));
       float se = 0.f;
 #pragma unroll
@@ -203,7 +225,7 @@ __global__ void __launch_bounds__(kThreads) vocab_tile_kernel(
         tile_max[(size_t)g * N + row] = m;
         tile_se[(size_t)g * N + row] = se;
       }
-      if (kTopK) {
+      {
         for (int s = 0; s < k; ++s) {
           // this lane's best (its columns ascend, so > keeps the lowest)
           float bv = l[0];
@@ -235,54 +257,564 @@ __global__ void __launch_bounds__(kThreads) vocab_tile_kernel(
   }
 }
 
-template <bool kTopK>
-int launch(int dtype, const void* x, const int8_t* table, const float* row_scale,
-           int N, int D, int V, int k, float* logits, float* top_vals,
-           int32_t* top_idx, float* tile_max, float* tile_se, void* stream) {
-  if (N < 1 || D < 16 || D % 16 || D > kXFloats || V < 1 ||
-      (kTopK && (k < 1 || k > kTile)))
-    return (int)cudaErrorInvalidValue;
+
+template <typename T>
+int launch_tiles(const void* x, const int8_t* table, const float* row_scale, int N, int D,
+                 int V, int k, float* top_vals, int32_t* top_idx, float* tile_max,
+                 float* tile_se, cudaStream_t st) {
   const int fit = kXFloats / staged_row(D);
   const int rows = fit < kMaxRows ? fit : kMaxRows;
   const int G = (V + kTile - 1) / kTile;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    vocab_tile_kernel<float, kTopK><<<G, kThreads, 0, st>>>(
-        static_cast<const float*>(x), table, row_scale, N, D, V, rows, k, logits,
-        top_vals, top_idx, tile_max, tile_se);
-  } else if (dtype == 1) {
-    vocab_tile_kernel<__nv_bfloat16, kTopK><<<G, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), table, row_scale, N, D, V, rows, k,
-        logits, top_vals, top_idx, tile_max, tile_se);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  vocab_tile_kernel<T><<<G, kThreads, 0, st>>>(static_cast<const T*>(x), table, row_scale,
+                                               N, D, V, rows, k, top_vals, top_idx,
+                                               tile_max, tile_se);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K3b
+// ---------------------------------------------------------------------------
+
+namespace stream {
+
+constexpr int kRows = 128;                  // table rows of a tile: one a lane
+constexpr int kSlice = 128;                 // bytes of a row a stage holds
+constexpr int kWarps = 4;                   // consumer warps: two 16-byte chunks of a slice each
+constexpr int kThreads = (kWarps + 1) * 32; // and one producer warp (TMA)
+constexpr int kStageBytes = kRows * kSlice; // 16 KB
+constexpr int kStages = 3;                  // two blocks an SM: 96 KB in flight
+constexpr int kMaxPass = 12;                // x rows of a pass
+constexpr int kListEntries = 1536;          // rows of a pass x k, at most
+constexpr int kMaxXFloats = 16384;          // staged x rows of a pass (64 KB)
+constexpr int kMaxK = 128;
+constexpr int kMaxBlocks = 1024;            // stream blocks, at most
+constexpr int kSelectThreads = 256;
+constexpr int kSelectCache = 2048;          // stage 2: list entries cached (16 KB)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNoId = 0x7fffffff;           // the id of an empty list entry
+
+// (va, ia) ranks before (vb, ib): the larger value, or the lower id
+__device__ __forceinline__ bool beats(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+struct Args {
+  const void* x;
+  int x_bf16;
+  const float* row_scale;
+  int N, D, Dp, V, k, tiles;
+  float* cand_val;      // (G, N, k)
+  int32_t* cand_idx;    // (G, N, k)
+  float* blk_max;       // (G, N)
+  float* blk_se;        // (G, N)
+};
+
+// x rows a pass, and the dynamic shared memory of the stream kernel
+inline int rows_a_pass(int N, int Dp, int k) {
+  int np = kMaxPass;
+  if (kListEntries / k < np) np = kListEntries / k;
+  if (kMaxXFloats / Dp < np) np = kMaxXFloats / Dp;
+  return N < np ? N : np;
+}
+
+inline size_t smem_bytes(int np, int Dp, int k) {
+  return 1024 + (size_t)kStages * kStageBytes + (size_t)np * Dp * 4 + (size_t)np * k * 8 +
+         (size_t)kWarps * np * kRows * 4 + 16 * kStages;
+}
+
+// One block: the tiles [t0, t1) of the table, NP x rows a pass.
+template <int NP>
+__global__ void __launch_bounds__(kThreads, NP <= 8 ? 2 : 1)
+vocab_stream_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
+  constexpr int NPW = (NP + kWarps - 1) / kWarps;   // x rows a warp finishes
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  float* x_s = reinterpret_cast<float*>(ring + kStages * kStageBytes);   // [NP][Dp]
+  float* lv = x_s + NP * a.Dp;                                 // [NP][k]
+  int* li = reinterpret_cast<int*>(lv + NP * a.k);             // [NP][k]
+  float* red = reinterpret_cast<float*>(li + NP * a.k);        // [kWarps][NP][kRows]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + kWarps * NP * kRows);
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int blk = blockIdx.x, G = gridDim.x;
+  const int t0 = (int)((long long)blk * a.tiles / G);
+  const int t1 = (int)((long long)(blk + 1) * a.tiles / G);
+  const int slices = a.Dp / kSlice, passes = (a.N + NP - 1) / NP, k = a.k;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kWarps * 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {
+    // ---- producer warp: every (pass, tile, slice) in the consumers' order
+    if (lane == 0) {
+      hopper::prefetch_map(&map);
+      int it = 0;
+      for (int p = 0; p < passes; ++p)
+        for (int t = t0; t < t1; ++t)
+          for (int sl = 0; sl < slices; ++sl, ++it) {
+            const int s = it % kStages;
+            if (it >= kStages) hopper::mbar_wait(&empty[s], ((it / kStages) - 1) & 1);
+            hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+            hopper::tma_load_2d(ring + s * kStageBytes, &map, &full[s], sl * kSlice,
+                                t * kRows);
+          }
+    }
+    return;
+  }
+
+  // ---- consumer warps. Products: lane (warp, lane) sums rows lane % 16 +
+  // 16 j (j < 8) of a tile over the 16-byte chunk 2 warp + lane / 16 of each
+  // 128-byte slice, so that each x value read serves 8 rows (32 FMAs in 8
+  // independent chains). Finish: warp w takes the x rows n = w, w + 4, ...
+  // of the pass, a lane the tile rows lane + 32 i (i < 4).
+  const int c = 2 * warp + lane / 16, r0 = lane % 16;
+  int it = 0;
+  for (int p = 0; p < passes; ++p) {
+    const int n0 = p * NP;
+    hopper::named_sync(1, kWarps * 32);   // the previous pass's lists are written out
+    for (int e = tid; e < NP * a.Dp; e += kWarps * 32) {
+      const int n = e / a.Dp, d = e - n * a.Dp;
+      float v = 0.f;
+      if (n0 + n < a.N && d < a.D) {
+        const size_t o = (size_t)(n0 + n) * a.D + d;
+        v = a.x_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[o])
+                     : static_cast<const float*>(a.x)[o];
+      }
+      x_s[e] = v;
+    }
+    for (int e = tid; e < NP * k; e += kWarps * 32) {
+      lv[e] = -INFINITY;
+      li[e] = kNoId;
+    }
+    hopper::named_sync(1, kWarps * 32);   // x staged, lists empty
+
+    float m[NPW], se[NPW];
+#pragma unroll
+    for (int q = 0; q < NPW; ++q) {
+      m[q] = -INFINITY;
+      se[q] = 0.f;
+    }
+    for (int t = t0; t < t1; ++t) {
+      float acc[NP][8];
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[n][j] = 0.f;
+      for (int sl = 0; sl < slices; ++sl, ++it) {
+        const int s = it % kStages;
+        hopper::mbar_wait(&full[s], (it / kStages) & 1);
+        const uint8_t* tile = ring + s * kStageBytes;
+        const float* xsl = x_s + sl * kSlice + 16 * c;
+        uint4 q[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          q[j] = *reinterpret_cast<const uint4*>(tile + hopper::swizzled(r0 + 16 * j, c, 128));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float w[8][4];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const unsigned biased = word(q[j], u) ^ 0x80808080u;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) w[j][e] = widen(biased, e);
+          }
+#pragma unroll
+          for (int n = 0; n < NP; ++n) {
+            const float4 xv = *reinterpret_cast<const float4*>(xsl + n * a.Dp + 4 * u);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              float sum = acc[n][j];
+              sum = fmaf(w[j][0], xv.x, sum);
+              sum = fmaf(w[j][1], xv.y, sum);
+              sum = fmaf(w[j][2], xv.z, sum);
+              sum = fmaf(w[j][3], xv.w, sum);
+              acc[n][j] = sum;
+            }
+          }
+        }
+        hopper::mbar_arrive(&empty[s]);
+      }
+      // the half-warps' chunks join, then the warps' partial sums meet in
+      // shared memory
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float other = __shfl_xor_sync(kFull, acc[n][j], 16);
+          if ((j < 4) == (lane < 16))
+            red[(warp * NP + n) * kRows + r0 + 16 * j] = acc[n][j] + other;
+        }
+      hopper::named_sync(1, kWarps * 32);
+
+      // ---- the tile's logits of the warp's x rows: running stats, and the
+      // block's k best (a logit goes in only when it beats the list's last)
+#pragma unroll
+      for (int qn = 0; qn < NPW; ++qn) {
+        const int n = warp + kWarps * qn;
+        if (n >= NP || n0 + n >= a.N) break;   // the pass's zero rows past N
+        float* nv_s = lv + n * k;
+        int* ni_s = li + n * k;
+#pragma unroll
+        for (int i = 0; i < kRows / 32; ++i) {
+          const int row = lane + 32 * i, v = t * kRows + row;
+          const bool ok = v < a.V;
+          float dot = 0.f;
+#pragma unroll
+          for (int u = 0; u < kWarps; ++u) dot += red[(u * NP + n) * kRows + row];
+          const float l = dot * (ok ? __ldg(a.row_scale + v) : 0.f);
+          if (ok) {
+            const float mx = fmaxf(m[qn], l);
+            se[qn] = se[qn] * expf(m[qn] - mx) + expf(l - mx);
+            m[qn] = mx;
+          }
+          bool pred = ok && beats(l, v, nv_s[k - 1], ni_s[k - 1]);
+          unsigned want = __ballot_sync(kFull, pred);
+          while (want) {
+            const int src = __ffs(want) - 1;
+            const float nv = __shfl_sync(kFull, l, src);
+            const int ni = __shfl_sync(kFull, v, src);
+            int pos = 0;
+            for (int j0 = 0; j0 < k; j0 += 32) {
+              const int j = j0 + lane;
+              pos += __popc(__ballot_sync(kFull, j < k && beats(nv_s[j], ni_s[j], nv, ni)));
+            }
+            float sv[kMaxK / 32];
+            int si[kMaxK / 32];
+#pragma unroll
+            for (int u = 0; u < kMaxK / 32; ++u) {
+              const int j = lane + 32 * u;
+              if (j >= pos && j < k - 1) {
+                sv[u] = nv_s[j];
+                si[u] = ni_s[j];
+              }
+            }
+            __syncwarp();
+#pragma unroll
+            for (int u = 0; u < kMaxK / 32; ++u) {
+              const int j = lane + 32 * u;
+              if (j >= pos && j < k - 1) {
+                nv_s[j + 1] = sv[u];
+                ni_s[j + 1] = si[u];
+              }
+            }
+            if (lane == 0) {
+              nv_s[pos] = nv;
+              ni_s[pos] = ni;
+            }
+            __syncwarp();
+            if (lane == src) pred = false;
+            pred = pred && beats(l, v, nv_s[k - 1], ni_s[k - 1]);
+            want = __ballot_sync(kFull, pred);
+          }
+        }
+      }
+      hopper::named_sync(1, kWarps * 32);   // red is read
+    }
+
+    // ---- the block's lists and stats of the warp's x rows
+#pragma unroll
+    for (int qn = 0; qn < NPW; ++qn) {
+      const int n = warp + kWarps * qn;
+      if (n >= NP || n0 + n >= a.N) break;
+      const size_t row = (size_t)blk * a.N + n0 + n;
+      for (int j = lane; j < k; j += 32) {
+        a.cand_val[row * k + j] = lv[n * k + j];
+        a.cand_idx[row * k + j] = li[n * k + j];
+      }
+      float mm = m[qn], ss = se[qn];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float m2 = __shfl_xor_sync(kFull, mm, o), s2 = __shfl_xor_sync(kFull, ss, o);
+        const float mx = fmaxf(mm, m2);
+        ss = mx == -INFINITY ? 0.f : ss * expf(mm - mx) + s2 * expf(m2 - mx);
+        mm = mx;
+      }
+      if (lane == 0) {
+        a.blk_max[row] = mm;
+        a.blk_se[row] = ss;
+      }
+    }
+  }
+}
+
+// Stage 2: one block per x row n. The block caches the lists' first C
+// entries in shared memory and combines the stats into logz; then warp 0
+// takes k rounds: lane l keeps the best head of the lists l, l + 32, ...,
+// the warp's best is the round's pick, and its lane advances that list and
+// finds its next best.
+__global__ void __launch_bounds__(kSelectThreads)
+vocab_select_kernel(const float* __restrict__ cand_val, const int32_t* __restrict__ cand_idx,
+                    const float* __restrict__ blk_max, const float* __restrict__ blk_se,
+                    int N, int G, int k, float* __restrict__ top_vals,
+                    int32_t* __restrict__ top_idx, float* __restrict__ logz) {
+  constexpr int kW = kSelectThreads / 32;
+  __shared__ float red[kW];
+  __shared__ float shared_m;
+  __shared__ float cache_v[kSelectCache];
+  __shared__ int cache_i[kSelectCache];
+  __shared__ float stat_m[kMaxBlocks], stat_s[kMaxBlocks];
+  __shared__ float hv[kMaxBlocks];   // the value and id at each list's head
+  __shared__ int hi[kMaxBlocks], head[kMaxBlocks];
+  const int n = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int C = min(k, kSelectCache / G);
+
+  // ---- the blocks' stats and their lists' first C entries, every load in
+  // flight at once
+  float lm = -INFINITY;
+  for (int g = tid; g < G; g += kSelectThreads) {
+    const float mg = blk_max[(size_t)g * N + n];
+    stat_m[g] = mg;
+    stat_s[g] = blk_se[(size_t)g * N + n];
+    lm = fmaxf(lm, mg);
+  }
+  {
+    constexpr int U = kSelectCache / kSelectThreads;
+    float v[U];
+    int ix[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = tid + kSelectThreads * u;
+      if (e < G * C) {
+        const int g = e / C;
+        const size_t o = ((size_t)g * N + n) * k + (e - g * C);
+        v[u] = cand_val[o];
+        ix[u] = cand_idx[o];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = tid + kSelectThreads * u;
+      if (e < G * C) {
+        cache_v[e] = v[u];
+        cache_i[e] = ix[u];
+      }
+    }
+  }
+  // ---- logz = M + log sum_g se_g exp(m_g - M)
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) lm = fmaxf(lm, __shfl_xor_sync(kFull, lm, o));
+  if (lane == 0) red[warp] = lm;
+  __syncthreads();
+  if (tid == 0) {
+    float mm = -INFINITY;
+    for (int w = 0; w < kW; ++w) mm = fmaxf(mm, red[w]);
+    shared_m = mm;
+  }
+  __syncthreads();
+  const float M = shared_m;
+  float ls = 0.f;
+  for (int g = tid; g < G; g += kSelectThreads) {
+    if (stat_m[g] != -INFINITY) ls += stat_s[g] * expf(stat_m[g] - M);
+    head[g] = 0;
+    hv[g] = cache_v[g * C];
+    hi[g] = cache_i[g * C];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ls += __shfl_xor_sync(kFull, ls, o);
+  __syncthreads();   // red is read above
+  if (lane == 0) red[warp] = ls;
+  __syncthreads();
+  if (tid == 0) {
+    float ss = 0.f;
+    for (int w = 0; w < kW; ++w) ss += red[w];
+    logz[n] = M + logf(ss);
+  }
+  if (warp != 0) return;
+
+  // ---- the top k of the blocks' sorted lists
+  float bv = -INFINITY;   // the lane's best head: value, id, list
+  int bi = kNoId, bg = -1;
+  const auto rescan = [&]() {
+    bv = -INFINITY;
+    bi = kNoId;
+    bg = -1;
+    for (int g = lane; g < G; g += 32) {
+      const float v = hv[g];
+      const int i = hi[g];
+      if (bg < 0 || beats(v, i, bv, bi)) {
+        bv = v;
+        bi = i;
+        bg = g;
+      }
+    }
+  };
+  rescan();
+  for (int j = 0; j < k; ++j) {
+    float cv = bv;
+    int ci = bi, cl = lane;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, cv, o);
+      const int oi = __shfl_xor_sync(kFull, ci, o), ol = __shfl_xor_sync(kFull, cl, o);
+      if (beats(ov, oi, cv, ci) || (ov == cv && oi == ci && ol < cl)) {
+        cv = ov;
+        ci = oi;
+        cl = ol;
+      }
+    }
+    if (lane == 0) {
+      top_vals[(size_t)n * k + j] = cv;
+      top_idx[(size_t)n * k + j] = ci;
+    }
+    if (lane == cl) {
+      const int h = ++head[bg];
+      float v = -INFINITY;
+      int i = kNoId;
+      if (h < C) {
+        v = cache_v[bg * C + h];
+        i = cache_i[bg * C + h];
+      } else if (h < k) {
+        const size_t o = ((size_t)bg * N + n) * k + h;
+        v = cand_val[o];
+        i = cand_idx[o];
+      }
+      hv[bg] = v;
+      hi[bg] = i;
+      rescan();
+    }
+    __syncwarp();
+  }
+}
+
+template <int NP>
+int launch_stream(const CUtensorMap& map, const Args& a, int G, cudaStream_t st) {
+  const size_t bytes = smem_bytes(NP, a.Dp, a.k);
+  static size_t allowed = 0;   // the shared memory allowed so far
+  if (bytes > allowed) {
+    const cudaError_t err = hopper::allow_smem(vocab_stream_kernel<NP>, bytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed = bytes;
+  }
+  vocab_stream_kernel<NP><<<G, kThreads, bytes, st>>>(map, a);
+  return (int)cudaGetLastError();
+}
+
+// blocks of the stream kernel that fit on the card at once (at most `tiles`
+// and kMaxBlocks), or a negative CUDA error
+template <int NP>
+int grid_of(int Dp, int k, int tiles) {
+  const size_t bytes = smem_bytes(NP, Dp, k);
+  cudaError_t err = hopper::allow_smem(vocab_stream_kernel<NP>, bytes);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vocab_stream_kernel<NP>,
+                                                        kThreads, bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  int g = per_sm * sms;
+  if (g > tiles) g = tiles;
+  return g < kMaxBlocks ? g : kMaxBlocks;
+}
+
+#define STREAM_NP_CASES(X) \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12)
+
+int dispatch_grid(int np, int Dp, int k, int tiles) {
+  switch (np) {
+#define CASE(P) case P: return grid_of<P>(Dp, k, tiles);
+    STREAM_NP_CASES(CASE)
+#undef CASE
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch_stream(int np, const CUtensorMap& map, const Args& a, int G, cudaStream_t st) {
+  switch (np) {
+#define CASE(P) case P: return launch_stream<P>(map, a, G, st);
+    STREAM_NP_CASES(CASE)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool valid_shape(int N, int D, int V, int k) {
+  const int Dp = (D + kSlice - 1) / kSlice * kSlice;
+  return N >= 1 && D >= 16 && D % 16 == 0 && Dp <= kMaxXFloats && V >= 1 && k >= 1 &&
+         k <= kMaxK && k <= V;
+}
+
+}  // namespace stream
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x). x (N, D), table (V, D) int8 and
-// row_scale (V,) f32 on the card; logits (N, ceil(V/128)*128) f32; tile_max
-// and tile_se (ceil(V/128), N) f32. Launches on `stream` and returns
-// cudaGetLastError() as an int (0 = launched).
-int vocab_topk_v2(int dtype, const void* x, const int8_t* table,
-                  const float* row_scale, int N, int D, int V, float* logits,
-                  float* tile_max, float* tile_se, void* stream) {
-  return launch<false>(dtype, x, table, row_scale, N, D, V, 0, logits, nullptr,
-                       nullptr, tile_max, tile_se, stream);
+// K3b. dtype: 0 = float32, 1 = bfloat16 (x). x (N, D) contiguous, table (V,
+// D) int8 (16-byte aligned) and row_scale (V,) f32 on the card; 1 <= k <=
+// 128, D a multiple of 16 up to 16384.
+
+// The grid of vocab_topk_v2 at these sizes: the blocks that fit on the card
+// at once, at most one a 128-row tile and 2048; negative: a CUDA error.
+int vocab_topk_v2_grid(int N, int D, int V, int k) {
+  if (!stream::valid_shape(N, D, V, k)) return -(int)cudaErrorInvalidValue;
+  const int Dp = (D + stream::kSlice - 1) / stream::kSlice * stream::kSlice;
+  const int tiles = (V + stream::kRows - 1) / stream::kRows;
+  return stream::dispatch_grid(stream::rows_a_pass(N, Dp, k), Dp, k, tiles);
 }
 
-// As vocab_topk_v2, but instead of the logits each tile's k largest
-// (k <= 128): top_vals (G, N, k) f32 and top_idx (G, N, k) int32.
-int vocab_topk(int dtype, const void* x, const int8_t* table,
-               const float* row_scale, int N, int D, int V, int k,
-               float* top_vals, int32_t* top_idx, float* tile_max,
-               float* tile_se, void* stream) {
-  return launch<true>(dtype, x, table, row_scale, N, D, V, k, nullptr, top_vals,
-                      top_idx, tile_max, tile_se, stream);
+// Stage 1 with G blocks (vocab_topk_v2_grid's): each block's k best (value,
+// id) of its rows, sorted (value descending, id ascending), and (max, sum
+// of exp): cand_val (G, N, k) f32, cand_idx (G, N, k) int32, blk_max and
+// blk_se (G, N) f32. Block g takes the 128-row tiles [g T / G, (g + 1) T / G)
+// of the T = ceil(V / 128). Launches on `stream` and returns
+// cudaGetLastError() as an int (0 = launched).
+int vocab_topk_v2(int dtype, const void* x, const int8_t* table, const float* row_scale,
+                  int N, int D, int V, int k, int G, float* cand_val, int32_t* cand_idx,
+                  float* blk_max, float* blk_se, void* stream) {
+  if (!stream::valid_shape(N, D, V, k) || (dtype != 0 && dtype != 1) || G < 1 ||
+      G > stream::kMaxBlocks)
+    return (int)cudaErrorInvalidValue;
+  const int Dp = (D + stream::kSlice - 1) / stream::kSlice * stream::kSlice;
+  const int tiles = (V + stream::kRows - 1) / stream::kRows;
+  if (G > tiles) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  const cudaError_t err = hopper::make_map_u8(&map, table, D, V, D, stream::kRows);
+  if (err != cudaSuccess) return (int)err;
+  const stream::Args a{x, dtype, row_scale, N, D, Dp, V, k, tiles,
+                       cand_val, cand_idx, blk_max, blk_se};
+  return stream::dispatch_stream(stream::rows_a_pass(N, Dp, k), map, a, G,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// Stage 2: the G blocks' lists and stats -> top_vals (N, k) f32, top_idx
+// (N, k) int32, logz (N,) f32.
+int vocab_topk_v2_select(int N, int G, int k, const float* cand_val,
+                         const int32_t* cand_idx, const float* blk_max,
+                         const float* blk_se, float* top_vals, int32_t* top_idx,
+                         float* logz, void* stream) {
+  if (N < 1 || G < 1 || G > stream::kMaxBlocks || k < 1 || k > stream::kMaxK)
+    return (int)cudaErrorInvalidValue;
+  stream::vocab_select_kernel<<<N, stream::kSelectThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      cand_val, cand_idx, blk_max, blk_se, N, G, k, top_vals, top_idx, logz);
+  return (int)cudaGetLastError();
+}
+
+// K3a. x (N, D) as above; each 128-row tile's k largest (k <= 128):
+// top_vals (G, N, k) f32 and top_idx (G, N, k) int32, tile_max and tile_se
+// (G, N) f32, G = ceil(V / 128).
+int vocab_topk(int dtype, const void* x, const int8_t* table, const float* row_scale,
+               int N, int D, int V, int k, float* top_vals, int32_t* top_idx,
+               float* tile_max, float* tile_se, void* stream) {
+  if (N < 1 || D < 16 || D % 16 || D > kXFloats || V < 1 || k < 1 || k > kTile)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_tiles<float>(x, table, row_scale, N, D, V, k, top_vals, top_idx,
+                               tile_max, tile_se, st);
+  if (dtype == 1)
+    return launch_tiles<__nv_bfloat16>(x, table, row_scale, N, D, V, k, top_vals,
+                                       top_idx, tile_max, tile_se, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* cuda_error_string(int err) {

@@ -29,6 +29,9 @@ row's softmax maximum ``m`` and denominator ``l`` (fp32, (B, H, Tq)), and
 the backward is two kernels of ``csrc/flash_attention_bwd.cu``, K6b (dK,
 dV; the library's ``_flash_attention_bwd_dkv``) and K6c (dQ and the bias
 gradient dS; ``_flash_attention_bwd_dq``), held against ``_reference_bwd``.
+In bf16 K6c leaves out the (row tile, key tile) pairs of
+``skippable_tiles``, whose products are exact zeros. The bias gradient comes
+back as a ``[..., :Tk]`` view of rows padded to 8 elements.
 ``flash_attention`` goes through the Function only where autograd needs it,
 so an inference call computes no residuals.
 """
@@ -137,7 +140,8 @@ _ENTRY = {
     KERNEL_DKV: ("flash_attention_bwd",
                  [_I] + [_P] * 10 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
     KERNEL_DQ: ("flash_attention_bwd",
-                [_I] + [_P] * 10 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
+                [_I] + [_P] * 10 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float] + [_P] * 2
+                + [_LL, _P]),
 }
 
 
@@ -309,13 +313,20 @@ def _bwd_args(qs, k, v, ab, q_seg, kv_seg, o, m, l, do) -> _BwdArgs:
 def _launch_one(name: str, args: _BwdArgs, out0: torch.Tensor,
                 out1: Optional[torch.Tensor]) -> None:
     """One backward kernel: K6b (``KERNEL_DKV``) into dk, dv or K6c
-    (``KERNEL_DQ``) into dq and dab (None: no bias gradient)."""
+    (``KERNEL_DQ``) into dq and dab (None: no bias gradient; else rows
+    16-byte aligned, as ``empty_bias`` makes them)."""
     fn, error_string = _function(name)
     device = out0.device
+    outs = (out0.data_ptr(), _ptr(out1))
+    if name == KERNEL_DQ:
+        if out1 is not None and (out1.stride(-1) != 1 or out1.stride(2) * out1.element_size() % 16
+                                 or out1.data_ptr() % 16):
+            raise ValueError(f"{name}: dab has strides {out1.stride()}: its rows must be "
+                             "16-byte aligned (empty_bias)")
+        outs += (_row_stride(out1),)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        _raise_on(fn(*args.common, out0.data_ptr(), _ptr(out1), stream), name,
-                  error_string)
+        _raise_on(fn(*args.common, *outs, stream), name, error_string)
     launch_counts[name] += 1
 
 
@@ -326,7 +337,9 @@ def _launch_bwd(qs, k, v, ab, q_seg, kv_seg, o, m, l, do, need_dab: bool):
     dq = torch.empty((B, H, Tq, Dh), dtype=qs.dtype, device=qs.device)
     dk = torch.empty((B, H, Tk, Dh), dtype=qs.dtype, device=qs.device)
     dv = torch.empty_like(dk)
-    dab = (torch.empty((B, H, Tq, Tk), dtype=qs.dtype, device=qs.device)
+    # dab in rows padded to 8 elements (16-byte aligned), handed on as the
+    # [..., :Tk] view
+    dab = (empty_bias(B, H, Tq, Tk, qs.dtype, qs.device)
            if need_dab and ab is not None else None)
     _launch_one(KERNEL_DKV, args, dk, dv)
     _launch_one(KERNEL_DQ, args, dq, dab)
@@ -419,6 +432,53 @@ def unmasked_pairs(B: int, H: int, Tq: int, Tk: int,
         same = q_seg.cpu()[:, None, :, None] == kv_seg.cpu()[:, None, None, :]
         keep = keep & same
     return int(keep.expand(B, H, Tq, Tk).sum())
+
+
+SKIP_ROWS = SKIP_KEYS = 64     # bf16 K6c's row tile (a block) and key tile
+SKIP_MAX_KEY_TILES = 512       # key tiles past these are always taken
+
+
+def skippable_tiles(m: torch.Tensor, q_seg: Optional[torch.Tensor],
+                    kv_seg: Optional[torch.Tensor], Tk: int) -> torch.Tensor:
+    """The (row tile, key tile) pairs that bf16 K6c leaves out, a bool
+    tensor (B, H, ceil(Tq / 64), ceil(Tk / 64)); its kernel's predicate is
+    this one. A pair is skipped when
+
+    - the tile's keys (those below Tk) all have segment ids outside [min,
+      max] of the row tile's rows' (those below Tq), so every one is masked
+      for every row; and
+    - every row of the tile has m > ``MASK_VALUE`` / 2, an unmasked key
+      somewhere (K6's residual ``m`` (B, H, Tq)).
+
+    Then each logit of the pair is below -0.35 * float32 max after the
+    subtraction of m, so p = exp(.) is exactly 0 and so are dS, dab and the
+    pair's share of dQ: leaving it out changes no bit. A row whose keys are
+    all masked has m at the mask level and a p that is not 0 (the library
+    averages every key), so its tiles are all taken. Without segment ids
+    nothing is skipped; key tiles from ``SKIP_MAX_KEY_TILES`` on are always
+    taken."""
+    B, H, Tq = m.shape
+    nr, nk = -(-Tq // SKIP_ROWS), -(-Tk // SKIP_KEYS)
+    if q_seg is None:
+        return torch.zeros((B, H, nr, nk), dtype=torch.bool)
+    q_seg, kv_seg, m = q_seg.cpu(), kv_seg.cpu(), m.cpu()
+    big = torch.iinfo(torch.int32).max
+    rows = torch.nn.functional.pad(q_seg.long(), (0, nr * SKIP_ROWS - Tq))
+    valid = (torch.arange(nr * SKIP_ROWS) < Tq).view(1, nr, SKIP_ROWS)
+    rows = rows.view(B, nr, SKIP_ROWS)
+    rmin = torch.where(valid, rows, big).amin(dim=-1)                    # (B, nr)
+    rmax = torch.where(valid, rows, -big - 1).amax(dim=-1)
+    keys = torch.nn.functional.pad(kv_seg.long(), (0, nk * SKIP_KEYS - Tk))
+    kvalid = torch.arange(nk * SKIP_KEYS) < Tk
+    inside = (kvalid & (keys[:, None, :] >= rmin[..., None])
+              & (keys[:, None, :] <= rmax[..., None]))                   # (B, nr, nk*64)
+    live = inside.view(B, nr, nk, SKIP_KEYS).any(dim=-1)
+    at_mask = ~(m > MASK_VALUE / 2)                                        # (B, H, Tq)
+    at_mask = torch.nn.functional.pad(at_mask, (0, nr * SKIP_ROWS - Tq))
+    at_mask = at_mask.view(B, H, nr, SKIP_ROWS).any(dim=-1)               # (B, H, nr)
+    skip = ~live[:, None] & ~at_mask[..., None]
+    skip[..., SKIP_MAX_KEY_TILES:] = False
+    return skip
 
 
 def bound(B: int, H: int, Tq: int, Tk: int, Dh: int, dtype: torch.dtype,

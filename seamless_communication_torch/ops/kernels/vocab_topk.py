@@ -11,22 +11,25 @@ table once and return only
 so ``top_vals - logz[:, None]`` are the exact log-probabilities of the top-k
 tokens. Ties go to the lowest vocabulary id, as ``jax.lax.top_k`` does.
 
-- ``int8_vocab_topk_v2``: CUDA kernel ``csrc/vocab_topk.cu``
-  ``vocab_topk_v2``, which replaces the TPU kernel ``_kernel_v2`` of
-  ``seamless_communication_tpu/ops/kernels/vocab_topk.py:170``. The kernel
-  writes the (N, V) logits and, per 128-row tile, each x row's (max, Σexp);
-  the wrapper combines the tiles' stats into the logsumexp, picks the k tiles
-  with the largest maxima (every top-k element lies in one of them), and takes
-  the top k of their k·128 columns.
-- ``int8_vocab_topk``: CUDA kernel ``vocab_topk``, which replaces the TPU
-  kernel ``_kernel`` of the same file (:45). The kernel also selects each
-  tile's top k itself and writes no logits; the wrapper takes the top k of the
-  tiles' candidates.
+- ``int8_vocab_topk_v2`` (K3b): CUDA kernels ``csrc/vocab_topk.cu``
+  ``vocab_topk_v2`` and ``vocab_topk_v2_select``, which replace the TPU
+  kernel ``_kernel_v2`` of ``seamless_communication_tpu/ops/kernels/
+  vocab_topk.py:170`` and the selection XLA runs after it. Two launches a
+  call: the first streams the table, a block a range of 128-row tiles
+  (``stream_bounds``), and writes each block's k best (value, id) and its
+  (max, Σexp) per x row; the second merges them into the top k and the
+  logsumexp. k is at most ``MAX_K``.
+- ``int8_vocab_topk`` (K3a): CUDA kernel ``vocab_topk``, which replaces the
+  TPU kernel ``_kernel`` of the same file (:45). It writes each 128-row
+  tile's top k and stats; the wrapper selects the top k of the tiles'
+  candidates (``_select_reference``, eager).
 
-For tensors on the card a wrapper launches its kernel; for tensors on the CPU
-it computes ``_reference``, the plain PyTorch version of the same function,
-which is also what the kernels are held against on the card. Every selection
-here is ``ops/topk.py top_k``, a stable sort, so ties rank as in JAX.
+For tensors on the card a wrapper launches its kernels; for tensors on the
+CPU it computes ``_reference``, the plain PyTorch version of the same
+function, which is also what the kernels are held against on the card.
+``_tiles_reference`` is the plain version of what K3a and K3b's first
+launch write, ``_select_reference`` of K3b's second. Every selection here
+is ``ops/topk.py top_k``, a stable sort, so ties rank as in JAX.
 """
 
 from __future__ import annotations
@@ -38,11 +41,13 @@ import torch
 from seamless_communication_torch.ops.kernels import launch_counts
 from seamless_communication_torch.ops.topk import top_k
 
-NEG = -1e30
-TILE = 128                    # vocabulary rows per CUDA block (= block-max width)
-KERNEL = "vocab_topk_v2"
-KERNEL_V1 = "vocab_topk"
+NEG = -1e30                   # K3a's logit of a tile row past V
+NO_ID = 2 ** 31 - 1           # the id of an empty entry of a K3b block list
+TILE = 128                    # vocabulary rows of a tile
+KERNEL = "vocab_topk_v2"      # K3b, both launches
+KERNEL_V1 = "vocab_topk"      # K3a
 MAX_DIM = 10240               # x rows are staged in 40 KB of shared memory
+MAX_K = 128                   # the largest k K3b takes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -65,35 +70,55 @@ def float_vocab_topk(x, table, k: int):
     return _reference(x, table, ones, k)
 
 
+def stream_bounds(V: int, G: int) -> list:
+    """The table rows of K3b's G stream blocks: block g takes the 128-row
+    tiles [g T / G, (g + 1) T / G) of the T = ceil(V / 128), so its rows are
+    [bounds[g], bounds[g + 1])."""
+    T = -(-V // TILE)
+    return [min(g * T // G * TILE, V) for g in range(G + 1)]
+
+
+def _tiles_reference(x, table, row_scale, k: int, bounds=None):
+    """Plain PyTorch version of what a first launch writes: for each range of
+    table rows [bounds[g], bounds[g + 1]) (default: K3a's 128-row tiles, the
+    last one running past V, its rows past V at NEG), each x row's k best
+    (value, id) in (value descending, id ascending) order, padded with
+    (-inf, ``NO_ID``) where the range holds fewer than k rows, and the
+    range's max and Σexp (over rows below V). Returns (vals (G, N, k) f32,
+    ids (G, N, k) i32, max (G, N) f32, Σexp (G, N) f32)."""
+    V = table.shape[0]
+    if bounds is None:
+        bounds = list(range(0, -(-V // TILE) * TILE + 1, TILE))
+    logits = torch.matmul(x.float(), table.to(x.dtype).float().T) * row_scale[None, :]
+    vals, ids, maxes, sums = [], [], [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        part = logits[:, lo:min(hi, V)]
+        if hi > V:
+            part = torch.nn.functional.pad(part, (0, hi - V), value=NEG)
+        m = part.amax(dim=-1)
+        sums.append(torch.exp(logits[:, lo:min(hi, V)] - m[:, None]).sum(dim=-1))
+        maxes.append(m)
+        kk = min(k, hi - lo)
+        tv, ti = top_k(part, kk)
+        tv = torch.nn.functional.pad(tv, (0, k - kk), value=float("-inf"))
+        ti = torch.nn.functional.pad(ti + lo, (0, k - kk), value=NO_ID)
+        vals.append(tv)
+        ids.append(ti.to(torch.int32))
+    return torch.stack(vals), torch.stack(ids), torch.stack(maxes), torch.stack(sums)
+
+
 def _logz(tile_max, tile_se):
-    """Stable combine of per-tile (max, Σexp) of shape (G, N) -> (N,)."""
+    """Stable combine of per-range (max, Σexp) of shape (G, N) -> (N,)."""
     m, se = tile_max.T, tile_se.T
     big = m.amax(dim=1)
     return big + torch.log(torch.sum(se * torch.exp(m - big[:, None]), dim=1))
 
 
-def _combine_v2(logits, tile_max, tile_se, k: int):
-    """The v2 kernel's outputs -> (top_vals, top_idx, logz). ``logits`` (N,
-    G*128) with NEG in the padded tail; ``tile_max``/``tile_se`` (G, N). A
-    tile is one 128-column block, so the tile maxima are the block maxima."""
-    N = logits.shape[0]
-    kb = min(k, tile_max.shape[0])
-    _, blk = top_k(tile_max.T, kb)                       # (N, kb) block ids
-    # ascending blocks: the final stable top-k then resolves equal values to
-    # the lowest vocabulary id
-    blk, _ = torch.sort(blk, dim=-1)
-    cand_idx = (blk[..., None] * TILE + torch.arange(TILE, device=blk.device)
-                ).reshape(N, kb * TILE)
-    cand = torch.gather(logits, 1, cand_idx)
-    top_vals, sel = top_k(cand, k)
-    top_idx = torch.gather(cand_idx, 1, sel).to(torch.int32)
-    return top_vals, top_idx, _logz(tile_max, tile_se)
-
-
-def _combine_v1(vals, idx, tile_max, tile_se, k: int):
-    """The v1 kernel's per-tile candidates (G, N, k) -> (top_vals, top_idx,
-    logz): the top k of the G·k candidates, tile-major, so that equal values
-    keep the lowest vocabulary id."""
+def _select_reference(vals, idx, tile_max, tile_se, k: int):
+    """Plain PyTorch version of K3b's second launch (and K3a's eager
+    selection): the ranges' candidates (G, N, k), each list sorted ->
+    (top_vals, top_idx, logz): the top k of the G·k candidates taken
+    range-major, so that equal values keep the lowest vocabulary id."""
     N = vals.shape[1]
     flat_vals = vals.transpose(0, 1).reshape(N, -1)
     flat_idx = idx.transpose(0, 1).reshape(N, -1)
@@ -101,44 +126,33 @@ def _combine_v1(vals, idx, tile_max, tile_se, k: int):
     return top_vals, torch.gather(flat_idx, 1, sel), _logz(tile_max, tile_se)
 
 
-def _tiles_reference(x, table, row_scale, k: int):
-    """Plain PyTorch version of what the two kernels write: (logits (N,
-    G*128) with NEG past V, per-tile top-k values and ids (G, N, k), tile
-    max and Σexp (G, N)). Lets the CPU tests hold the wrappers' combine steps
-    to ``_reference``."""
-    V = table.shape[0]
-    G = -(-V // TILE)
-    logits = torch.matmul(x.float(), table.to(x.dtype).float().T) * row_scale[None, :]
-    logits = torch.nn.functional.pad(logits, (0, G * TILE - V), value=NEG)
-    tiles = logits.reshape(x.shape[0], G, TILE).transpose(0, 1)      # (G, N, 128)
-    valid = (torch.arange(G * TILE, device=x.device) < V).reshape(G, 1, TILE)
-    m = tiles.amax(dim=-1)
-    se = torch.where(valid, torch.exp(tiles - m[..., None]), 0.0).sum(dim=-1)
-    tv, ti = top_k(tiles, k)
-    ti = ti + torch.arange(G, device=x.device)[:, None, None] * TILE
-    return logits, tv, ti.to(torch.int32), m, se
-
-
 _functions: dict = {}
 
 
-def _function(kernel: str):
-    """The C entry point of ``kernel`` in ``csrc/vocab_topk.cu``, built and
+# the C entry points of csrc/vocab_topk.cu: argument types (ctypes would
+# pass a Python int as a 32-bit int and cut the pointers)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRY = {"vocab_topk_v2_grid": [_I] * 4,
+          KERNEL: [_I] + [_P] * 3 + [_I] * 5 + [_P] * 5,
+          "vocab_topk_v2_select": [_I] * 3 + [_P] * 8,
+          KERNEL_V1: [_I] + [_P] * 3 + [_I] * 4 + [_P] * 5}
+_grids: dict = {}
+
+
+def _function(name: str):
+    """The C entry point ``name`` of ``csrc/vocab_topk.cu``, built and
     loaded at first use, and the library's ``cuda_error_string``."""
-    if kernel not in _functions:
+    if name not in _functions:
         from seamless_communication_torch.ops.kernels import build
 
         lib = build.load("vocab_topk")
-        fn = getattr(lib, kernel)
-        # ctypes would pass a Python int as a 32-bit int and cut the pointers
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i, p, p, p, i, i, i, p, p, p] if kernel == KERNEL
-                       else [i, p, p, p, i, i, i, i, p, p, p, p]) + [p]
-        fn.restype = i
-        lib.cuda_error_string.argtypes = [i]
+        fn = getattr(lib, name)
+        fn.argtypes = _ENTRY[name]
+        fn.restype = _I
+        lib.cuda_error_string.argtypes = [_I]
         lib.cuda_error_string.restype = ctypes.c_char_p
-        _functions[kernel] = (fn, lib.cuda_error_string)
-    return _functions[kernel]
+        _functions[name] = (fn, lib.cuda_error_string)
+    return _functions[name]
 
 
 def _check(kernel, x, table, row_scale, k):
@@ -161,7 +175,7 @@ def _check(kernel, x, table, row_scale, k):
                          f"{MAX_DIM}, got N={N}, D={D}")
     if table.data_ptr() % 16:
         raise ValueError(f"{kernel}: the table must be 16-byte aligned")
-    limit = TILE if kernel == KERNEL_V1 else V
+    limit = min(V, TILE if kernel == KERNEL_V1 else MAX_K)
     if not 1 <= k <= limit:
         raise ValueError(f"{kernel}: k={k} outside [1, {limit}]")
 
@@ -171,22 +185,56 @@ def _raise_on(kernel, err, error_string):
         raise RuntimeError(f"{kernel} launch failed: {error_string(err).decode()} ({err})")
 
 
-def _launch_v2(x, table, row_scale, k: int):
+def _stream_grid(N: int, D: int, V: int, k: int) -> int:
+    """Blocks of K3b's first launch at these sizes: as many as fit on the
+    card at once (the kernel's occupancy), at most one a tile."""
+    key = (N, D, V, k, torch.cuda.current_device())
+    if key not in _grids:
+        fn, error_string = _function("vocab_topk_v2_grid")
+        G = fn(N, D, V, k)
+        _raise_on("vocab_topk_v2_grid", max(-G, 0), error_string)
+        _grids[key] = G
+    return _grids[key]
+
+
+def _launch_stream(x, table, row_scale, k: int):
+    """K3b's first launch -> (vals (G, N, k), ids (G, N, k), max (G, N),
+    Σexp (G, N)) of the G blocks of ``stream_bounds(V, G)``."""
     _check(KERNEL, x, table, row_scale, k)
     (N, D), V = x.shape, table.shape[0]
-    G = -(-V // TILE)
-    logits = torch.empty((N, G * TILE), dtype=torch.float32, device=x.device)
-    tile_max = torch.empty((G, N), dtype=torch.float32, device=x.device)
-    tile_se = torch.empty_like(tile_max)
-    fn, error_string = _function(KERNEL)
     with torch.cuda.device(x.device):
+        G = _stream_grid(N, D, V, k)
+        vals = torch.empty((G, N, k), dtype=torch.float32, device=x.device)
+        ids = torch.empty((G, N, k), dtype=torch.int32, device=x.device)
+        bmax = torch.empty((G, N), dtype=torch.float32, device=x.device)
+        bse = torch.empty_like(bmax)
+        fn, error_string = _function(KERNEL)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), table.data_ptr(),
-                 row_scale.data_ptr(), N, D, V, logits.data_ptr(), tile_max.data_ptr(),
-                 tile_se.data_ptr(), stream)
+                 row_scale.data_ptr(), N, D, V, k, G, vals.data_ptr(), ids.data_ptr(),
+                 bmax.data_ptr(), bse.data_ptr(), stream)
     _raise_on(KERNEL, err, error_string)
     launch_counts[KERNEL] += 1
-    return logits, tile_max, tile_se
+    return vals, ids, bmax, bse
+
+
+def _launch_select(vals, ids, bmax, bse, k: int):
+    """K3b's second launch: the blocks' lists and stats -> (top_vals,
+    top_idx, logz)."""
+    G, N, _ = vals.shape
+    dev = vals.device
+    top_vals = torch.empty((N, k), dtype=torch.float32, device=dev)
+    top_idx = torch.empty((N, k), dtype=torch.int32, device=dev)
+    logz = torch.empty((N,), dtype=torch.float32, device=dev)
+    fn, error_string = _function("vocab_topk_v2_select")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(N, G, k, vals.data_ptr(), ids.data_ptr(), bmax.data_ptr(),
+                 bse.data_ptr(), top_vals.data_ptr(), top_idx.data_ptr(),
+                 logz.data_ptr(), stream)
+    _raise_on("vocab_topk_v2_select", err, error_string)
+    launch_counts[KERNEL] += 1
+    return top_vals, top_idx, logz
 
 
 def _launch_v1(x, table, row_scale, k: int):
@@ -212,13 +260,14 @@ def int8_vocab_topk_v2(x, table_i8, row_scale, k: int):
     """x (N, D) float32 or bfloat16, table (V, D) int8, row_scale (V,) f32 ->
     (top_vals (N, k) raw fp32 logits, top_idx (N, k) int32, logz (N,) fp32).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    launch a call), and anything the kernel does not take raises."""
+    CPU tensors take the plain version; CUDA tensors launch the two kernels
+    (the stream, then the selection), and anything they do not take
+    raises. k is at most ``MAX_K``."""
     if x.device.type == "cpu":
         return _reference(x, table_i8, row_scale, k)
     if x.device.type != "cuda":
         raise ValueError(f"{KERNEL}: no kernel for device {x.device}")
-    return _combine_v2(*_launch_v2(x, table_i8, row_scale, k), k)
+    return _launch_select(*_launch_stream(x, table_i8, row_scale, k), k)
 
 
 def int8_vocab_topk(x, table_i8, row_scale, k: int):
@@ -228,7 +277,7 @@ def int8_vocab_topk(x, table_i8, row_scale, k: int):
         return _reference(x, table_i8, row_scale, k)
     if x.device.type != "cuda":
         raise ValueError(f"{KERNEL_V1}: no kernel for device {x.device}")
-    return _combine_v1(*_launch_v1(x, table_i8, row_scale, k), k)
+    return _select_reference(*_launch_v1(x, table_i8, row_scale, k), k)
 
 
 def bound_bytes(N: int, D: int, V: int, k: int, *, elem: int) -> int:

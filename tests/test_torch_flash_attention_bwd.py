@@ -274,23 +274,116 @@ def test_bound_bwd_counts_the_backward():
     assert abs(dq - 6 * 64 * pairs / 67e12 * 1e3) < 1e-12
 
 
+SKIP_CASES = {
+    # rows 0-63 in segment 1, 64-127 in 2, 128-129 in 9, which no key has
+    # (all their keys masked); keys 0-63 in 1, 64-127 in 2, 128-199 in 3;
+    # a random ab
+    "segments": ([[False, True, True, True], [True, False, True, True],
+                  [False, False, False, False]]),
+    # the NAR T2U's FFT layers: every row in segment 1, keys past 70
+    # padding (segment 0), no ab
+    "key padding": [[False, False, True, True]] * 3,
+}
+
+
+def _skip_inputs(case: str):
+    """torch fp32 (qs, k, v, ab, q_seg, kv_seg, do) of a ``SKIP_CASES``
+    entry: B=1, H=2, Tq=130, Tk=200, Dh=16."""
+    rng = np.random.default_rng(31 + list(SKIP_CASES).index(case))
+    B, H, Tq, Tk, Dh = 1, 2, 130, 200, 16
+    qs = rng.standard_normal((B, H, Tq, Dh)).astype(np.float32) * 0.25
+    k, v = (rng.standard_normal((B, H, Tk, Dh)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal((B, H, Tq, Dh)).astype(np.float32)
+    if case == "segments":
+        q_seg = np.repeat([1, 2, 9], [64, 64, 2])[None]
+        kv_seg = np.repeat([1, 2, 3], [64, 64, 72])[None]
+        ab = (rng.standard_normal((B, H, Tq, Tk)) * 0.5).astype(np.float32)
+    else:
+        q_seg = np.ones((B, Tq))
+        kv_seg = (np.arange(Tk) < 70)[None]
+        ab = None
+    return tuple(_tt(x) for x in (qs, k, v, ab, q_seg.astype(np.int32),
+                                  kv_seg.astype(np.int32), do))
+
+
+@pytest.mark.parametrize("case", list(SKIP_CASES))
+def test_skip_rule_marks_the_masked_tiles(case):
+    """``skippable_tiles`` (the predicate of bf16 K6c) skips a (row tile, key
+    tile) pair only where every key of the tile is masked for every row of
+    the tile and each row has an unmasked key: the all-masked rows of
+    segment 9 (m at the mask level) take every key tile."""
+    qs, k, v, ab, q_seg, kv_seg, do = _skip_inputs(case)
+    _, m, _ = tfl._reference_fwd(qs, k, v, ab, q_seg, kv_seg)
+    skip = tfl.skippable_tiles(m, q_seg, kv_seg, k.shape[2])
+    want = torch.tensor(SKIP_CASES[case])
+    assert skip.shape == (1, 2, 3, 4)
+    assert torch.equal(skip[0, 0], want) and torch.equal(skip[0, 1], want)
+    assert not tfl.skippable_tiles(m, None, None, k.shape[2]).any()
+    if case == "segments":
+        assert bool((m[0, :, 128:] <= tfl.MASK_VALUE / 2).all())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(SKIP_CASES))
+def test_skipped_tiles_change_no_bit(case, dtype):
+    """For each row tile, ``_reference_bwd(part="dq")`` with the keys of its
+    skipped tiles dropped gives the tile's rows of dq bit for bit as the
+    full backward does, whose dab is exactly 0 on the skipped pairs: leaving
+    those tiles out, as bf16 K6c does, changes nothing."""
+    _, tdt, _ = DTYPES[dtype]
+    qs, k, v, ab, q_seg, kv_seg, do = (
+        x if x is None or not x.is_floating_point() else x.to(tdt) for x in _skip_inputs(case))
+    out, m, l = tfl._reference_fwd(qs, k, v, ab, q_seg, kv_seg)
+    dq, _, _, dab = tfl._reference_bwd(qs, k, v, ab, q_seg, kv_seg, out, m, l, do, part="dq")
+    skip = tfl.skippable_tiles(m, q_seg, kv_seg, k.shape[2])
+    Tq, Tk = qs.shape[2], k.shape[2]
+    for h in range(qs.shape[1]):
+        for rt in range(skip.shape[2]):
+            rows = slice(64 * rt, min(64 * rt + 64, Tq))
+            keep = torch.tensor([j for j in range(Tk) if not skip[0, h, rt, j // 64]])
+            drop = torch.tensor([j for j in range(Tk) if skip[0, h, rt, j // 64]],
+                                dtype=torch.long)
+            part = tfl._reference_bwd(
+                qs, k[:, :, keep], v[:, :, keep], None if ab is None else ab[..., keep],
+                q_seg, kv_seg[:, keep], out, m, l, do, part="dq")[0]
+            assert torch.equal(part[0, h, rows], dq[0, h, rows]), (h, rt)
+            if dab is not None and len(drop):
+                assert not dab[0, h, rows][:, drop].any()
+
+
+def _fft_masked_inputs():
+    """numpy (qs, k, v, None, q_seg, kv_seg, do) like the NAR T2U's FFT
+    layers (B=1, H=4, T=1024, Dh=64, 318 valid keys as segment ids), with
+    rows 900-963 in a segment no key has: all their keys are masked, so
+    their row tiles may not be skipped."""
+    rng = np.random.default_rng(41)
+    B, H, T, Dh = 1, 4, 1024, 64
+    qs, k, v, do = (rng.standard_normal((B, H, T, Dh)).astype(np.float32) for _ in range(4))
+    q_seg = np.ones((B, T), np.int32)
+    q_seg[:, 900:964] = 7
+    kv_seg = (np.arange(T) < 318).astype(np.int32)[None]
+    return qs / 8, k, v, None, q_seg, kv_seg, do
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(CASES) + ["fft all-masked rows"])
 def test_kernels_match_plain_backward_on_card(case, dtype):
     """K6b and K6c on the card against ``_reference_bwd`` on the same inputs
     and the same residuals (K6's own): fp32 within 1e-4 * (1 + |ref|); bf16,
     where the kernels round p and dS where the plain backward does, each
     element within one bf16 ulp (2^-7 * |ref| + 1e-5 * max |ref|) and the
     whole within ||err|| <= 2^-9 * ||ref||, so a rounding point missed (about
-    0.4 % on most elements) fails; one launch of each."""
+    0.4 % on most elements) fails; one launch of each. The FFT-like case has
+    key tiles that bf16 K6c skips and rows whose keys are all masked."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     _, tdt, _ = DTYPES[dtype]
     dev = torch.device("cuda")
+    inputs = _fft_masked_inputs() if case == "fft all-masked rows" else _kernel_inputs(case)
     qs, k, v, ab, q_seg, kv_seg, do = (
-        None if x is None else _tt(x, tdt).to(dev) for x in _kernel_inputs(case))
+        None if x is None else _tt(x, tdt).to(dev) for x in inputs)
     if ab is not None:      # in rows padded to 16 bytes, as try_flash makes it
         ab = tfl.empty_bias(*ab.shape, ab.dtype, dev).copy_(ab)
     out, m, l = tfl._launch(qs, k, v, ab, q_seg, kv_seg, residuals=True)

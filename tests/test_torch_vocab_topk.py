@@ -3,10 +3,11 @@ JAX package, on the shapes of tests/unit/test_vocab_topk.py (N=5, D=32,
 V=1000 so the last 128-row tile is padded, k=11): the port's ``_reference``
 and its two wrappers on CPU tensors against JAX ``_reference`` and against
 the Pallas kernels run in interpret mode (tiles of 128 and 256), with the
-tiled-table tie case and N=1. The wrappers' combine steps, which run after the
-kernels on the card, are held to the same results here on the plain version
-of what the kernels write. Ids exactly equal; values within rtol = atol =
-1e-5 and logz within rtol 1e-5 (fp32 sums in another order)."""
+tiled-table tie case and N=1. The selection steps, which run after the first
+launch on the card (K3a's eager one, K3b's second kernel), are held to the
+same results here on the plain version of what the first launch writes. Ids
+exactly equal; values within rtol = atol = 1e-5 and logz within rtol 1e-5
+(fp32 sums in another order)."""
 
 import numpy as np
 import pytest
@@ -77,17 +78,55 @@ def test_wrappers_match_pallas_interpret(data, version, case, tile):
 @pytest.mark.parametrize("case", ["random", "ties", "n1"])
 @pytest.mark.parametrize("version", ["v1", "v2"])
 def test_combine_steps_match_jax(data, version, case):
-    """What the kernels write (logits with NEG past V, per-tile top-k, tile
-    max and Σexp), as the plain version computes it, through the wrapper's
-    combine step equals JAX ``_reference``: the tie-break across 128-column
-    blocks and tiles and the padded tail."""
+    """What the first launch writes, as the plain version computes it, through
+    the selection step equals JAX ``_reference``: v1, K3a's per-tile top-k and
+    stats (its last tile's rows past V at NEG) and the wrapper's eager
+    selection; v2, K3b's per-block lists and stats over 3 blocks of
+    ``stream_bounds`` (ranges of uneven tile counts) and the plain version of
+    its second launch. Covers the tie-break across tiles and blocks and the
+    padded tail."""
     args = _inputs(data, case, "torch")
-    logits, tv, ti, m, se = tvt._tiles_reference(*args, K)
-    assert logits.shape == (args[0].shape[0], 8 * tvt.TILE)
-    assert bool((logits[:, V:] == tvt.NEG).all())
-    got = (tvt._combine_v1(tv, ti, m, se, K) if version == "v1"
-           else tvt._combine_v2(logits, m, se, K))
+    bounds = None if version == "v1" else tvt.stream_bounds(V, 3)
+    vals, ids, m, se = tvt._tiles_reference(*args, K, bounds)
+    G = 8 if version == "v1" else 3
+    assert vals.shape == ids.shape == (G, args[0].shape[0], K) and m.shape == (G, args[0].shape[0])
+    if version == "v1":
+        assert bool((ids[-1] >= 896).all()) and bool((ids < 8 * tvt.TILE).all())
+    else:
+        assert bool((ids < V).all())
+    got = tvt._select_reference(vals, ids, m, se, K)
     _assert_same(got, jvt._reference(*_inputs(data, case, "jax"), K))
+
+
+@pytest.mark.parametrize("case", ["random", "ties"])
+@pytest.mark.parametrize("G", [1, 2, 5, 8])
+def test_stream_partitions_match_jax(data, G, case):
+    """K3b's two plain versions over G stream blocks (``stream_bounds``: each
+    block a run of whole 128-row tiles, together every row once) equal JAX
+    ``_reference``; each block's list is sorted by value, then id, and
+    holds only ids of its own rows."""
+    bounds = tvt.stream_bounds(V, G)
+    assert bounds[0] == 0 and bounds[-1] == V
+    assert all(lo < hi and lo % tvt.TILE == 0 for lo, hi in zip(bounds[:-1], bounds[1:]))
+    args = _inputs(data, case, "torch")
+    vals, ids, m, se = tvt._tiles_reference(*args, K, bounds)
+    for g, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        assert bool(((ids[g] >= lo) & (ids[g] < hi)).all())
+        v, i = vals[g], ids[g].long()
+        assert bool(((v[:, :-1] > v[:, 1:]) | ((v[:, :-1] == v[:, 1:]) & (i[:, :-1] < i[:, 1:]))).all())
+    _assert_same(tvt._select_reference(vals, ids, m, se, K),
+                 jvt._reference(*_inputs(data, case, "jax"), K))
+
+
+def test_short_ranges_pad_the_lists(data):
+    """A range of fewer rows than k pads its list with (-inf, ``NO_ID``),
+    which the selection never takes while k <= V."""
+    args = _inputs(data, "random", "torch")
+    bounds = [0, 5, 128, V]
+    vals, ids, m, se = tvt._tiles_reference(*args, K, bounds)
+    assert bool(torch.isinf(vals[0, :, 5:]).all()) and bool((ids[0, :, 5:] == tvt.NO_ID).all())
+    _assert_same(tvt._select_reference(vals, ids, m, se, K),
+                 jvt._reference(*_inputs(data, "random", "jax"), K))
 
 
 def test_cpu_tensors_take_the_plain_version(data):
@@ -124,10 +163,14 @@ def test_float_vocab_topk_matches_jax(data, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k11", "k128 repeated rows"])
 @pytest.mark.parametrize("version", ["v1", "v2"])
 @pytest.mark.parametrize("n", [5, 10])
-def test_kernel_matches_plain_version_on_card(version, n):
-    """Each CUDA kernel against its plain version at V=256102, D=1024, k=11."""
+def test_kernel_matches_plain_version_on_card(version, n, case):
+    """Each CUDA kernel against its plain version at V=256102, D=1024: k=11
+    on a random table, and k=128 (K3b's and K3a's largest) on a table whose
+    rows repeat every 1000 (equal logits across tiles and stream blocks,
+    which go to the lowest id). K3b launches twice a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from seamless_communication_torch.ops.quantization import quantize_embedding
@@ -135,10 +178,18 @@ def test_kernel_matches_plain_version_on_card(version, n):
     gen = torch.Generator(device="cuda").manual_seed(0)
     table, scale = quantize_embedding(torch.randn((256102, 1024), generator=gen,
                                                   device="cuda"))
+    k = 11
+    if case != "k11":
+        k = tvt.MAX_K
+        table = table[:1000].repeat(257, 1)[:256102].contiguous()
+        scale = scale[:1000].repeat(257)[:256102].contiguous()
     x = torch.randn((n, 1024), generator=gen, device="cuda")
     fn = tvt.int8_vocab_topk if version == "v1" else tvt.int8_vocab_topk_v2
-    gv, gi, gz = fn(x, table, scale, K)
-    wv, wi, wz = tvt._reference(x, table, scale, K)
+    name = tvt.KERNEL_V1 if version == "v1" else tvt.KERNEL
+    before = launch_counts[name]
+    gv, gi, gz = fn(x, table, scale, k)
+    assert launch_counts[name] - before == (1 if version == "v1" else 2)
+    wv, wi, wz = tvt._reference(x, table, scale, k)
     torch.testing.assert_close(gv, wv, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(gz, wz, rtol=1e-5, atol=0)
     assert torch.equal(gi, wi)
