@@ -11,8 +11,12 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    of the main path, with the stated tolerance; device times by CUDA-graph
    replay beside the bound (the larger of bytes over 3.35 TB/s and
-   operations over the fp32 rate): K1 int8-KV and K2 packed-int4-KV decode
-   attention; K5 row-indexed decode attention (the lazy reorder) on a
+   operations over the fp32 rate), and the launch floor (a one-element
+   in-place add, timed the same way): K1 int8-KV and K2 packed-int4-KV
+   decode attention, held to their plain versions over a sweep of shapes,
+   steps, beam-origin patterns and cluster sizes (``DECODE_SWEEP``), timed
+   L2-warm, HBM-cold (the graph's calls rotate over 100 MB of distinct
+   caches) at T=320 and T=1024, and at each cluster size; K5 row-indexed decode attention (the lazy reorder) on a
    uniform and a beam-history row-origin table; K4 fbank of a 4 s and a
    10 s waveform; K3b ``int8_vocab_topk_v2`` (two launches: the stream,
    then the selection; its first launch timed alone too, and k=128 on the
@@ -102,6 +106,12 @@ directory of ``profile_main_path``).
 time bf16 K6b (K6c) at the 10 s Shaw shape, or K3b's stream at the base_v2
 vocabulary, as built and with one part left out at a time
 (``kernel_parts``): where its time goes.
+
+    python3 chip_smoke.py --k12-trace
+
+times copies of K1 at the main path's shape, as built and with variants
+(``K12_VARIANTS``), and prints when each stage of the kernel ends
+(``k12_trace``).
 """
 
 from __future__ import annotations
@@ -235,84 +245,211 @@ KERNELS = {
 }
 
 
-def phase_decode_attention(name: str) -> dict:
-    """One decode-attention kernel against its plain version at B=5, H=16,
-    T=320, Dh=64: new caches and scales bit-equal, ``out`` within rtol = atol
-    = 2e-5 in fp32 and 1.6e-2 in bf16, at steps 0, 1, 137 and 319."""
+# the parity sweep of K1 and K2: (B, T, Dh), the main path's shape among
+# them; T=127 at Dh 16 and 48 gives packed-int4 rows of 8 and 24 bytes,
+# which K2 copies with cp.async instead of bulk copies
+DECODE_SWEEP = ((5, 128, 64), (5, 320, 64), (5, 1024, 64), (1, 320, 64), (10, 320, 64),
+                (5, 320, 128), (5, 8192, 64), (5, 127, 16), (5, 127, 48))
+T_COLD, STEP_COLD = 1024, 640      # the HBM-cold reading at hard_max_seq_len
+COLD_BYTES = 100e6                 # cache bytes a cold reading rotates over: 2x L2
+
+
+def decode_origins(B: int) -> dict:
+    """The beam-origin patterns of the sweep: repeated (the main path's
+    [3, 0, 3, 1, 1], and so on in blocks of 5), identity, all from beam 1."""
+    rep = [min(B - 1, 5 * (i // 5) + (3, 0, 3, 1, 1)[i % 5]) for i in range(B)]
+    return {"repeated": rep, "identity": list(range(B)), "all-one": [min(1, B - 1)] * B}
+
+
+def decode_inputs(rng, name: str, B: int, T: int, Dh: int, dtype, H: int = H_MAIN):
+    """q, k_t, v_t in ``dtype`` and caches as the main path fills them: rows of
+    unit-variance K/V quantized per row (absmax/127, or absmax/7 packed)."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    quantize = getattr(da, KERNELS[name][3])
+    dev = torch.device("cuda")
+    rows = [quantize(torch.as_tensor(rng.standard_normal((B, H, T, Dh)),
+                                     dtype=torch.float32, device=dev)) for _ in range(2)]
+    vecs = [torch.as_tensor(rng.standard_normal((B, H, Dh)), device=dev).to(dtype)
+            for _ in range(3)]
+    (kq, ks), (vq, vs) = rows
+    return vecs, (kq, vq, ks, vs)
+
+
+def hold_decode_case(name: str, label: str, args, cluster=None) -> float:
+    """One launch of K1 or K2 against its plain version: the new caches and
+    scales bit-equal, ``out`` within rtol = atol = 2e-5 (fp32) or 1.6e-2
+    (bf16). Returns out's max abs error."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    kid, _, plain_name = KERNELS[name][:3]
+    got = da._launch(name, *args, cluster=cluster)
+    ref = getattr(da, plain_name)(*args)
+    torch.cuda.synchronize()
+    for cache, g, r in zip(("new_k", "new_v", "new_ks", "new_vs"), got[1:], ref[1:]):
+        if not torch.equal(g, r):
+            bad = (g != r).nonzero()
+            raise AssertionError(f"{kid} {label}: {cache} differs in {len(bad)} entries, "
+                                 f"first at {bad[0].tolist()}")
+    dtype = args[0].dtype
+    tol = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}[dtype]
+    err = (got[0].float() - ref[0].float()).abs()
+    if not bool((err <= tol * (1 + ref[0].float().abs())).all()):
+        raise AssertionError(f"{kid} {label}: out max err {float(err.max()):.3g} over "
+                             f"rtol = atol = {tol}")
+    return float(err.max())
+
+
+def decode_bound_ms(name: str, B: int, T: int, Dh: int, step: int, src, dtype) -> tuple:
+    """The least time of one call on the card: the larger of its bytes over
+    3.35 TB/s and its fp32 flops (two products of Dh over the rows t < step)
+    over 67 TFLOP/s. Returns (ms, "bytes" or "operations")."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    elem = torch.finfo(dtype).bits // 8
+    bytes_s = da.bound_bytes(B, H_MAIN, T, Dh, n_src=len(set(src)), elem=elem,
+                             bits=KERNELS[name][4]) / HBM_BYTES_PER_S
+    flops_s = 4 * B * H_MAIN * step * Dh / PEAK_FP32_FLOPS
+    return max(bytes_s, flops_s) * 1e3, "bytes" if bytes_s >= flops_s else "operations"
+
+
+def cold_time_ms(name: str, rng, B: int, T: int, Dh: int, step: int, dtype) -> float:
+    """Device ms of one call whose caches come from HBM: the graph-captured
+    calls rotate over distinct cache sets, at least 20 and at least
+    ``COLD_BYTES`` of caches in all, one set a call."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    fn = getattr(da, KERNELS[name][1])
+    one = B * H_MAIN * T * (2 * Dh * KERNELS[name][4] // 8 + 2 * 4)   # caches + scales
+    n = max(20, math.ceil(COLD_BYTES / one))
+    src = torch.tensor(decode_origins(B)["repeated"], dtype=torch.int32, device="cuda")
+    sets = [decode_inputs(rng, name, B, T, Dh, dtype) for _ in range(n)]
+    turn = [0]
+
+    def call():
+        vecs, caches = sets[turn[0] % n]
+        turn[0] += 1
+        return fn(*vecs, *caches, step, src)
+
+    ms = cuda_time_ms(call, calls=n)
+    del sets
+    torch.cuda.empty_cache()
+    return ms
+
+
+def launch_floor_ms() -> float:
+    """Device ms of the least kernel, a one-element in-place add, timed as
+    the kernels are (``cuda_time_ms``): what a graph-replayed launch costs
+    however little it does."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    return cuda_time_ms(lambda: x.add_(1.0))
+
+
+def phase_decode_attention(name: str, floor_ms: float) -> dict:
+    """K1 or K2 against its plain version, then its times.
+
+    Parity: at every (B, T, Dh) of ``DECODE_SWEEP`` (H=16), in fp32 and bf16,
+    for each origin pattern of ``decode_origins``, at steps 0, 1, T/2 + 7,
+    T - 1 and the first rows of the second and last slices of the split
+    (``split_plan``); at the main path's shape also with each cluster size
+    forced (1, 2, 4, 8) at steps 0, 137, T - 1 and each slice boundary.
+    Caches and scales bit-equal, ``out`` within rtol = atol = 2e-5 (fp32),
+    1.6e-2 (bf16).
+
+    Times at the main path's shape (B=5, T=320, Dh=64, step 200, origins
+    [3, 0, 3, 1, 1]): L2-warm (``ms``: 20 calls on one cache set), HBM-cold
+    (``ms_hbm``: ``cold_time_ms``) and each forced cluster size warm; then
+    HBM-cold at T=1024, step 640 beside its bound."""
     import numpy as np
     import torch
 
     from seamless_communication_torch.ops.kernels import decode_attention as da
 
-    kid, wrapper, plain_name, quantizer, bits, source, replaces = KERNELS[name]
+    kid, wrapper, plain_name, _, bits, source, replaces = KERNELS[name]
     fused, plain_fn = getattr(da, wrapper), getattr(da, plain_name)
-    B, H, T, Dh = B_MAIN, H_MAIN, T_MAIN, DH_MAIN
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-
-    def t(a, dtype):
-        return torch.as_tensor(a).to(device=dev, dtype=dtype)
-
-    src = t(np.array([3, 0, 3, 1, 1]), torch.int32)     # repeated origins
-    # caches as the main path fills them: rows of unit-variance K/V,
-    # quantized per row (absmax/127 for int8, absmax/7 and packed for int4)
-    quantize = getattr(da, quantizer)
-    kq, ks = quantize(t(rng.standard_normal((B, H, T, Dh)), torch.float32))
-    vq, vs = quantize(t(rng.standard_normal((B, H, T, Dh)), torch.float32))
-    caches = (kq, vq, ks, vs)
-    tol = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
-    max_err = 0.0
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    for B, T, Dh in DECODE_SWEEP:
+        plan = da.split_plan(B, H_MAIN, T, Dh, bits)
+        bounds = [r.start for r in plan.slices(T)[1:] if r.start < T]
+        steps = sorted({0, 1, T // 2 + 7, T - 1, *bounds[:1], *bounds[-1:]} & set(range(T)))
+        for dtype in (torch.float32, torch.bfloat16):
+            vecs, caches = decode_inputs(rng, name, B, T, Dh, dtype)
+            for pattern, origins in decode_origins(B).items():
+                src = torch.tensor(origins, dtype=torch.int32, device=dev)
+                for step in steps:
+                    label = (f"B={B} T={T} Dh={Dh} {str(dtype)[6:]} {pattern} step "
+                             f"{step}")
+                    err = hold_decode_case(name, label, (*vecs, *caches, step, src))
+                    max_err[dtype] = max(max_err[dtype], err)
+                    cases += 1
+        log(f"{kid} sweep B={B} T={T} Dh={Dh}: cluster {plan.cluster}, slices of "
+            f"{plan.slice_rows} rows, tiles of {plan.tile_rows}, {plan.stages} stages, "
+            f"{plan.smem_bytes} B of dynamic shared memory; steps {steps}, 3 origin "
+            "patterns, fp32 and bf16: caches exact, out within tolerance")
+    B, T, Dh = B_MAIN, T_MAIN, DH_MAIN
+    src = torch.tensor(decode_origins(B)["repeated"], dtype=torch.int32, device=dev)
     times = {}
+    cluster_ms = {}
     for dtype in (torch.float32, torch.bfloat16):
-        vecs = [t(rng.standard_normal((B, H, Dh)), dtype) for _ in range(3)]
-        for step in (0, 1, 137, T - 1):
-            args = (*vecs, *caches, step, src)
-            got = fused(*args)
-            ref = plain_fn(*args)
-            torch.cuda.synchronize()
-            for cache, g, r in zip(("new_k", "new_v", "new_ks", "new_vs"),
-                                   got[1:], ref[1:]):
-                if not torch.equal(g, r):
-                    bad = int((g != r).sum())
-                    raise AssertionError(f"{kid} {dtype} step {step}: {cache} "
-                                         f"differs in {bad} entries")
-            err = (got[0].float() - ref[0].float()).abs()
-            lim = tol[dtype] * (1 + ref[0].float().abs())
-            if not bool((err <= lim).all()):
-                raise AssertionError(f"{kid} {dtype} step {step}: out max err "
-                                     f"{float(err.max()):.3g} over tolerance")
-            if dtype is torch.float32:
-                max_err = max(max_err, float(err.max()))
-            log(f"{kid} {str(dtype):15s} step {step:3d}: caches exact, out max abs "
-                f"err {float(err.max()):.3g} (rtol=atol={tol[dtype]})")
+        vecs, caches = decode_inputs(rng, name, B, T, Dh, dtype)
+        for cluster in (1, 2, 4, 8):
+            rows = da.split_plan(B, H_MAIN, T, Dh, bits, cluster).slice_rows
+            for step in sorted({0, 137, T - 1, *range(rows, T, rows)}):
+                hold_decode_case(name, f"cluster {cluster} {str(dtype)[6:]} step {step}",
+                                 (*vecs, *caches, step, src), cluster)
+                cases += 1
+            args = (*vecs, *caches, STEP_TIMED, src)
+            cluster_ms[(dtype, cluster)] = cuda_time_ms(
+                lambda: da._launch(name, *args, cluster=cluster))
         args = (*vecs, *caches, STEP_TIMED, src)
-        kernel = lambda: fused(*args)
-        plain = lambda: plain_fn(*args)
-        times[dtype] = (cuda_time_ms(kernel), cuda_time_ms(plain),
-                        eager_time_ms(kernel), eager_time_ms(plain))
-    n_src = len(set(src.tolist()))
-    bounds = {}
-    for dtype in times:
-        elem = torch.finfo(dtype).bits // 8
-        bytes_s = da.bound_bytes(B, H, T, Dh, n_src=n_src, elem=elem,
-                                 bits=bits) / HBM_BYTES_PER_S
-        # two products of Dh over the history rows, as fp32 arithmetic
-        flops_s = 4 * B * H * STEP_TIMED * Dh / PEAK_FP32_FLOPS
-        bounds[dtype] = (max(bytes_s, flops_s) * 1e3,
-                         "bytes" if bytes_s >= flops_s else "operations")
-    for dtype, (k_ms, p_ms, k_eager, p_eager) in times.items():
-        log(f"{kid} time {str(dtype):15s} at step {STEP_TIMED}: device kernel "
-            f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
-            f"{bounds[dtype][0] * 1e3:.2f} us ({bounds[dtype][1]}); eager call "
-            f"with host overhead: kernel {k_eager * 1e3:.1f} us, plain "
-            f"{p_eager * 1e3:.1f} us; library: none (no single PyTorch call "
-            f"computes this function)")
+        times[dtype] = {
+            "ms": cuda_time_ms(lambda: fused(*args)),
+            "plain_ms": cuda_time_ms(lambda: plain_fn(*args)),
+            "eager_ms": eager_time_ms(lambda: fused(*args)),
+            "ms_hbm": cold_time_ms(name, rng, B, T, Dh, STEP_TIMED, dtype),
+            "ms_hbm_1024": cold_time_ms(name, rng, B, T_COLD, Dh, STEP_COLD, dtype),
+            "bound": decode_bound_ms(name, B, T, Dh, STEP_TIMED, src.tolist(), dtype),
+            "bound_1024": decode_bound_ms(name, B, T_COLD, Dh, STEP_COLD, src.tolist(),
+                                          dtype)}
+    log(f"{kid}: {cases} cases against {plain_name}: caches and scales exact, out max "
+        f"abs err {max_err[torch.float32]:.3g} (fp32, tol 2e-5), "
+        f"{max_err[torch.bfloat16]:.3g} (bf16, tol 1.6e-2)")
+    plan = da.split_plan(B, H_MAIN, T, Dh, bits)
+    for dtype, tm in times.items():
+        bound, by = tm["bound"]
+        bound_c, _ = tm["bound_1024"]
+        log(f"{kid} time {str(dtype):15s} B={B} H={H_MAIN} T={T} Dh={Dh} step "
+            f"{STEP_TIMED} (cluster {plan.cluster}): L2-warm {tm['ms'] * 1e3:.2f} us, "
+            f"HBM-cold {tm['ms_hbm'] * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by}), "
+            f"launch floor {floor_ms * 1e3:.2f} us; plain {tm['plain_ms'] * 1e3:.2f} us; "
+            f"eager call with host overhead {tm['eager_ms'] * 1e3:.1f} us; library: none "
+            f"(no single PyTorch call computes this function)")
+        log(f"{kid} time {str(dtype):15s} T={T_COLD} step {STEP_COLD}: HBM-cold "
+            f"{tm['ms_hbm_1024'] * 1e3:.2f} us, bound {bound_c * 1e3:.2f} us = "
+            f"{100 * bound_c / tm['ms_hbm_1024']:.1f} % of the bound's rate")
+        log(f"{kid} time {str(dtype):15s} by cluster size, L2-warm: " + ", ".join(
+            f"{c}: {cluster_ms[(dtype, c)] * 1e3:.2f} us" for c in (1, 2, 4, 8)))
     # the main path runs the decoder in fp32 (the int8 embedding lookup is fp32)
-    k_ms, p_ms = times[torch.float32][:2]
+    tm = times[torch.float32]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bounds[torch.float32][0], "bound_by": bounds[torch.float32][1],
-            "library_ms": None}
+            "max_abs_err": max_err[torch.float32], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
+            "bound_by": tm["bound"][1], "library_ms": None, "ms_hbm": tm["ms_hbm"],
+            "floor_ms": floor_ms, "ms_hbm_1024": tm["ms_hbm_1024"],
+            "bound_ms_1024": tm["bound_1024"][0]}
 
 
 # the vocabulary top-k kernels: (id, wrapper, its first launch alone, the
@@ -1130,6 +1267,187 @@ def kernel_parts(smi: str, which: str) -> None:
             log(f"{kid} bf16 {label}, {name}: {us:.2f} us [{smi}]")
     finally:
         fl._functions.pop(kernel, None)
+
+
+# ``--k12-trace``: stage marks and variants of csrc/decode_attention.cuh.
+# A mark is (text of the header, where its mark goes: "before" it, "after"
+# it or "mid" (after its first line), the mark's index, the condition under
+# which a block's thread writes it).
+K12_MARKS = (
+    ("    hopper::fence_proxy_async_smem();  // the barriers, to the bulk copies\n  }\n",
+     "after", 1, "threadIdx.x == 32"),
+    ("  const int s = __ldg(p.src + b);\n", "after", 2, "threadIdx.x == 32 && s >= 0"),
+    ("  } else {\n    __syncthreads();  // the barriers are initialised", "before", 3,
+     "threadIdx.x == 32"),
+    ("  const float lcur = lcur_s;\n", "before", 4, "threadIdx.x == 0"),
+    ("    hopper::mbar_wait(&full[i % stages], (i / stages) & 1);\n    store_tile(i, tile, kq_s);\n",
+     "mid", 5, "threadIdx.x == 0 && i == 0"),
+    ("  // ---- the max over the cluster's rows", "before", 6, "threadIdx.x == 0"),
+    ("  m = fmaxf(fmaxf(m, kNeg), lcur);\n", "before", 7, "threadIdx.x == 0"),
+    ("  // ---- v tiles", "before", 8, "threadIdx.x == 0"),
+    ("    store_tile(i, tile, vq_s);\n", "after", 9, "threadIdx.x == 0 && i == n_half"),
+    ("  // ---- merge:", "before", 10, "threadIdx.x == 0"),
+    ("  if (rank == 0) {\n    const float pc", "before", 11, "threadIdx.x == 0"),
+    ("    if (producer) hopper::bulk_wait_read<0>();  // the stores have read the ring\n",
+     "after", 12, "threadIdx.x == 0"),
+)
+K12_STAGES = ("entry", "barriers", "origin", "copies issued", "current row + scales",
+              "first k tile", "k logits", "cluster max", "weights", "first v tile",
+              "v sums", "merged", "end")
+K12_VARIANTS = {
+    "as built": [],
+    "without the max exchange (wrong out)": [
+        ("    if (tid < c) hopper::st_async(&max_s[rank], tid, m, &max_bar);\n"
+         "    hopper::mbar_wait<true>(&max_bar, 0);\n    m = max_s[0];\n"
+         "    for (int j = 1; j < c; ++j) m = fmaxf(m, max_s[j]);\n", "")],
+    "without the bulk stores (no new caches)": [
+        ("        hopper::bulk_store(g, tile, nr * rb);\n", "")],
+    "without the scale loads (wrong out)": [
+        ("          ks[u] = __ldg(p.k_scale + src_row + t);\n"
+         "          vs[u] = __ldg(p.v_scale + src_row + t);\n", "          ks[u] = vs[u] = 1.f;\n")],
+    "with two issuing threads": [
+        ("  const bool producer = tid == 32;\n  if (producer) {\n"
+         "    for (int i = 0; i < stages; ++i) hopper::mbar_init(&full[i], kBulk ? 1 : kThreads);",
+         "  const bool producer = tid == 32, second = tid == 64;\n  if (producer || second) {\n"
+         "    for (int i = second; i < stages; i += 2) hopper::mbar_init(&full[i], kBulk ? 1 : kThreads);"),
+        ("    if (producer)\n      for (int i = 0; i < min(stages, n_tiles); ++i) load_tile(i);",
+         "    if (producer || second)\n      for (int i = second; i < min(stages, n_tiles); i += 2) load_tile(i);")],
+    "with programmatic dependent launch": [
+        ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
+         "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+         "  asm volatile(\"griddepcontrol.wait;\\n\" ::: \"memory\");\n"),
+        ("  cudaLaunchAttribute attr[1];", "  cudaLaunchAttribute attr[2];"),
+        ("  cfg.numAttrs = 1;",
+         "  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;\n"
+         "  attr[1].val.programmaticStreamSerializationAllowed = 1;\n  cfg.numAttrs = 2;")],
+}
+
+
+def k12_library(tmp, i: int, edits):
+    """K1's source with the header's ``edits`` and every mark of
+    ``K12_MARKS`` (a globaltimer read of thread 0 into ``g_trace``, read
+    back by ``read_trace``), built into ``tmp``. Each copy has a namespace
+    of its own: two libraries of one process must not share a kernel's
+    name."""
+    from seamless_communication_torch.ops.kernels import build
+
+    hdr = (build.CSRC_DIR / "decode_attention.cuh").read_text()
+    marks = [*K12_MARKS, ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
+                          "before", 0, "threadIdx.x == 0")]
+    for old, new in edits:
+        if hdr.count(old) != 1:
+            raise AssertionError("--k12-trace: decode_attention.cuh has changed")
+        hdr = hdr.replace(old, new)
+    for text, where, k, cond in marks:
+        if hdr.count(text) != 1:
+            raise AssertionError("--k12-trace: decode_attention.cuh has changed")
+        mark = f"  if ({cond}) trace_at({k});\n"
+        first, _, rest = text.partition("\n")
+        hdr = hdr.replace(text, {"before": mark + text, "after": text + mark,
+                                 "mid": first + "\n" + mark + rest}[where])
+    hdr = hdr.replace("namespace decode_step {\n", "namespace decode_step {\n"
+                      "__device__ unsigned long long g_trace[8192 * 16];\n"
+                      "__device__ __forceinline__ void trace_at(int k) {\n"
+                      "  unsigned long long t;\n"
+                      "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+                      "  g_trace[(blockIdx.y * gridDim.x + blockIdx.x) * 16 + k] = t;\n}\n")
+    ns = f"decode_step_k12_{i}"
+    (tmp / f"decode_attention_{i}.cuh").write_text(hdr.replace("decode_step", ns))
+    src = (build.CSRC_DIR / "decode_attention.cu").read_text().replace(
+        '#include "decode_attention.cuh"', f'#include "decode_attention_{i}.cuh"')
+    src = src.replace("decode_step::", ns + "::") + (
+        'extern "C" int read_trace(unsigned long long* host) {\n'
+        f"  return (int)cudaMemcpyFromSymbol(host, {ns}::g_trace, sizeof({ns}::g_trace));\n}}\n")
+    cu, lib = tmp / f"k12_{i}.cu", tmp / f"k12_{i}.so"
+    cu.write_text(src)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)], check=True,
+                   capture_output=True)
+    return lib
+
+
+def k12_trace(smi: str) -> None:
+    """``python3 chip_smoke.py --k12-trace``: where K1's time goes at the
+    main path's shape (B=5, H=16, T=320, Dh=64, step 200, fp32). Copies of
+    the kernel (``k12_library``), as built and with each variant of
+    ``K12_VARIANTS``, are held against the plain version and timed by
+    CUDA-graph replay at cluster sizes 1, 2 and 4, and after a one-element
+    add (the pair's time: a kernel that follows another one); the copy as
+    built is also timed with tiles of 4 and 2 KB, and its globaltimer marks
+    give each stage's time from the first block's entry (the median over
+    the blocks, and the range)."""
+    import concurrent.futures
+    import ctypes
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.ops.kernels import build
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    tmp = Path(tempfile.mkdtemp())
+    (tmp / "hopper.cuh").write_text((build.CSRC_DIR / "hopper.cuh").read_text())
+    with concurrent.futures.ThreadPoolExecutor(len(K12_VARIANTS)) as pool:
+        libs = list(pool.map(lambda a: k12_library(tmp, *a), enumerate(K12_VARIANTS.values())))
+    B, H, T, Dh, step = B_MAIN, H_MAIN, T_MAIN, DH_MAIN, STEP_TIMED
+    vecs, caches = decode_inputs(np.random.default_rng(0), "decode_attention_int8", B, T, Dh,
+                                 torch.float32)
+    src = torch.tensor(decode_origins(B)["repeated"], dtype=torch.int32, device="cuda")
+    ref = da._reference(*vecs, *caches, step, src)
+    outs = [torch.empty_like(x) for x in (vecs[0], *caches)]
+    y = torch.zeros(1, device="cuda")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, lib in zip(K12_VARIANTS, libs):
+        so = ctypes.CDLL(str(lib))
+        fn = so.decode_attention_int8
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
+                       i, i, i, i, p, p, p, p, p, p]
+        so.read_trace.argtypes = [p]
+        plans = {f"cluster {c}": da.split_plan(B, H, T, Dh, 8, c) for c in (1, 2, 4)}
+        if name == "as built":
+            for kb in (4, 2):
+                rows = kb * 1024 // Dh
+                plans[f"cluster 4, {kb} KB tiles"] = dataclasses.replace(
+                    plans["cluster 4"], tile_rows=rows,
+                    stages=2 * -(-plans["cluster 4"].slice_rows // rows))
+        for label, plan in plans.items():
+            def call():
+                err = fn(0, *(x.data_ptr() for x in vecs), *(x.data_ptr() for x in caches),
+                         src.data_ptr(), B, H, T, Dh, step, math.sqrt(Dh), plan.cluster,
+                         plan.slice_rows, plan.tile_rows, plan.stages,
+                         *(x.data_ptr() for x in outs),
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"--k12-trace {name} {label}: launch failed ({err})")
+
+            def pair():
+                y.add_(1.0)
+                call()
+            for x in outs:
+                x.zero_()
+            call()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(outs[1:], ref[1:])) and bool(
+                torch.allclose(outs[0], ref[0], rtol=2e-5, atol=2e-5))
+            log(f"K1 --k12-trace {name}, {label}: {cuda_time_ms(call) * 1e3:.2f} us; after "
+                f"a one-element add {cuda_time_ms(pair) * 1e3:.2f} us the pair; equal to the "
+                f"plain version: {same} [{smi}]")
+            if name != "as built" or label not in ("cluster 1", "cluster 4"):
+                continue
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * (8192 * 16))()
+            so.read_trace(ctypes.addressof(buf))
+            n = H * plan.cluster * B
+            tr = np.array(buf[: n * 16], dtype=np.int64).reshape(n, 16)[:, :13]
+            rel = (tr - tr[:, 0].min()) / 1e3
+            log(f"K1 --k12-trace {label} stages, us from the first block's entry, median "
+                f"[min, max] over the blocks: " + "; ".join(
+                    f"{nm} {np.median(rel[:, k]):.2f} [{rel[:, k].min():.2f}, "
+                    f"{rel[:, k].max():.2f}]" for k, nm in enumerate(K12_STAGES)))
 
 
 # ---------------------------------------------------------------------------
@@ -2950,8 +3268,10 @@ def profile_main_path(smi: str, out_dir: str = "chiprun_out") -> None:
             return translator.generator.last_result.steps
         return run
 
-    profile_call("S2TT 10 s request", request(wav, "s2tt", "eng"),
-                 os.path.join(out_dir, "profile_s2tt.txt"), smi)
+    s2tt = profile_call("S2TT 10 s request", request(wav, "s2tt", "eng"),
+                        os.path.join(out_dir, "profile_s2tt.txt"), smi)
+    log(f"K1 in the S2TT request: {s2tt['kernel_ms']['Int8Rows'] / s2tt['steps']:.4f} ms "
+        f"of device time per decode step [{smi}]")
     text = synthetic_text(tok, 20, 10)
     with candidate_beam():
         translator.predict(text, "t2tt", "fra", src_lang="eng",
@@ -2974,7 +3294,9 @@ def profile_call(label: str, run, path: str, smi: str) -> dict:
     """``run()`` (one request, ending in a synchronize) under
     ``torch.profiler``: prints the wall, the kernels' busy time and share,
     the launches per decode step and the top kernels by device time, and
-    writes the full table to ``path``. Returns the busy ms and launches."""
+    writes the full table to ``path``. Returns the busy ms, the launches and
+    the device ms of the kernels whose names hold ``Int8Rows`` (K1) or
+    ``Int4Rows`` (K2)."""
     import os
 
     import torch
@@ -3000,7 +3322,10 @@ def profile_call(label: str, run, path: str, smi: str) -> dict:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    return {"busy_ms": busy_ms, "launches": launches, "steps": steps}
+    kernel_ms = {key: sum(e.self_device_time_total for e in events if key in e.key) / 1e3
+                 for key in ("Int8Rows", "Int4Rows")}
+    return {"busy_ms": busy_ms, "launches": launches, "steps": steps,
+            "kernel_ms": kernel_ms}
 
 
 def main() -> int:
@@ -3013,8 +3338,14 @@ def main() -> int:
     if sys.argv[1:] in (["--k6b-parts"], ["--k6c-parts"], ["--k3b-parts"]):
         kernel_parts(dev["smi"], sys.argv[1][2:5])
         return 0
-    k1 = phase_decode_attention("decode_attention_int8")
-    k2 = phase_decode_attention("decode_attention_int4")
+    if sys.argv[1:] == ["--k12-trace"]:
+        k12_trace(dev["smi"])
+        return 0
+    floor_ms = launch_floor_ms()
+    log(f"launch floor (a one-element in-place add, CUDA-graph replay): "
+        f"{floor_ms * 1e3:.2f} us [{dev['smi']}]")
+    k1 = phase_decode_attention("decode_attention_int8", floor_ms)
+    k2 = phase_decode_attention("decode_attention_int4", floor_ms)
     k5 = phase_indexed(dev["smi"])
     k4 = phase_fbank(dev["smi"])
     k3b, k3a = phase_vocab_topk(dev["smi"])

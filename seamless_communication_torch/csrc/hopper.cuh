@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the kernels fed by TMA:
-// flash_attention.cu (K6), flash_attention_bwd.cu (K6b, K6c) and
-// vocab_topk.cu (K3b): mbarriers, TMA tile loads, shared-memory matrix
-// descriptors and warpgroup matrix multiplies (wgmma), and the host-side
-// encoding of a TMA tensor map.
+// flash_attention.cu (K6), flash_attention_bwd.cu (K6b, K6c),
+// vocab_topk.cu (K3b) and decode_attention.cuh (K1, K2): mbarriers, TMA tile
+// loads, 1-d bulk copies, thread-block-cluster barriers and distributed
+// shared memory, shared-memory matrix descriptors and warpgroup matrix
+// multiplies (wgmma), and the host-side encoding of a TMA tensor map.
 //
 // Layouts. Every bf16 tile that a wgmma reads is stored as TMA writes it
 // with a swizzle: rows of `kSwizzle` bytes (the row of a tile of width Dh
@@ -65,20 +66,32 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
 
 // waits until the phase of parity `parity` has completed; a phase that never
 // completes (a lost arrival or copy) traps after about 10 s of clocks, a
-// launch error the caller sees, instead of holding the card forever
+// launch error the caller sees, instead of holding the card forever.
+// kCluster acquires at cluster scope: for bytes that other blocks of the
+// cluster wrote with st_async.
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);
   const long long start = clock64();
   uint32_t done = 0;
   while (!done) {
     if (clock64() - start > 20000000000LL) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
+    if constexpr (kCluster)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
   }
 }
 
@@ -115,6 +128,109 @@ __device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map, uin
     tma_load_4d(dst, map, bar, d, h, t, b);
   else
     tma_load_4d(dst, map, bar, d, t, h, b);
+}
+
+// ---- 1-d bulk copies ------------------------------------------------------
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// memory into this block's shared memory, completion reported to `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from this
+// block's shared memory to global memory, in the current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's earlier shared-memory writes before its later bulk
+// (async-proxy) reads of them
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 8 bytes (both addresses 8-byte aligned) from global into shared memory
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies have landed
+// (the barrier counts it among those it was initialised with)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// ---- thread-block clusters ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Cluster barrier, split in two: every thread of every block arrives, then
+// waits. This relaxed arrival orders nothing by itself: after
+// fence_barrier_init it publishes this block's initialised mbarriers, and
+// the wait says that every block of the cluster runs, so that its shared
+// memory may be written.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of `local`'s offset in block `rank`
+__device__ __forceinline__ uint32_t mapa(const void* local, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(local)), "r"(rank));
+  return remote;
+}
+
+// `v` into the float at `local`'s offset in the shared memory of block `rank`
+// of this cluster, its 4 bytes counted on that block's mbarrier at `bar`'s
+// offset
+__device__ __forceinline__ void st_async(const float* local, uint32_t rank, float v,
+                                         uint64_t* bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(
+          mapa(local, rank)),
+      "f"(v), "r"(mapa(bar, rank))
+      : "memory");
+}
+
+// the same for 4 floats (16 bytes, `local` 16-byte aligned)
+__device__ __forceinline__ void st_async4(const float* local, uint32_t rank, float4 v,
+                                          uint64_t* bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, "
+      "%4}, [%5];\n" ::"r"(mapa(local, rank)),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(mapa(bar, rank))
+      : "memory");
 }
 
 // barrier `id` (not 0, which __syncthreads uses) among `count` threads

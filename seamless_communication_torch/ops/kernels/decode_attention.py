@@ -13,6 +13,8 @@ row, quantized, at ``step``.
   packed nibbles (byte j = value j low | value j+Dh/2 high), scales absmax/7.
   CUDA kernel ``csrc/decode_attention_int4.cu``, which replaces the TPU kernel
   ``seamless_communication_tpu/ops/kernels/decode_attention.py:267``.
+  Both kernels split the rows of a (b, h) over a thread-block cluster; the
+  host chooses the split (:func:`split_plan`).
 - ``indexed_decode_self_attention_int8``: the lazy beam reorder. The int8
   caches are never permuted: a (B, T) ``row_src`` table says which physical
   slot holds row t of logical beam b, attention reads through it, and only
@@ -29,7 +31,9 @@ is held against on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -44,12 +48,66 @@ KERNEL = "decode_attention_int8"
 KERNEL_INT4 = "decode_attention_int4"
 KERNEL_INDEXED = "decode_attention_indexed"
 MAX_HEAD_DIM = 256
-MAX_CACHE_LEN = 8192          # logits live in 4 bytes of shared memory per row
+MAX_CACHE_LEN = 8192          # a block keeps 8 bytes of shared memory per row
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel -> (source in csrc/, row bytes per head-dim value, vector load bytes)
 _KERNELS = {KERNEL: ("decode_attention", 1.0, 16),
             KERNEL_INT4: ("decode_attention_int4", 0.5, 8),
             KERNEL_INDEXED: ("decode_attention_indexed", 1.0, 16)}
+
+
+# The split of K1's and K2's rows (csrc/decode_attention.cuh, which checks
+# the same limits): a (b, h) is split over a cluster of up to MAX_CLUSTER
+# blocks until the grid holds TARGET_BLOCKS (two for each of the H100's 132
+# SMs) or a slice would fall under MIN_SLICE_ROWS rows; a slice streams
+# through a ring of at most MAX_STAGES tiles of at most TILE_BYTES.
+MAX_CLUSTER = 8
+TARGET_BLOCKS = 2 * 132
+MIN_SLICE_ROWS = 32
+TILE_BYTES = 16 * 1024
+MAX_STAGES = 16
+SLOT_ALIGN = 128
+SMEM_BUDGET = 200 * 1024      # dynamic shared memory of a block, of 227 KB
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """How K1 and K2 split the T rows of one (b, h): block ``r`` of a
+    cluster of ``cluster`` owns rows [r * slice_rows, min(T, (r + 1) *
+    slice_rows)), copied in tiles of ``tile_rows`` rows through a ring of
+    ``stages`` slots; ``smem_bytes`` is the block's dynamic shared memory."""
+
+    cluster: int
+    slice_rows: int
+    tile_rows: int
+    stages: int
+    smem_bytes: int
+
+    def slices(self, T: int) -> list[range]:
+        return [range(min(T, r * self.slice_rows), min(T, (r + 1) * self.slice_rows))
+                for r in range(self.cluster)]
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(B: int, H: int, T: int, Dh: int, bits: int,
+               cluster: int | None = None) -> SplitPlan:
+    """The split of a (B, H, T, Dh) cache of ``bits``-bit values (8 or 4)
+    for K1/K2. ``cluster`` forces the cluster size (1, 2, 4 or 8)."""
+    row = Dh * bits // 8
+    if cluster is None:
+        cluster = 1
+        while (cluster < MAX_CLUSTER and B * H * cluster < TARGET_BLOCKS
+               and T >= 2 * cluster * MIN_SLICE_ROWS):
+            cluster *= 2
+    if cluster not in (1, 2, 4, 8):
+        raise ValueError(f"cluster size {cluster} is not 1, 2, 4 or 8")
+    slice_rows = -(-T // cluster)
+    tile_rows = min(slice_rows, TILE_BYTES // row)
+    slot = -(-tile_rows * row // SLOT_ALIGN) * SLOT_ALIGN
+    scales = 2 * 4 * slice_rows
+    stages = min(2 * -(-slice_rows // tile_rows), MAX_STAGES,
+                 (SMEM_BUDGET - scales) // slot)
+    return SplitPlan(cluster, slice_rows, tile_rows, stages, stages * slot + scales)
 
 
 def _softmax_parts(logits, lcur, step: int):
@@ -173,7 +231,7 @@ def _function(kernel: str):
                            p, p]
         else:
             fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
-                           p, p, p, p, p, p]
+                           i, i, i, i, p, p, p, p, p, p]
         fn.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -217,10 +275,14 @@ def _check(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src):
         raise ValueError(f"{kernel}: caches must be {vector}-byte aligned")
 
 
-def _launch(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, src):
+def _launch(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, src,
+            cluster: int | None = None):
+    """K1 or K2 on the card; ``cluster`` forces the cluster size of
+    :func:`split_plan`."""
     _check(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step, src)
     B, H, T = k_cache.shape[:3]
     Dh = q.shape[-1]
+    plan = split_plan(B, H, T, Dh, 4 if kernel == KERNEL_INT4 else 8, cluster)
     out = torch.empty_like(q)
     new_k, new_v = torch.empty_like(k_cache), torch.empty_like(v_cache)
     new_ks, new_vs = torch.empty_like(k_scale), torch.empty_like(v_scale)
@@ -230,7 +292,8 @@ def _launch(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, 
         err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
                  k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
                  v_scale.data_ptr(), src.data_ptr(), B, H, T, Dh, int(step),
-                 math.sqrt(Dh), out.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+                 math.sqrt(Dh), plan.cluster, plan.slice_rows, plan.tile_rows,
+                 plan.stages, out.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
                  new_ks.data_ptr(), new_vs.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{kernel} launch failed: "
