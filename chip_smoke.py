@@ -16,8 +16,11 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    decode attention, held to their plain versions over a sweep of shapes,
    steps, beam-origin patterns and cluster sizes (``DECODE_SWEEP``), timed
    L2-warm, HBM-cold (the graph's calls rotate over 100 MB of distinct
-   caches) at T=320 and T=1024, and at each cluster size; K5 row-indexed decode attention (the lazy reorder) on a
-   uniform and a beam-history row-origin table; K4 fbank of a 4 s and a
+   caches) at T=320 and T=1024, and at each cluster size; K5 row-indexed
+   decode attention (the lazy reorder, K1's design) over the same sweep on a
+   uniform, a beam-history, an identity and a one-slot row-origin table and
+   at each cluster size, timed L2-warm and HBM-cold, and HBM-cold at T=1024
+   beside K1 in turn; K4 fbank of a 4 s and a
    10 s waveform; K3b ``int8_vocab_topk_v2`` (two launches: the stream,
    then the selection; its first launch timed alone too, and k=128 on the
    repeated rows) and K3a ``int8_vocab_topk`` at the base_v2 vocabulary
@@ -26,13 +29,16 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    attention at the fused option's main-path shapes (the Shaw encoder at 4
    and 10 s, the re-decode, the NAR T2U's FFT layers) in fp32 and bf16,
    beside the library's ``scaled_dot_product_attention`` with the same
-   float mask; K6b and K6c (the backward, ``flash_attention_bwd.cu``) at the
+   float mask (in fp32 also equal with and without residuals, and the key
+   tiles it skips under segment ids counted); K6b and K6c (the backward,
+   ``flash_attention_bwd.cu``) at the
    same shapes against the plain backward, K6 with its residuals, and the
    library's SDPA backward and forward + backward as yardsticks. In bf16,
    K6, K6b and K6c are the tensor-core kernels (``wgmma`` fed by TMA); then
    a sweep of every head dim they specialise (16, 32, 64, 128) x a key count
    that is and one that is not a multiple of 8 x a bias, segment ids and
-   neither, the attention shapes of phase 3g's train steps, and the NAR
+   neither (fp32 K6 also with 32- and 64-row blocks), the attention shapes of
+   phase 3g's train steps in both dtypes, and the NAR
    T2U's FFT shape with rows in a segment no key has, whose key tiles bf16
    K6c may not skip (``phase_flash_sweep``).
    ``python3 chip_smoke.py --kernels`` stops after this phase.
@@ -99,19 +105,25 @@ one T2TT request with the candidate beam and without it (where the main
 path's time goes; the tables land in ``profile_*.txt`` files in the output
 directory of ``profile_main_path``).
 
+    python3 chip_smoke.py --k6-parts
     python3 chip_smoke.py --k6b-parts
     python3 chip_smoke.py --k6c-parts
     python3 chip_smoke.py --k3b-parts
 
-time bf16 K6b (K6c) at the 10 s Shaw shape, or K3b's stream at the base_v2
-vocabulary, as built and with one part left out at a time
-(``kernel_parts``): where its time goes.
+time fp32 K6 at every ``FLASH_SHAPES`` shape, bf16 K6b (K6c) at the 10 s
+Shaw shape, or K3b's stream at the base_v2 vocabulary, as built and with one
+part left out at a time (``kernel_parts``): where its time goes.
 
     python3 chip_smoke.py --k12-trace
 
 times copies of K1 at the main path's shape, as built and with variants
 (``K12_VARIANTS``), and prints when each stage of the kernel ends
 (``k12_trace``).
+
+    python3 chip_smoke.py --k5-trace
+
+does the same for K5 (``K5_VARIANTS``: its ways of bringing in its rows)
+beside K1 at each cluster size (``k5_trace``).
 """
 
 from __future__ import annotations
@@ -607,70 +619,177 @@ def beam_history_table(B: int, T: int, seed: int):
     return rs
 
 
-def phase_indexed(smi: str) -> dict:
-    """K5 against its plain version ``_indexed_reference`` at B=5, H=16,
-    T=320, Dh=64, fp32 and bf16, steps 0, 200 and 319, with a row_src table
-    drawn uniformly from [0, B) and one made by a beam history: ``out``
-    within rtol = atol = 2e-5 in fp32 and 1.6e-2 in bf16. Device times at
-    step 200 on the beam-history table, beside the bound of the rows that
-    table makes the function read."""
+def indexed_tables(B: int, T: int, seed: int) -> dict:
+    """The row-origin tables K5 is held on, (B, T) int32 on the card:
+    uniform draws from [0, B), a beam history (``beam_history_table``), the
+    identity (every beam its own slot) and one slot for every row."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    tables = {"uniform": rng.integers(0, B, (B, T)),
+              "beam history": beam_history_table(B, T, seed),
+              "identity": np.tile(np.arange(B)[:, None], (1, T)),
+              "single slot": np.full((B, T), B - 1)}
+    return {k: torch.as_tensor(v.astype(np.int32), device="cuda") for k, v in tables.items()}
+
+
+def hold_indexed_case(label: str, args, cluster=None) -> float:
+    """One launch of K5 against ``_indexed_reference``: ``out`` within rtol
+    = atol = 2e-5 (fp32) or 1.6e-2 (bf16). Returns its max abs error."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    got = da._launch_indexed(*args, cluster=cluster)
+    ref = da._indexed_reference(*args)
+    torch.cuda.synchronize()
+    tol = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}[args[0].dtype]
+    err = (got.float() - ref.float()).abs()
+    if not bool((err <= tol * (1 + ref.float().abs())).all()):
+        raise AssertionError(f"K5 {label}: out max err {float(err.max()):.3g} over rtol = "
+                             f"atol = {tol}")
+    return float(err.max())
+
+
+def indexed_bound_ms(table, step: int, Dh: int, dtype) -> tuple:
+    """K5's least time on the card for this table and step: the larger of
+    the bytes the function must move (``indexed_bound_bytes``) over 3.35
+    TB/s and its fp32 flops over 67 TFLOP/s."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    B = table.shape[0]
+    elem = torch.finfo(dtype).bits // 8
+    bytes_s = da.indexed_bound_bytes(table, step, H_MAIN, Dh, elem=elem) / HBM_BYTES_PER_S
+    flops_s = 4 * B * H_MAIN * step * Dh / PEAK_FP32_FLOPS
+    return max(bytes_s, flops_s) * 1e3, "bytes" if bytes_s >= flops_s else "operations"
+
+
+def indexed_cold_time_ms(rng, B: int, T: int, Dh: int, step: int, dtype, table) -> float:
+    """Device ms of one K5 call whose caches come from HBM: the
+    graph-captured calls rotate over distinct cache sets, at least 20 and
+    at least ``COLD_BYTES`` of caches in all, one set a call."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    one = B * H_MAIN * T * (2 * Dh + 2 * 4)
+    n = max(20, math.ceil(COLD_BYTES / one))
+    sets = [decode_inputs(rng, "decode_attention_int8", B, T, Dh, dtype) for _ in range(n)]
+    turn = [0]
+
+    def call():
+        vecs, caches = sets[turn[0] % n]
+        turn[0] += 1
+        return da.indexed_decode_self_attention_int8(*vecs, *caches, table, step)
+
+    ms = cuda_time_ms(call, calls=n)
+    del sets
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_indexed(smi: str, floor_ms: float) -> dict:
+    """K5 against its plain version ``_indexed_reference``.
+
+    Parity: at every (B, T, Dh) of ``DECODE_SWEEP`` (H=16), in fp32 and
+    bf16, on each table of ``indexed_tables`` (uniform, beam history,
+    identity, one slot), at steps 0, 1, T/2 + 7, T - 1 and the first rows of
+    the second and last slices of the split (``split_plan(...,
+    indexed=True)``); at the main path's shape also with each cluster size
+    forced (1, 2, 4, 8) at steps 0, 137, T - 1 and each slice boundary.
+    ``out`` within rtol = atol = 2e-5 (fp32), 1.6e-2 (bf16).
+
+    Times at the main path's shape (B=5, T=320, Dh=64, step 200, the
+    beam-history table): L2-warm (``ms``), HBM-cold (``ms_hbm``) and each
+    forced cluster size warm, beside the launch floor; then HBM-cold at
+    T=1024, step 640 on a uniform table beside K1 HBM-cold at the same shape
+    (taken in turn: K1, K5, K5, K1) and K5's bound."""
     import numpy as np
     import torch
 
     from seamless_communication_torch.ops.kernels import decode_attention as da
 
-    B, H, T, Dh = B_MAIN, H_MAIN, T_MAIN, DH_MAIN
     rng = np.random.default_rng(4)
-    dev = torch.device("cuda")
-
-    def t(a, dtype):
-        return torch.as_tensor(a).to(device=dev, dtype=dtype)
-
-    kq, ks = da.quantize_kv_rows(t(rng.standard_normal((B, H, T, Dh)), torch.float32))
-    vq, vs = da.quantize_kv_rows(t(rng.standard_normal((B, H, T, Dh)), torch.float32))
-    tables = {"uniform": t(rng.integers(0, B, (B, T)), torch.int32),
-              "beam history": t(beam_history_table(B, T, 5), torch.int32)}
-    tol = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
-    max_err, times = 0.0, {}
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    for B, T, Dh in DECODE_SWEEP:
+        plan = da.split_plan(B, H_MAIN, T, Dh, 8, indexed=True)
+        bounds = [r.start for r in plan.slices(T)[1:] if r.start < T]
+        steps = sorted({0, 1, T // 2 + 7, T - 1, *bounds[:1], *bounds[-1:]} & set(range(T)))
+        tables = indexed_tables(B, T, T + Dh)
+        for dtype in (torch.float32, torch.bfloat16):
+            vecs, caches = decode_inputs(rng, "decode_attention_int8", B, T, Dh, dtype)
+            for tname, table in tables.items():
+                for step in steps:
+                    label = f"B={B} T={T} Dh={Dh} {str(dtype)[6:]} {tname} step {step}"
+                    err = hold_indexed_case(label, (*vecs, *caches, table, step))
+                    max_err[dtype] = max(max_err[dtype], err)
+                    cases += 1
+        log(f"K5 sweep B={B} T={T} Dh={Dh}: cluster {plan.cluster}, slices of "
+            f"{plan.slice_rows} rows, tiles of {plan.tile_rows}, {plan.stages} stages, "
+            f"{plan.smem_bytes} B of dynamic shared memory; steps {steps}, 4 tables, fp32 "
+            "and bf16: out within tolerance")
+    B, T, Dh = B_MAIN, T_MAIN, DH_MAIN
+    table = indexed_tables(B, T, 5)["beam history"]
+    times, cluster_ms = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        vecs = [t(rng.standard_normal((B, H, Dh)), dtype) for _ in range(3)]
-        for tname, rs in tables.items():
-            for step in (0, STEP_TIMED, T - 1):
-                args = (*vecs, kq, vq, ks, vs, rs, step)
-                got = da.indexed_decode_self_attention_int8(*args)
-                ref = da._indexed_reference(*args)
-                torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs()
-                if not bool((err <= tol[dtype] * (1 + ref.float().abs())).all()):
-                    raise AssertionError(f"K5 {dtype} {tname} step {step}: out max err "
-                                         f"{float(err.max()):.3g} over tolerance")
-                if dtype is torch.float32:
-                    max_err = max(max_err, float(err.max()))
-                log(f"K5 {str(dtype):15s} {tname:12s} step {step:3d}: out max abs err "
-                    f"{float(err.max()):.3g} (rtol=atol={tol[dtype]})")
-        args = (*vecs, kq, vq, ks, vs, tables["beam history"], STEP_TIMED)
-        times[dtype] = (cuda_time_ms(lambda: da.indexed_decode_self_attention_int8(*args)),
-                        cuda_time_ms(lambda: da._indexed_reference(*args)))
-    bounds = {}
-    for dtype in times:
-        elem = torch.finfo(dtype).bits // 8
-        bytes_s = da.indexed_bound_bytes(tables["beam history"], STEP_TIMED, H, Dh,
-                                         elem=elem) / HBM_BYTES_PER_S
-        flops_s = 4 * B * H * STEP_TIMED * Dh / PEAK_FP32_FLOPS
-        bounds[dtype] = (max(bytes_s, flops_s) * 1e3,
-                         "bytes" if bytes_s >= flops_s else "operations")
-    for dtype, (k_ms, p_ms) in times.items():
-        log(f"K5 time {str(dtype):15s} at step {STEP_TIMED} (beam-history table): device "
-            f"kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
-            f"{bounds[dtype][0] * 1e3:.2f} us ({bounds[dtype][1]}); library: none (no "
-            f"single PyTorch call computes this function) [{smi}]")
-    k_ms, p_ms = times[torch.float32]
+        vecs, caches = decode_inputs(rng, "decode_attention_int8", B, T, Dh, dtype)
+        for cluster in (1, 2, 4, 8):
+            rows = da.split_plan(B, H_MAIN, T, Dh, 8, cluster, indexed=True).slice_rows
+            for step in sorted({0, 137, T - 1, *range(rows, T, rows)}):
+                hold_indexed_case(f"cluster {cluster} {str(dtype)[6:]} step {step}",
+                                  (*vecs, *caches, table, step), cluster)
+                cases += 1
+            args = (*vecs, *caches, table, STEP_TIMED)
+            cluster_ms[(dtype, cluster)] = cuda_time_ms(
+                lambda: da._launch_indexed(*args, cluster=cluster))
+        args = (*vecs, *caches, table, STEP_TIMED)
+        times[dtype] = {
+            "ms": cuda_time_ms(lambda: da.indexed_decode_self_attention_int8(*args)),
+            "plain_ms": cuda_time_ms(lambda: da._indexed_reference(*args)),
+            "ms_hbm": indexed_cold_time_ms(rng, B, T, Dh, STEP_TIMED, dtype, table),
+            "bound": indexed_bound_ms(table, STEP_TIMED, Dh, dtype)}
+    log(f"K5: {cases} cases against _indexed_reference: out max abs err "
+        f"{max_err[torch.float32]:.3g} (fp32, tol 2e-5), {max_err[torch.bfloat16]:.3g} "
+        f"(bf16, tol 1.6e-2)")
+    plan = da.split_plan(B, H_MAIN, T, Dh, 8, indexed=True)
+    for dtype, tm in times.items():
+        bound, by = tm["bound"]
+        log(f"K5 time {str(dtype):15s} B={B} H={H_MAIN} T={T} Dh={Dh} step {STEP_TIMED}, "
+            f"beam-history table (cluster {plan.cluster}): L2-warm {tm['ms'] * 1e3:.2f} us, "
+            f"HBM-cold {tm['ms_hbm'] * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by}), "
+            f"launch floor {floor_ms * 1e3:.2f} us; plain {tm['plain_ms'] * 1e3:.2f} us; "
+            f"library: none (no single PyTorch call computes this function) [{smi}]")
+        log(f"K5 time {str(dtype):15s} by cluster size, L2-warm: " + ", ".join(
+            f"{c}: {cluster_ms[(dtype, c)] * 1e3:.2f} us" for c in (1, 2, 4, 8)))
+    # HBM-cold at hard_max_seq_len beside K1, in turn
+    uniform = indexed_tables(B, T_COLD, 7)["uniform"]
+    cold = {"K1": [], "K5": []}
+    for who in ("K1", "K5", "K5", "K1"):
+        cold[who].append(
+            cold_time_ms("decode_attention_int8", rng, B, T_COLD, Dh, STEP_COLD,
+                         torch.float32) if who == "K1" else
+            indexed_cold_time_ms(rng, B, T_COLD, Dh, STEP_COLD, torch.float32, uniform))
+    b1024, _ = indexed_bound_ms(uniform, STEP_COLD, Dh, torch.float32)
+    k1_bound, _ = decode_bound_ms("decode_attention_int8", B, T_COLD, Dh, STEP_COLD,
+                                  decode_origins(B)["repeated"], torch.float32)
+    log(f"K5 time fp32 T={T_COLD} step {STEP_COLD}, uniform table, HBM-cold: "
+        + ", ".join(f"{x * 1e3:.2f}" for x in cold["K5"]) + f" us (bound {b1024 * 1e3:.2f} "
+        f"us = {100 * b1024 / min(cold['K5']):.1f} % of the bound's rate); K1 at the same "
+        f"shape in turn: " + ", ".join(f"{x * 1e3:.2f}" for x in cold["K1"])
+        + f" us (its bound {k1_bound * 1e3:.2f} us) [{smi}]")
+    tm = times[torch.float32]
     return {"name": "decode_attention_indexed", "route": "cuda",
             "source": "seamless_communication_torch/csrc/decode_attention_indexed.cu",
             "replaces": "seamless_communication_tpu/ops/kernels/decode_attention.py:534",
-            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bounds[torch.float32][0], "bound_by": bounds[torch.float32][1],
-            "library_ms": None}
+            "max_abs_err": max_err[torch.float32], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
+            "bound_by": tm["bound"][1], "library_ms": None, "ms_hbm": tm["ms_hbm"],
+            "floor_ms": floor_ms, "ms_hbm_1024": min(cold["K5"]),
+            "bound_ms_1024": b1024, "k1_ms_hbm_1024": min(cold["K1"])}
 
 
 def phase_fbank(smi: str) -> dict:
@@ -767,11 +886,14 @@ def flash_inputs(rng, T: int, kind: str, valid: int, dev):
 def phase_flash_attention(smi: str) -> dict:
     """K6 ``flash_attention`` against its plain version ``_reference`` at
     ``FLASH_SHAPES`` in fp32 and bf16: ``out`` within rtol = atol = 1e-5 in
-    fp32 and 1.6e-2 in bf16. Device times by CUDA-graph replay of the
-    kernel's wrapper, the plain version and the library yardstick
+    fp32 and 1.6e-2 in bf16, and bit-equal to the ``out`` of a launch with
+    residuals. Device times by CUDA-graph replay of the kernel's wrapper,
+    the plain version and the library yardstick
     ``torch.nn.functional.scaled_dot_product_attention`` with the same float
     mask (ab, or the segment mask as a float), beside the bound (the
-    products of the logits these inputs leave unmasked, ``unmasked_pairs``)."""
+    products of the logits these inputs leave unmasked, ``unmasked_pairs``).
+    Under segment ids the fp32 kernel leaves out the key tiles of
+    ``skippable_tiles_fwd``; their count is shown."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -790,12 +912,16 @@ def phase_flash_attention(smi: str) -> dict:
             ab = None if ab32 is None else ab32.to(dtype)
             args = (qs, k, v, ab, *(seg or (None, None)))
             got = fl.flash_attention(*args)
+            with_res = fl._launch(*args, residuals=True)[0]
             ref = fl._reference(*args)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs()
             if not bool((err <= tol[dtype] * (1 + ref.float().abs())).all()):
                 raise AssertionError(f"K6 {label} {dtype}: out max err "
                                      f"{float(err.max()):.3g} over tolerance")
+            if not torch.equal(got, with_res):
+                raise AssertionError(f"K6 {label} {dtype}: out with residuals differs "
+                                     "from out without them")
             if dtype is torch.float32:
                 max_err = max(max_err, float(err.max()))
             mask = ab if ab is not None else torch.where(
@@ -809,19 +935,33 @@ def phase_flash_attention(smi: str) -> dict:
             bound = fl.bound(B, H, T, T, Dh, dtype, ab is not None, seg is not None,
                              pairs)
             rows[label, dtype] = (k_ms, p_ms, lib_ms, bound)
-            log(f"K6 {label}, T={T} ({valid} valid keys), {str(dtype)[6:]}: out max abs "
-                f"err {float(err.max()):.3g} (rtol=atol={tol[dtype]}); device kernel "
+            how = "wgmma"
+            if dtype is torch.float32:
+                skip = fl.skippable_tiles_fwd(*(seg or (None, None)), T, T, ab)
+                # each block height, the choice of fp32_block_rows beside
+                heights = ", ".join(
+                    f"{r} rows {cuda_time_ms(lambda: fl._launch(*args, block_rows=r)) * 1e3:.2f} us"
+                    for r in (32, 64))
+                how = (f"{fl.fp32_block_rows(B, H, T)}-row blocks ({heights}), "
+                       f"{int(skip.sum())} of {skip.numel()} tile pairs skipped")
+            log(f"K6 {label}, T={T} ({valid} valid keys), {str(dtype)[6:]} ({how}): out max "
+                f"abs err {float(err.max()):.3g} (rtol=atol={tol[dtype]}), equal with "
+                f"residuals; device kernel "
                 f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, library SDPA with "
                 f"the float mask {lib_ms * 1e3:.2f} us, bound {bound[0] * 1e3:.2f} us "
                 f"({bound[1]}; {pairs} unmasked logits of {H * T * T}), kernel at "
                 f"{k_ms / bound[0]:.1f}x its bound [{smi}]")
     k_ms, p_ms, lib_ms, bound = rows[FLASH_MAIN, torch.float32]
     b_ms, b_p_ms, b_lib_ms, b_bound = rows[FLASH_MAIN, torch.bfloat16]
+    # fp32, the kernel that inference runs, at every shape of the main path
+    shapes = {label: {"ms": r[0], "plain_ms": r[1], "library_ms": r[2], "bound_ms": r[3][0],
+                      "bound_by": r[3][1]}
+              for (label, dtype), r in rows.items() if dtype is torch.float32}
     return {"name": "flash_attention", "route": "cuda",
             "source": "seamless_communication_torch/csrc/flash_attention.cu",
             "replaces": "seamless_communication_tpu/ops/fused_attention.py:54",
             "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": lib_ms,
+            "bound_by": bound[1], "library_ms": lib_ms, "fp32_shapes": shapes,
             # the bf16 kernel (wgmma, TMA) at the same shape
             "bf16": {"ms": b_ms, "plain_ms": b_p_ms, "bound_ms": b_bound[0],
                      "bound_by": b_bound[1], "library_ms": b_lib_ms}}
@@ -1047,6 +1187,35 @@ def hold_flash_case(label: str, qkv, ab32, segs, do32, dtype) -> dict:
     return errs
 
 
+def hold_fp32_rows(label: str, qkv, ab32, segs) -> float:
+    """fp32 K6 with each block height (32 and 64 query rows) against
+    ``_reference``: ``out`` within rtol = atol = 1e-5, and bit-equal with and
+    without residuals. Returns the largest error."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    ab = None
+    if ab32 is not None:
+        ab = fl.empty_bias(*ab32.shape, torch.float32, ab32.device).copy_(ab32)
+    args = (*qkv, ab, *(segs or (None, None)))
+    ref = fl._reference(*args)
+    worst = 0.0
+    for rows in (32, 64):
+        out = fl._launch(*args, block_rows=rows)[0]
+        res = fl._launch(*args, residuals=True, block_rows=rows)[0]
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        if not bool((err <= 1e-5 * (1 + ref.abs())).all()):
+            raise AssertionError(f"K6 {label}, {rows}-row blocks: out max err "
+                                 f"{float(err.max()):.3g}")
+        if not torch.equal(out, res):
+            raise AssertionError(f"K6 {label}, {rows}-row blocks: out with residuals "
+                                 "differs")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
 def phase_flash_sweep(smi: str) -> None:
     """K6, K6b and K6c (``hold_flash_case``) at every head dim the kernels
     specialise (``SWEEP_DH``) x ``SWEEP_TK`` x ``SWEEP_BIAS``, Tq from 130 to
@@ -1084,29 +1253,31 @@ def phase_flash_sweep(smi: str) -> None:
                     keep.to(torch.int32).contiguous())
         return qkv, ab32, segs, do32
 
-    n = 0
+    n, fp32_err = 0, 0.0
     for dh in SWEEP_DH:
         for tk in SWEEP_TK:
             for kind in SWEEP_BIAS:
                 tq = 130 + 10 * n % 80
                 n += 1
                 qkv, ab32, segs, do32 = case(2, 3, dh, tq, tk, kind, (tk, tk - 21))
-                dtypes = (torch.bfloat16,) + ((torch.float32,) if kind == "ab" and tk == 130
-                                              else ())
-                for dtype in dtypes:
+                for dtype in (torch.bfloat16, torch.float32):
                     label = f"sweep Dh={dh} Tq={tq} Tk={tk} {kind} {str(dtype)[6:]}"
                     errs = hold_flash_case(label, qkv, ab32, segs, do32, dtype)
                     if dtype is torch.bfloat16:
                         worst = {k: max(v, errs[k]) for k, v in worst.items()}
+                fp32_err = max(fp32_err, hold_fp32_rows(label, qkv, ab32, segs))
     log(f"K6/K6b/K6c sweep: {n} cases (Dh {SWEEP_DH} x Tk {SWEEP_TK} x {SWEEP_BIAS}, "
-        f"fp32 too at Tk=130 with ab) within tolerance; bf16 max abs err "
-        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" [{smi}]")
+        f"bf16 and fp32) within tolerance; bf16 max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"; fp32 K6 with 32- and 64-row blocks within 1e-5, max abs err {fp32_err:.3g} "
+        f"[{smi}]")
     for label, T, kind, valid in TRAIN_SHAPES:
         qkv, ab32, segs, do32 = case(2, H_MAIN, DH_MAIN, T, T, kind, valid)
-        errs = hold_flash_case(label, qkv, ab32, segs, do32, torch.bfloat16)
-        log(f"K6/K6b/K6c {label}, B=2, T={T} (valid {valid}), {kind}, bf16: within "
-            f"tolerance; max abs err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-            + f" [{smi}]")
+        for dtype in (torch.bfloat16, torch.float32):
+            errs = hold_flash_case(label, qkv, ab32, segs, do32, dtype)
+            log(f"K6/K6b/K6c {label}, B=2, T={T} (valid {valid}), {kind}, "
+                f"{str(dtype)[6:]}: within tolerance; max abs err "
+                + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" [{smi}]")
     # the NAR T2U's FFT shape with rows in a segment no key has: their keys
     # are all masked (m at the mask level), so bf16 K6c may skip none of
     # their row tiles' key tiles, while it skips the padding's elsewhere
@@ -1119,12 +1290,14 @@ def phase_flash_sweep(smi: str) -> None:
     segs = (q_seg, segs[1])
     _, m, _ = fl._reference_fwd(*(x.to(torch.bfloat16) for x in qkv), None, *segs)
     skip = fl.skippable_tiles(m, *segs, T)
+    skip_fwd = fl.skippable_tiles_fwd(*segs, T, T)
     for dtype in (torch.bfloat16, torch.float32):
         errs = hold_flash_case("FFT all-masked rows", qkv, None, segs, do32, dtype)
         log(f"K6/K6b/K6c NAR T2U FFT, T={T} ({valid} valid keys), rows 1500-1563 in a "
             f"segment no key has, {str(dtype)[6:]}: within tolerance; max abs err "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-            + f"; bf16 K6c skips {int(skip.sum())} of {skip.numel()} tile pairs [{smi}]")
+            + f"; bf16 K6c skips {int(skip.sum())} of {skip.numel()} tile pairs, fp32 K6 "
+            f"{int(skip_fwd.sum())} of {skip_fwd.numel()} [{smi}]")
 
 
 # Parts of bf16 K6b and K6c left out one at a time (text replaced in a copy
@@ -1161,6 +1334,20 @@ K6C_PARTS = {
 }
 
 
+# Parts of fp32 K6 left out one at a time: where its time goes (all but the
+# first give wrong results)
+K6_PARTS = {
+    "as built": [],
+    "no S product": [("    for (int d4 = 0; d4 < DH / 4; ++d4) {",
+                      "    for (int d4 = 0; d4 < 0; ++d4) {")],
+    "no P V product": [("    for (int j4 = 0; j4 < BK / 4; ++j4) {",
+                        "    for (int j4 = 0; j4 < 0; ++j4) {")],
+    "no expf of p": [("        const float p = live ? expf(sc[i][c] - m_new) : 0.f;",
+                      "        const float p = live ? sc[i][c] - m_new : 0.f;")],
+    "no ab reads": [("          sc[i][c] += *reinterpret_cast<const float*>(ab_at + off + 16 * i * 128);",
+                     "          sc[i][c] += 0.5f;")],
+}
+
 # Parts of K3b's stream (its first launch) left out: the products (the
 # widening and the FMAs), so that what remains is the table's stream, the
 # logits' bookkeeping and the lists.
@@ -1195,8 +1382,10 @@ def kernel_parts(smi: str, which: str) -> None:
 
     parts, kernel, kid = {"k6b": (K6B_PARTS, fl.KERNEL_DKV, "K6b"),
                           "k6c": (K6C_PARTS, fl.KERNEL_DQ, "K6c"),
+                          "k6": (K6_PARTS, fl.KERNEL, "K6"),
                           "k3b": (K3B_PARTS, vt.KERNEL, "K3b")}[which]
-    src = build.CSRC_DIR / ("vocab_topk.cu" if which == "k3b" else "flash_attention_bwd.cu")
+    src = build.CSRC_DIR / {"k3b": "vocab_topk.cu", "k6": "flash_attention.cu"}.get(
+        which, "flash_attention_bwd.cu")
     tmp = Path(tempfile.mkdtemp())
     for header in build._sources(src, [])[1:]:
         (tmp / header.name).write_bytes(header.read_bytes())
@@ -1243,6 +1432,28 @@ def kernel_parts(smi: str, which: str) -> None:
             vt._functions.clear()
             vt._grids.clear()
         return
+    if which == "k6":
+        cases = {}
+        for label, T, kind, valid in FLASH_SHAPES:
+            qkv, ab32, seg = flash_inputs(np.random.default_rng(19), T, kind, valid, dev)
+            ab = None if ab32 is None else fl.empty_bias(*ab32.shape, torch.float32,
+                                                         dev).copy_(ab32)
+            cases[label] = (*qkv, ab, *(seg or (None, None)))
+        try:
+            for name, lib in libs:
+                so = ctypes.CDLL(str(lib))
+                fn = getattr(so, kernel)
+                fn.argtypes, fn.restype = fl._ENTRY[kernel][1], ctypes.c_int
+                so.cuda_error_string.argtypes = [ctypes.c_int]
+                so.cuda_error_string.restype = ctypes.c_char_p
+                fl._functions[kernel] = (fn, so.cuda_error_string)
+                us = {label: min(cuda_time_ms(lambda: fl._launch(*args)) for _ in range(3))
+                      * 1e3 for label, args in cases.items()}
+                log(f"K6 fp32, {name}: " + ", ".join(f"{label} {t:.2f} us"
+                                                     for label, t in us.items()) + f" [{smi}]")
+        finally:
+            fl._functions.pop(kernel, None)
+        return
     label, T, kind, valid = next(x for x in FLASH_SHAPES if x[0] == FLASH_MAIN)
     qkv, ab32, seg = flash_inputs(np.random.default_rng(19), T, kind, valid, dev)
     qs, k, v = (x.to(torch.bfloat16) for x in qkv)
@@ -1276,7 +1487,8 @@ def kernel_parts(smi: str, which: str) -> None:
 K12_MARKS = (
     ("    hopper::fence_proxy_async_smem();  // the barriers, to the bulk copies\n  }\n",
      "after", 1, "threadIdx.x == 32"),
-    ("  const int s = __ldg(p.src + b);\n", "after", 2, "threadIdx.x == 32 && s >= 0"),
+    ("  const int s = kIndexed ? 0 : __ldg(p.src + b);\n", "after", 2,
+     "threadIdx.x == 32 && s >= 0"),
     ("  } else {\n    __syncthreads();  // the barriers are initialised", "before", 3,
      "threadIdx.x == 32"),
     ("  const float lcur = lcur_s;\n", "before", 4, "threadIdx.x == 0"),
@@ -1303,8 +1515,8 @@ K12_VARIANTS = {
     "without the bulk stores (no new caches)": [
         ("        hopper::bulk_store(g, tile, nr * rb);\n", "")],
     "without the scale loads (wrong out)": [
-        ("          ks[u] = __ldg(p.k_scale + src_row + t);\n"
-         "          vs[u] = __ldg(p.v_scale + src_row + t);\n", "          ks[u] = vs[u] = 1.f;\n")],
+        ("          ks[u] = __ldg(p.k_scale + row_of(t));\n"
+         "          vs[u] = __ldg(p.v_scale + row_of(t));\n", "          ks[u] = vs[u] = 1.f;\n")],
     "with two issuing threads": [
         ("  const bool producer = tid == 32;\n  if (producer) {\n"
          "    for (int i = 0; i < stages; ++i) hopper::mbar_init(&full[i], kBulk ? 1 : kThreads);",
@@ -1323,17 +1535,54 @@ K12_VARIANTS = {
 }
 
 
-def k12_library(tmp, i: int, edits):
-    """K1's source with the header's ``edits`` and every mark of
-    ``K12_MARKS`` (a globaltimer read of thread 0 into ``g_trace``, read
-    back by ``read_trace``), built into ``tmp``. Each copy has a namespace
-    of its own: two libraries of one process must not share a kernel's
-    name."""
+# ``--k5-trace``: K5's stage marks, K1's where the stage is the same; the
+# rows' slots are loaded by the barrier before the copies, every thread
+# issues copies, and no bulk store ends the kernel
+K5_MARKS = tuple(m for m in K12_MARKS if m[2] not in (2, 3, 12)) + (
+    ("    __syncthreads();  // the barriers are initialised\n", "after", 2, "threadIdx.x == 0"),
+    ("    for (int i = 0; i < min(stages, n_tiles); ++i) load_tile(i);\n  }\n", "after", 3,
+     "threadIdx.x == 0"),
+    ("  if constexpr (kBulk)\n    if (producer) hopper::bulk_wait_read<0>();", "before", 12,
+     "threadIdx.x == 0"),
+)
+K5_STAGES = ("entry", "barriers", "row slots", "copies issued", *K12_STAGES[4:])
+# K5's ways of bringing in its rows (text of the header replaced)
+K5_VARIANTS = {
+    "as built (16-byte cp.async copies)": [],
+    "a bulk copy a row": [(
+        "      const int cpr = rb / 16;\n"
+        "      for (int w = tid; w < nr * cpr; w += kThreads) {\n"
+        "        const int r = w / cpr, k = w - r * cpr;\n"
+        "        hopper::cp_async_16(dst + r * rb + 16 * k, cache + row_of(t0 + r) * rb + 16 * k);\n"
+        "      }\n"
+        "      hopper::cp_async_arrive_noinc(bar);\n",
+        "      hopper::mbar_arrive_expect_tx(bar, tid < nr ? ((nr - 1 - tid) / kThreads + 1) * rb : 0);\n"
+        "      for (int r = tid; r < nr; r += kThreads)\n"
+        "        hopper::bulk_load(dst + r * rb, cache + row_of(t0 + r) * rb, rb, bar);\n")],
+    "every row from slot 0 (wrong out: the table's indirection left out)": [(
+        "cache + row_of(t0 + r) * rb + 16 * k);",
+        "cache + ((size_t)h * T_len + r0 + t0 + r) * rb + 16 * k);")],
+    "the copy loop unrolled by 4": [(
+        "      for (int w = tid; w < nr * cpr; w += kThreads) {\n",
+        "#pragma unroll 4\n      for (int w = tid; w < nr * cpr; w += kThreads) {\n")],
+    "chunks by shift (Dh = 64 only)": [(
+        "        const int r = w / cpr, k = w - r * cpr;\n",
+        "        const int r = w >> 2, k = w & 3;\n")],
+}
+
+
+def k12_library(tmp, i: int, edits, k5: bool = False):
+    """K1's (``k5``: K5's) source with the header's ``edits`` and every mark
+    of ``K12_MARKS`` (``K5_MARKS``: a globaltimer read of thread 0 into
+    ``g_trace``, read back by ``read_trace``), built into ``tmp``. Each copy
+    has a namespace of its own: two libraries of one process must not share
+    a kernel's name."""
     from seamless_communication_torch.ops.kernels import build
 
     hdr = (build.CSRC_DIR / "decode_attention.cuh").read_text()
-    marks = [*K12_MARKS, ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
-                          "before", 0, "threadIdx.x == 0")]
+    marks = [*(K5_MARKS if k5 else K12_MARKS),
+             ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
+              "before", 0, "threadIdx.x == 0")]
     for old, new in edits:
         if hdr.count(old) != 1:
             raise AssertionError("--k12-trace: decode_attention.cuh has changed")
@@ -1345,20 +1594,24 @@ def k12_library(tmp, i: int, edits):
         first, _, rest = text.partition("\n")
         hdr = hdr.replace(text, {"before": mark + text, "after": text + mark,
                                  "mid": first + "\n" + mark + rest}[where])
-    hdr = hdr.replace("namespace decode_step {\n", "namespace decode_step {\n"
+    hdr = hdr.replace("namespace DECODE_STEP_NS {\n", "namespace DECODE_STEP_NS {\n"
                       "__device__ unsigned long long g_trace[8192 * 16];\n"
                       "__device__ __forceinline__ void trace_at(int k) {\n"
                       "  unsigned long long t;\n"
                       "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
                       "  g_trace[(blockIdx.y * gridDim.x + blockIdx.x) * 16 + k] = t;\n}\n")
-    ns = f"decode_step_k12_{i}"
-    (tmp / f"decode_attention_{i}.cuh").write_text(hdr.replace("decode_step", ns))
-    src = (build.CSRC_DIR / "decode_attention.cu").read_text().replace(
-        '#include "decode_attention.cuh"', f'#include "decode_attention_{i}.cuh"')
-    src = src.replace("decode_step::", ns + "::") + (
-        'extern "C" int read_trace(unsigned long long* host) {\n'
-        f"  return (int)cudaMemcpyFromSymbol(host, {ns}::g_trace, sizeof({ns}::g_trace));\n}}\n")
-    cu, lib = tmp / f"k12_{i}.cu", tmp / f"k12_{i}.so"
+    tag = f"k{5 if k5 else 12}_{i}"
+    ns = f"decode_step_{tag}"
+    (tmp / f"trace_{tag}.cuh").write_text(hdr.replace("decode_step", ns))
+    # K5's source names its own namespace, decode_step_indexed
+    src = (build.CSRC_DIR / ("decode_attention_indexed.cu" if k5 else "decode_attention.cu")
+           ).read_text().replace("decode_step", ns).replace(
+               '#include "decode_attention.cuh"', f'#include "trace_{tag}.cuh"')
+    lib_ns = ns + "_indexed" if k5 else ns
+    src += ('extern "C" int read_trace(unsigned long long* host) {\n'
+            f"  return (int)cudaMemcpyFromSymbol(host, {lib_ns}::g_trace, "
+            f"sizeof({lib_ns}::g_trace));\n}}\n")
+    cu, lib = tmp / f"{ns}.cu", tmp / f"{ns}.so"
     cu.write_text(src)
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)], check=True,
                    capture_output=True)
@@ -1448,6 +1701,107 @@ def k12_trace(smi: str) -> None:
                 f"[min, max] over the blocks: " + "; ".join(
                     f"{nm} {np.median(rel[:, k]):.2f} [{rel[:, k].min():.2f}, "
                     f"{rel[:, k].max():.2f}]" for k, nm in enumerate(K12_STAGES)))
+
+
+def read_stages(so, n_blocks: int, names) -> str:
+    """The marks of ``so``'s last launch, each stage in µs from the first
+    block's entry: the median over the blocks [min, max]."""
+    import ctypes
+
+    import numpy as np
+
+    buf = (ctypes.c_ulonglong * (8192 * 16))()
+    so.read_trace(ctypes.addressof(buf))
+    tr = np.array(buf[: n_blocks * 16], dtype=np.int64).reshape(n_blocks, 16)[:, :len(names)]
+    rel = (tr - tr[:, 0].min()) / 1e3
+    return "; ".join(f"{nm} {np.median(rel[:, k]):.2f} [{rel[:, k].min():.2f}, "
+                     f"{rel[:, k].max():.2f}]" for k, nm in enumerate(names))
+
+
+def k5_trace(smi: str) -> None:
+    """``python3 chip_smoke.py --k5-trace``: where K5's time goes at the main
+    path's shape (B=5, H=16, T=320, Dh=64, step 200, fp32, the beam-history
+    table). Copies of the kernel with ``K5_MARKS`` (``k12_library``), as built
+    and with each variant of ``K5_VARIANTS``, are held against the plain
+    version and timed by CUDA-graph replay at cluster sizes 1, 2, 4 and 8,
+    beside K1's copy with ``K12_MARKS`` at the same shape, and each copy's
+    globaltimer marks give each stage's time from the first block's entry
+    (the median over the blocks, and the range)."""
+    import concurrent.futures
+    import ctypes
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.ops.kernels import build
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    tmp = Path(tempfile.mkdtemp())
+    (tmp / "hopper.cuh").write_text((build.CSRC_DIR / "hopper.cuh").read_text())
+    jobs = [(0, [], False)] + [(i, edits, True) for i, edits in enumerate(K5_VARIANTS.values())]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        k1_lib, *k5_libs = pool.map(lambda job: k12_library(tmp, *job), jobs)
+    B, H, T, Dh, step = B_MAIN, H_MAIN, T_MAIN, DH_MAIN, STEP_TIMED
+    vecs, caches = decode_inputs(np.random.default_rng(0), "decode_attention_int8", B, T, Dh,
+                                 torch.float32)
+    table = indexed_tables(B, T, 5)["beam history"]
+    src = torch.tensor(decode_origins(B)["repeated"], dtype=torch.int32, device="cuda")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ptrs = [x.data_ptr() for x in (*vecs, *caches)]
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    k5s = {}
+    for name, lib in zip(K5_VARIANTS, k5_libs):
+        so = k5s[name] = ctypes.CDLL(str(lib))
+        so.decode_attention_indexed.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                                ctypes.c_float, i, i, i, i, p, p]
+        so.read_trace.argtypes = [p]
+    k1 = ctypes.CDLL(str(k1_lib))
+    k1.decode_attention_int8.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                         ctypes.c_float, i, i, i, i, p, p, p, p, p, p]
+    k1.read_trace.argtypes = [p]
+    out = torch.empty_like(vecs[0])
+    news = [torch.empty_like(x) for x in caches]
+    ref = da._indexed_reference(*vecs, *caches, table, step)
+    for cluster in (1, 2, 4, 8):
+        plan = da.split_plan(B, H, T, Dh, 8, cluster, indexed=True)
+        k1_plan = da.split_plan(B, H, T, Dh, 8, cluster)
+
+        def call_k5(k5):
+            err = k5.decode_attention_indexed(
+                0, *ptrs, table.data_ptr(), B, H, T, Dh, step, math.sqrt(Dh), plan.cluster,
+                plan.slice_rows, plan.tile_rows, plan.stages, out.data_ptr(), stream())
+            if err:
+                raise RuntimeError(f"--k5-trace cluster {cluster}: launch failed ({err})")
+
+        def call_k1():
+            err = k1.decode_attention_int8(
+                0, *ptrs, src.data_ptr(), B, H, T, Dh, step, math.sqrt(Dh), k1_plan.cluster,
+                k1_plan.slice_rows, k1_plan.tile_rows, k1_plan.stages, out.data_ptr(),
+                *(x.data_ptr() for x in news), stream())
+            if err:
+                raise RuntimeError(f"--k5-trace K1 cluster {cluster}: launch failed ({err})")
+
+        n = H * plan.cluster * B
+        for name, k5 in k5s.items():
+            out.zero_()
+            call_k5(k5)
+            torch.cuda.synchronize()
+            same = bool(torch.allclose(out, ref, rtol=2e-5, atol=2e-5))
+            for _ in range(5):
+                call_k5(k5)
+            torch.cuda.synchronize()
+            log(f"K5 --k5-trace {name}, cluster {cluster}: "
+                f"{cuda_time_ms(lambda: call_k5(k5)) * 1e3:.2f} us; equal to the plain "
+                f"version: {same} [{smi}]")
+            log(f"K5 --k5-trace {name}, cluster {cluster} stages, us from the first block's "
+                f"entry, median [min, max] over the blocks: {read_stages(k5, n, K5_STAGES)}")
+        for _ in range(5):
+            call_k1()
+        torch.cuda.synchronize()
+        log(f"K1 --k5-trace cluster {cluster}: {cuda_time_ms(call_k1) * 1e3:.2f} us, stages: "
+            f"{read_stages(k1, n, K12_STAGES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -3335,18 +3689,21 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_main_path(dev["smi"])
         return 0
-    if sys.argv[1:] in (["--k6b-parts"], ["--k6c-parts"], ["--k3b-parts"]):
-        kernel_parts(dev["smi"], sys.argv[1][2:5])
+    if sys.argv[1:] in (["--k6-parts"], ["--k6b-parts"], ["--k6c-parts"], ["--k3b-parts"]):
+        kernel_parts(dev["smi"], sys.argv[1][2:].split("-")[0])
         return 0
     if sys.argv[1:] == ["--k12-trace"]:
         k12_trace(dev["smi"])
+        return 0
+    if sys.argv[1:] == ["--k5-trace"]:
+        k5_trace(dev["smi"])
         return 0
     floor_ms = launch_floor_ms()
     log(f"launch floor (a one-element in-place add, CUDA-graph replay): "
         f"{floor_ms * 1e3:.2f} us [{dev['smi']}]")
     k1 = phase_decode_attention("decode_attention_int8", floor_ms)
     k2 = phase_decode_attention("decode_attention_int4", floor_ms)
-    k5 = phase_indexed(dev["smi"])
+    k5 = phase_indexed(dev["smi"], floor_ms)
     k4 = phase_fbank(dev["smi"])
     k3b, k3a = phase_vocab_topk(dev["smi"])
     k6 = phase_flash_attention(dev["smi"])

@@ -1,7 +1,9 @@
-// The decode-attention step shared by K1 (decode_attention.cu, int8 rows)
-// and K2 (decode_attention_int4.cu, packed-int4 rows): beam gather, insert of
-// the quantized current row, and causal attention over the cache and the
-// current row, for one layer of one decode step (Hopper, sm_90a).
+// The decode-attention step shared by K1 (decode_attention.cu, int8 rows),
+// K2 (decode_attention_int4.cu, packed-int4 rows) and K5
+// (decode_attention_indexed.cu, int8 rows read through a row-origin table):
+// beam gather, insert of the quantized current row, and causal attention
+// over the cache and the current row, for one layer of one decode step
+// (Hopper, sm_90a).
 //
 // For each (b, h), with s = src[b] the beam this row continues:
 //   logit[t] = (q . k[s,h,t]) * k_scale[s,h,t] / sqrt(Dh)        for t < step
@@ -43,6 +45,18 @@
 // exchanges are st.async writes into the other blocks' shared memory, each
 // counted on the receiving block's mbarrier; the only cluster barrier is the
 // one that says every block has initialised its mbarriers.
+//
+// K5, the lazy beam reorder (the `RowOrigin` policy): row t of logical beam
+// b lives in physical slot s = row_src[b, t], the same arithmetic with
+// k[s,h,t], k_scale[s,h,t], v[s,h,t] and v_scale[s,h,t], and nothing is
+// written but `out` (the caller inserts the new row; rows t >= step are not
+// read). Each block loads its slice of row_src into shared memory once;
+// rows of one tile come from different slots, so every thread copies 16-byte
+// chunks of the tile's rows with cp.async, arriving on the slot's mbarrier
+// (the `kBulk` false path; a bulk copy a row, tried by `chip_smoke.py
+// --k5-trace`, was slower at every cluster size); the current row is not
+// quantized and no slab is stored. The split, the exchanges and so the
+// rounding are K1's.
 
 #pragma once
 
@@ -52,7 +66,14 @@
 
 #include "hopper.cuh"
 
-namespace decode_step {
+// A library that loads beside another one built from this header names its
+// own namespace: two libraries of one process that define a kernel of the
+// same name make the second's cluster launches fail.
+#ifndef DECODE_STEP_NS
+#define DECODE_STEP_NS decode_step
+#endif
+
+namespace DECODE_STEP_NS {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -168,6 +189,17 @@ struct Int4Rows {
   }
 };
 
+// Where a (b, h)'s rows come from. K1, K2: every row from the slot of the
+// beam it continues, src[b] (B,), the slabs copied whole and stored to the
+// new caches with row `step` replaced. K5: row t from slot row_src[b, t]
+// (`src` is the (B, T) table), no cache written.
+struct BeamOrigin {
+  static constexpr bool kIndexed = false;
+};
+struct RowOrigin {
+  static constexpr bool kIndexed = true;
+};
+
 struct Params {
   const void* q;
   const void* k_t;
@@ -192,13 +224,16 @@ __host__ __device__ inline size_t slot_bytes(int tile_rows, int row_bytes) {
 }
 
 // dynamic shared memory of a block: the ring, then the slice's k-scale
-// (logit, weight) and v-scale rows
-__host__ __device__ inline size_t smem_bytes(const Params& p, int row_bytes) {
-  return p.stages * slot_bytes(p.tile_rows, row_bytes) + 2 * sizeof(float) * p.slice_rows;
+// (logit, weight) and v-scale rows, and (K5) its rows' slots
+__host__ __device__ inline size_t smem_bytes(const Params& p, int row_bytes, bool indexed) {
+  return p.stages * slot_bytes(p.tile_rows, row_bytes) +
+         (indexed ? 3 : 2) * sizeof(float) * p.slice_rows;
 }
 
-template <class Rows, typename T, bool kBulk>
+template <class Origin, class Rows, typename T, bool kBulk>
 __global__ void __launch_bounds__(kThreads) decode_step_kernel(const __grid_constant__ Params p) {
+  constexpr bool kIndexed = Origin::kIndexed;
+  static_assert(!(kIndexed && kBulk), "K5 copies its rows with cp.async");
   extern __shared__ __align__(kSlotAlign) unsigned char smem[];
   __shared__ __align__(16) float q_s[kMaxDh];
   __shared__ __align__(16) float vt_s[kMaxDh];
@@ -228,6 +263,7 @@ __global__ void __launch_bounds__(kThreads) decode_step_kernel(const __grid_cons
   unsigned char* ring = smem;
   float* w_s = reinterpret_cast<float*>(smem + stages * slot);  // k scale, logit, weight
   float* vs_s = w_s + p.slice_rows;
+  int* rs_s = reinterpret_cast<int*>(vs_s + p.slice_rows);       // K5: the rows' slots
 
   // One producer thread, lane 0 of warp 1, initialises the ring's barriers
   // before it has a load in flight, then issues every copy as soon as it
@@ -237,7 +273,12 @@ __global__ void __launch_bounds__(kThreads) decode_step_kernel(const __grid_cons
     for (int i = 0; i < stages; ++i) hopper::mbar_init(&full[i], kBulk ? 1 : kThreads);
     hopper::fence_proxy_async_smem();  // the barriers, to the bulk copies
   }
-  const int s = __ldg(p.src + b);
+  // the origin: K1, K2 the beam this (b, h) continues; K5 the slot of every
+  // row of the slice, loaded once (the barrier before the copies orders it)
+  const int s = kIndexed ? 0 : __ldg(p.src + b);
+  if constexpr (kIndexed)
+    for (int t = tid; t < n_rows; t += kThreads)
+      rs_s[t] = __ldg(p.src + (size_t)b * T_len + r0 + t);
   const T* qg = static_cast<const T*>(p.q) + bh * Dh;
   const T* kg = static_cast<const T*>(p.k_t) + bh * Dh;
   const T* vg = static_cast<const T*>(p.v_t) + bh * Dh;
@@ -257,6 +298,14 @@ __global__ void __launch_bounds__(kThreads) decode_step_kernel(const __grid_cons
   const size_t sbh = (size_t)s * H + h;
   const size_t src_row = sbh * T_len + r0, dst_row = bh * T_len + r0;
 
+  // the row of slice row t in the cache and scales (K5: of its own slot)
+  auto row_of = [&](int t) -> size_t {
+    if constexpr (kIndexed)
+      return ((size_t)rs_s[t] * H + h) * T_len + r0 + t;
+    else
+      return src_row + t;
+  };
+
   // tile i: k rows for i < n_half, then v rows; slice rows [t0, t0 + nr)
   auto tile_rows_of = [&](int i, int& t0) {
     t0 = (i < n_half ? i : i - n_half) * tile_rows;
@@ -268,7 +317,16 @@ __global__ void __launch_bounds__(kThreads) decode_step_kernel(const __grid_cons
     const int8_t* g = (i < n_half ? p.k_cache : p.v_cache) + (src_row + t0) * rb;
     unsigned char* dst = ring + (i % stages) * slot;
     uint64_t* bar = &full[i % stages];
-    if constexpr (kBulk) {
+    if constexpr (kIndexed) {
+      // each row from its own slot: 16-byte chunks, every thread arriving
+      const int8_t* cache = i < n_half ? p.k_cache : p.v_cache;
+      const int cpr = rb / 16;
+      for (int w = tid; w < nr * cpr; w += kThreads) {
+        const int r = w / cpr, k = w - r * cpr;
+        hopper::cp_async_16(dst + r * rb + 16 * k, cache + row_of(t0 + r) * rb + 16 * k);
+      }
+      hopper::cp_async_arrive_noinc(bar);
+    } else if constexpr (kBulk) {
       hopper::mbar_arrive_expect_tx(bar, nr * rb);
       hopper::bulk_load(dst, g, nr * rb, bar);
     } else {
@@ -278,6 +336,7 @@ __global__ void __launch_bounds__(kThreads) decode_step_kernel(const __grid_cons
   };
   // the tile in slot, row `step` replaced by `patch`, to new_k / new_v
   auto store_tile = [&](int i, unsigned char* tile, const int8_t* patch) {
+    if constexpr (kIndexed) return;  // K5 writes no cache
     int t0;
     const int nr = tile_rows_of(i, t0);
     int8_t* g = (i < n_half ? p.new_k : p.new_v) + (dst_row + t0) * rb;
@@ -363,11 +422,13 @@ __global__ void __launch_bounds__(kThreads) decode_step_kernel(const __grid_cons
       }
     }
     __syncwarp();
-    Rows::quantize_row(kq_s, kt_s, sk, Dh, lane);
-    Rows::quantize_row(vq_s, vt_s, sv, Dh, lane);
+    if constexpr (!kIndexed) {
+      Rows::quantize_row(kq_s, kt_s, sk, Dh, lane);
+      Rows::quantize_row(vq_s, vt_s, sv, Dh, lane);
+    }
     if (lane == 0) {
       lcur_s = dot / p.sqrt_dh;
-      if (step >= r0 && step < r0 + n_rows) {
+      if (!kIndexed && step >= r0 && step < r0 + n_rows) {
         p.new_ks[bh * T_len + step] = sk;
         p.new_vs[bh * T_len + step] = sv;
       }
@@ -382,8 +443,8 @@ __global__ void __launch_bounds__(kThreads) decode_step_kernel(const __grid_cons
       for (int u = 0; u < kU; ++u) {
         const int t = t0 + u * kStride;
         if (t < n_rows) {
-          ks[u] = __ldg(p.k_scale + src_row + t);
-          vs[u] = __ldg(p.v_scale + src_row + t);
+          ks[u] = __ldg(p.k_scale + row_of(t));
+          vs[u] = __ldg(p.v_scale + row_of(t));
         }
       }
 #pragma unroll
@@ -392,7 +453,7 @@ __global__ void __launch_bounds__(kThreads) decode_step_kernel(const __grid_cons
         if (t < n_rows) {
           w_s[t] = ks[u];
           vs_s[t] = vs[u];
-          if (r0 + t != step) {
+          if (!kIndexed && r0 + t != step) {
             p.new_ks[dst_row + t] = ks[u];
             p.new_vs[dst_row + t] = vs[u];
           }
@@ -573,10 +634,10 @@ __global__ void __launch_bounds__(kThreads) decode_step_kernel(const __grid_cons
 
 // Checks the plan and launches on `stream` as a cluster of `p.cluster`
 // blocks along x: grid (H * cluster, B).
-template <class Rows, typename T, bool kBulk>
+template <class Origin, class Rows, typename T, bool kBulk>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p, Rows::row_bytes(p.Dh));
-  auto kernel = decode_step_kernel<Rows, T, kBulk>;
+  const size_t smem = smem_bytes(p, Rows::row_bytes(p.Dh), Origin::kIndexed);
+  auto kernel = decode_step_kernel<Origin, Rows, T, kBulk>;
   // once: up to the whole budget (the launch's own size sets the occupancy)
   static const cudaError_t allowed = hopper::allow_smem(kernel, kSmemBudget);
   if (allowed != cudaSuccess) return allowed;
@@ -597,7 +658,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a CUDA error code as an int (0 =
 // launched); a plan the kernel does not take is cudaErrorInvalidConfiguration.
-template <class Rows>
+template <class Rows, class Origin = BeamOrigin>
 int run(int dtype, const Params& p, int B, void* stream) {
   const int rb = Rows::row_bytes(p.Dh);
   const bool plan_ok =
@@ -605,25 +666,39 @@ int run(int dtype, const Params& p, int B, void* stream) {
       p.Dh % 16 == 0 && p.Dh > 0 && p.Dh <= kMaxDh && p.stages >= 1 &&
       p.stages <= kMaxStages && p.tile_rows >= 1 && p.slice_rows >= 1 &&
       (long long)p.slice_rows * p.cluster >= p.T && p.step >= 0 && p.step < p.T &&
-      smem_bytes(p, rb) <= kSmemBudget;
+      smem_bytes(p, rb, Origin::kIndexed) <= kSmemBudget;
   if (!plan_ok) return (int)cudaErrorInvalidConfiguration;
-  // bulk copies need 16-byte rows and 16-byte aligned caches
-  const bool bulk = rb % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(p.k_cache) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(p.v_cache) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(p.new_k) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(p.new_v) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = bulk ? launch<Rows, float, true>(p, B, st) : launch<Rows, float, false>(p, B, st);
-  else if (dtype == 1)
-    err = bulk ? launch<Rows, __nv_bfloat16, true>(p, B, st)
-               : launch<Rows, __nv_bfloat16, false>(p, B, st);
-  else
-    return (int)cudaErrorInvalidValue;
+  if constexpr (Origin::kIndexed) {
+    // 16-byte chunks of each row: 16-byte rows and caches
+    if (rb % 16 || reinterpret_cast<uintptr_t>(p.k_cache) % 16 ||
+        reinterpret_cast<uintptr_t>(p.v_cache) % 16)
+      return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      err = launch<Origin, Rows, float, false>(p, B, st);
+    else if (dtype == 1)
+      err = launch<Origin, Rows, __nv_bfloat16, false>(p, B, st);
+    else
+      return (int)cudaErrorInvalidValue;
+  } else {
+    // bulk copies need 16-byte rows and 16-byte aligned caches
+    const bool bulk = rb % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(p.k_cache) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(p.v_cache) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(p.new_k) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(p.new_v) % 16 == 0;
+    if (dtype == 0)
+      err = bulk ? launch<Origin, Rows, float, true>(p, B, st)
+                 : launch<Origin, Rows, float, false>(p, B, st);
+    else if (dtype == 1)
+      err = bulk ? launch<Origin, Rows, __nv_bfloat16, true>(p, B, st)
+                 : launch<Origin, Rows, __nv_bfloat16, false>(p, B, st);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-}  // namespace decode_step
+}  // namespace DECODE_STEP_NS

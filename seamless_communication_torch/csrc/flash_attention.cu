@@ -52,23 +52,35 @@
 // tiles run one after another; each tile's softmax (about 1000 cycles) waits
 // on its S product and the next S waits on the softmax.
 //
-// fp32 (flash_attention_kernel): SIMT FMAs, no TF32, so the results stay
-// those of the plain fp32 product. One block of 128 threads (4 warps) per
-// (b, h, tile of 16 query rows), each warp owning 4 rows, which it computes
-// together. The block stages each key tile of K and V (64 keys for Dh <= 64,
-// 32 for Dh = 128) in shared memory as fp32, K's rows padded by 4 floats so
-// that the 16-byte loads of 8 lanes reading 8 keys hit distinct banks. For
-// q.k a lane owns
-// keys (lane, lane + 32): each 16-byte K load serves the warp's 4 rows and
-// each 16-byte q load is a broadcast, so 6 loads feed 32 FMAs (fp32, no
-// TF32). The lane adds ab read from device memory (coalesced along the keys)
-// and the segment mask compared in registers; warp shuffles reduce each
-// row's maximum and sum. The rounded probabilities go to shared memory, and
-// for p.v a lane owns output dimensions (lane, lane + 32): each V value
-// serves the 4 rows. Every input byte is read once from device memory;
-// ragged tails of Tq and Tk are masked in the kernel, so no operand is
-// padded. Its bias rows are read by their stride.
-//
+// fp32 (f32::flash_attention_f32_kernel): SIMT FMAs, no TF32, so the results
+// stay those of the plain fp32 product; each logit is summed over d in order
+// and each output over the keys of a tile in order. Its first design (one
+// block of 128 threads a tile of 16 query rows, plain tile loads between two
+// barriers, a lane's register tile of 4 rows x 2 keys) took 87.23-93.05 us at
+// the 10 s shape on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 2): every
+// FMA waited on a shared load of its own, and each of the 512 blocks read the
+// head's whole K and V. Now the bf16 kernel's skeleton carries fp32 tiles:
+// one block per (b, h, 64 query rows) (32 where 64-row blocks would leave
+// most of the card idle, flash_attention.py fp32_block_rows); a producer warp
+// loads Q once and streams K, V, the ab tile and the key segment ids by TMA
+// (rows in 128-byte boxes, 128-byte swizzled) through a ring of 3-4 stages
+// guarded by mbarriers; two groups of four warps take alternate key tiles,
+// each with its own online softmax, and merge at the end. A thread holds a
+// register tile of 4 rows x 8 keys of S and the same 4 rows x Dh/8 columns
+// of O, so one 16-byte load of Q or K feeds 16 or 32 FMAs; the swizzle makes
+// a warp's loads conflict-free; p goes from the scores to the value product
+// through a padded tile in shared memory that one warp writes and reads.
+// Under segment ids (and no ab) the key tiles of `skippable_tiles_fwd` are
+// not loaded: their keys are masked for every row of the block, and every
+// row has an unmasked key elsewhere, so their p are exactly 0 (or their terms
+// are scaled by exp(mask - m) = 0) and out, m and l do not change by a bit.
+// At the 10 s shape it takes about 41 us against the 15.6 us bound (an H100
+// 80GB HBM3 at 700 W, chip_smoke.py --k6-parts): each product about 14 us,
+// 58 % of the fp32 FMA rate (the shared loads and the swizzle's address
+// arithmetic beside the FMAs), the exps about 5 us, the rest the softmax,
+// the merge and the fixed cost of a launch. 3xTF32 wgmma would take the
+// products off the FMA pipe.
+
 // Residuals for the backward (K6b, K6c in flash_attention_bwd.cu): where the
 // caller passes m and l, the kernel also writes each row's final running
 // maximum m and softmax denominator l = sum_j exp(s[j] - m), fp32 (B,H,Tq),
@@ -83,236 +95,505 @@
 
 #include "hopper.cuh"
 
-namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kWarps * kRowsPerWarp;  // query rows of a block
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Strides are in elements; the last dimension of q, k and v is contiguous.
 // The bias's rows are `abt` apart (its last dimension contiguous).
 struct Strides {
   long long qb, qh, qt, kb, kh, kt, vb, vh, vt, abt;
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ ab,
-                       const int32_t* __restrict__ q_seg,
-                       const int32_t* __restrict__ kv_seg, Strides st, int H,
-                       int Tq, int Tk, float mask_value, float* __restrict__ out,
-                       float* __restrict__ m_out, float* __restrict__ l_out) {
-  constexpr int R = kRowsPerWarp;
-  constexpr int BK = DH <= 64 ? 64 : 32;      // keys of a tile
-  constexpr int KPL = BK / 32;                // keys of a lane
-  constexpr int DPL = (DH + 31) / 32;         // output dims of a lane
-  constexpr int LD = DH + 4;                  // padded K row, 16-byte aligned
-  __shared__ __align__(16) float q_s[kRows * DH];
-  __shared__ __align__(16) float k_s[BK * LD];
-  __shared__ __align__(16) float v_s[BK * DH];
-  __shared__ __align__(16) float p_s[kWarps][R][BK];
+// ---------------------------------------------------------------------------
+// fp32: register-blocked SIMT FMAs fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kGroups = 2;                      // consumer groups: alternate key tiles
+constexpr int kGroupThreads = 128;
+constexpr int kConsumers = kGroups * kGroupThreads;
+constexpr int kThreads = kConsumers + 32;       // and one producer warp: TMA
+constexpr int kSkipTile = 64;                   // the skip rule's row and key tiles
+constexpr int kMaxSkipTiles = 512;              // key tiles past these are always taken
+constexpr int kSmemBudget = 227 * 1024 - 2048;  // dynamic; the rest is the static arrays'
+
+template <int DH, int BM>
+struct Shape {
+  static constexpr int BK = DH <= 64 ? 64 : 32;             // keys of a tile
+  static constexpr int TR = BM / 16;                        // query rows of a thread
+  static constexpr int KPT = BK / 8;                        // keys of a thread
+  static constexpr int CPT = DH / 8;                        // output columns of a thread
+  static constexpr int kSwz = DH * 4 < 128 ? DH * 4 : 128;  // bytes of a swizzled row
+  static constexpr int kCols = kSwz / 4;                    // its floats (a TMA box row)
+  static constexpr int kParts = DH / kCols;                 // boxes of a Q, K or V row
+  static constexpr int kAbParts = BK / 32;                  // 32-key boxes of an ab tile
+  static constexpr int kPld = BK + 8;                       // a row of p, padded
+  static constexpr int kQBytes = BM * DH * 4;
+  static constexpr int kKvBytes = BK * DH * 4;              // one K or V tile
+  static constexpr int kAbBytes = BM * BK * 4;              // one ab tile
+  static constexpr int kSegBytes = 1024;                    // BK key segment ids
+  static constexpr int kStageBytes = 2 * kKvBytes + kAbBytes + kSegBytes;
+  static constexpr int kPBytes = kGroups * BM * kPld * 4;
+  static constexpr int kFixed = 1024 + kQBytes + kPBytes + 8 * 9;
+  static constexpr int kFit = (kSmemBudget - kFixed) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;       // ring of K, V, ab tiles
+  static constexpr int kPOffset = kQBytes + kStages * kStageBytes;
+  static constexpr int kBarOffset = kPOffset + kPBytes;
+  // 1024 bytes of slack align the tiles (the swizzle atom)
+  static constexpr size_t kSmemBytes = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+  static_assert(kStages >= 2, "the ring needs two stages");
+};
+
+// The term TMA's swizzle of `SWZ`-byte rows XORs into the 16-byte chunk
+// index of row `row` (hopper::swizzled)
+template <int SWZ>
+__device__ __forceinline__ int swz_term(int row) {
+  return SWZ == 128 ? (row & 7) : SWZ == 64 ? ((row >> 1) & 3) : ((row >> 2) & 1);
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in an fp32 tile of ROWS
+// rows stored as TMA writes it: each row cut in boxes of SWZ bytes (part p of
+// every row, then part p + 1), each box row swizzled
+template <int SWZ, int ROWS>
+__device__ __forceinline__ int chunk_at(int row, int chunk) {
+  constexpr int kChunks = SWZ / 16;
+  return (chunk / kChunks) * ROWS * SWZ + row * SWZ +
+         (((chunk % kChunks) ^ swz_term<SWZ>(row)) << 4);
+}
+
+struct Args {
+  const int32_t* q_seg;
+  const int32_t* kv_seg;
+  int H, Tq, Tk;
+  float mask_value;
+  bool has_ab;
+  bool q_swap, k_swap, v_swap;  // th_swap of each map
+  float* out;
+  float* m_out;
+  float* l_out;
+};
+
+// The forward's skip rule (flash_attention.py skippable_tiles_fwd) for the
+// 64-row tile of this block's rows (rseg_s: its rows' segment ids), computed
+// by the consumer threads: skip_s[u] stays 1 for a 64-key tile u whose keys
+// below Tk all have segment ids outside [min, max] of the row tile's rows
+// below Tq; unmatched_s becomes 1 if some row below Tq has no key below Tk of
+// its own segment (its softmax averages every key, so every tile is taken).
+__device__ void skip_rule(const Args& a, int b, int r_base, int n_skip, const int* rseg_s,
+                          uint8_t* skip_s, uint32_t* found_s, int* unmatched_s) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int nv = min(kSkipTile, a.Tq - r_base);
+  int rmin = rseg_s[0], rmax = rseg_s[0];
+  for (int r = 1; r < nv; ++r) {
+    rmin = min(rmin, rseg_s[r]);
+    rmax = max(rmax, rseg_s[r]);
+  }
+  const int32_t* ks = a.kv_seg + (size_t)b * a.Tk;
+  const int lim = min(a.Tk, n_skip * kSkipTile);
+  for (int j = tid; j < lim; j += kConsumers) {
+    const int sj = ks[j];
+    if (sj >= rmin && sj <= rmax) skip_s[j / kSkipTile] = 0;
+  }
+  // rows that have a key of their segment, kConsumers keys at a time until
+  // every row has one or the keys run out
+  const uint64_t all = nv == 64 ? ~0ull : (1ull << nv) - 1;
+  for (int c0 = 0;; c0 += kConsumers) {
+    uint64_t mask = 0;
+    if (c0 + tid < a.Tk) {
+      const int sj = ks[c0 + tid];
+      for (int r = 0; r < nv; ++r) mask |= (uint64_t)(rseg_s[r] == sj) << r;
+    }
+    const uint32_t lo = __reduce_or_sync(0xffffffffu, (uint32_t)mask);
+    const uint32_t hi = __reduce_or_sync(0xffffffffu, (uint32_t)(mask >> 32));
+    if (lane == 0) {
+      if (lo) atomicOr(&found_s[0], lo);
+      if (hi) atomicOr(&found_s[1], hi);
+    }
+    hopper::named_sync(2, kConsumers);
+    const uint64_t found = found_s[0] | ((uint64_t)found_s[1] << 32);
+    hopper::named_sync(2, kConsumers);  // every thread has read found_s
+    if ((found & all) == all) return;
+    if (c0 + kConsumers >= a.Tk) {
+      if (tid == 0) *unmatched_s = 1;
+      return;
+    }
+  }
+}
+
+// One block: BM (64, or 32 for short sequences) query rows of one (b, h).
+// The last warp loads Q once and streams the K, V and ab tiles (and the key
+// segment ids) of every key tile that is not skipped through a ring of
+// kStages stages. Two groups of four warps compute, group wg over the key
+// tiles t with t % 2 == wg, each with its own online softmax, and merge
+// their rows' m, l and O at the end through shared memory.
+template <int DH, int BM>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap ab_map, const Args a) {
+  using S = Shape<DH, BM>;
+  constexpr int BK = S::BK, TR = S::TR, KPT = S::KPT, CPT = S::CPT, NS = S::kStages,
+                SWZ = S::kSwz, COLS = S::kCols, PLD = S::kPld;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint8_t skip_s[kMaxSkipTiles];  // 1: the 64-key tile is left out
+  __shared__ int rseg_s[kSkipTile];          // the 64-row tile's segment ids
+  __shared__ uint32_t found_s[2];            // its rows that have a key of their segment
+  __shared__ int unmatched_s;                // a row has none: every tile is taken
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* q_s = smem;
+  uint8_t* stages = smem + S::kQBytes;
+  float* p_all = reinterpret_cast<float*>(smem + S::kPOffset);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBarOffset);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;        // [NS]: the stage's tiles have landed
+  uint64_t* empty = bars + 1 + NS;  // [NS]: the consumers are done with it
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * kRows;
+  const int q0 = blockIdx.x * BM;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int row0 = warp * R;                  // the warp's first row in the block
-  const float* qb = q + b * st.qb + h * st.qh;
-  const float* kb = k + b * st.kb + h * st.kh;
-  const float* vb = v + b * st.vb + h * st.vh;
-  const size_t bh = (size_t)b * H + h;
-  const bool seg = q_seg != nullptr;
+  const int n_tiles = (a.Tk + BK - 1) / BK;
+  const bool seg = a.q_seg != nullptr;
+  const bool skipping = seg && !a.has_ab;
+  const int n_skip = min((a.Tk + kSkipTile - 1) / kSkipTile, kMaxSkipTiles);
+  const int r_base = q0 / kSkipTile * kSkipTile;  // the 64-row tile of the rule
 
-  for (int idx = tid; idx < kRows * DH; idx += kThreads) {
-    const int r = idx / DH, d = idx % DH, i = q0 + r;
-    q_s[idx] = i < Tq ? (qb[i * st.qt + d]) : 0.f;
-  }
-  float m[R], l[R], acc[R][DPL];
-  int qseg[R];
-  bool live_row[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = q0 + row0 + r;
-    live_row[r] = i < Tq;
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-    qseg[r] = (seg && live_row[r]) ? q_seg[(size_t)b * Tq + i] : 0;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed (and q_s written)
-    for (int idx = tid; idx < BK * DH; idx += kThreads) {
-      const int j = idx / DH, d = idx % DH, key = k0 + j;
-      const bool ok = key < Tk;
-      k_s[j * LD + d] = ok ? (kb[key * st.kt + d]) : 0.f;
-      v_s[idx] = ok ? (vb[key * st.vt + d]) : 0.f;
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kGroupThreads);  // the group that takes the tile
     }
+    hopper::fence_barrier_init();
+    found_s[0] = found_s[1] = 0;
+    unmatched_s = 0;
+  }
+  if (skipping) {
+    if (tid < kSkipTile)
+      rseg_s[tid] = r_base + tid < a.Tq ? a.q_seg[(size_t)b * a.Tq + r_base + tid] : 0;
+    for (int t = tid; t < n_skip; t += kThreads) skip_s[t] = 1;
+  }
+  __syncthreads();
+  if (warp == kConsumers / 32 && lane == 0) {
+    hopper::prefetch_map(&q_map);
+    hopper::prefetch_map(&k_map);
+    hopper::prefetch_map(&v_map);
+    hopper::mbar_arrive_expect_tx(q_full, S::kQBytes);
+    for (int part = 0; part < S::kParts; ++part)
+      hopper::load_rows(q_s + part * BM * SWZ, &q_map, q_full, part * COLS, q0, h, b,
+                        a.q_swap);
+  }
+  if (skipping) {
+    if (tid < kConsumers)
+      skip_rule(a, b, r_base, n_skip, rseg_s, skip_s, found_s, &unmatched_s);
     __syncthreads();
+  }
+  const bool can_skip = skipping && unmatched_s == 0;
+  auto skipped = [&](int t) {
+    const int u = t * BK / kSkipTile;
+    return can_skip && u < n_skip && skip_s[u] != 0;
+  };
 
-    // ---- logits of the warp's R rows against the lane's KPL keys
-    float s[R][KPL];
+  if (warp == kConsumers / 32) {
+    // ---- producer warp: the tiles that are taken, in order, n of them so far
+    for (int t = 0, n = 0; t < n_tiles; ++t) {
+      if (skipped(t)) continue;
+      const int s = n % NS, k0 = t * BK;
+      if (n >= NS) hopper::mbar_wait(&empty[s], ((n / NS) - 1) & 1);
+      ++n;
+      uint8_t* st = stages + s * S::kStageBytes;
+      if (seg) {
+        int32_t* kseg = reinterpret_cast<int32_t*>(st + 2 * S::kKvBytes + S::kAbBytes);
+        for (int j = lane; j < BK; j += 32)
+          kseg[j] = k0 + j < a.Tk ? a.kv_seg[(size_t)b * a.Tk + k0 + j] : 0;
+        __syncwarp();
+      }
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[s],
+                                      2 * S::kKvBytes + (a.has_ab ? S::kAbBytes : 0));
+        for (int part = 0; part < S::kParts; ++part) {
+          hopper::load_rows(st + part * BK * SWZ, &k_map, &full[s], part * COLS, k0, h, b,
+                            a.k_swap);
+          hopper::load_rows(st + S::kKvBytes + part * BK * SWZ, &v_map, &full[s],
+                            part * COLS, k0, h, b, a.v_swap);
+        }
+        if (a.has_ab)
+          for (int part = 0; part < S::kAbParts; ++part)
+            hopper::tma_load_4d(st + 2 * S::kKvBytes + part * BM * 128, &ab_map, &full[s],
+                                k0 + 32 * part, q0, h, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer group wg: thread (row group g, key group kg) holds rows
+  // g + 16 i (i < TR) and keys kg + 8 c (c < KPT) of each score tile, and
+  // the same rows of O at the columns of the 16-byte chunks kg + 8 u (Dh =
+  // 16: the columns 2 kg, 2 kg + 1). A row group lives in one warp, so p
+  // goes from the scores to the value product through shared memory with a
+  // warp's sync alone. Row r, key j: TMA's swizzle puts the 16-byte chunks
+  // of eight consecutive rows in distinct banks, so a warp's 16-byte loads of
+  // Q (4 rows, each a broadcast to 8 lanes) and of K (8 rows) are
+  // conflict-free.
+  const int wg = warp / 4, g = 4 * (warp % 4) + lane / 8, kg = lane % 8;
+  float* p_s = p_all + wg * BM * PLD;
+  // the swizzle terms of the thread's rows of Q and ab (rows g + 16 i all
+  // have g's) and of K (rows kg + 8 c, kg's)
+  const int xq = swz_term<SWZ>(g), xk = swz_term<SWZ>(kg), xa = g & 7;
+  int qseg[TR];
+  float m[TR], l[TR], o[TR][CPT];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+  for (int i = 0; i < TR; ++i) {
+    const int row = q0 + g + 16 * i;
+    qseg[i] = (seg && row < a.Tq) ? a.q_seg[(size_t)b * a.Tq + row] : 0;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
 #pragma unroll
-      for (int c = 0; c < KPL; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 kv[KPL];
+    for (int e = 0; e < CPT; ++e) o[i][e] = 0.f;
+  }
+
+  hopper::mbar_wait(q_full, 0);
+  for (int t = 0, n = 0; t < n_tiles; ++t) {
+    if (skipped(t)) continue;
+    const int nn = n++;
+    if (t % kGroups != wg) continue;
+    const int s = nn % NS, k0 = t * BK;
+    const uint8_t* k_s = stages + s * S::kStageBytes;
+    const uint8_t* v_s = k_s + S::kKvBytes;
+    const uint8_t* ab_s = k_s + 2 * S::kKvBytes;
+    const int32_t* kseg = reinterpret_cast<const int32_t*>(ab_s + S::kAbBytes);
+    hopper::mbar_wait(&full[s], (nn / NS) & 1);
+
+    // ---- S = Q K^T, each logit summed over d in order (fp32 FMAs, no TF32)
+    float sc[TR][KPT];
 #pragma unroll
-      for (int c = 0; c < KPL; ++c)
-        kv[c] = *reinterpret_cast<const float4*>(&k_s[(lane + 32 * c) * LD + d]);
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(&q_s[(row0 + r) * DH + d]);
+      for (int c = 0; c < KPT; ++c) sc[i][c] = 0.f;
+    // not unrolled whole: the offsets of every chunk held at once would
+    // take the registers of the tiles
+#pragma unroll 2
+    for (int d4 = 0; d4 < DH / 4; ++d4) {
+      constexpr int kChunks = SWZ / 16;  // chunks of a swizzled row
+      const int part = d4 / kChunks, cc = d4 % kChunks;
+      const uint8_t* q_at = q_s + part * BM * SWZ + g * SWZ + ((cc ^ xq) << 4);
+      const uint8_t* k_at = k_s + part * BK * SWZ + kg * SWZ + ((cc ^ xk) << 4);
+      float4 qv[TR];
 #pragma unroll
-        for (int c = 0; c < KPL; ++c) {
-          s[r][c] = fmaf(qv.x, kv[c].x, s[r][c]);
-          s[r][c] = fmaf(qv.y, kv[c].y, s[r][c]);
-          s[r][c] = fmaf(qv.z, kv[c].z, s[r][c]);
-          s[r][c] = fmaf(qv.w, kv[c].w, s[r][c]);
+      for (int i = 0; i < TR; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(q_at + 16 * i * SWZ);
+#pragma unroll
+      for (int c = 0; c < KPT; ++c) {
+        const float4 kv = *reinterpret_cast<const float4*>(k_at + 8 * c * SWZ);
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          sc[i][c] = fmaf(qv[i].x, kv.x, sc[i][c]);
+          sc[i][c] = fmaf(qv[i].y, kv.y, sc[i][c]);
+          sc[i][c] = fmaf(qv[i].z, kv.z, sc[i][c]);
+          sc[i][c] = fmaf(qv[i].w, kv.w, sc[i][c]);
         }
       }
     }
 
-    // ---- bias, mask and the online softmax of each row
-    int kseg[KPL];
-    bool kok[KPL];
+    // ---- bias, mask and the online softmax of the thread's rows; keys past
+    // Tk (the last tile's tail) are -inf
+    if (a.has_ab) {
+      // key kg + 8 c: 32-key box c / 4, its 16-byte chunk kg / 4 + 2 (c % 4)
+      const uint8_t* ab_at = ab_s + g * 128 + (kg % 4) * 4;
 #pragma unroll
-    for (int c = 0; c < KPL; ++c) {
-      const int key = k0 + lane + 32 * c;
-      kok[c] = key < Tk;
-      kseg[c] = (seg && kok[c]) ? kv_seg[(size_t)b * Tk + key] : 0;
-    }
-    float alpha[R];
+      for (int c = 0; c < KPT; ++c) {
+        const int off = (c / 4) * BM * 128 + (((kg / 4 + 2 * (c % 4)) ^ xa) << 4);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float* abr = (ab && live_row[r])
-                         ? ab + (bh * Tq + q0 + row0 + r) * (size_t)st.abt + k0
-                         : nullptr;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < KPL; ++c) {
-        if (kok[c]) {
-          float x = s[r][c];
-          if (abr) x += (abr[lane + 32 * c]);
-          if (seg) x += (qseg[r] == kseg[c]) ? 0.f : mask_value;
-          s[r][c] = x;
-          mx = fmaxf(mx, x);
-        } else {
-          s[r][c] = -INFINITY;
-        }
+        for (int i = 0; i < TR; ++i)
+          sc[i][c] += *reinterpret_cast<const float*>(ab_at + off + 16 * i * 128);
       }
-      const float m_new = fmaxf(m[r], warp_max(mx));
+    }
+    if (seg) {
+#pragma unroll
+      for (int c = 0; c < KPT; ++c) {
+        const int ks = kseg[kg + 8 * c];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) sc[i][c] += (qseg[i] == ks) ? 0.f : a.mask_value;
+      }
+    }
+    if (k0 + BK > a.Tk) {
+#pragma unroll
+      for (int c = 0; c < KPT; ++c)
+        if (k0 + kg + 8 * c >= a.Tk)
+#pragma unroll
+          for (int i = 0; i < TR; ++i) sc[i][c] = -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      float mx = sc[i][0];
+#pragma unroll
+      for (int c = 1; c < KPT; ++c) mx = fmaxf(mx, sc[i][c]);
+      // the eight lanes of a row group hold a row between them
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
       // m_new is finite unless every logit so far is -inf (an ab of -inf)
       const bool live = m_new != -INFINITY;
-      alpha[r] = live ? expf(m[r] - m_new) : 1.f;
-      float psum = 0.f;
+      const float alpha = live ? expf(m[i] - m_new) : 1.f;
+      float ps = 0.f;
 #pragma unroll
-      for (int c = 0; c < KPL; ++c) {
-        const float p = (live && kok[c]) ? expf(s[r][c] - m_new) : 0.f;
-        psum += p;
-        p_s[warp][r][lane + 32 * c] = p;
+      for (int c = 0; c < KPT; ++c) {
+        const float p = live ? expf(sc[i][c] - m_new) : 0.f;
+        ps += p;
+        p_s[(g + 16 * i) * PLD + kg + 8 * c] = p;
       }
-      l[r] = l[r] * alpha[r] + warp_sum(psum);
-      m[r] = m_new;
+      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 4);
+      l[i] = l[i] * alpha + ps;
+      m[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) o[i][e] *= alpha;
     }
     __syncwarp();
 
-    // ---- p.v: each V value serves the R rows (past-the-end keys: p = 0, v = 0)
-    const int nk = min(BK, Tk - k0);
+    // ---- O += P V, each key in order (past Tk: p = 0, v = 0)
+#pragma unroll 2
+    for (int j4 = 0; j4 < BK / 4; ++j4) {
+      float4 pv[TR];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+      for (int i = 0; i < TR; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(&p_s[(g + 16 * i) * PLD + 4 * j4]);
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha[r];
-    for (int j = 0; j < nk; j += 4) {
-      float4 pv[R];
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * j4 + jj;
+        float vv[CPT];
+        if constexpr (CPT >= 4) {
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        pv[r] = *reinterpret_cast<const float4*>(&p_s[warp][r][j]);
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        const int d = lane + 32 * e;
-        if (d < DH) {
-          const float v0 = v_s[(j + 0) * DH + d], v1 = v_s[(j + 1) * DH + d];
-          const float v2 = v_s[(j + 2) * DH + d], v3 = v_s[(j + 3) * DH + d];
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float a = acc[r][e];
-            a = fmaf(pv[r].x, v0, a);
-            a = fmaf(pv[r].y, v1, a);
-            a = fmaf(pv[r].z, v2, a);
-            a = fmaf(pv[r].w, v3, a);
-            acc[r][e] = a;
+          for (int u = 0; u < CPT / 4; ++u) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(v_s + chunk_at<SWZ, BK>(j, kg + 8 * u));
+            vv[4 * u] = x.x;
+            vv[4 * u + 1] = x.y;
+            vv[4 * u + 2] = x.z;
+            vv[4 * u + 3] = x.w;
           }
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(
+              v_s + chunk_at<SWZ, BK>(j, kg / 2) + (kg % 2) * 8);
+          vv[0] = x.x;
+          vv[1] = x.y;
+        }
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float pj = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y : jj == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int e = 0; e < CPT; ++e) o[i][e] = fmaf(pj, vv[e], o[i][e]);
         }
       }
     }
     __syncwarp();  // p_s is read before the next tile writes it
+    hopper::mbar_arrive(&empty[s]);
   }
 
+  // ---- merge: group 1 hands its m, l and O to group 0 through the ring's
+  // shared memory (every tile is consumed, no copy is in flight)
+  float* xch = reinterpret_cast<float*>(stages);  // [TR * (CPT + 2)][128]
+  const int gt = tid % kGroupThreads;
+  hopper::named_sync(1, kConsumers);
+  if (wg == 1) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (!live_row[r]) continue;
-    const int i = q0 + row0 + r;
-    const float inv = l[r] == 0.f ? 1.f : 1.f / l[r];
+    for (int i = 0; i < TR; ++i) {
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d < DH) out[(bh * Tq + i) * DH + d] = (acc[r][e] * inv);
+      for (int e = 0; e < CPT; ++e) xch[(i * CPT + e) * 128 + gt] = o[i][e];
+      xch[(TR * CPT + i) * 128 + gt] = m[i];
+      xch[(TR * CPT + TR + i) * 128 + gt] = l[i];
     }
-    if (m_out != nullptr && lane == 0) {
-      m_out[bh * Tq + i] = m[r];
-      l_out[bh * Tq + i] = l[r];
+  }
+  hopper::named_sync(1, kConsumers);
+  if (wg == 1) return;
+  const size_t bh = (size_t)b * a.H + h;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const float mb = xch[(TR * CPT + i) * 128 + gt];
+    const float mm = fmaxf(m[i], mb);
+    // a part whose logits are all -inf weighs 0 (and so does a row of them)
+    const float fa = m[i] == -INFINITY ? 0.f : expf(m[i] - mm);
+    const float fb = mb == -INFINITY ? 0.f : expf(mb - mm);
+    l[i] = l[i] * fa + xch[(TR * CPT + TR + i) * 128 + gt] * fb;
+    m[i] = mm;
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) o[i][e] = o[i][e] * fa + xch[(i * CPT + e) * 128 + gt] * fb;
+
+    // ---- epilogue: out = O / l; the residuals m and l
+    const int row = q0 + g + 16 * i;
+    if (row >= a.Tq) continue;
+    const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
+    float* dst = a.out + (bh * a.Tq + row) * DH;
+    if constexpr (CPT >= 4) {
+#pragma unroll
+      for (int u = 0; u < CPT / 4; ++u)
+        *reinterpret_cast<float4*>(dst + 4 * (kg + 8 * u)) =
+            make_float4(o[i][4 * u] * inv, o[i][4 * u + 1] * inv, o[i][4 * u + 2] * inv,
+                        o[i][4 * u + 3] * inv);
+    } else {
+      *reinterpret_cast<float2*>(dst + 2 * kg) = make_float2(o[i][0] * inv, o[i][1] * inv);
+    }
+    if (a.m_out != nullptr && kg == 0) {
+      a.m_out[bh * a.Tq + row] = m[i];
+      a.l_out[bh * a.Tq + row] = l[i];
     }
   }
 }
 
-template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* ab,
-                   const int32_t* q_seg, const int32_t* kv_seg, Strides st, int B,
-                   int H, int Tq, int Tk, float mask_value, void* out, float* m,
-                   float* l, cudaStream_t stream) {
-  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
-  flash_attention_kernel<DH><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(ab), q_seg, kv_seg, st, H,
-      Tq, Tk, mask_value, static_cast<float*>(out), m, l);
+}  // namespace f32
+
+namespace {
+
+template <int DH, int BM>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* ab,
+                       const Strides& st, int B, int H, int Tq, int Tk, f32::Args a,
+                       cudaStream_t stream) {
+  using S = f32::Shape<DH, BM>;
+  constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap qm, km, vm, abm;
+  cudaError_t err = hopper::map_rows(&qm, q, st.qb, st.qh, st.qt, B, H, Tq, DH, S::kCols,
+                                     BM, S::kSwz, &a.q_swap, kF32);
+  if (err == cudaSuccess)
+    err = hopper::map_rows(&km, k, st.kb, st.kh, st.kt, B, H, Tk, DH, S::kCols, S::BK,
+                           S::kSwz, &a.k_swap, kF32);
+  if (err == cudaSuccess)
+    err = hopper::map_rows(&vm, v, st.vb, st.vh, st.vt, B, H, Tk, DH, S::kCols, S::BK,
+                           S::kSwz, &a.v_swap, kF32);
+  if (err == cudaSuccess) {
+    if (a.has_ab)
+      err = hopper::map_bias(&abm, ab, st.abt, B, H, Tq, Tk, BM, kF32);
+    else
+      abm = qm;  // not read
+  }
+  if (err != cudaSuccess) return err;
+  auto kernel = f32::flash_attention_f32_kernel<DH, BM>;
+  // once: the ring's shared memory
+  static const cudaError_t allowed = hopper::allow_smem(kernel, S::kSmemBytes);
+  if (allowed != cudaSuccess) return allowed;
+  const dim3 grid((Tq + BM - 1) / BM, H, B);
+  kernel<<<grid, f32::kThreads, S::kSmemBytes, stream>>>(qm, km, vm, abm, a);
   return cudaGetLastError();
 }
 
-// the fp32 SIMT kernel
-cudaError_t dispatch(int Dh, const void* q, const void* k, const void* v,
-                     const void* ab, const int32_t* q_seg, const int32_t* kv_seg,
-                     Strides st, int B, int H, int Tq, int Tk, float mask_value,
-                     void* out, float* m, float* l, cudaStream_t stream) {
+// the fp32 kernel, by head dim and query rows of a block (64, or 32)
+cudaError_t dispatch_f32(int Dh, int block_rows, const void* q, const void* k,
+                         const void* v, const void* ab, const Strides& st, int B, int H,
+                         int Tq, int Tk, const f32::Args& a, cudaStream_t stream) {
+  if (block_rows != 32 && block_rows != 64) return cudaErrorInvalidValue;
+  const bool wide = block_rows == 64;
   switch (Dh) {
     case 16:
-      return launch<16>(q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk, mask_value, out, m,
-                        l, stream);
+      return wide ? launch_f32<16, 64>(q, k, v, ab, st, B, H, Tq, Tk, a, stream)
+                  : launch_f32<16, 32>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
     case 32:
-      return launch<32>(q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk, mask_value, out, m,
-                        l, stream);
+      return wide ? launch_f32<32, 64>(q, k, v, ab, st, B, H, Tq, Tk, a, stream)
+                  : launch_f32<32, 32>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
     case 64:
-      return launch<64>(q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk, mask_value, out, m,
-                        l, stream);
+      return wide ? launch_f32<64, 64>(q, k, v, ab, st, B, H, Tq, Tk, a, stream)
+                  : launch_f32<64, 32>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
     case 128:
-      return launch<128>(q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk, mask_value, out, m,
-                         l, stream);
+      return wide ? launch_f32<128, 64>(q, k, v, ab, st, B, H, Tq, Tk, a, stream)
+                  : launch_f32<128, 32>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -704,19 +985,22 @@ extern "C" {
 
 // dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the tensor-core
 // kernel) for q, k, v, ab and out. q (B,H,Tq,Dh), k and v (B,H,Tk,Dh) with
-// the given element strides of their first three dimensions (bf16: multiples
-// of 8, and 16-byte aligned bases); ab (B,H,Tq,Tk) with rows ab_st elements
-// apart (bf16: a multiple of 8) and a contiguous last dimension, or null;
-// q_seg (B,Tq) and kv_seg (B,Tk) int32, both or neither; out (B,H,Tq,Dh)
-// contiguous; m and l (B,H,Tq) fp32, both or neither: the residuals of the
-// backward. Launches on `stream` and returns cudaGetLastError() as an int
-// (0 = launched).
+// the given element strides of their first three dimensions (16-byte
+// multiples, and 16-byte aligned bases); ab (B,H,Tq,Tk) with rows ab_st
+// elements apart (16-byte multiples) and a contiguous last dimension, or
+// null; q_seg (B,Tq) and kv_seg (B,Tk) int32, both or neither; out
+// (B,H,Tq,Dh) contiguous; m and l (B,H,Tq) fp32, both or neither: the
+// residuals of the backward. block_rows: the query rows of an fp32 block,
+// 64 or 32 (flash_attention.py fp32_block_rows); bf16 blocks take 64.
+// Launches on `stream` and returns cudaGetLastError() as an int (0 =
+// launched).
 int flash_attention(int dtype, const void* q, const void* k, const void* v,
                     const void* ab, const int32_t* q_seg, const int32_t* kv_seg,
                     long long q_sb, long long q_sh, long long q_st, long long k_sb,
                     long long k_sh, long long k_st, long long v_sb, long long v_sh,
                     long long v_st, long long ab_st, int B, int H, int Tq, int Tk, int Dh,
-                    float mask_value, void* out, float* m, float* l, void* stream) {
+                    int block_rows, float mask_value, void* out, float* m, float* l,
+                    void* stream) {
   if ((q_seg == nullptr) != (kv_seg == nullptr) || (m == nullptr) != (l == nullptr) ||
       Tq < 1 || Tk < 1)
     return (int)cudaErrorInvalidValue;
@@ -724,8 +1008,9 @@ int flash_attention(int dtype, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch(Dh, q, k, v, ab, q_seg, kv_seg, st, B, H, Tq, Tk, mask_value, out, m,
-                   l, s);
+    const f32::Args a{q_seg, kv_seg, H, Tq, Tk, mask_value, ab != nullptr, false, false,
+                      false, static_cast<float*>(out), m, l};
+    err = dispatch_f32(Dh, block_rows, q, k, v, ab, st, B, H, Tq, Tk, a, s);
   } else if (dtype == 1) {
     const tc::FwdArgs a{q_seg, kv_seg, H, Tq, Tk, mask_value, false, false, false,
                         static_cast<__nv_bfloat16*>(out), m, l};

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the kernels fed by TMA:
 // flash_attention.cu (K6), flash_attention_bwd.cu (K6b, K6c),
-// vocab_topk.cu (K3b) and decode_attention.cuh (K1, K2): mbarriers, TMA tile
-// loads, 1-d bulk copies, thread-block-cluster barriers and distributed
-// shared memory, shared-memory matrix descriptors and warpgroup matrix
-// multiplies (wgmma), and the host-side encoding of a TMA tensor map.
+// vocab_topk.cu (K3b) and decode_attention.cuh (K1, K2, K5): mbarriers, TMA
+// tile loads, 1-d bulk copies and cp.async copies, thread-block-cluster
+// barriers and distributed shared memory, shared-memory matrix descriptors
+// and warpgroup matrix multiplies (wgmma), and the host-side encoding of a
+// TMA tensor map (bf16 or fp32).
 //
 // Layouts. Every bf16 tile that a wgmma reads is stored as TMA writes it
 // with a swizzle: rows of `kSwizzle` bytes (the row of a tile of width Dh
@@ -171,6 +172,14 @@ __device__ __forceinline__ void fence_proxy_async_smem() {
 // 8 bytes (both addresses 8-byte aligned) from global into shared memory
 __device__ __forceinline__ void cp_async_8(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+// 16 bytes (both addresses 16-byte aligned) from global into shared memory,
+// past L1
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
                "l"(reinterpret_cast<uint64_t>(src))
                : "memory");
 }
@@ -411,19 +420,25 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of 4 dimensions, innermost first (dims[0] contiguous),
-// strides of dims 1-3 in elements (multiples of 8: TMA takes 16-byte
-// strides), read in boxes of box[0] x ... x box[3] elements, the box[0] * 2
-// bytes of a row swizzled by `swizzle_bytes` (0 for none, or 32, 64, 128,
-// equal to the row). Reads past a dimension's end come back as zeros.
+// bytes of an element of a tensor map of type `dtype` (bf16 or fp32)
+inline int elem_bytes(CUtensorMapDataType dtype) {
+  return dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+}
+
+// A bf16 (or `dtype`: fp32) tensor of 4 dimensions, innermost first
+// (dims[0] contiguous), strides of dims 1-3 in elements (16-byte multiples:
+// TMA's rule), read in boxes of box[0] x ... x box[3] elements, the bytes of
+// a box row swizzled by `swizzle_bytes` (0 for none, or 32, 64, 128, equal
+// to the row). Reads past a dimension's end come back as zeros.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, const long long dims[4],
                             const long long strides[3], const int box_dims[4],
-                            int swizzle_bytes) {
+                            int swizzle_bytes,
+                            CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t gdim[4], gstride[3];
   for (int i = 0; i < 4; ++i) gdim[i] = (cuuint64_t)dims[i];
-  for (int i = 0; i < 3; ++i) gstride[i] = (cuuint64_t)strides[i] * 2;
+  for (int i = 0; i < 3; ++i) gstride[i] = (cuuint64_t)strides[i] * elem_bytes(dtype);
   cuuint32_t box[4];
   for (int i = 0; i < 4; ++i) box[i] = (cuuint32_t)box_dims[i];
   const cuuint32_t estride[4] = {1, 1, 1, 1};
@@ -432,7 +447,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, const long long 
       : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
       : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                             : CU_TENSOR_MAP_SWIZZLE_NONE;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = encode(map, dtype, 4,
                             const_cast<void*>(base), gdim, gstride, box, estride,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -460,38 +475,42 @@ inline cudaError_t make_map_u8(CUtensorMap* map, const void* base, long long col
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The tensor map of a (B, H, T, Dh) bf16 operand with element strides
-// (sb, sh, st) and a contiguous last dimension, read in boxes of `rows` rows
-// of `cols` columns: its dimensions are ordered (d, t, h, b), or (d, h, t, b)
-// (`swap`) where h has the smaller stride. A dimension of extent 1 has its
-// coordinate at 0, so its stride is set to one TMA takes.
+// The tensor map of a (B, H, T, Dh) bf16 (or `dtype`: fp32) operand with
+// element strides (sb, sh, st) and a contiguous last dimension, read in
+// boxes of `rows` rows of `cols` columns: its dimensions are ordered (d, t,
+// h, b), or (d, h, t, b) (`swap`) where h has the smaller stride. A
+// dimension of extent 1 has its coordinate at 0, so its stride is set to one
+// TMA takes.
 inline cudaError_t map_rows(CUtensorMap* map, const void* base, long long sb, long long sh,
                             long long st, int B, int H, int T, int Dh, int cols, int rows,
-                            int swizzle, bool* swap) {
+                            int swizzle, bool* swap,
+                            CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   if (T == 1) st = Dh;
   if (H == 1) sh = st * T;
   if (B == 1) sb = st * T > sh * H ? st * T : sh * H;
-  if (st % 8 || sh % 8 || sb % 8 || reinterpret_cast<uintptr_t>(base) % 16)
+  const int align = 16 / elem_bytes(dtype);  // elements of 16 bytes
+  if (st % align || sh % align || sb % align || reinterpret_cast<uintptr_t>(base) % 16)
     return cudaErrorInvalidValue;
   *swap = sh < st;
   const long long dims[4] = {Dh, *swap ? H : T, *swap ? T : H, B};
   const long long strides[3] = {*swap ? sh : st, *swap ? st : sh, sb};
   // a swapped map reads a box of 1 head by `rows` rows
   const int box[4] = {cols, *swap ? 1 : rows, *swap ? rows : 1, 1};
-  return make_map(map, base, dims, strides, box, swizzle);
+  return make_map(map, base, dims, strides, box, swizzle, dtype);
 }
 
-// The tensor map of a (B, H, Tq, Tk) bf16 bias whose rows are `rs` elements
-// apart (a multiple of 8), read in boxes of `rows` rows of 64 keys, 128-byte
-// swizzled.
+// The tensor map of a (B, H, Tq, Tk) bf16 (or `dtype`: fp32) bias whose rows
+// are `rs` elements apart (16-byte multiples), read in boxes of `rows` rows
+// of 128 bytes of keys (64 bf16, 32 fp32), 128-byte swizzled.
 inline cudaError_t map_bias(CUtensorMap* map, const void* base, long long rs, int B, int H,
-                            int Tq, int Tk, int rows) {
-  if (rs % 8 || rs < Tk || reinterpret_cast<uintptr_t>(base) % 16)
+                            int Tq, int Tk, int rows,
+                            CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  if (rs % (16 / elem_bytes(dtype)) || rs < Tk || reinterpret_cast<uintptr_t>(base) % 16)
     return cudaErrorInvalidValue;
   const long long dims[4] = {Tk, Tq, H, B};
   const long long strides[3] = {rs, rs * Tq, rs * Tq * H};
-  const int box[4] = {64, rows, 1, 1};
-  return make_map(map, base, dims, strides, box, 128);
+  const int box[4] = {128 / elem_bytes(dtype), rows, 1, 1};
+  return make_map(map, base, dims, strides, box, 128, dtype);
 }
 
 

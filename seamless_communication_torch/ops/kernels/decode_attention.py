@@ -13,13 +13,14 @@ row, quantized, at ``step``.
   packed nibbles (byte j = value j low | value j+Dh/2 high), scales absmax/7.
   CUDA kernel ``csrc/decode_attention_int4.cu``, which replaces the TPU kernel
   ``seamless_communication_tpu/ops/kernels/decode_attention.py:267``.
-  Both kernels split the rows of a (b, h) over a thread-block cluster; the
-  host chooses the split (:func:`split_plan`).
+  All three kernels split the rows of a (b, h) over a thread-block cluster;
+  the host chooses the split (:func:`split_plan`).
 - ``indexed_decode_self_attention_int8``: the lazy beam reorder. The int8
   caches are never permuted: a (B, T) ``row_src`` table says which physical
   slot holds row t of logical beam b, attention reads through it, and only
   ``out`` is returned (the caller writes the new row). CUDA kernel
-  ``csrc/decode_attention_indexed.cu``, which replaces the TPU kernel
+  ``csrc/decode_attention_indexed.cu`` (K1's design, the rows gathered
+  through the table), which replaces the TPU kernel
   ``seamless_communication_tpu/ops/kernels/decode_attention.py:534``.
 
 For tensors on the card a wrapper launches its kernel; for tensors on the CPU
@@ -48,7 +49,7 @@ KERNEL = "decode_attention_int8"
 KERNEL_INT4 = "decode_attention_int4"
 KERNEL_INDEXED = "decode_attention_indexed"
 MAX_HEAD_DIM = 256
-MAX_CACHE_LEN = 8192          # a block keeps 8 bytes of shared memory per row
+MAX_CACHE_LEN = 8192          # a block keeps 8 (K5: 12) bytes of shared memory a row
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel -> (source in csrc/, row bytes per head-dim value, vector load bytes)
 _KERNELS = {KERNEL: ("decode_attention", 1.0, 16),
@@ -56,7 +57,7 @@ _KERNELS = {KERNEL: ("decode_attention", 1.0, 16),
             KERNEL_INDEXED: ("decode_attention_indexed", 1.0, 16)}
 
 
-# The split of K1's and K2's rows (csrc/decode_attention.cuh, which checks
+# The split of K1's, K2's and K5's rows (csrc/decode_attention.cuh, which checks
 # the same limits): a (b, h) is split over a cluster of up to MAX_CLUSTER
 # blocks until the grid holds TARGET_BLOCKS (two for each of the H100's 132
 # SMs) or a slice would fall under MIN_SLICE_ROWS rows; a slice streams
@@ -72,7 +73,7 @@ SMEM_BUDGET = 200 * 1024      # dynamic shared memory of a block, of 227 KB
 
 @dataclass(frozen=True)
 class SplitPlan:
-    """How K1 and K2 split the T rows of one (b, h): block ``r`` of a
+    """How K1, K2 and K5 split the T rows of one (b, h): block ``r`` of a
     cluster of ``cluster`` owns rows [r * slice_rows, min(T, (r + 1) *
     slice_rows)), copied in tiles of ``tile_rows`` rows through a ring of
     ``stages`` slots; ``smem_bytes`` is the block's dynamic shared memory."""
@@ -90,9 +91,11 @@ class SplitPlan:
 
 @functools.lru_cache(maxsize=None)
 def split_plan(B: int, H: int, T: int, Dh: int, bits: int,
-               cluster: int | None = None) -> SplitPlan:
+               cluster: int | None = None, indexed: bool = False) -> SplitPlan:
     """The split of a (B, H, T, Dh) cache of ``bits``-bit values (8 or 4)
-    for K1/K2. ``cluster`` forces the cluster size (1, 2, 4 or 8)."""
+    for K1/K2, or (``indexed``) for K5, whose block also keeps its rows'
+    slots (4 bytes a row). ``cluster`` forces the cluster size (1, 2, 4 or
+    8)."""
     row = Dh * bits // 8
     if cluster is None:
         cluster = 1
@@ -104,7 +107,7 @@ def split_plan(B: int, H: int, T: int, Dh: int, bits: int,
     slice_rows = -(-T // cluster)
     tile_rows = min(slice_rows, TILE_BYTES // row)
     slot = -(-tile_rows * row // SLOT_ALIGN) * SLOT_ALIGN
-    scales = 2 * 4 * slice_rows
+    scales = (3 if indexed else 2) * 4 * slice_rows
     stages = min(2 * -(-slice_rows // tile_rows), MAX_STAGES,
                  (SMEM_BUDGET - scales) // slot)
     return SplitPlan(cluster, slice_rows, tile_rows, stages, stages * slot + scales)
@@ -228,7 +231,7 @@ def _function(kernel: str):
         p, i = ctypes.c_void_p, ctypes.c_int
         if kernel == KERNEL_INDEXED:
             fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
-                           p, p]
+                           i, i, i, i, p, p]
         else:
             fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
                            i, i, i, i, p, p, p, p, p, p]
@@ -303,11 +306,14 @@ def _launch(kernel, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step: int, 
 
 
 def _launch_indexed(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, row_src,
-                    step: int):
+                    step: int, cluster: int | None = None):
+    """K5 on the card; ``cluster`` forces the cluster size of
+    :func:`split_plan`."""
     _check(KERNEL_INDEXED, q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, step,
            row_src)
     B, H, T = k_cache.shape[:3]
     Dh = q.shape[-1]
+    plan = split_plan(B, H, T, Dh, 8, cluster, indexed=True)
     out = torch.empty_like(q)
     fn, error_string = _function(KERNEL_INDEXED)
     with torch.cuda.device(q.device):
@@ -315,7 +321,8 @@ def _launch_indexed(q, k_t, v_t, k_cache, v_cache, k_scale, v_scale, row_src,
         err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
                  k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
                  v_scale.data_ptr(), row_src.data_ptr(), B, H, T, Dh, int(step),
-                 math.sqrt(Dh), out.data_ptr(), stream)
+                 math.sqrt(Dh), plan.cluster, plan.slice_rows, plan.tile_rows,
+                 plan.stages, out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{KERNEL_INDEXED} launch failed: "
                            f"{error_string(err).decode()} ({err})")

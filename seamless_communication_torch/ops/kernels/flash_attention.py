@@ -16,7 +16,10 @@ full-sequence attention of the fused-attention option
   accumulates in fp32; the output is in v's dtype.
 
 CUDA kernel ``csrc/flash_attention.cu`` (bf16: wgmma tensor-core products
-fed by TMA; fp32: SIMT FMAs), which replaces the TPU kernel the
+fed by TMA; fp32: register-blocked SIMT FMAs fed by TMA, 64- or 32-row
+blocks as ``fp32_block_rows`` chooses, the key tiles of
+``skippable_tiles_fwd`` left out under segment ids), which replaces the TPU
+kernel the
 JAX package reaches through ``seamless_communication_tpu/ops/
 fused_attention.py:54`` (``try_flash``, JAX 0.9.0's Pallas flash attention).
 For tensors on the card the wrapper launches it; for tensors on the CPU it
@@ -136,7 +139,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the C entry points: (library, argument types)
 _ENTRY = {
     KERNEL: ("flash_attention",
-             [_I] + [_P] * 6 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float] + [_P] * 4),
+             [_I] + [_P] * 6 + [_LL] * 10 + [_I] * 6 + [ctypes.c_float] + [_P] * 4),
     KERNEL_DKV: ("flash_attention_bwd",
                  [_I] + [_P] * 10 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
     KERNEL_DQ: ("flash_attention_bwd",
@@ -231,6 +234,13 @@ def _check(qs, k, v, ab, q_seg, kv_seg) -> None:
         if x is not None and not x.is_contiguous():
             raise ValueError(f"{KERNEL}: {name} is not contiguous")
     elem = torch.finfo(qs.dtype).bits // 8
+    # TMA: 16-byte aligned bases and strides (a dimension of extent 1 has its
+    # coordinate at 0, its stride unread)
+    for name, x in (("q", qs), ("k", k), ("v", v)):
+        if x.data_ptr() % 16 or any(
+                s * elem % 16 for n, s in zip(x.shape[:3], x.stride()[:3]) if n > 1):
+            raise ValueError(f"{KERNEL}: {name} has strides {x.stride()}: the kernels "
+                             "take 16-byte multiples and 16-byte aligned bases")
     if ab is not None:
         rs = ab.stride(2)
         if (ab.stride() != (H * Tq * rs, Tq * rs, rs, 1) or rs * elem % 16
@@ -238,15 +248,6 @@ def _check(qs, k, v, ab, q_seg, kv_seg) -> None:
             raise ValueError(f"{KERNEL}: ab has strides {ab.stride()}: its rows must be "
                              "16-byte aligned, as in a [..., :Tk] view of a buffer "
                              "whose rows are padded to 8 elements (empty_bias)")
-    if qs.dtype == torch.bfloat16:
-        # TMA: 16-byte aligned bases and strides (a dimension of extent 1 has
-        # its coordinate at 0, its stride unread)
-        for name, x in (("q", qs), ("k", k), ("v", v)):
-            if x.data_ptr() % 16 or any(
-                    s * elem % 16 for n, s in zip(x.shape[:3], x.stride()[:3]) if n > 1):
-                raise ValueError(f"{KERNEL}: {name} has strides {x.stride()}: bf16 "
-                                 "takes multiples of 8 elements and 16-byte aligned "
-                                 "bases")
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -258,9 +259,21 @@ def _raise_on(err: int, name: str, error_string) -> None:
         raise RuntimeError(f"{name} launch failed: {error_string(err).decode()} ({err})")
 
 
-def _launch(qs, k, v, ab, q_seg, kv_seg, residuals: bool = False
+NUM_SMS = 132                  # an H100 SXM's streaming multiprocessors
+
+
+def fp32_block_rows(B: int, H: int, Tq: int) -> int:
+    """Query rows of a block of the fp32 kernel: 64, or 32 where 64-row
+    blocks (one a SM: the ring takes most of its shared memory) would fill
+    at most half of the card's SMs (the 4 s encoder and the re-decode)."""
+    return 32 if B * H * -(-Tq // 64) * 2 <= NUM_SMS else 64
+
+
+def _launch(qs, k, v, ab, q_seg, kv_seg, residuals: bool = False,
+            block_rows: Optional[int] = None
             ) -> tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """K6 -> (out, m, l); m and l are None unless ``residuals``."""
+    """K6 -> (out, m, l); m and l are None unless ``residuals``.
+    ``block_rows`` forces the fp32 kernel's block rows (32 or 64)."""
     _check(qs, k, v, ab, q_seg, kv_seg)
     B, H, Tq, Dh = qs.shape
     Tk = k.shape[2]
@@ -271,11 +284,14 @@ def _launch(qs, k, v, ab, q_seg, kv_seg, residuals: bool = False
         l = torch.empty_like(m)
     fn, error_string = _function(KERNEL)
     strides = [s for x in (qs, k, v) for s in x.stride()[:3]]
+    rows = 64
+    if qs.dtype == torch.float32:
+        rows = block_rows or fp32_block_rows(B, H, Tq)
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
         err = fn(_DTYPE_CODES[qs.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(),
                  _ptr(ab), _ptr(q_seg), _ptr(kv_seg), *strides, _row_stride(ab), B, H,
-                 Tq, Tk, Dh, MASK_VALUE, out.data_ptr(), _ptr(m), _ptr(l), stream)
+                 Tq, Tk, Dh, rows, MASK_VALUE, out.data_ptr(), _ptr(m), _ptr(l), stream)
     _raise_on(err, KERNEL, error_string)
     launch_counts[KERNEL] += 1
     return out, m, l
@@ -434,7 +450,7 @@ def unmasked_pairs(B: int, H: int, Tq: int, Tk: int,
     return int(keep.expand(B, H, Tq, Tk).sum())
 
 
-SKIP_ROWS = SKIP_KEYS = 64     # bf16 K6c's row tile (a block) and key tile
+SKIP_ROWS = SKIP_KEYS = 64     # bf16 K6c's and fp32 K6's row and key tiles of the rules
 SKIP_MAX_KEY_TILES = 512       # key tiles past these are always taken
 
 
@@ -477,6 +493,52 @@ def skippable_tiles(m: torch.Tensor, q_seg: Optional[torch.Tensor],
     at_mask = torch.nn.functional.pad(at_mask, (0, nr * SKIP_ROWS - Tq))
     at_mask = at_mask.view(B, H, nr, SKIP_ROWS).any(dim=-1)               # (B, H, nr)
     skip = ~live[:, None] & ~at_mask[..., None]
+    skip[..., SKIP_MAX_KEY_TILES:] = False
+    return skip
+
+
+def skippable_tiles_fwd(q_seg: Optional[torch.Tensor], kv_seg: Optional[torch.Tensor],
+                        Tq: int, Tk: int, ab: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The (row tile, key tile) pairs of 64 x 64 that the fp32 forward K6
+    leaves out, a bool tensor (B, ceil(Tq / 64), ceil(Tk / 64)); its
+    kernel's predicate is this one. Unlike ``skippable_tiles`` it has no
+    residual ``m`` to consult. A pair is skipped when
+
+    - the tile's keys (those below Tk) all have segment ids outside [min,
+      max] of the row tile's rows' (those below Tq), so every one is masked
+      for every row; and
+    - every row of the row tile has its own segment among the keys below
+      Tk, so it ends with an unmasked maximum.
+
+    Then a skipped pair's logits are below -0.35 * float32 max after the
+    subtraction of that maximum: their p are exactly 0, or, if the pair came
+    before the maximum, its terms are scaled by exp(mask - m) = 0. Leaving
+    it out changes no bit of out, m or l. A row whose keys are all masked
+    (the softmax's uniform average) makes its row tile take every key tile.
+    Nothing is skipped without segment ids or with ``ab`` (whose -inf or
+    -1e9 entries could leave a row without an unmasked maximum); key tiles
+    from ``SKIP_MAX_KEY_TILES`` on are always taken."""
+    nr, nk = -(-Tq // SKIP_ROWS), -(-Tk // SKIP_KEYS)
+    if q_seg is None or ab is not None:
+        B = q_seg.shape[0] if q_seg is not None else ab.shape[0] if ab is not None else 1
+        return torch.zeros((B, nr, nk), dtype=torch.bool)
+    q_seg, kv_seg = q_seg.cpu().long(), kv_seg.cpu().long()
+    B = q_seg.shape[0]
+    big = torch.iinfo(torch.int32).max
+    valid = (torch.arange(nr * SKIP_ROWS) < Tq).view(1, nr, SKIP_ROWS)
+    rows = torch.nn.functional.pad(q_seg, (0, nr * SKIP_ROWS - Tq)).view(B, nr, SKIP_ROWS)
+    rmin = torch.where(valid, rows, big).amin(dim=-1)                    # (B, nr)
+    rmax = torch.where(valid, rows, -big - 1).amax(dim=-1)
+    keys = torch.nn.functional.pad(kv_seg, (0, nk * SKIP_KEYS - Tk))
+    kvalid = torch.arange(nk * SKIP_KEYS) < Tk
+    inside = (kvalid & (keys[:, None, :] >= rmin[..., None])
+              & (keys[:, None, :] <= rmax[..., None]))                   # (B, nr, nk*64)
+    live = inside.view(B, nr, nk, SKIP_KEYS).any(dim=-1)
+    matched = (q_seg[:, :, None] == kv_seg[:, None, :]).any(dim=-1)      # (B, Tq)
+    matched = torch.nn.functional.pad(matched, (0, nr * SKIP_ROWS - Tq), value=True)
+    all_matched = matched.view(B, nr, SKIP_ROWS).all(dim=-1)             # (B, nr)
+    skip = ~live & all_matched[..., None]
     skip[..., SKIP_MAX_KEY_TILES:] = False
     return skip
 

@@ -20,16 +20,17 @@ def csrc(tmp_path, monkeypatch):
 
 
 def test_header_edit_changes_the_library_path(csrc):
-    """Editing ``hopper.cuh`` renames the libraries of the five sources that
+    """Editing ``hopper.cuh`` renames the libraries of the six sources that
     include it, directly (K6; K6b, K6c; K3b) or through
-    ``decode_attention.cuh`` (K1, K2), and leaves the others' names as they
-    were."""
+    ``decode_attention.cuh`` (K1, K2, K5), and leaves the others' names as
+    they were."""
     names = build.kernel_sources()
     before = {n: build.library_path(n) for n in names}
     including = {n for n in names
                  if csrc / "hopper.cuh" in build._sources(csrc / f"{n}.cu", [])}
     assert including == {"flash_attention", "flash_attention_bwd", "vocab_topk",
-                         "decode_attention", "decode_attention_int4"}
+                         "decode_attention", "decode_attention_int4",
+                         "decode_attention_indexed"}
     header = csrc / "hopper.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     after = {n: build.library_path(n) for n in names}
