@@ -33,14 +33,17 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    tiles it skips under segment ids counted); K6b and K6c (the backward,
    ``flash_attention_bwd.cu``) at the
    same shapes against the plain backward, K6 with its residuals, and the
-   library's SDPA backward and forward + backward as yardsticks. In bf16,
-   K6, K6b and K6c are the tensor-core kernels (``wgmma`` fed by TMA); then
-   a sweep of every head dim they specialise (16, 32, 64, 128) x a key count
-   that is and one that is not a multiple of 8 x a bias, segment ids and
-   neither (fp32 K6 also with 32- and 64-row blocks), the attention shapes of
-   phase 3g's train steps in both dtypes, and the NAR
-   T2U's FFT shape with rows in a segment no key has, whose key tiles bf16
-   K6c may not skip (``phase_flash_sweep``).
+   library's SDPA backward and forward + backward as yardsticks, the
+   elements of each gradient that differ from the plain backward at all,
+   and the tile pairs of ``skippable_tiles`` that K6c and fp32 K6b leave
+   out. In bf16, K6, K6b and K6c are the tensor-core kernels (``wgmma`` fed
+   by TMA); in fp32 register-blocked SIMT kernels fed by TMA. Then a sweep
+   of every head dim they specialise (16, 32, 64, 128) x a key count that is
+   and one that is not a multiple of 8 x a bias, segment ids and neither
+   (fp32 K6, K6b and K6c also with 32- and 64-row or -key blocks), the
+   attention shapes of phase 3g's train steps in both dtypes, and the NAR
+   T2U's FFT shape with rows in a segment no key has, whose key tiles K6c
+   and fp32 K6b may not skip (``phase_flash_sweep``).
    ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
@@ -106,13 +109,14 @@ path's time goes; the tables land in ``profile_*.txt`` files in the output
 directory of ``profile_main_path``).
 
     python3 chip_smoke.py --k6-parts
-    python3 chip_smoke.py --k6b-parts
-    python3 chip_smoke.py --k6c-parts
+    python3 chip_smoke.py --k6b-parts [bf16|fp32]
+    python3 chip_smoke.py --k6c-parts [bf16|fp32]
     python3 chip_smoke.py --k3b-parts
 
 time fp32 K6 at every ``FLASH_SHAPES`` shape, bf16 K6b (K6c) at the 10 s
-Shaw shape, or K3b's stream at the base_v2 vocabulary, as built and with one
-part left out at a time (``kernel_parts``): where its time goes.
+Shaw shape (``fp32``: fp32 K6b (K6c) at every shape), or K3b's stream at the
+base_v2 vocabulary, as built and with one part left out at a time
+(``kernel_parts``): where its time goes.
 
     python3 chip_smoke.py --k12-trace
 
@@ -1007,14 +1011,39 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
     forward). No one PyTorch call computes one kernel's part (SDPA's backward
     computes dq, dk, dv and, with ``ab``, the mask's gradient), so each
     kernel's ``library_ms`` is null and both rows carry ``pair``: K6b + K6c
-    together against the whole plain backward and SDPA's backward."""
+    together against the whole plain backward and SDPA's backward. Also
+    printed: how many elements of dq, dk, dv and dab differ from
+    ``_reference_bwd`` at all (TF32 off), the (row tile, key tile) pairs of
+    ``skippable_tiles`` that K6c and fp32 K6b leave out, and fp32 K6b and
+    K6c with 32- and 64-row (key) blocks beside the choice of
+    ``fp32_block_rows``. Both rows carry every shape's fp32 numbers in
+    ``fp32_shapes``. First, the fp32 kernels' shared memory and stages
+    equal ``fp32_bwd_shape``'s."""
+    import ctypes
+
     import numpy as np
     import torch
     import torch.nn.functional as F
 
+    from seamless_communication_torch.ops.kernels import build
     from seamless_communication_torch.ops.kernels import flash_attention as fl
 
     dev = torch.device("cuda")
+    # the plan's shared memory (fp32_bwd_shape, which the CPU tests hold to
+    # the card's limit) is the kernels' own
+    shape_fn = build.load("flash_attention_bwd").flash_attention_bwd_f32_shape
+    shape_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    shape_fn.restype = ctypes.c_int
+    for part in ("dkv", "dq"):
+        for dh in fl.HEAD_DIMS:
+            for block in (32, 64):
+                smem, stages = ctypes.c_int(), ctypes.c_int()
+                if shape_fn(int(part == "dkv"), dh, block, ctypes.byref(smem),
+                            ctypes.byref(stages)) != 0 or fl.fp32_bwd_shape(
+                                part, dh, block) != (smem.value, stages.value):
+                    raise AssertionError(f"fp32 {part} Dh={dh} block={block}: the kernel has "
+                                         f"{smem.value} bytes, {stages.value} stages; "
+                                         f"fp32_bwd_shape says {fl.fp32_bwd_shape(part, dh, block)}")
     rng = np.random.default_rng(19)
     B, H, Dh = 1, H_MAIN, DH_MAIN
     rows, max_err = {}, {"dkv": 0.0, "dq": 0.0}
@@ -1042,13 +1071,15 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
                           float(((l - l_ref).abs() / (1 + l_ref.abs())).max()))
             if res_err > 1e-5:
                 raise AssertionError(f"K6 {label} {dtype}: m, l off by {res_err:.3g}")
-            errs = {}
+            errs, differ = {}, {}
             for name, g, r in zip(("dq", "dk", "dv", "dab"), got, ref):
                 if name == "dab" and not need_dab:
                     if g is not None:
                         raise AssertionError("K6c wrote dab that nobody asked for")
                     continue
                 errs[name] = bwd_error(f"{label} {name}", g, r, dtype)
+                differ[name] = int((g != r).sum())
+            skip = fl.skippable_tiles(m, *segs, T)
             if dtype is torch.float32:
                 max_err["dkv"] = max(max_err["dkv"], errs["dk"], errs["dv"])
                 max_err["dq"] = max(max_err["dq"], errs["dq"], errs.get("dab", 0.0))
@@ -1057,6 +1088,13 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
             dab = None if got[3] is None else fl.empty_bias(B, H, T, T, dtype, dev)
             dkv_ms = cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DKV, args, dk, dv))
             dq_ms = cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DQ, args, dq, dab))
+            heights = ""
+            if dtype is torch.float32:
+                # each block height, the choice of fp32_block_rows beside
+                heights = "; " + ", ".join(
+                    f"{r}-key blocks K6b {cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DKV, args, dk, dv, r)) * 1e3:.2f} us, "
+                    f"{r}-row blocks K6c {cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DQ, args, dq, dab, r)) * 1e3:.2f} us"
+                    for r in (32, 64)) + (f" (the plan: {fl.fp32_block_rows(B, H, T)})")
             fwd_res_ms = cuda_time_ms(
                 lambda: fl._launch(qs, k, v, ab, *segs, residuals=True))
             plain_ms = {part: cuda_time_ms(
@@ -1094,23 +1132,39 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
             lib_step_ms = cuda_time_ms(lib_step, calls=5, reps=20)
             k6_step_ms = cuda_time_ms(k6_step, calls=5, reps=20)
             lib_bwd_ms = lib_step_ms - lib_fwd_ms
-            rows[label, dtype] = (dkv_ms, dq_ms, plain_ms, lib_bwd_ms, b_dkv, b_dq)
+            rows[label, dtype] = (dkv_ms, dq_ms, plain_ms, lib_bwd_ms, b_dkv, b_dq, differ,
+                                  int(skip.sum()))
             tol_label = "1e-4 * (1 + |ref|)" if dtype is torch.float32 else "one bf16 ulp"
+            skipped = (f"{int(skip.sum())} of {skip.numel()} tile pairs skipped by K6c"
+                       + (" and K6b" if dtype is torch.float32 else ""))
             log(f"K6b/K6c {label}, T={T} ({valid} valid keys), {str(dtype)[6:]}: max abs "
                 f"err " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
-                + f" ({tol_label}); m, l within {res_err:.2g}; device K6b {dkv_ms * 1e3:.2f} us (bound "
+                + f" ({tol_label}); elements that differ from the plain backward at all "
+                + ", ".join(f"{n} {d} of {got[i].numel()}" for i, (n, d) in enumerate(differ.items()))
+                + f"; {skipped}; m, l within {res_err:.2g}; device K6b {dkv_ms * 1e3:.2f} us (bound "
                 f"{b_dkv[0] * 1e3:.2f}, {b_dkv[1]}; plain {plain_ms['dkv'] * 1e3:.2f}), "
                 f"K6c {dq_ms * 1e3:.2f} us (bound {b_dq[0] * 1e3:.2f}, {b_dq[1]}; plain "
                 f"{plain_ms['dq'] * 1e3:.2f}), together {(dkv_ms + dq_ms) * 1e3:.2f} us "
                 f"against the backward's bound {b_all[0] * 1e3:.2f} us ({b_all[1]}; {pairs} "
                 f"unmasked logits), whole plain backward {plain_ms['all'] * 1e3:.2f} us; K6 "
-                f"with residuals {fwd_res_ms * 1e3:.2f} us (CUDA-graph replay) [{smi}]")
+                f"with residuals {fwd_res_ms * 1e3:.2f} us (CUDA-graph replay){heights} [{smi}]")
             log(f"  yardstick (CUDA-graph replay of whole forward + backward steps): "
                 f"SDPA forward {lib_fwd_ms * 1e3:.2f} us, forward + backward "
                 f"{lib_step_ms * 1e3:.2f} us, so its backward {lib_bwd_ms * 1e3:.2f} us; "
                 f"K6 + K6b + K6c through FlashAttention {k6_step_ms * 1e3:.2f} us")
-    dkv_ms, dq_ms, plain_ms, lib_ms, b_dkv, b_dq = rows[FLASH_MAIN, torch.float32]
+    dkv_ms, dq_ms, plain_ms, lib_ms, b_dkv, b_dq, _, _ = rows[FLASH_MAIN, torch.float32]
     bf = rows[FLASH_MAIN, torch.bfloat16]
+    # fp32, the kernels the fp32 trainer runs, at every shape
+    shapes = {"dkv": {}, "dq": {}}
+    for (label, dtype), r in rows.items():
+        if dtype is not torch.float32:
+            continue
+        for part, ms, b, outs in (("dkv", r[0], r[4], ("dk", "dv")),
+                                  ("dq", r[1], r[5], ("dq", "dab"))):
+            shapes[part][label] = {
+                "ms": ms, "plain_ms": r[2][part], "bound_ms": b[0], "bound_by": b[1],
+                "pair_ms": r[0] + r[1], "pair_library_ms": r[3], "skipped_pairs": r[7],
+                "differ": {n: d for n, d in r[6].items() if n in outs}}
     bf16 = {"dkv": {"ms": bf[0], "plain_ms": bf[2]["dkv"], "bound_ms": bf[4][0],
                     "bound_by": bf[4][1]},
             "dq": {"ms": bf[1], "plain_ms": bf[2]["dq"], "bound_ms": bf[5][0],
@@ -1126,6 +1180,7 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
              "replaces": f"{via}{lib}:941", "max_abs_err": max_err["dkv"],
              "ms": dkv_ms, "plain_ms": plain_ms["dkv"], "bound_ms": b_dkv[0],
              "bound_by": b_dkv[1], "library_ms": None, "pair": pair,
+             "fp32_shapes": shapes["dkv"],
              # the bf16 kernel (wgmma, TMA) at the same shape, and the pair
              # with K6c in bf16 against SDPA's bf16 backward
              "bf16": {**bf16["dkv"], "pair": bf16["pair"]}},
@@ -1133,6 +1188,7 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
              "replaces": f"{via}{lib}:1287", "max_abs_err": max_err["dq"],
              "ms": dq_ms, "plain_ms": plain_ms["dq"], "bound_ms": b_dq[0],
              "bound_by": b_dq[1], "library_ms": None, "pair": pair,
+             "fp32_shapes": shapes["dq"],
              "bf16": {**bf16["dq"], "pair": bf16["pair"]}})
 
 
@@ -1187,10 +1243,12 @@ def hold_flash_case(label: str, qkv, ab32, segs, do32, dtype) -> dict:
     return errs
 
 
-def hold_fp32_rows(label: str, qkv, ab32, segs) -> float:
+def hold_fp32_rows(label: str, qkv, ab32, segs, do32=None) -> float:
     """fp32 K6 with each block height (32 and 64 query rows) against
     ``_reference``: ``out`` within rtol = atol = 1e-5, and bit-equal with and
-    without residuals. Returns the largest error."""
+    without residuals; with ``do32``, fp32 K6b and K6c too with each block
+    height (32 and 64 keys, rows) against ``_reference_bwd`` within
+    ``bwd_error``. Returns the largest error."""
     import torch
 
     from seamless_communication_torch.ops.kernels import flash_attention as fl
@@ -1213,6 +1271,22 @@ def hold_fp32_rows(label: str, qkv, ab32, segs) -> float:
             raise AssertionError(f"K6 {label}, {rows}-row blocks: out with residuals "
                                  "differs")
         worst = max(worst, float(err.max()))
+    if do32 is not None:
+        out, m, l = fl._launch(*args, residuals=True)
+        want = fl._reference_bwd(*args, out, m, l, do32)
+        bargs = fl._bwd_args(*args, out, m, l, do32)
+        B, H, Tq, Tk, Dh = bargs.shapes
+        for rows in (32, 64):
+            dq = torch.empty((B, H, Tq, Dh), device=out.device)
+            dk, dv = (torch.empty((B, H, Tk, Dh), device=out.device) for _ in range(2))
+            dab = None if ab is None else fl.empty_bias(B, H, Tq, Tk, torch.float32, out.device)
+            fl._launch_one(fl.KERNEL_DKV, bargs, dk, dv, rows)
+            fl._launch_one(fl.KERNEL_DQ, bargs, dq, dab, rows)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("dq", "dk", "dv", "dab"), (dq, dk, dv, dab), want):
+                if w is not None:
+                    worst = max(worst, bwd_error(f"{label} {rows}-row blocks {name}", g, w,
+                                                 torch.float32))
     return worst
 
 
@@ -1265,12 +1339,12 @@ def phase_flash_sweep(smi: str) -> None:
                     errs = hold_flash_case(label, qkv, ab32, segs, do32, dtype)
                     if dtype is torch.bfloat16:
                         worst = {k: max(v, errs[k]) for k, v in worst.items()}
-                fp32_err = max(fp32_err, hold_fp32_rows(label, qkv, ab32, segs))
+                fp32_err = max(fp32_err, hold_fp32_rows(label, qkv, ab32, segs, do32))
     log(f"K6/K6b/K6c sweep: {n} cases (Dh {SWEEP_DH} x Tk {SWEEP_TK} x {SWEEP_BIAS}, "
         f"bf16 and fp32) within tolerance; bf16 max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-        + f"; fp32 K6 with 32- and 64-row blocks within 1e-5, max abs err {fp32_err:.3g} "
-        f"[{smi}]")
+        + f"; fp32 K6 (within 1e-5), K6b and K6c (within 1e-4 * (1 + |ref|)) with 32- and "
+        f"64-row (key) blocks, max abs err {fp32_err:.3g} [{smi}]")
     for label, T, kind, valid in TRAIN_SHAPES:
         qkv, ab32, segs, do32 = case(2, H_MAIN, DH_MAIN, T, T, kind, valid)
         for dtype in (torch.bfloat16, torch.float32):
@@ -1279,8 +1353,9 @@ def phase_flash_sweep(smi: str) -> None:
                 f"{str(dtype)[6:]}: within tolerance; max abs err "
                 + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" [{smi}]")
     # the NAR T2U's FFT shape with rows in a segment no key has: their keys
-    # are all masked (m at the mask level), so bf16 K6c may skip none of
-    # their row tiles' key tiles, while it skips the padding's elsewhere
+    # are all masked (m at the mask level), so K6c and fp32 K6b may skip
+    # none of their row tiles' key tiles, while they skip the padding's
+    # elsewhere
     from seamless_communication_torch.ops.kernels import flash_attention as fl
 
     T, valid = 2048, 636
@@ -1296,41 +1371,81 @@ def phase_flash_sweep(smi: str) -> None:
         log(f"K6/K6b/K6c NAR T2U FFT, T={T} ({valid} valid keys), rows 1500-1563 in a "
             f"segment no key has, {str(dtype)[6:]}: within tolerance; max abs err "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-            + f"; bf16 K6c skips {int(skip.sum())} of {skip.numel()} tile pairs, fp32 K6 "
-            f"{int(skip_fwd.sum())} of {skip_fwd.numel()} [{smi}]")
+            + f"; K6c and fp32 K6b skip {int(skip.sum())} of {skip.numel()} tile pairs, fp32 "
+            f"K6 {int(skip_fwd.sum())} of {skip_fwd.numel()} [{smi}]")
 
 
-# Parts of bf16 K6b and K6c left out one at a time (text replaced in a copy
-# of their source): where their time goes. The results of all but the first
-# are wrong.
+# Parts of K6b and K6c left out one at a time (text replaced in a copy of
+# their source), by dtype: where their time goes. The results of all but
+# the first are wrong.
 K6B_PARTS = {
-    "as built": [],
-    "no fp32 products (S^T, dP^T)": [(
-        "    if (warp < 2)\n      dots<DH, BQ>(k32, q32, tr_s, warp, lane);\n    else\n"
-        "      dots<DH, BQ>(v32, do32, tr_d, warp - 2, lane);\n", "")],
-    "no expf": [("const float ex = expf(x - mi);", "const float ex = x - mi;")],
-    "no widening of Q, dO": [(
-        "    widen<DH, BQ>(st, q32, tid);\n    widen<DH, BQ>(st + S::kRowBytes, do32, tid);\n",
-        "")],
-    "no ab reads": [("if (HAS_AB) x += ab_at(ab_s, c, r0 + 8 * u);", "if (HAS_AB) x += 0.5f;")],
-    "no dV, dK wgmma (and so no p, dS)": [
-        (f"    for (int kk = 0; kk < BQ / 16; ++kk)\n      hopper::Wgmma<DH>::rs(\n          {g},",
-         f"    for (int kk = 0; kk < 0; ++kk)\n      hopper::Wgmma<DH>::rs(\n          {g},")
-        for g in ("dv", "dk")],
+    "bf16": {
+        "as built": [],
+        "no fp32 products (S^T, dP^T)": [(
+            "    if (warp < 2)\n      dots<DH, BQ>(k32, q32, tr_s, warp, lane);\n    else\n"
+            "      dots<DH, BQ>(v32, do32, tr_d, warp - 2, lane);\n", "")],
+        "no expf": [("const float ex = expf(x - mi);", "const float ex = x - mi;")],
+        "no widening of Q, dO": [(
+            "    widen<DH, BQ>(st, q32, tid);\n    widen<DH, BQ>(st + S::kRowBytes, do32, tid);\n",
+            "")],
+        "no ab reads": [("if (HAS_AB) x += ab_at(ab_s, c, r0 + 8 * u);", "if (HAS_AB) x += 0.5f;")],
+        "no dV, dK wgmma (and so no p, dS)": [
+            (f"    for (int kk = 0; kk < BQ / 16; ++kk)\n      hopper::Wgmma<DH>::rs(\n          {g},",
+             f"    for (int kk = 0; kk < 0; ++kk)\n      hopper::Wgmma<DH>::rs(\n          {g},")
+            for g in ("dv", "dk")],
+    },
+    "fp32": {
+        "as built": [],
+        "no S^T, dP^T products": [(
+            "    for (int d4 = 0; d4 < DH / 4; ++d4) {\n      constexpr int kChunks = SWZ / 16;\n"
+            "      const int part = d4 / kChunks, cc = d4 % kChunks;\n"
+            "      const uint8_t* r_at = rows_t + part * BQ * SWZ",
+            "    for (int d4 = 0; d4 < 0; ++d4) {\n      constexpr int kChunks = SWZ / 16;\n"
+            "      const int part = d4 / kChunks, cc = d4 % kChunks;\n"
+            "      const uint8_t* r_at = rows_t + part * BQ * SWZ")],
+        "no expf": [("kok[c] ? expf(x - mi) * il : 0.f", "kok[c] ? (x - mi) * il : 0.f")],
+        "no ab reads": [("if (a.has_ab) x += ab_at<BQ>(ab_t, r, kgrp + j);",
+                         "if (a.has_ab) x += 0.5f;")],
+        "no dV, dK products": [
+            ("      accumulate_rows<DH, BQ, VK, VD, PLD>(p_s + VK * kg, do_t, dg, nrows, acc);\n", ""),
+            ("      accumulate_rows<DH, BQ, VK, VD, PLD>(ds_s + VK * kg, q_t, dg, nrows, acc);\n", "")],
+        "no tile skipping": [("    const bool rule = seg && kt < kMaxSkipTiles;",
+                              "    const bool rule = false;")],
+    },
 }
 K6C_PARTS = {
-    "as built": [],
-    "no fp32 products (S, dP)": [(
-        "    if (wl < 2)\n      dots_dq<DH>(q_s, st, tr_s, wl, lane);\n    else\n"
-        "      dots_dq<DH>(do_s, st + S::kKvBytes, tr_d, wl - 2, lane);\n", "")],
-    "no expf": [("const float p = kok ? expf(x - mi[u]) * il[u] : 0.f;",
-                 "const float p = kok ? (x - mi[u]) * il[u] : 0.f;")],
-    "no ab reads": [("        ab0 = ab_pair(ab_s, r0, col);\n        ab1 = ab_pair(ab_s, r0 + 8, col);",
-                     "        ab0 = make_float2(0.5f, 0.5f);\n        ab1 = ab0;")],
-    "no dab stores": [("    if (a.dab != nullptr) {\n      // while the product runs",
-                       "    if (false) {\n      // while the product runs")],
-    "no dQ wgmma": [("    for (int kk = 0; kk < BK / 16; ++kk)\n      hopper::Wgmma<DH>::rs(dq, da[kk],",
-                     "    for (int kk = 0; kk < 0; ++kk)\n      hopper::Wgmma<DH>::rs(dq, da[kk],")],
+    "bf16": {
+        "as built": [],
+        "no fp32 products (S, dP)": [(
+            "    if (wl < 2)\n      dots_dq<DH>(q_s, st, tr_s, wl, lane);\n    else\n"
+            "      dots_dq<DH>(do_s, st + S::kKvBytes, tr_d, wl - 2, lane);\n", "")],
+        "no expf": [("const float p = kok ? expf(x - mi[u]) * il[u] : 0.f;",
+                     "const float p = kok ? (x - mi[u]) * il[u] : 0.f;")],
+        "no ab reads": [("        ab0 = ab_pair(ab_s, r0, col);\n        ab1 = ab_pair(ab_s, r0 + 8, col);",
+                         "        ab0 = make_float2(0.5f, 0.5f);\n        ab1 = ab0;")],
+        "no dab stores": [("    if (a.dab != nullptr) {\n      // while the product runs",
+                           "    if (false) {\n      // while the product runs")],
+        "no dQ wgmma": [("    for (int kk = 0; kk < BK / 16; ++kk)\n      hopper::Wgmma<DH>::rs(dq, da[kk],",
+                         "    for (int kk = 0; kk < 0; ++kk)\n      hopper::Wgmma<DH>::rs(dq, da[kk],")],
+    },
+    "fp32": {
+        "as built": [],
+        "no S, dP products": [(
+            "    for (int d4 = 0; d4 < DH / 4; ++d4) {\n      constexpr int kChunks = SWZ / 16;\n"
+            "      const int part = d4 / kChunks, cc = d4 % kChunks;\n"
+            "      const uint8_t* r_at = rows_s + part * BM * SWZ",
+            "    for (int d4 = 0; d4 < 0; ++d4) {\n      constexpr int kChunks = SWZ / 16;\n"
+            "      const int part = d4 / kChunks, cc = d4 % kChunks;\n"
+            "      const uint8_t* r_at = rows_s + part * BM * SWZ")],
+        "no expf": [("const float ex = expf(x - mi[i]);", "const float ex = x - mi[i];")],
+        "no ab reads": [("if (a.has_ab) x += ab_at<BM>(ab_t, rgrp + r, j);",
+                         "if (a.has_ab) x += 0.5f;")],
+        "no dab stores": [("    if (a.out1 != nullptr) {\n      for (int e = gt; e < GR * BK / 4;",
+                           "    if (false) {\n      for (int e = gt; e < GR * BK / 4;")],
+        "no dQ product": [("rows_in_order(4 * ((min(BK, a.Tk - k0) + 3) / 4), [&]",
+                           "rows_in_order(0, [&]")],
+        "no tile skipping": [("      if (seg && !at_mask[0]) {", "      if (false) {")],
+    },
 }
 
 
@@ -1359,14 +1474,15 @@ K3B_PARTS = {
 }
 
 
-def kernel_parts(smi: str, which: str) -> None:
-    """``python3 chip_smoke.py --k6b-parts`` (``--k6c-parts``,
-    ``--k3b-parts``): bf16 K6b (K6c) at ``FLASH_MAIN``, or K3b's stream at
-    N = 5 and 10 in fp32, as built and with each part of ``K6B_PARTS``
-    (``K6C_PARTS``, ``K3B_PARTS``) left out, each a copy of its source built
-    with the package's nvcc flags into a temporary directory and loaded in
-    place of the built library; device µs by CUDA-graph replay, the best of
-    three."""
+def kernel_parts(smi: str, which: str, dtype: str = "bf16") -> None:
+    """``python3 chip_smoke.py --k6b-parts [bf16|fp32]`` (``--k6c-parts``,
+    ``--k6-parts``, ``--k3b-parts``): K6b (K6c) of ``dtype``, bf16 at
+    ``FLASH_MAIN`` and fp32 at every ``FLASH_SHAPES`` shape, fp32 K6 at every
+    shape, or K3b's stream at N = 5 and 10 in fp32, as built and with each
+    part of ``K6B_PARTS[dtype]`` (``K6C_PARTS[dtype]``, ``K6_PARTS``,
+    ``K3B_PARTS``) left out, each a copy of its source built with the
+    package's nvcc flags into a temporary directory and loaded in place of
+    the built library; device µs by CUDA-graph replay, the best of three."""
     import ctypes
     import concurrent.futures
     import tempfile
@@ -1380,8 +1496,8 @@ def kernel_parts(smi: str, which: str) -> None:
 
     from seamless_communication_torch.ops.kernels import vocab_topk as vt
 
-    parts, kernel, kid = {"k6b": (K6B_PARTS, fl.KERNEL_DKV, "K6b"),
-                          "k6c": (K6C_PARTS, fl.KERNEL_DQ, "K6c"),
+    parts, kernel, kid = {"k6b": (K6B_PARTS[dtype], fl.KERNEL_DKV, "K6b"),
+                          "k6c": (K6C_PARTS[dtype], fl.KERNEL_DQ, "K6c"),
                           "k6": (K6_PARTS, fl.KERNEL, "K6"),
                           "k3b": (K3B_PARTS, vt.KERNEL, "K3b")}[which]
     src = build.CSRC_DIR / {"k3b": "vocab_topk.cu", "k6": "flash_attention.cu"}.get(
@@ -1454,17 +1570,23 @@ def kernel_parts(smi: str, which: str) -> None:
         finally:
             fl._functions.pop(kernel, None)
         return
-    label, T, kind, valid = next(x for x in FLASH_SHAPES if x[0] == FLASH_MAIN)
-    qkv, ab32, seg = flash_inputs(np.random.default_rng(19), T, kind, valid, dev)
-    qs, k, v = (x.to(torch.bfloat16) for x in qkv)
-    ab = fl.empty_bias(*ab32.shape, torch.bfloat16, dev).copy_(ab32)
-    do = torch.randn_like(qs)
-    out, m, l = fl._launch(qs, k, v, ab, None, None, residuals=True)
-    args = fl._bwd_args(qs, k, v, ab, None, None, out, m, l, do)
-    if which == "k6b":
-        outs = (torch.empty_like(k), torch.empty_like(v))
-    else:
-        outs = (torch.empty_like(qs), fl.empty_bias(*ab32.shape, torch.bfloat16, dev))
+    torch_dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    shapes = FLASH_SHAPES if dtype == "fp32" else [x for x in FLASH_SHAPES if x[0] == FLASH_MAIN]
+    cases = {}
+    for label, T, kind, valid in shapes:
+        qkv, ab32, seg = flash_inputs(np.random.default_rng(19), T, kind, valid, dev)
+        qs, k, v = (x.to(torch_dtype) for x in qkv)
+        ab = None if ab32 is None else fl.empty_bias(*ab32.shape, torch_dtype, dev).copy_(ab32)
+        segs = seg or (None, None)
+        do = torch.randn_like(qs)
+        out, m, l = fl._launch(qs, k, v, ab, *segs, residuals=True)
+        args = fl._bwd_args(qs, k, v, ab, *segs, out, m, l, do)
+        if which == "k6b":
+            outs = (torch.empty_like(k), torch.empty_like(v))
+        else:   # dab where the main path asks for it (the encoder's Shaw ab)
+            outs = (torch.empty_like(qs), None if kind != "shaw" else
+                    fl.empty_bias(1, H_MAIN, T, T, torch_dtype, dev))
+        cases[label] = (args, outs)
     try:
         for name, lib in libs:
             so = ctypes.CDLL(str(lib))
@@ -1473,9 +1595,10 @@ def kernel_parts(smi: str, which: str) -> None:
             so.cuda_error_string.argtypes = [ctypes.c_int]
             so.cuda_error_string.restype = ctypes.c_char_p
             fl._functions[kernel] = (fn, so.cuda_error_string)
-            us = min(cuda_time_ms(lambda: fl._launch_one(kernel, args, *outs))
-                     for _ in range(3)) * 1e3
-            log(f"{kid} bf16 {label}, {name}: {us:.2f} us [{smi}]")
+            us = {label: min(cuda_time_ms(lambda: fl._launch_one(kernel, args, *outs))
+                             for _ in range(3)) * 1e3 for label, (args, outs) in cases.items()}
+            log(f"{kid} {dtype}, {name}: " + ", ".join(f"{label} {t:.2f} us"
+                                                     for label, t in us.items()) + f" [{smi}]")
     finally:
         fl._functions.pop(kernel, None)
 
@@ -3162,9 +3285,11 @@ def phase_train(smi: str) -> dict:
                              f"{off[0]['loss']} without")
     out["s2s_parts"] = parts
     out["s2s_off"] = off
+    bf16_launches = dict(launch_counts)         # the bf16 steps; then fp32 parity
     out["parity"] = grad_parity(cfg, dev, smi)
     out["parity_s2s"] = grad_parity(cfg, dev, smi, s2s=True)
     out["launches"] = dict(launch_counts)
+    out["launches_fp32"] = {k: v - bf16_launches[k] for k, v in launch_counts.items()}
     return out
 
 
@@ -3689,8 +3814,14 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_main_path(dev["smi"])
         return 0
-    if sys.argv[1:] in (["--k6-parts"], ["--k6b-parts"], ["--k6c-parts"], ["--k3b-parts"]):
-        kernel_parts(dev["smi"], sys.argv[1][2:].split("-")[0])
+    if sys.argv[1:2] in (["--k6-parts"], ["--k6b-parts"], ["--k6c-parts"], ["--k3b-parts"]):
+        which = sys.argv[1][2:].split("-")[0]
+        dtypes = sys.argv[2:] or ["bf16"]
+        if len(dtypes) > 1 or dtypes[0] not in ("bf16", "fp32") or (
+                dtypes != ["bf16"] and which not in ("k6b", "k6c")):
+            raise SystemExit(f"chip_smoke: {sys.argv[1]} takes no dtype or one of bf16, fp32 "
+                             "(fp32 for --k6b-parts and --k6c-parts)")
+        kernel_parts(dev["smi"], which, dtypes[0])
         return 0
     if sys.argv[1:] == ["--k12-trace"]:
         k12_trace(dev["smi"])
@@ -3736,8 +3867,9 @@ def main() -> int:
     gc.collect()
     train = phase_train(dev["smi"])
     k6["launches"] += train["launches"]["flash_attention"]
-    k6b["launches"] = train["launches"]["flash_attention_bwd_dkv"]
-    k6c["launches"] = train["launches"]["flash_attention_bwd_dq"]
+    for row, name in ((k6b, "flash_attention_bwd_dkv"), (k6c, "flash_attention_bwd_dq")):
+        row["launches"] = train["launches"][name]
+        row["launches_fp32"] = train["launches_fp32"][name]   # 3g's fp32 gradient parity
     phase_tiny_cuda_vs_cpu()
     phase_tiny_s2st()
     phase_tiny_t2t()

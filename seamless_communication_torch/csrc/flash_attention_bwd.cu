@@ -101,23 +101,56 @@
 // whose shared-memory loads (16 8-byte loads a 256 FMAs a lane) the two
 // warps a scheduler do not hide; then expf, the ab reads and dab's stores.
 //
-// Design of the SIMT kernels (fp32). Both keep their tiles in shared memory
-// as fp32 and use the access pattern of K6's forward: a product whose lanes
-// read different rows reads rows padded by 4 floats with 16-byte loads
-// (conflict-free), a product whose lanes read one row reads it as a
-// broadcast.
-//   K6b: 128 threads (4 warps) own BK keys (8 a warp for Dh <= 64, 4 for 128),
-//   loaded once. For each tile of 32 query rows (q, dO, m, 1/l, di staged in
-//   shared memory) a lane owns one row and computes s and dp against the
-//   warp's keys, then p and dS (ab read from device memory, each lane its
-//   row's consecutive keys); p and dS go to shared memory, and a
-//   lane then owns output dimensions (lane, lane + 32, ...) and accumulates
-//   dV and dK of the warp's keys in registers over the 32 rows.
-//   K6c: 128 threads own 16 query rows (4 a warp, computed together), as in
-//   K6's forward; for each tile of BK keys (64 for Dh <= 64, 32 for 128) a
-//   lane owns keys (lane, lane + 32) and computes s and dp for the warp's 4
-//   rows, then p and dS, writes dab coalesced along the keys, and stages the
-//   rounded dS; a lane then owns output dimensions and accumulates dQ.
+// fp32 K6b and K6c (f32::, below): SIMT FMAs, no TF32 and no tensor
+// cores, fed by TMA as the fp32 forward (flash_attention.cu f32::) is. Their
+// first design (blocks of 128 threads owning 32 keys or 16 rows, plain tile
+// loads between two barriers, nothing skipped) took 149.63-151.34 us (K6b)
+// and 112.30-112.76 us (K6c) at the 10 s shape, against 77.60-79.80 and
+// 76.48-78.56 now (chip_smoke.py phase 2, an H100 80GB HBM3 at 700 W). Now each block has 288 threads: a producer warp and two groups of
+// four consumer warps. The producer loads the block's fixed operands once
+// and streams every other tile (fp32 rows in 128-byte boxes, 128-byte
+// swizzled; the bias in 32-key boxes) through a ring of mbarrier-guarded
+// stages; it alone decides which tiles are taken, so each stage carries its
+// tile's index and an index of -1 ends the consumers' loop.
+//   Tile skipping: under segment ids the producer leaves out the pairs of
+//   `skippable_tiles` (ops/kernels/flash_attention.py) on the card, from m
+//   and the segment ids of the pair's 64-row and 64-key tiles (a block whose
+//   tiles are smaller takes the decision of the 64 x 64 tile that holds it):
+//   no key of the key tile has a segment id in [min, max] of the row tile's
+//   rows', and no row's m is at the mask level. Such a pair's p are exact
+//   zeros, so its terms add exact zeros: leaving it out changes no bit.
+//   Every sum keeps its order: each logit and dP is one FMA a term in the
+//   order of d; each dK and dV element sums over the query rows in ascending
+//   order, each dQ element over the keys in ascending order, one chain each.
+//   The reduction axis is never split: a group owns its outputs outright.
+//   K6b: a block owns BK keys (64, or 32 where 64-key blocks would fill at
+//   most half of the SMs: flash_attention.py fp32_block_rows); their K and V
+//   are loaded once, and the producer streams the Q and dO tiles of each
+//   query tile taken (64 rows, 32 at Dh = 128), its ab tile and the rows' m,
+//   1/l, di and segment ids. Group g owns keys g BK / 2 .. (g + 1) BK / 2 - 1:
+//   two of its warps compute S^T (a thread 4 keys x 8 rows, 16-byte loads)
+//   and p, which go to shared memory, then dV += p^T dO; its other two
+//   compute dP^T, then dS = (dP - di) p from the shared p, then dK += dS^T Q
+//   (a thread 4 keys x Dh / 8 columns of dV or dK in registers).
+//   K6c: a block owns BM query rows (64, or 32 by the same rule) with their
+//   Q and dO loaded once; the producer streams the K, V and ab tiles and the
+//   key segment ids of each key tile taken (64 keys, 32 at Dh = 128), and
+//   writes zeros to the skipped tiles' dab. Group g owns rows g BM / 2 ..
+//   (g + 1) BM / 2 - 1: two warps compute S (a thread 8 keys x 4 rows) and
+//   p, the other two dP and then dS in place of p; the four write dab from
+//   there in 16-byte stores along the keys (rows padded as empty_bias makes
+//   them) and add dS K to their rows' dQ in registers.
+//   What holds them back (chip_smoke.py --k6b-parts fp32, --k6c-parts fp32,
+//   on an H100 80GB HBM3 at 700 W): at the 10 s shape K6b takes 77.7 us, of
+//   which leaving out S^T and dP^T saves 27.3, dV and dK 28.7, expf 7.5 and
+//   the ab reads 5.1; K6c 78.4 us, of which S and dP save 27.6, dQ 20.4, the
+//   dab stores 9.3, the ab reads 6.0 and expf 4.5. The products' time
+//   follows the bytes they load from shared memory: a 4 x 8 register tile
+//   loads 1.5 bytes a FMA (K6c's 4 x 4 dQ tile 2), against the SM's 128
+//   bytes and 128 FMAs a cycle. An 8 x 8 tile (one byte a FMA) needs one
+//   warp a product in this block, and was slower: a block of nine warps
+//   gets 168 registers a thread, so K6c spilled, and a lone warp ran its
+//   product at under half the issue rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,9 +161,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 
 // Strides are in elements; the last dimension of q, k and v is contiguous.
 // The bias's rows are `abt` apart and dab's `dabt` (their last dimension
@@ -161,364 +191,828 @@ __device__ __forceinline__ void row_values(const float* m, const float* l,
 }
 
 // ---------------------------------------------------------------------------
-// K6b: dK, dV. A block owns BK = 4 * KW keys of one (b, h).
+// fp32 K6b and K6c: register-blocked SIMT FMAs fed by TMA
 // ---------------------------------------------------------------------------
 
+namespace f32 {
+
+constexpr int kGroups = 2;                      // consumer groups of four warps
+constexpr int kGroupThreads = 128;
+constexpr int kConsumers = kGroups * kGroupThreads;
+constexpr int kThreads = kConsumers + 32;       // and one producer warp: TMA
+constexpr int kSkipTile = 64;                   // the skip rule's row and key tiles
+constexpr int kMaxSkipTiles = 512;              // key tiles past these are always taken
+constexpr int kRuleBatch = 4;                   // rule tiles whose loads go out together
+constexpr int kSmemBudget = 227 * 1024 - 2048;  // dynamic; the rest is the static arrays'
+
+// fp32 rows of DH floats as TMA stores them: cut in boxes of kSwz bytes
+// (part p of every row, then part p + 1), each box row swizzled
 template <int DH>
-struct DkvShape {
-  static constexpr int KW = DH <= 64 ? 8 : 4;   // keys of a warp
-  static constexpr int BK = kWarps * KW;        // keys of a block
-  static constexpr int BQ = 32;                 // query rows of a tile (= lanes)
-  static constexpr int LDQ = DH + 4;            // padded q / dO row
-  static constexpr int DPL = (DH + 31) / 32;    // output dims of a lane
-  // floats: q_s, do_s, k_s, v_s, p_s, ds_s, m_s, il_s, di_s (+ int seg_s)
-  static constexpr int kSmemFloats =
-      2 * BQ * LDQ + 2 * BK * DH + 2 * kWarps * KW * BQ + 3 * BQ;
-  static constexpr size_t kSmemBytes = (size_t)kSmemFloats * 4 + BQ * 4;
+struct Rows {
+  static constexpr int kSwz = DH * 4 < 128 ? DH * 4 : 128;  // bytes of a swizzled row
+  static constexpr int kCols = kSwz / 4;                    // its floats (a TMA box row)
+  static constexpr int kParts = DH / kCols;                 // boxes of a row
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, const float* __restrict__ ab,
-                               const int32_t* __restrict__ q_seg,
-                               const int32_t* __restrict__ kv_seg,
-                               const float* __restrict__ dout, const float* __restrict__ m,
-                               const float* __restrict__ l,
-                               const float* __restrict__ di, Strides st, int H, int Tq,
-                               int Tk, float mask_value, float* __restrict__ dk,
-                               float* __restrict__ dv) {
-  using S = DkvShape<DH>;
-  constexpr int KW = S::KW, BK = S::BK, BQ = S::BQ, LDQ = S::LDQ, DPL = S::DPL;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                    // [BQ][LDQ]
-  float* do_s = q_s + BQ * LDQ;         // [BQ][LDQ]
-  float* k_s = do_s + BQ * LDQ;         // [BK][DH]
-  float* v_s = k_s + BK * DH;           // [BK][DH]
-  float* p_s = v_s + BK * DH;           // [kWarps][KW][BQ]
-  float* ds_s = p_s + kWarps * KW * BQ; // [kWarps][KW][BQ]
-  float* m_s = ds_s + kWarps * KW * BQ; // [BQ]
-  float* il_s = m_s + BQ;               // [BQ]
-  float* di_s = il_s + BQ;              // [BQ]
-  int* seg_s = reinterpret_cast<int*>(di_s + BQ);  // [BQ]
+// The term TMA's swizzle of `SWZ`-byte rows XORs into the 16-byte chunk
+// index of row `row` (hopper::swizzled)
+template <int SWZ>
+__device__ __forceinline__ int swz_term(int row) {
+  return SWZ == 128 ? (row & 7) : SWZ == 64 ? ((row >> 1) & 3) : ((row >> 2) & 1);
+}
+
+// ab[row][key] of an fp32 bias tile of ROWS rows, stored as TMA writes it:
+// boxes of 32 keys (128-byte rows, 128-byte swizzled), one after another
+template <int ROWS>
+__device__ __forceinline__ float ab_at(const uint8_t* tile, int row, int key) {
+  return *reinterpret_cast<const float*>(tile + (key / 32) * ROWS * 128 + row * 128 +
+                                         ((((key % 32) / 4) ^ (row & 7)) << 4) +
+                                         (key % 4) * 4);
+}
+
+// The thread's N columns of every row of a DH-wide tile of ROWS rows stored
+// as TMA writes it: the 16-byte chunks cg + NG u (u < N / 4), or (N = 2)
+// the columns 2 cg, 2 cg + 1. The byte offsets of rows 0..7 are computed once (the swizzle repeats every 8 rows): a row costs its
+// loads alone where its index modulo 8 is known at compile time (`at`).
+template <int DH, int ROWS, int N, int NG>
+struct ColReader {
+  static constexpr int SWZ = Rows<DH>::kSwz, kChunks = SWZ / 16;
+  static constexpr int kPartStep = NG / kChunks * ROWS * SWZ;   // chunk u to u + 1
+  static_assert(N <= 4 || NG % kChunks == 0, "a thread's chunks share their swizzle");
+  const uint8_t* base;  // the tile and the part of the thread's first chunk
+  int off[8];
+  __device__ __forceinline__ ColReader(const uint8_t* tile, int cg) {
+    const int c = N >= 4 ? cg : cg / 2;
+    base = tile + c / kChunks * ROWS * SWZ + (N >= 4 ? 0 : (cg % 2) * 8);
+#pragma unroll
+    for (int rr = 0; rr < 8; ++rr) off[rr] = rr * SWZ + (((c % kChunks) ^ swz_term<SWZ>(rr)) << 4);
+  }
+  // row 8 r8 + RR
+  template <int RR>
+  __device__ __forceinline__ void at(int r8, float (&x)[N]) const {
+    const uint8_t* p = base + r8 * 8 * SWZ + off[RR];
+    if constexpr (N >= 4) {
+#pragma unroll
+      for (int u = 0; u < N / 4; ++u) {
+        const float4 v = *reinterpret_cast<const float4*>(p + u * kPartStep);
+        x[4 * u] = v.x;
+        x[4 * u + 1] = v.y;
+        x[4 * u + 2] = v.z;
+        x[4 * u + 3] = v.w;
+      }
+    } else {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      x[0] = v.x;
+      x[1] = v.y;
+    }
+  }
+};
+
+// Calls f(r, Int<r % 8>) for r = 0 .. n - 1 in order, 8 rows at a time
+template <int RR>
+struct Int {
+  static constexpr int value = RR;
+};
+template <typename F>
+__device__ __forceinline__ void rows_in_order(int n, F&& f) {
+  int r8 = 0;
+  for (; 8 * r8 + 8 <= n; ++r8) {
+    f(r8, Int<0>()); f(r8, Int<1>()); f(r8, Int<2>()); f(r8, Int<3>());
+    f(r8, Int<4>()); f(r8, Int<5>()); f(r8, Int<6>()); f(r8, Int<7>());
+  }
+  const int rest = n - 8 * r8;
+  if (rest > 0) f(r8, Int<0>());
+  if (rest > 1) f(r8, Int<1>());
+  if (rest > 2) f(r8, Int<2>());
+  if (rest > 3) f(r8, Int<3>());
+  if (rest > 4) f(r8, Int<4>());
+  if (rest > 5) f(r8, Int<5>());
+  if (rest > 6) f(r8, Int<6>());
+}
+
+// The same columns of a row of a (B, H, T, DH) output, written
+template <int DH, int N, int NG>
+__device__ __forceinline__ void store_cols(float* row, int cg, const float (&x)[N]) {
+  if constexpr (N >= 4) {
+#pragma unroll
+    for (int u = 0; u < N / 4; ++u)
+      *reinterpret_cast<float4*>(row + 4 * (cg + NG * u)) =
+          make_float4(x[4 * u], x[4 * u + 1], x[4 * u + 2], x[4 * u + 3]);
+  } else {
+    *reinterpret_cast<float2*>(row + 2 * cg) = make_float2(x[0], x[1]);
+  }
+}
+
+struct Args {
+  const int32_t* q_seg;
+  const int32_t* kv_seg;
+  const float* m;
+  const float* l;
+  const float* di;
+  int H, Tq, Tk;
+  float mask_value;
+  bool has_ab;
+  bool q_swap, k_swap, v_swap;  // th_swap of each map (dO is contiguous)
+  float* out0;                  // dk (K6b) or dq (K6c)
+  float* out1;                  // dv (K6b) or dab (K6c; null: no bias gradient)
+  long long dab_st;             // dab's row stride (a multiple of 4)
+};
+
+// The rows' half of the skip rule (flash_attention.py skippable_tiles) for
+// the kRuleBatch 64-row tiles from rt0 of (b, h), by one warp: each tile's
+// [lo, hi] of the segment ids of its rows below Tq, and whether one of those
+// rows has m at the mask level (all its keys masked: its p is not 0). Every
+// load goes out before the reductions.
+__device__ __forceinline__ void rule_rows(const Args& a, int b, size_t bh, int rt0, int lane,
+                                          int (&lo)[kRuleBatch], int (&hi)[kRuleBatch],
+                                          bool (&at_mask)[kRuleBatch]) {
+  int sg[kRuleBatch][2];
+  float mm[kRuleBatch][2];
+#pragma unroll
+  for (int x = 0; x < kRuleBatch; ++x)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = (rt0 + x) * kSkipTile + lane + 32 * u;
+      const bool in = row < a.Tq;
+      sg[x][u] = in ? a.q_seg[(size_t)b * a.Tq + row] : 0;
+      mm[x][u] = in ? a.m[bh * a.Tq + row] : 0.f;   // 0: not at the mask level
+    }
+#pragma unroll
+  for (int x = 0; x < kRuleBatch; ++x) {
+    int l0 = INT_MAX, h0 = INT_MIN;
+    bool am = false;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if ((rt0 + x) * kSkipTile + lane + 32 * u < a.Tq) {
+        l0 = min(l0, sg[x][u]);
+        h0 = max(h0, sg[x][u]);
+      }
+      am = am || !(mm[x][u] > 0.5f * a.mask_value);
+    }
+    lo[x] = __reduce_min_sync(0xffffffffu, l0);
+    hi[x] = __reduce_max_sync(0xffffffffu, h0);
+    at_mask[x] = __any_sync(0xffffffffu, am);
+  }
+}
+
+// ---- K6b ---------------------------------------------------------------------
+
+// acc[k][e] += w[r][k] x[r][e] over the rows r = 0 .. n - 1 in order, one
+// FMA chain an element: w, the thread's VK weights of each row (p or dS,
+// rows of PLD floats), x its VD columns of a DH-wide tile of ROWS rows (dO
+// or Q) as TMA stored it
+template <int DH, int ROWS, int VK, int VD, int PLD>
+__device__ __forceinline__ void accumulate_rows(const float* w, const uint8_t* x, int dg,
+                                                int n, float (&acc)[VK][VD]) {
+  const ColReader<DH, ROWS, VD, 8> cols(x, dg);
+  rows_in_order(n, [&](int r8, auto rr) {
+    constexpr int RR = decltype(rr)::value;
+    const int r = 8 * r8 + RR;
+    float wv[VK], xv[VD];
+    if constexpr (VK == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(w + r * PLD);
+      wv[0] = t.x; wv[1] = t.y; wv[2] = t.z; wv[3] = t.w;
+    } else {
+      const float2 t = *reinterpret_cast<const float2*>(w + r * PLD);
+      wv[0] = t.x; wv[1] = t.y;
+    }
+    cols.template at<RR>(r8, xv);
+#pragma unroll
+    for (int k = 0; k < VK; ++k)
+#pragma unroll
+      for (int e = 0; e < VD; ++e) acc[k][e] = fmaf(wv[k], xv[e], acc[k][e]);
+  });
+}
+
+template <int DH, int BK>
+struct DkvShape {
+  static constexpr int BQ = DH <= 64 ? 64 : 32;        // query rows of a tile
+  static constexpr int GK = BK / kGroups;              // keys of a group
+  static constexpr int LK = GK >= 32 ? 8 : 4;          // S^T, dP^T: lanes along the keys
+  static constexpr int LR = 32 / LK;                   //   and along the rows
+  static constexpr int KT = GK / LK;                   //   keys of a thread
+  static constexpr int RT = BQ / (2 * LR);             //   rows of a thread
+  static constexpr int VK = GK / 8;                    // dV, dK: keys of a thread
+  static constexpr int VD = DH / 8;                    //   and columns
+  static constexpr int kPld = GK + GK / 4;             // a row of p or dS, padded
+  static constexpr int kKvBytes = BK * DH * 4;         // K or V, loaded once
+  static constexpr int kRowBytes = BQ * DH * 4;        // one Q or dO tile
+  static constexpr int kAbParts = BK / 32;             // 32-key boxes of an ab tile
+  static constexpr int kAbBytes = BQ * BK * 4;
+  static constexpr int kValBytes = 1024;               // m, 1/l, di, segment ids of BQ rows
+  static constexpr int kStageBytes = 2 * kRowBytes + kAbBytes + kValBytes;
+  static constexpr int kPBytes = kGroups * 3 * BQ * kPld * 4;   // p (two buffers), dS
+  static constexpr int kFixed = 1024 + 2 * kKvBytes + kPBytes + 8 * 9;
+  static constexpr int kFit = (kSmemBudget - kFixed) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;  // ring of Q, dO, ab tiles
+  static constexpr int kPOffset = 2 * kKvBytes + kStages * kStageBytes;
+  static constexpr int kBarOffset = kPOffset + kPBytes;
+  // 1024 bytes of slack align the tiles (the swizzle atom)
+  static constexpr size_t kSmemBytes = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+  static_assert(kStages >= 2, "the ring needs two stages");
+  static_assert(KT * LK == GK && 2 * LR * RT == BQ && 16 * BQ <= kValBytes, "shape");
+};
+
+// One block: BK keys of one (b, h), their K and V loaded once. The last warp
+// streams the Q, dO and ab tiles of every query tile that the skip rule
+// takes, with the rows' m, 1/l, di and segment ids, through a ring of
+// kStages stages, each stage marked with its tile's index (-1 ends the
+// loop). Group wg owns keys wg GK .. wg GK + GK - 1: warps 0, 1 of the group
+// compute S^T and p, then dV += p^T dO; warps 2, 3 compute dP^T, then dS from
+// p, then dK += dS^T Q. p goes through two buffers, so that one tile's p can
+// be written while the other warps still read the last one's.
+template <int DH, int BK>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                                   const __grid_constant__ CUtensorMap k_map,
+                                   const __grid_constant__ CUtensorMap v_map,
+                                   const __grid_constant__ CUtensorMap do_map,
+                                   const __grid_constant__ CUtensorMap ab_map, const Args a) {
+  using S = DkvShape<DH, BK>;
+  using R = Rows<DH>;
+  constexpr int BQ = S::BQ, GK = S::GK, LK = S::LK, LR = S::LR, KT = S::KT, RT = S::RT,
+                VK = S::VK, VD = S::VD, PLD = S::kPld, NS = S::kStages, SWZ = R::kSwz,
+                COLS = R::kCols;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int tile_s[NS];    // the query tile in each stage; -1: no more
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = smem + S::kKvBytes;
+  uint8_t* stages = smem + 2 * S::kKvBytes;
+  float* p_all = reinterpret_cast<float*>(smem + S::kPOffset);  // [group][p, p, dS][BQ][PLD]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBarOffset);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;        // [NS]: the stage's tiles have landed
+  uint64_t* empty = bars + 1 + NS;  // [NS]: the consumers are done with it
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * BK;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float* qb = q + b * st.qb + h * st.qh;
-  const float* kb = k + b * st.kb + h * st.kh;
-  const float* vb = v + b * st.vb + h * st.vh;
-  const size_t bh = (size_t)b * H + h;
-  const float* dob = dout + bh * Tq * DH;
-  const bool seg = q_seg != nullptr;
+  const size_t bh = (size_t)b * a.H + h;
+  const bool seg = a.q_seg != nullptr;
 
-  for (int idx = tid; idx < BK * DH; idx += kThreads) {
-    const int j = idx / DH, d = idx % DH, key = k0 + j;
-    const bool ok = key < Tk;
-    k_s[idx] = ok ? kb[key * st.kt + d] : 0.f;
-    v_s[idx] = ok ? vb[key * st.vt + d] : 0.f;
-  }
-  // the warp's keys: k0 + warp * KW + c
-  int kseg[KW];
-  bool kok[KW];
-#pragma unroll
-  for (int c = 0; c < KW; ++c) {
-    const int key = k0 + warp * KW + c;
-    kok[c] = key < Tk;
-    kseg[c] = (seg && kok[c]) ? kv_seg[(size_t)b * Tk + key] : 0;
-  }
-  float acc_dk[KW][DPL], acc_dv[KW][DPL];
-#pragma unroll
-  for (int c = 0; c < KW; ++c)
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc_dk[c][e] = acc_dv[c][e] = 0.f;
-
-  float* p_w = p_s + warp * KW * BQ;
-  float* ds_w = ds_s + warp * KW * BQ;
-
-  for (int q0 = 0; q0 < Tq; q0 += BQ) {
-    __syncthreads();  // the previous tile is consumed (and k_s, v_s written)
-    for (int idx = tid; idx < BQ * DH; idx += kThreads) {
-      const int r = idx / DH, d = idx % DH, i = q0 + r;
-      const bool ok = i < Tq;
-      q_s[r * LDQ + d] = ok ? qb[i * st.qt + d] : 0.f;
-      do_s[r * LDQ + d] = ok ? dob[(size_t)i * DH + d] : 0.f;
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
     }
-    if (tid < BQ) {
-      row_values(m, l, di, q_seg, bh, b, q0 + tid, Tq, m_s[tid], il_s[tid], di_s[tid],
-                 seg_s[tid]);
-    }
-    __syncthreads();
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-    // ---- s and dp of the lane's row against the warp's KW keys
-    const int i = q0 + lane;
-    float s[KW], dp[KW];
-#pragma unroll
-    for (int c = 0; c < KW; ++c) s[c] = dp[c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(&q_s[lane * LDQ + d]);
-      const float4 gv = *reinterpret_cast<const float4*>(&do_s[lane * LDQ + d]);
-#pragma unroll
-      for (int c = 0; c < KW; ++c) {
-        const float4 kv = *reinterpret_cast<const float4*>(&k_s[(warp * KW + c) * DH + d]);
-        const float4 vv = *reinterpret_cast<const float4*>(&v_s[(warp * KW + c) * DH + d]);
-        s[c] = fmaf(qv.x, kv.x, s[c]);
-        s[c] = fmaf(qv.y, kv.y, s[c]);
-        s[c] = fmaf(qv.z, kv.z, s[c]);
-        s[c] = fmaf(qv.w, kv.w, s[c]);
-        dp[c] = fmaf(gv.x, vv.x, dp[c]);
-        dp[c] = fmaf(gv.y, vv.y, dp[c]);
-        dp[c] = fmaf(gv.z, vv.z, dp[c]);
-        dp[c] = fmaf(gv.w, vv.w, dp[c]);
+  if (warp == kConsumers / 32) {
+    // ---- producer warp
+    if (lane == 0) {
+      hopper::prefetch_map(&q_map);
+      hopper::prefetch_map(&do_map);
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * S::kKvBytes);
+      for (int part = 0; part < R::kParts; ++part) {
+        hopper::load_rows(k_s + part * BK * SWZ, &k_map, kv_full, part * COLS, k0, h, b,
+                          a.k_swap);
+        hopper::load_rows(v_s + part * BK * SWZ, &v_map, kv_full, part * COLS, k0, h, b,
+                          a.v_swap);
       }
     }
-
-    // ---- p and dS of the lane's row; a row past Tq has 1/l = 0, so p = 0
-    const float mi = m_s[lane], il = il_s[lane], dii = di_s[lane];
-    const int qseg = seg_s[lane];
-    const float* abr =
-        (ab && i < Tq) ? ab + (bh * Tq + i) * (size_t)st.abt + k0 + warp * KW : nullptr;
+    // the segment ids of the rule's 64-key tile that holds the block's keys,
+    // two a lane
+    const int kt = k0 / kSkipTile;
+    const bool rule = seg && kt < kMaxSkipTiles;
+    int ks[2];
+    bool kin[2];
 #pragma unroll
-    for (int c = 0; c < KW; ++c) {
-      float p = 0.f, ds = 0.f;
-      if (kok[c] && il != 0.f) {
-        float x = s[c];
-        if (abr) x += abr[c];
-        if (seg) x += (qseg == kseg[c]) ? 0.f : mask_value;
-        p = expf(x - mi) * il;
-        ds = (dp[c] - dii) * p;
-      }
-      p_w[c * BQ + lane] = p;
-      ds_w[c * BQ + lane] = ds;
+    for (int u = 0; u < 2; ++u) {
+      const int key = kt * kSkipTile + lane + 32 * u;
+      kin[u] = rule && key < a.Tk;
+      ks[u] = kin[u] ? a.kv_seg[(size_t)b * a.Tk + key] : 0;
     }
-    __syncwarp();
-
-    // ---- dV += p^T dO, dK += dS^T q over the tile's rows; a lane owns dims
-    for (int r = 0; r < BQ; r += 4) {
-      float gq[4][DPL], qq[4][DPL];
+    const int n_rule = (a.Tq + kSkipTile - 1) / kSkipTile;
+    int n = 0;  // tiles issued
+    for (int rt0 = 0; rt0 < n_rule; rt0 += kRuleBatch) {
+      bool live[kRuleBatch];
+      if (rule) {
+        int lo[kRuleBatch], hi[kRuleBatch];
+        bool at_mask[kRuleBatch];
+        rule_rows(a, b, bh, rt0, lane, lo, hi, at_mask);
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          const int d = lane + 32 * e;
-          gq[u][e] = d < DH ? do_s[(r + u) * LDQ + d] : 0.f;
-          qq[u][e] = d < DH ? q_s[(r + u) * LDQ + d] : 0.f;
+        for (int x = 0; x < kRuleBatch; ++x) {
+          const bool inside = (kin[0] && ks[0] >= lo[x] && ks[0] <= hi[x]) ||
+                              (kin[1] && ks[1] >= lo[x] && ks[1] <= hi[x]);
+          const bool any = __any_sync(0xffffffffu, inside);
+          live[x] = at_mask[x] || any;
         }
+      } else {
 #pragma unroll
-      for (int c = 0; c < KW; ++c) {
-        const float4 pv = *reinterpret_cast<const float4*>(&p_w[c * BQ + r]);
-        const float4 sv = *reinterpret_cast<const float4*>(&ds_w[c * BQ + r]);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          float a = acc_dv[c][e];
-          a = fmaf(pv.x, gq[0][e], a);
-          a = fmaf(pv.y, gq[1][e], a);
-          a = fmaf(pv.z, gq[2][e], a);
-          a = fmaf(pv.w, gq[3][e], a);
-          acc_dv[c][e] = a;
-          float g = acc_dk[c][e];
-          g = fmaf(sv.x, qq[0][e], g);
-          g = fmaf(sv.y, qq[1][e], g);
-          g = fmaf(sv.z, qq[2][e], g);
-          g = fmaf(sv.w, qq[3][e], g);
-          acc_dk[c][e] = g;
-        }
+        for (int x = 0; x < kRuleBatch; ++x) live[x] = true;
       }
-    }
-  }
-
-#pragma unroll
-  for (int c = 0; c < KW; ++c) {
-    if (!kok[c]) continue;
-    const size_t row = bh * Tk + k0 + warp * KW + c;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d < DH) {
-        dk[row * DH + d] = acc_dk[c][e];
-        dv[row * DH + d] = acc_dv[c][e];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K6c: dQ and dab. A block owns 16 query rows of one (b, h), 4 a warp.
-// ---------------------------------------------------------------------------
-
-template <int DH>
-struct DqShape {
-  static constexpr int R = 4;                   // rows of a warp
-  static constexpr int ROWS = kWarps * R;       // rows of a block
-  static constexpr int BK = DH <= 64 ? 64 : 32; // keys of a tile
-  static constexpr int KPL = BK / 32;           // keys of a lane
-  static constexpr int LD = DH + 4;             // padded K / V row
-  static constexpr int DPL = (DH + 31) / 32;    // output dims of a lane
-  // floats: q_s, do_s, k_s, v_s, ds_s
-  static constexpr int kSmemFloats = 2 * ROWS * DH + 2 * BK * LD + kWarps * R * BK;
-  static constexpr size_t kSmemBytes = (size_t)kSmemFloats * 4;
-};
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ ab,
-                              const int32_t* __restrict__ q_seg,
-                              const int32_t* __restrict__ kv_seg,
-                              const float* __restrict__ dout, const float* __restrict__ m,
-                              const float* __restrict__ l, const float* __restrict__ di,
-                              Strides st, int H, int Tq, int Tk, float mask_value,
-                              float* __restrict__ dq, float* __restrict__ dab) {
-  using S = DqShape<DH>;
-  constexpr int R = S::R, ROWS = S::ROWS, BK = S::BK, KPL = S::KPL, LD = S::LD,
-                DPL = S::DPL;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                // [ROWS][DH]
-  float* do_s = q_s + ROWS * DH;    // [ROWS][DH]
-  float* k_s = do_s + ROWS * DH;    // [BK][LD]
-  float* v_s = k_s + BK * LD;       // [BK][LD]
-  float* ds_s = v_s + BK * LD;      // [kWarps][R][BK]
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * ROWS;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int row0 = warp * R;        // the warp's first row in the block
-  const float* qb = q + b * st.qb + h * st.qh;
-  const float* kb = k + b * st.kb + h * st.kh;
-  const float* vb = v + b * st.vb + h * st.vh;
-  const size_t bh = (size_t)b * H + h;
-  const float* dob = dout + bh * Tq * DH;
-  const bool seg = q_seg != nullptr;
-  float* ds_w = ds_s + warp * R * BK;
-
-  for (int idx = tid; idx < ROWS * DH; idx += kThreads) {
-    const int r = idx / DH, d = idx % DH, i = q0 + r;
-    const bool ok = i < Tq;
-    q_s[idx] = ok ? qb[i * st.qt + d] : 0.f;
-    do_s[idx] = ok ? dob[(size_t)i * DH + d] : 0.f;
-  }
-  float mi[R], il[R], dii[R], acc[R][DPL];
-  int qseg[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    row_values(m, l, di, q_seg, bh, b, q0 + row0 + r, Tq, mi[r], il[r], dii[r], qseg[r]);
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed (and q_s, do_s written)
-    for (int idx = tid; idx < BK * DH; idx += kThreads) {
-      const int j = idx / DH, d = idx % DH, key = k0 + j;
-      const bool ok = key < Tk;
-      k_s[j * LD + d] = ok ? kb[key * st.kt + d] : 0.f;
-      v_s[j * LD + d] = ok ? vb[key * st.vt + d] : 0.f;
-    }
-    __syncthreads();
-
-    // ---- s and dp of the warp's R rows against the lane's KPL keys
-    float s[R][KPL], dp[R][KPL];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < KPL; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 kv[KPL], vv[KPL];
-#pragma unroll
-      for (int c = 0; c < KPL; ++c) {
-        kv[c] = *reinterpret_cast<const float4*>(&k_s[(lane + 32 * c) * LD + d]);
-        vv[c] = *reinterpret_cast<const float4*>(&v_s[(lane + 32 * c) * LD + d]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(&q_s[(row0 + r) * DH + d]);
-        const float4 gv = *reinterpret_cast<const float4*>(&do_s[(row0 + r) * DH + d]);
-#pragma unroll
-        for (int c = 0; c < KPL; ++c) {
-          s[r][c] = fmaf(qv.x, kv[c].x, s[r][c]);
-          s[r][c] = fmaf(qv.y, kv[c].y, s[r][c]);
-          s[r][c] = fmaf(qv.z, kv[c].z, s[r][c]);
-          s[r][c] = fmaf(qv.w, kv[c].w, s[r][c]);
-          dp[r][c] = fmaf(gv.x, vv[c].x, dp[r][c]);
-          dp[r][c] = fmaf(gv.y, vv[c].y, dp[r][c]);
-          dp[r][c] = fmaf(gv.z, vv[c].z, dp[r][c]);
-          dp[r][c] = fmaf(gv.w, vv[c].w, dp[r][c]);
-        }
-      }
-    }
-
-    // ---- p and dS of each (row, key); dab written along the keys
-    int kseg[KPL];
-    bool kok[KPL];
-#pragma unroll
-    for (int c = 0; c < KPL; ++c) {
-      const int key = k0 + lane + 32 * c;
-      kok[c] = key < Tk;
-      kseg[c] = (seg && kok[c]) ? kv_seg[(size_t)b * Tk + key] : 0;
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = q0 + row0 + r;
-      const size_t rowoff = (bh * Tq + i) * (size_t)st.dabt + k0; // dab
-      const size_t aboff = (bh * Tq + i) * (size_t)st.abt + k0;   // ab
-#pragma unroll
-      for (int c = 0; c < KPL; ++c) {
-        const int j = lane + 32 * c;
-        float ds = 0.f;
-        if (kok[c] && il[r] != 0.f) {
-          float x = s[r][c];
-          if (ab) x += ab[aboff + j];
-          if (seg) x += (qseg[r] == kseg[c]) ? 0.f : mask_value;
-          const float p = expf(x - mi[r]) * il[r];
-          ds = (dp[r][c] - dii[r]) * p;
-        }
-        if (dab != nullptr && kok[c] && i < Tq) dab[rowoff + j] = ds;
-        ds_w[r * BK + j] = ds;
-      }
-    }
-    __syncwarp();
-
-    // ---- dQ += dS k: each K value serves the R rows (past-the-end keys: 0)
-    const int nk = min(BK, Tk - k0);
-    for (int j = 0; j < nk; j += 4) {
-      float4 sv[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        sv[r] = *reinterpret_cast<const float4*>(&ds_w[r * BK + j]);
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        const int d = lane + 32 * e;
-        if (d < DH) {
-          const float x0 = k_s[(j + 0) * LD + d], x1 = k_s[(j + 1) * LD + d];
-          const float x2 = k_s[(j + 2) * LD + d], x3 = k_s[(j + 3) * LD + d];
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float a = acc[r][e];
-            a = fmaf(sv[r].x, x0, a);
-            a = fmaf(sv[r].y, x1, a);
-            a = fmaf(sv[r].z, x2, a);
-            a = fmaf(sv[r].w, x3, a);
-            acc[r][e] = a;
+#pragma unroll 1
+      for (int x = 0; x < kRuleBatch && rt0 + x < n_rule; ++x) {
+        if (!live[x]) continue;
+        const int rt = rt0 + x;
+        for (int t = rt * (kSkipTile / BQ); t < (rt + 1) * (kSkipTile / BQ) && t * BQ < a.Tq;
+             ++t) {
+          const int s = n % NS, i0 = t * BQ;
+          if (n >= NS) hopper::mbar_wait(&empty[s], ((n / NS) - 1) & 1);
+          ++n;
+          uint8_t* st = stages + s * S::kStageBytes;
+          float* vals = reinterpret_cast<float*>(st + 2 * S::kRowBytes + S::kAbBytes);
+          for (int r = lane; r < BQ; r += 32)
+            row_values(a.m, a.l, a.di, a.q_seg, bh, b, i0 + r, a.Tq, vals[r], vals[BQ + r],
+                       vals[2 * BQ + r], reinterpret_cast<int*>(vals + 3 * BQ)[r]);
+          __syncwarp();
+          if (lane == 0) {
+            tile_s[s] = t;
+            hopper::mbar_arrive_expect_tx(&full[s],
+                                          2 * S::kRowBytes + (a.has_ab ? S::kAbBytes : 0));
+            for (int part = 0; part < R::kParts; ++part) {
+              hopper::load_rows(st + part * BQ * SWZ, &q_map, &full[s], part * COLS, i0, h, b,
+                                a.q_swap);
+              hopper::load_rows(st + S::kRowBytes + part * BQ * SWZ, &do_map, &full[s],
+                                part * COLS, i0, h, b, false);
+            }
+            if (a.has_ab)
+              for (int part = 0; part < S::kAbParts; ++part)
+                hopper::tma_load_4d(st + 2 * S::kRowBytes + part * BQ * 128, &ab_map, &full[s],
+                                    k0 + 32 * part, i0, h, b);
           }
         }
       }
     }
-    __syncwarp();  // ds_s is read before the next tile writes it
+    // the end of the tiles
+    const int s = n % NS;
+    if (n >= NS) hopper::mbar_wait(&empty[s], ((n / NS) - 1) & 1);
+    if (lane == 0) {
+      tile_s[s] = -1;
+      hopper::mbar_arrive(&full[s]);
+    }
+    return;
   }
 
+  // ---- consumer group wg: role 0 (warps 0, 1 of the group) computes S^T, p
+  // and dV, role 1 (warps 2, 3) dP^T, dS and dK. On S^T and dP^T thread
+  // (kq, rq) of warp wr holds keys kq + LK c (c < KT) of the group's and
+  // rows g + 2 LR i (i < RT), g = LR wr + rq, of the tile: for each 16-byte
+  // chunk of d, RT loads of Q (dO) and KT of K (V) feed 4 KT RT FMAs. The
+  // rows of one load are consecutive and a thread's rows share one swizzle
+  // term, so a warp's loads are conflict-free. On dV and dK thread (kg, dg)
+  // holds keys VK kg .. VK kg + VK - 1 of the group's and the columns of the
+  // 16-byte chunks dg + 8 u (Dh = 16: the columns 2 dg, 2 dg + 1).
+  // group 1's roles are group 0's swapped, so that each of the SM's four
+  // schedulers (warp % 4) holds one warp of each role
+  const int wg = warp / 4, wr = warp % 2, role = (warp % 4 / 2) ^ wg;
+  const int kq = lane % LK, g = LR * wr + lane / LK;
+  const int kg = 4 * wr + lane / 8, dg = lane % 8;
+  const int kgrp = wg * GK;                 // the group's first key in the block
+  float* p_grp = p_all + wg * 3 * BQ * PLD;
+  float* ds_s = p_grp + 2 * BQ * PLD;
+  const int xq = swz_term<SWZ>(g);          // the swizzle term of the thread's rows
+  int xk[KT], kseg[KT];                     // of its keys; their segment ids
+  bool kok[KT];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = q0 + row0 + r;
-    if (i >= Tq) continue;
+  for (int c = 0; c < KT; ++c) {
+    const int key = kgrp + kq + LK * c;
+    xk[c] = swz_term<SWZ>(key);
+    kok[c] = k0 + key < a.Tk;
+    kseg[c] = (seg && kok[c]) ? a.kv_seg[(size_t)b * a.Tk + k0 + key] : 0;
+  }
+  float acc[VK][VD];
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane + 32 * e;
-      if (d < DH) dq[(bh * Tq + i) * DH + d] = acc[r][e];
+  for (int k = 0; k < VK; ++k)
+#pragma unroll
+    for (int e = 0; e < VD; ++e) acc[k][e] = 0.f;
+  const uint8_t* kv_s = role == 0 ? k_s : v_s;
+
+  // keys past Tk come zero-filled from TMA; their p is selected away below
+  hopper::mbar_wait(kv_full, 0);
+  for (int n = 0;; ++n) {
+    const int s = n % NS;
+    hopper::mbar_wait(&full[s], (n / NS) & 1);
+    const int t = tile_s[s];
+    if (t < 0) break;
+    const uint8_t* q_t = stages + s * S::kStageBytes;
+    const uint8_t* do_t = q_t + S::kRowBytes;
+    const uint8_t* ab_t = q_t + 2 * S::kRowBytes;
+    const float* vals = reinterpret_cast<const float*>(ab_t + S::kAbBytes);
+    const int* qseg = reinterpret_cast<const int*>(vals + 3 * BQ);
+    float* p_s = p_grp + (n & 1) * BQ * PLD;
+    const int nrows = min(BQ, a.Tq - t * BQ);
+
+    // ---- S^T = K Q^T (role 0) or dP^T = V dO^T (role 1), each sum one FMA
+    // a term in the order of d (no TF32)
+    float sc[KT][RT];
+#pragma unroll
+    for (int c = 0; c < KT; ++c)
+#pragma unroll
+      for (int i = 0; i < RT; ++i) sc[c][i] = 0.f;
+    const uint8_t* rows_t = role == 0 ? q_t : do_t;
+    // not unrolled whole: the offsets of every chunk held at once would take
+    // the registers of the tiles
+#pragma unroll 2
+    for (int d4 = 0; d4 < DH / 4; ++d4) {
+      constexpr int kChunks = SWZ / 16;
+      const int part = d4 / kChunks, cc = d4 % kChunks;
+      const uint8_t* r_at = rows_t + part * BQ * SWZ + g * SWZ + ((cc ^ xq) << 4);
+      const uint8_t* k_at = kv_s + part * BK * SWZ + (kgrp + kq) * SWZ;
+      float4 rv[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+        rv[i] = *reinterpret_cast<const float4*>(r_at + 2 * LR * i * SWZ);
+#pragma unroll
+      for (int c = 0; c < KT; ++c) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(k_at + LK * c * SWZ + ((cc ^ xk[c]) << 4));
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          sc[c][i] = fmaf(rv[i].x, kv.x, sc[c][i]);
+          sc[c][i] = fmaf(rv[i].y, kv.y, sc[c][i]);
+          sc[c][i] = fmaf(rv[i].z, kv.z, sc[c][i]);
+          sc[c][i] = fmaf(rv[i].w, kv.w, sc[c][i]);
+        }
+      }
     }
+
+    if (role == 0) {
+      // ---- p = exp(s - m) / l; a row past Tq, or whose logits are all
+      // -inf, has m = 0 and 1/l = 0 (its logits are 0 or below), so p = 0; a
+      // key past Tk is selected away
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int r = g + 2 * LR * i;
+        const float mi = vals[r], il = vals[BQ + r];
+        const int qs = qseg[r];
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          const int j = kq + LK * c;
+          float x = sc[c][i];
+          if (a.has_ab) x += ab_at<BQ>(ab_t, r, kgrp + j);
+          if (seg) x += (qs == kseg[c]) ? 0.f : a.mask_value;
+          p_s[r * PLD + j] = kok[c] ? expf(x - mi) * il : 0.f;
+        }
+      }
+      hopper::named_sync(1 + wg, kGroupThreads);   // p written
+      // ---- dV += p^T dO over the tile's rows in order
+      accumulate_rows<DH, BQ, VK, VD, PLD>(p_s + VK * kg, do_t, dg, nrows, acc);
+    } else {
+      hopper::named_sync(1 + wg, kGroupThreads);   // p written
+      // ---- dS = (dP - di) p
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int r = g + 2 * LR * i;
+        const float dii = vals[2 * BQ + r];
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          const int o = r * PLD + kq + LK * c;
+          ds_s[o] = (sc[c][i] - dii) * p_s[o];
+        }
+      }
+      hopper::named_sync(3 + wg, 64);   // dS written (the two warps of role 1)
+      // ---- dK += dS^T Q over the tile's rows in order
+      accumulate_rows<DH, BQ, VK, VD, PLD>(ds_s + VK * kg, q_t, dg, nrows, acc);
+    }
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: dV (role 0) or dK (role 1) of the thread's keys
+  float* out = role == 0 ? a.out1 : a.out0;
+#pragma unroll
+  for (int k = 0; k < VK; ++k) {
+    const int key = k0 + kgrp + VK * kg + k;
+    if (key < a.Tk) store_cols<DH, VD, 8>(out + (bh * a.Tk + key) * DH, dg, acc[k]);
   }
 }
+
+// ---- K6c ---------------------------------------------------------------------
+
+template <int DH, int BM>
+struct DqShape {
+  static constexpr int BK = DH <= 64 ? 64 : 32;        // keys of a tile
+  static constexpr int GR = BM / kGroups;              // rows of a group
+  static constexpr int KT = BK / 8;                    // S, dP: keys of a thread
+  static constexpr int RT = GR / 8;                    //   and rows
+  static constexpr int kOuts = GR * DH / kGroupThreads;  // dQ: values of a thread,
+  static constexpr int DPT = kOuts >= 16 ? kOuts / 4 : kOuts < 4 ? kOuts : 4;  // columns
+  static constexpr int RPT = kOuts / DPT;              //   rows
+  static constexpr int NDG = DH / DPT;                 //   column groups
+  static constexpr int NRG = GR / RPT;                 //   row groups
+  static constexpr int kRowBytes = BM * DH * 4;        // Q or dO, loaded once
+  static constexpr int kKvBytes = BK * DH * 4;         // one K or V tile
+  static constexpr int kAbParts = BK / 32;             // 32-key boxes of an ab tile
+  static constexpr int kAbBytes = BM * BK * 4;
+  static constexpr int kSegBytes = 1024;               // BK key segment ids
+  static constexpr int kStageBytes = 2 * kKvBytes + kAbBytes + kSegBytes;
+  static constexpr int kPld = BK + 8;                  // a row of p / dS, padded
+  static constexpr int kPBytes = kGroups * 2 * GR * kPld * 4;   // p, then dS: two buffers
+  static constexpr int kFixed = 1024 + 2 * kRowBytes + kPBytes + 8 * 9;
+  static constexpr int kFit = (kSmemBudget - kFixed) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;  // ring of K, V, ab tiles
+  static constexpr int kPOffset = 2 * kRowBytes + kStages * kStageBytes;
+  static constexpr int kBarOffset = kPOffset + kPBytes;
+  // 1024 bytes of slack align the tiles (the swizzle atom)
+  static constexpr size_t kSmemBytes = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+  static_assert(kStages >= 2, "the ring needs two stages");
+  static_assert(RT * 8 == GR && NDG * NRG == kGroupThreads && RPT * DPT == kOuts, "shape");
+};
+
+// One block: BM query rows of one (b, h), their Q and dO loaded once, with
+// their m, 1/l, di and segment ids. The last warp streams the K, V and ab
+// tiles and the key segment ids of every key tile that the skip rule takes
+// through a ring of kStages stages, each marked with its tile's index (-1
+// ends the loop), and writes zeros to the dab of the tiles it leaves out.
+// Group wg owns rows wg GR .. wg GR + GR - 1: warps 0, 1 of the group compute
+// S and p, warps 2, 3 dP and then dS in place of p; then all four write the
+// tile's dab and add dS K to their rows' dQ. The p / dS tile has two
+// buffers, so that one tile's p can be written while the last one's dS is
+// still read.
+template <int DH, int BM>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                                  const __grid_constant__ CUtensorMap k_map,
+                                  const __grid_constant__ CUtensorMap v_map,
+                                  const __grid_constant__ CUtensorMap do_map,
+                                  const __grid_constant__ CUtensorMap ab_map, const Args a) {
+  using S = DqShape<DH, BM>;
+  using R = Rows<DH>;
+  constexpr int BK = S::BK, GR = S::GR, KT = S::KT, RT = S::RT, DPT = S::DPT, RPT = S::RPT,
+                NDG = S::NDG, NRG = S::NRG, PLD = S::kPld, NS = S::kStages, SWZ = R::kSwz,
+                COLS = R::kCols;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int tile_s[NS];    // the key tile in each stage; -1: no more
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* q_s = smem;
+  uint8_t* do_s = smem + S::kRowBytes;
+  uint8_t* stages = smem + 2 * S::kRowBytes;
+  float* p_all = reinterpret_cast<float*>(smem + S::kPOffset);  // [group][2][GR][PLD]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBarOffset);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;        // [NS]: the stage's tiles have landed
+  uint64_t* empty = bars + 1 + NS;  // [NS]: the consumers are done with it
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_tiles = (a.Tk + BK - 1) / BK;
+  const size_t bh = (size_t)b * a.H + h;
+  const bool seg = a.q_seg != nullptr;
+
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // ---- producer warp
+    if (lane == 0) {
+      hopper::prefetch_map(&k_map);
+      hopper::prefetch_map(&v_map);
+      hopper::mbar_arrive_expect_tx(q_full, 2 * S::kRowBytes);
+      for (int part = 0; part < R::kParts; ++part) {
+        hopper::load_rows(q_s + part * BM * SWZ, &q_map, q_full, part * COLS, q0, h, b,
+                          a.q_swap);
+        hopper::load_rows(do_s + part * BM * SWZ, &do_map, q_full, part * COLS, q0, h, b,
+                          false);
+      }
+    }
+    // the rows' half of the rule: the 64-row tile that holds the block's rows
+    int lo[kRuleBatch], hi[kRuleBatch];
+    bool at_mask[kRuleBatch];
+    if (seg) rule_rows(a, b, bh, q0 / kSkipTile, lane, lo, hi, at_mask);
+    int n = 0;  // tiles issued
+    for (int t0 = 0; t0 < n_tiles; t0 += kRuleBatch) {
+      bool live[kRuleBatch];
+      if (seg && !at_mask[0]) {
+        // the segment ids of each tile's 64-key rule tile, two a lane
+        int ks[kRuleBatch][2];
+#pragma unroll
+        for (int x = 0; x < kRuleBatch; ++x)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int key = (t0 + x) * BK / kSkipTile * kSkipTile + lane + 32 * u;
+            ks[x][u] = key < a.Tk ? a.kv_seg[(size_t)b * a.Tk + key] : 0;
+          }
+#pragma unroll
+        for (int x = 0; x < kRuleBatch; ++x) {
+          const int kbase = (t0 + x) * BK / kSkipTile * kSkipTile;
+          bool inside = false;
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+            inside = inside || (kbase + lane + 32 * u < a.Tk && ks[x][u] >= lo[0] &&
+                                ks[x][u] <= hi[0]);
+          const bool any = __any_sync(0xffffffffu, inside);
+          live[x] = any || kbase / kSkipTile >= kMaxSkipTiles;
+        }
+      } else {
+#pragma unroll
+        for (int x = 0; x < kRuleBatch; ++x) live[x] = true;
+      }
+#pragma unroll 1
+      for (int x = 0; x < kRuleBatch && t0 + x < n_tiles; ++x) {
+        const int t = t0 + x, k0 = t * BK;
+        if (!live[x]) {
+          // a skipped tile's dS is exactly 0: its dab, zeros in 16-byte stores
+          if (a.out1 != nullptr)
+            for (int e = lane; e < BM * BK / 4; e += 32) {
+              const int i = q0 + e / (BK / 4), col = k0 + 4 * (e % (BK / 4));
+              if (i < a.Tq && col < a.Tk)
+                *reinterpret_cast<float4*>(a.out1 + (bh * a.Tq + i) * a.dab_st + col) =
+                    make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+          continue;
+        }
+        const int s = n % NS;
+        if (n >= NS) hopper::mbar_wait(&empty[s], ((n / NS) - 1) & 1);
+        ++n;
+        uint8_t* st = stages + s * S::kStageBytes;
+        if (seg) {
+          int32_t* kseg = reinterpret_cast<int32_t*>(st + 2 * S::kKvBytes + S::kAbBytes);
+          for (int j = lane; j < BK; j += 32)
+            kseg[j] = k0 + j < a.Tk ? a.kv_seg[(size_t)b * a.Tk + k0 + j] : 0;
+          __syncwarp();
+        }
+        if (lane == 0) {
+          tile_s[s] = t;
+          hopper::mbar_arrive_expect_tx(&full[s],
+                                        2 * S::kKvBytes + (a.has_ab ? S::kAbBytes : 0));
+          for (int part = 0; part < R::kParts; ++part) {
+            hopper::load_rows(st + part * BK * SWZ, &k_map, &full[s], part * COLS, k0, h, b,
+                              a.k_swap);
+            hopper::load_rows(st + S::kKvBytes + part * BK * SWZ, &v_map, &full[s],
+                              part * COLS, k0, h, b, a.v_swap);
+          }
+          if (a.has_ab)
+            for (int part = 0; part < S::kAbParts; ++part)
+              hopper::tma_load_4d(st + 2 * S::kKvBytes + part * BM * 128, &ab_map, &full[s],
+                                  k0 + 32 * part, q0, h, b);
+        }
+      }
+    }
+    // the end of the tiles
+    const int s = n % NS;
+    if (n >= NS) hopper::mbar_wait(&empty[s], ((n / NS) - 1) & 1);
+    if (lane == 0) {
+      tile_s[s] = -1;
+      hopper::mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // ---- consumer group wg: role 0 (warps 0, 1 of the group) computes S and
+  // p, role 1 (warps 2, 3) dP and dS. On S and dP thread (kq, rq) of warp wr
+  // holds keys kq + 8 c (c < KT) of the tile and rows g + 8 i (i < RT), g =
+  // 4 wr + rq, of the group's: for each 16-byte chunk of d, RT loads of Q
+  // (dO) and KT of K (V) feed 4 KT RT FMAs, conflict-free under the swizzle
+  // (a thread's rows share a swizzle term, and so do its keys). On dQ thread
+  // (rg, cg) of the group holds rows rg + NRG i (i < RPT) of the group's
+  // and the columns of the 16-byte chunks cg + NDG u (DPT = 2: the columns
+  // 2 cg, 2 cg + 1).
+  // group 1's roles are group 0's swapped, so that each of the SM's four
+  // schedulers (warp % 4) holds one warp of each role
+  const int wg = warp / 4, wr = warp % 2, role = (warp % 4 / 2) ^ wg, gt = tid % kGroupThreads;
+  const int kq = lane % 8, g = 4 * wr + lane / 8;
+  const int cg = gt % NDG, rg = gt / NDG;
+  const int rgrp = wg * GR;                  // the group's first row in the block
+  const int xq = swz_term<SWZ>(rgrp + g), xk = swz_term<SWZ>(kq);
+  float* ps_grp = p_all + wg * 2 * GR * PLD;
+  // the thread's rows of S and dP: m, 1/l, di and segment ids (a row past
+  // Tq, or whose logits are all -inf, has m = 0 and 1/l = 0, so p = 0)
+  float mi[RT], il[RT], dii[RT];
+  int qsg[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+    row_values(a.m, a.l, a.di, a.q_seg, bh, b, q0 + rgrp + g + 8 * i, a.Tq, mi[i], il[i],
+               dii[i], qsg[i]);
+  float acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
+  const uint8_t* rows_s = role == 0 ? q_s : do_s;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int n = 0;; ++n) {
+    const int s = n % NS;
+    hopper::mbar_wait(&full[s], (n / NS) & 1);
+    const int t = tile_s[s];
+    if (t < 0) break;
+    const int k0 = t * BK;
+    const uint8_t* k_t = stages + s * S::kStageBytes;
+    const uint8_t* v_t = k_t + S::kKvBytes;
+    const uint8_t* ab_t = k_t + 2 * S::kKvBytes;
+    const int* kseg = reinterpret_cast<const int*>(ab_t + S::kAbBytes);
+    float* ps = ps_grp + (n & 1) * GR * PLD;
+
+    // ---- S = Q K^T (role 0) or dP = dO V^T (role 1), each sum one FMA a
+    // term in the order of d (no TF32)
+    float sc[RT][KT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int c = 0; c < KT; ++c) sc[i][c] = 0.f;
+    const uint8_t* kv_t = role == 0 ? k_t : v_t;
+    // not unrolled whole: the offsets of every chunk held at once would take
+    // the registers of the tiles
+#pragma unroll 2
+    for (int d4 = 0; d4 < DH / 4; ++d4) {
+      constexpr int kChunks = SWZ / 16;
+      const int part = d4 / kChunks, cc = d4 % kChunks;
+      const uint8_t* r_at = rows_s + part * BM * SWZ + (rgrp + g) * SWZ + ((cc ^ xq) << 4);
+      const uint8_t* k_at = kv_t + part * BK * SWZ + kq * SWZ + ((cc ^ xk) << 4);
+      float4 rv[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) rv[i] = *reinterpret_cast<const float4*>(r_at + 8 * i * SWZ);
+#pragma unroll
+      for (int c = 0; c < KT; ++c) {
+        const float4 kv = *reinterpret_cast<const float4*>(k_at + 8 * c * SWZ);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          sc[i][c] = fmaf(rv[i].x, kv.x, sc[i][c]);
+          sc[i][c] = fmaf(rv[i].y, kv.y, sc[i][c]);
+          sc[i][c] = fmaf(rv[i].z, kv.z, sc[i][c]);
+          sc[i][c] = fmaf(rv[i].w, kv.w, sc[i][c]);
+        }
+      }
+    }
+
+    if (role == 0) {
+      // ---- p = exp(s - m) / l; a key past Tk is selected away
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int r = g + 8 * i;
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          const int j = kq + 8 * c;
+          float x = sc[i][c];
+          if (a.has_ab) x += ab_at<BM>(ab_t, rgrp + r, j);
+          if (seg) x += (qsg[i] == kseg[j]) ? 0.f : a.mask_value;
+          const float ex = expf(x - mi[i]);
+          ps[r * PLD + j] = k0 + j < a.Tk ? ex * il[i] : 0.f;
+        }
+      }
+      hopper::named_sync(1 + wg, kGroupThreads);   // p written
+      hopper::named_sync(3 + wg, kGroupThreads);   // dS written
+    } else {
+      hopper::named_sync(1 + wg, kGroupThreads);   // p written
+      // ---- dS = (dP - di) p, in place of p
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          const int o = (g + 8 * i) * PLD + kq + 8 * c;
+          ps[o] = (sc[i][c] - dii[i]) * ps[o];
+        }
+      hopper::named_sync(3 + wg, kGroupThreads);   // dS written
+    }
+
+    // ---- dab: the group's rows of the tile, 16-byte stores along the keys
+    // (a row's last store may reach into its padding, past Tk)
+    if (a.out1 != nullptr) {
+      for (int e = gt; e < GR * BK / 4; e += kGroupThreads) {
+        const int r = e / (BK / 4), ch = e % (BK / 4);
+        const int i = q0 + rgrp + r, col = k0 + 4 * ch;
+        if (i < a.Tq && col < a.Tk)
+          *reinterpret_cast<float4*>(a.out1 + (bh * a.Tq + i) * a.dab_st + col) =
+              *reinterpret_cast<const float4*>(ps + r * PLD + 4 * ch);
+      }
+    }
+    // ---- dQ += dS K, each key in order (past Tk: dS = 0, k = 0)
+    {
+      const ColReader<DH, BK, DPT, NDG> cols(k_t, cg);
+      float4 sv[RPT];
+      rows_in_order(4 * ((min(BK, a.Tk - k0) + 3) / 4), [&](int r8, auto jr) {
+        constexpr int JR = decltype(jr)::value;
+        if constexpr (JR % 4 == 0) {
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+            sv[i] = *reinterpret_cast<const float4*>(ps + (rg + NRG * i) * PLD + 8 * r8 + JR);
+        }
+        float kv[DPT];
+        cols.template at<JR>(r8, kv);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          constexpr int jj = JR % 4;
+          const float sj = jj == 0 ? sv[i].x : jj == 1 ? sv[i].y : jj == 2 ? sv[i].z : sv[i].w;
+#pragma unroll
+          for (int e = 0; e < DPT; ++e) acc[i][e] = fmaf(sj, kv[e], acc[i][e]);
+        }
+      });
+    }
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: dQ of the thread's rows
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + rgrp + rg + NRG * i;
+    if (row < a.Tq) store_cols<DH, DPT, NDG>(a.out0 + (bh * a.Tq + row) * DH, cg, acc[i]);
+  }
+}
+
+}  // namespace f32
+
 
 // ---------------------------------------------------------------------------
 // K6b in bf16: tensor cores (wgmma) fed by TMA. A block owns 64 keys.
@@ -1321,50 +1815,76 @@ struct Args {
   Strides st;
   int B, H, Tq, Tk;
   float mask_value;
+  int block;           // fp32: keys (K6b) or query rows (K6c) of a block, 64 or 32
   void *out0, *out1;   // dk, dv (K6b) or dq, dab (K6c)
   cudaStream_t stream;
 };
 
-// Above 48 KB a kernel's dynamic shared memory must be allowed first (only
-// the Dh = 128 instantiations ask for more); once per instantiation.
-template <int DH, bool DKV, typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  static bool done = false;
-  if (done || bytes <= 48 * 1024) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  done = err == cudaSuccess;
-  return err;
-}
-
-template <int DH>
-cudaError_t launch_dkv(const Args& a) {
-  using S = DkvShape<DH>;
-  auto kernel = flash_attention_bwd_dkv_kernel<DH>;
-  cudaError_t err = allow_smem<DH, true>(kernel, S::kSmemBytes);
+// fp32 K6b (DKV) or K6c with BLOCK keys (K6b) or query rows (K6c) a block
+template <bool DKV, int DH, int BLOCK>
+cudaError_t launch_f32(const Args& a) {
+  using R = f32::Rows<DH>;
+  using SB = f32::DkvShape<DH, BLOCK>;
+  using SC = f32::DqShape<DH, BLOCK>;
+  constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  // rows of a Q or dO box, of a K or V box, of an ab box
+  constexpr int kQRows = DKV ? SB::BQ : BLOCK, kKRows = DKV ? BLOCK : SC::BK;
+  constexpr size_t kSmem = DKV ? SB::kSmemBytes : SC::kSmemBytes;
+  const Strides& st = a.st;
+  f32::Args d{a.q_seg, a.kv_seg, a.m, a.l, a.di, a.H, a.Tq, a.Tk, a.mask_value,
+              a.ab != nullptr, false, false, false, static_cast<float*>(a.out0),
+              static_cast<float*>(a.out1), st.dabt};
+  // dab is written 16 bytes a store
+  if (!DKV && a.out1 != nullptr &&
+      (st.dabt % 4 || st.dabt < a.Tk || reinterpret_cast<uintptr_t>(a.out1) % 16))
+    return cudaErrorInvalidValue;
+  const long long do_sh = (long long)a.Tq * DH;
+  CUtensorMap qm, km, vm, dom, abm;
+  bool do_swap = false;
+  cudaError_t err = hopper::map_rows(&qm, a.q, st.qb, st.qh, st.qt, a.B, a.H, a.Tq, DH,
+                                     R::kCols, kQRows, R::kSwz, &d.q_swap, kF32);
+  if (err == cudaSuccess)
+    err = hopper::map_rows(&km, a.k, st.kb, st.kh, st.kt, a.B, a.H, a.Tk, DH, R::kCols,
+                           kKRows, R::kSwz, &d.k_swap, kF32);
+  if (err == cudaSuccess)
+    err = hopper::map_rows(&vm, a.v, st.vb, st.vh, st.vt, a.B, a.H, a.Tk, DH, R::kCols,
+                           kKRows, R::kSwz, &d.v_swap, kF32);
+  if (err == cudaSuccess)
+    err = hopper::map_rows(&dom, a.dout, a.H * do_sh, do_sh, DH, a.B, a.H, a.Tq, DH,
+                           R::kCols, kQRows, R::kSwz, &do_swap, kF32);
+  if (err == cudaSuccess && do_swap) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) {
+    if (a.ab != nullptr)
+      err = hopper::map_bias(&abm, a.ab, st.abt, a.B, a.H, a.Tq, a.Tk, kQRows, kF32);
+    else
+      abm = qm;  // not read
+  }
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tk + S::BK - 1) / S::BK, a.H, a.B);
-  kernel<<<grid, kThreads, S::kSmemBytes, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-      static_cast<const float*>(a.ab), a.q_seg, a.kv_seg, static_cast<const float*>(a.dout), a.m,
-      a.l, a.di, a.st, a.H, a.Tq, a.Tk, a.mask_value, static_cast<float*>(a.out0),
-      static_cast<float*>(a.out1));
+  auto kernel = DKV ? f32::flash_attention_bwd_dkv_f32_kernel<DH, BLOCK>
+                    : f32::flash_attention_bwd_dq_f32_kernel<DH, BLOCK>;
+  // once: the ring's shared memory
+  static const cudaError_t allowed = hopper::allow_smem(kernel, kSmem);
+  if (allowed != cudaSuccess) return allowed;
+  const dim3 grid(((DKV ? a.Tk : a.Tq) + BLOCK - 1) / BLOCK, a.H, a.B);
+  kernel<<<grid, f32::kThreads, kSmem, a.stream>>>(qm, km, vm, dom, abm, d);
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch_dq(const Args& a) {
-  using S = DqShape<DH>;
-  auto kernel = flash_attention_bwd_dq_kernel<DH>;
-  cudaError_t err = allow_smem<DH, false>(kernel, S::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tq + S::ROWS - 1) / S::ROWS, a.H, a.B);
-  kernel<<<grid, kThreads, S::kSmemBytes, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.ab), a.q_seg, a.kv_seg,
-      static_cast<const float*>(a.dout), a.m, a.l, a.di, a.st, a.H, a.Tq, a.Tk,
-      a.mask_value, static_cast<float*>(a.out0), static_cast<float*>(a.out1));
-  return cudaGetLastError();
+// fp32 K6b or K6c by head dim and block height (64 or 32)
+cudaError_t dispatch_f32(bool dkv, int Dh, const Args& a) {
+  if (a.block != 32 && a.block != 64) return cudaErrorInvalidValue;
+  const bool wide = a.block == 64;
+#define FA_BWD_F32(DH)                                                            \
+  return dkv ? (wide ? launch_f32<true, DH, 64>(a) : launch_f32<true, DH, 32>(a)) \
+             : (wide ? launch_f32<false, DH, 64>(a) : launch_f32<false, DH, 32>(a))
+  switch (Dh) {
+    case 16: FA_BWD_F32(16);
+    case 32: FA_BWD_F32(32);
+    case 64: FA_BWD_F32(64);
+    case 128: FA_BWD_F32(128);
+    default: return cudaErrorInvalidValue;
+  }
+#undef FA_BWD_F32
 }
 
 template <int DH>
@@ -1459,24 +1979,14 @@ cudaError_t launch_dq_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-// K6b: fp32 SIMT (dtype 0) or bf16 tensor cores (dtype 1)
-cudaError_t dispatch_dkv(int dtype, int Dh, const Args& a) {
+// K6b or K6c: fp32 SIMT (dtype 0) or bf16 tensor cores (dtype 1)
+cudaError_t dispatch(bool dkv, int dtype, int Dh, const Args& a) {
+  if (dtype == 0) return dispatch_f32(dkv, Dh, a);
   switch (Dh) {
-    case 16: return dtype == 0 ? launch_dkv<16>(a) : launch_dkv_tc<16>(a);
-    case 32: return dtype == 0 ? launch_dkv<32>(a) : launch_dkv_tc<32>(a);
-    case 64: return dtype == 0 ? launch_dkv<64>(a) : launch_dkv_tc<64>(a);
-    case 128: return dtype == 0 ? launch_dkv<128>(a) : launch_dkv_tc<128>(a);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// K6c: fp32 SIMT (dtype 0) or bf16 tensor cores (dtype 1)
-cudaError_t dispatch_dq(int dtype, int Dh, const Args& a) {
-  switch (Dh) {
-    case 16: return dtype == 0 ? launch_dq<16>(a) : launch_dq_tc<16>(a);
-    case 32: return dtype == 0 ? launch_dq<32>(a) : launch_dq_tc<32>(a);
-    case 64: return dtype == 0 ? launch_dq<64>(a) : launch_dq_tc<64>(a);
-    case 128: return dtype == 0 ? launch_dq<128>(a) : launch_dq_tc<128>(a);
+    case 16: return dkv ? launch_dkv_tc<16>(a) : launch_dq_tc<16>(a);
+    case 32: return dkv ? launch_dkv_tc<32>(a) : launch_dq_tc<32>(a);
+    case 64: return dkv ? launch_dkv_tc<64>(a) : launch_dq_tc<64>(a);
+    case 128: return dkv ? launch_dkv_tc<128>(a) : launch_dq_tc<128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1485,7 +1995,7 @@ int run(bool dkv, int dtype, const Args& a, int Dh) {
   if ((a.q_seg == nullptr) != (a.kv_seg == nullptr) || a.Tq < 1 || a.Tk < 1 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return (int)(dkv ? dispatch_dkv(dtype, Dh, a) : dispatch_dq(dtype, Dh, a));
+  return (int)dispatch(dkv, dtype, Dh, a);
 }
 
 }  // namespace
@@ -1498,7 +2008,9 @@ extern "C" {
 // (B,H,Tq,Tk) with rows ab_st elements apart (bf16: a multiple of 8) and a
 // contiguous last dimension, or null; q_seg (B,Tq) and
 // kv_seg (B,Tk) int32, both or neither; dout (B,H,Tq,Dh) contiguous; m, l
-// and di (B,H,Tq) fp32 contiguous. Launch on `stream` and return
+// and di (B,H,Tq) fp32 contiguous; `block` (fp32 only, else ignored): the
+// keys (K6b) or query rows (K6c) of a block, 64 or 32
+// (flash_attention.py fp32_block_rows). Launch on `stream` and return
 // cudaGetLastError() as an int (0 = launched).
 
 // K6b: dk and dv (B,H,Tk,Dh) contiguous.
@@ -1509,16 +2021,17 @@ int flash_attention_bwd_dkv(int dtype, const void* q, const void* k, const void*
                             long long q_st, long long k_sb, long long k_sh,
                             long long k_st, long long v_sb, long long v_sh,
                             long long v_st, long long ab_st, int B, int H, int Tq,
-                            int Tk, int Dh, float mask_value, void* dk, void* dv,
-                            void* stream) {
+                            int Tk, int Dh, float mask_value, int block, void* dk,
+                            void* dv, void* stream) {
   const Args a{q, k, v, ab, q_seg, kv_seg, dout, m, l, di,
                Strides{q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, ab_st, 0},
-               B, H, Tq, Tk, mask_value, dk, dv, static_cast<cudaStream_t>(stream)};
+               B, H, Tq, Tk, mask_value, block, dk, dv, static_cast<cudaStream_t>(stream)};
   return run(true, dtype, a, Dh);
 }
 
 // K6c: dq (B,H,Tq,Dh) contiguous; dab (B,H,Tq,Tk) with rows dab_st elements
-// apart (bf16: a multiple of 8, 16-byte aligned) and a contiguous last
+// apart (a multiple of 16 bytes, 16-byte aligned: a row's last store may
+// reach past Tk into its padding, empty_bias's rows) and a contiguous last
 // dimension, or null when the bias needs no gradient.
 int flash_attention_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                            const void* ab, const int32_t* q_seg, const int32_t* kv_seg,
@@ -1527,12 +2040,30 @@ int flash_attention_bwd_dq(int dtype, const void* q, const void* k, const void* 
                            long long q_st, long long k_sb, long long k_sh,
                            long long k_st, long long v_sb, long long v_sh,
                            long long v_st, long long ab_st, int B, int H, int Tq,
-                           int Tk, int Dh, float mask_value, void* dq, void* dab,
-                           long long dab_st, void* stream) {
+                           int Tk, int Dh, float mask_value, int block, void* dq,
+                           void* dab, long long dab_st, void* stream) {
   const Args a{q, k, v, ab, q_seg, kv_seg, dout, m, l, di,
                Strides{q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, ab_st, dab_st},
-               B, H, Tq, Tk, mask_value, dq, dab, static_cast<cudaStream_t>(stream)};
+               B, H, Tq, Tk, mask_value, block, dq, dab, static_cast<cudaStream_t>(stream)};
   return run(false, dtype, a, Dh);
+}
+
+// fp32 K6b (dkv = 1, block = its keys) or K6c (dkv = 0, block = its query
+// rows) at head dim Dh: its dynamic shared memory and ring stages, for the
+// plan's check (flash_attention.py fp32_bwd_shape). Returns 0, or -1 for a
+// shape there is no kernel for.
+int flash_attention_bwd_f32_shape(int dkv, int Dh, int block, int* smem_bytes, int* stages) {
+#define FA_BWD_SHAPE(DH, BLOCK)                                                            \
+  if (Dh == DH && block == BLOCK) {                                                        \
+    *smem_bytes = dkv ? (int)f32::DkvShape<DH, BLOCK>::kSmemBytes                          \
+                      : (int)f32::DqShape<DH, BLOCK>::kSmemBytes;                          \
+    *stages = dkv ? f32::DkvShape<DH, BLOCK>::kStages : f32::DqShape<DH, BLOCK>::kStages; \
+    return 0;                                                                              \
+  }
+  FA_BWD_SHAPE(16, 32) FA_BWD_SHAPE(16, 64) FA_BWD_SHAPE(32, 32) FA_BWD_SHAPE(32, 64)
+  FA_BWD_SHAPE(64, 32) FA_BWD_SHAPE(64, 64) FA_BWD_SHAPE(128, 32) FA_BWD_SHAPE(128, 64)
+#undef FA_BWD_SHAPE
+  return -1;
 }
 
 const char* cuda_error_string(int err) {

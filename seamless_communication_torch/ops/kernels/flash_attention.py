@@ -32,9 +32,11 @@ row's softmax maximum ``m`` and denominator ``l`` (fp32, (B, H, Tq)), and
 the backward is two kernels of ``csrc/flash_attention_bwd.cu``, K6b (dK,
 dV; the library's ``_flash_attention_bwd_dkv``) and K6c (dQ and the bias
 gradient dS; ``_flash_attention_bwd_dq``), held against ``_reference_bwd``.
-In bf16 K6c leaves out the (row tile, key tile) pairs of
-``skippable_tiles``, whose products are exact zeros. The bias gradient comes
-back as a ``[..., :Tk]`` view of rows padded to 8 elements.
+K6c (both dtypes) and fp32 K6b leave out the (row tile, key tile) pairs of
+``skippable_tiles``, whose products are exact zeros; fp32 K6b and K6c are
+register-blocked SIMT kernels fed by TMA, with 64- or 32-key (-row) blocks
+as ``fp32_block_rows`` chooses. The bias gradient comes back as a
+``[..., :Tk]`` view of rows padded to 8 elements.
 ``flash_attention`` goes through the Function only where autograd needs it,
 so an inference call computes no residuals.
 """
@@ -141,9 +143,9 @@ _ENTRY = {
     KERNEL: ("flash_attention",
              [_I] + [_P] * 6 + [_LL] * 10 + [_I] * 6 + [ctypes.c_float] + [_P] * 4),
     KERNEL_DKV: ("flash_attention_bwd",
-                 [_I] + [_P] * 10 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
+                 [_I] + [_P] * 10 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float, _I] + [_P] * 3),
     KERNEL_DQ: ("flash_attention_bwd",
-                [_I] + [_P] * 10 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float] + [_P] * 2
+                [_I] + [_P] * 10 + [_LL] * 10 + [_I] * 5 + [ctypes.c_float, _I] + [_P] * 2
                 + [_LL, _P]),
 }
 
@@ -262,11 +264,39 @@ def _raise_on(err: int, name: str, error_string) -> None:
 NUM_SMS = 132                  # an H100 SXM's streaming multiprocessors
 
 
-def fp32_block_rows(B: int, H: int, Tq: int) -> int:
-    """Query rows of a block of the fp32 kernel: 64, or 32 where 64-row
-    blocks (one a SM: the ring takes most of its shared memory) would fill
-    at most half of the card's SMs (the 4 s encoder and the re-decode)."""
-    return 32 if B * H * -(-Tq // 64) * 2 <= NUM_SMS else 64
+def fp32_block_rows(B: int, H: int, T: int) -> int:
+    """Rows of a block of the fp32 kernels: query rows of K6 and K6c, keys
+    of K6b, of T: 64, or 32 where 64-row blocks (one a SM: the ring takes
+    most of its shared memory) would fill at most half of the card's SMs
+    (the 4 s encoder and the re-decode)."""
+    return 32 if B * H * -(-T // 64) * 2 <= NUM_SMS else 64
+
+
+SMEM_PER_BLOCK = 232448        # an H100's shared memory for one block (227 KB)
+_SMEM_BUDGET = 227 * 1024 - 2048   # the fp32 kernels' dynamic share of it
+
+
+def fp32_bwd_shape(part: str, Dh: int, block: int) -> tuple[int, int]:
+    """(dynamic shared memory bytes, ring stages) of fp32 K6b (``part="dkv"``,
+    ``block`` keys a block) or K6c (``"dq"``, ``block`` query rows), as
+    ``csrc/flash_attention_bwd.cu`` (``f32::DkvShape``, ``f32::DqShape``)
+    computes them: the fixed tiles, the p / dS tiles and as many stages of
+    the ring (at most 4) as the rest of the budget holds. The library's
+    ``flash_attention_bwd_f32_shape`` reports the kernels' own, which
+    ``chip_smoke.py`` holds this to."""
+    if part == "dkv":
+        BQ = 64 if Dh <= 64 else 32                 # query rows of a tile
+        gk = block // 2
+        fixed = 2 * block * Dh * 4                  # K, V
+        p_bytes = 2 * 3 * BQ * (gk + gk // 4) * 4    # each group's p, p, dS
+        stage = 2 * BQ * Dh * 4 + BQ * block * 4 + 1024
+    else:
+        BK = 64 if Dh <= 64 else 32                 # keys of a tile
+        fixed = 2 * block * Dh * 4                  # Q, dO
+        p_bytes = 2 * 2 * (block // 2) * (BK + 8) * 4   # each group's p / dS, two buffers
+        stage = 2 * BK * Dh * 4 + block * BK * 4 + 1024
+    stages = min(4, (_SMEM_BUDGET - (1024 + fixed + p_bytes + 8 * 9)) // stage)
+    return 1024 + fixed + stages * stage + p_bytes + 8 * (2 * stages + 1), stages
 
 
 def _launch(qs, k, v, ab, q_seg, kv_seg, residuals: bool = False,
@@ -327,13 +357,18 @@ def _bwd_args(qs, k, v, ab, q_seg, kv_seg, o, m, l, do) -> _BwdArgs:
 
 
 def _launch_one(name: str, args: _BwdArgs, out0: torch.Tensor,
-                out1: Optional[torch.Tensor]) -> None:
+                out1: Optional[torch.Tensor], block: Optional[int] = None) -> None:
     """One backward kernel: K6b (``KERNEL_DKV``) into dk, dv or K6c
     (``KERNEL_DQ``) into dq and dab (None: no bias gradient; else rows
-    16-byte aligned, as ``empty_bias`` makes them)."""
+    16-byte aligned, as ``empty_bias`` makes them). ``block`` forces the
+    fp32 kernel's keys (K6b) or query rows (K6c) of a block, 64 or 32;
+    by default ``fp32_block_rows`` chooses."""
     fn, error_string = _function(name)
     device = out0.device
-    outs = (out0.data_ptr(), _ptr(out1))
+    B, H, Tq, Tk, _ = args.shapes
+    if block is None:
+        block = fp32_block_rows(B, H, Tk if name == KERNEL_DKV else Tq)
+    outs = (block, out0.data_ptr(), _ptr(out1))
     if name == KERNEL_DQ:
         if out1 is not None and (out1.stride(-1) != 1 or out1.stride(2) * out1.element_size() % 16
                                  or out1.data_ptr() % 16):
@@ -450,15 +485,16 @@ def unmasked_pairs(B: int, H: int, Tq: int, Tk: int,
     return int(keep.expand(B, H, Tq, Tk).sum())
 
 
-SKIP_ROWS = SKIP_KEYS = 64     # bf16 K6c's and fp32 K6's row and key tiles of the rules
+SKIP_ROWS = SKIP_KEYS = 64     # the row and key tiles of the rules (K6b, K6c, fp32 K6)
 SKIP_MAX_KEY_TILES = 512       # key tiles past these are always taken
 
 
 def skippable_tiles(m: torch.Tensor, q_seg: Optional[torch.Tensor],
                     kv_seg: Optional[torch.Tensor], Tk: int) -> torch.Tensor:
-    """The (row tile, key tile) pairs that bf16 K6c leaves out, a bool
-    tensor (B, H, ceil(Tq / 64), ceil(Tk / 64)); its kernel's predicate is
-    this one. A pair is skipped when
+    """The (row tile, key tile) pairs that K6c (both dtypes) and fp32 K6b
+    leave out, a bool tensor (B, H, ceil(Tq / 64), ceil(Tk / 64)); their
+    kernels' predicate is this one (a block of 32 rows or keys takes the
+    decision of the 64 x 64 pair that holds it). A pair is skipped when
 
     - the tile's keys (those below Tk) all have segment ids outside [min,
       max] of the row tile's rows' (those below Tq), so every one is masked
@@ -470,9 +506,10 @@ def skippable_tiles(m: torch.Tensor, q_seg: Optional[torch.Tensor],
     subtraction of m, so p = exp(.) is exactly 0 and so are dS, dab and the
     pair's share of dQ: leaving it out changes no bit. A row whose keys are
     all masked has m at the mask level and a p that is not 0 (the library
-    averages every key), so its tiles are all taken. Without segment ids
-    nothing is skipped; key tiles from ``SKIP_MAX_KEY_TILES`` on are always
-    taken."""
+    averages every key), so its tiles are all taken. Nor does leaving it
+    out change a bit of K6b's sums over the rows or K6c's over the keys:
+    its terms are exact zeros. Without segment ids nothing is skipped; key
+    tiles from ``SKIP_MAX_KEY_TILES`` on are always taken."""
     B, H, Tq = m.shape
     nr, nk = -(-Tq // SKIP_ROWS), -(-Tk // SKIP_KEYS)
     if q_seg is None:

@@ -365,9 +365,22 @@ def _fft_masked_inputs():
     return qs / 8, k, v, None, q_seg, kv_seg, do
 
 
+def _fft_3g_inputs():
+    """numpy (qs, k, v, None, q_seg, kv_seg, do) at the attention shape of
+    phase 3g's S2S train steps in the NAR T2U's FFT layers (B=2, H=16,
+    T=1136, Dh=64; 1136 and 850 valid keys as segment ids): the key tiles
+    past the second row's 850 keys are skipped for it."""
+    rng = np.random.default_rng(43)
+    B, H, T, Dh = 2, 16, 1136, 64
+    qs, k, v, do = (rng.standard_normal((B, H, T, Dh)).astype(np.float32) for _ in range(4))
+    q_seg = np.ones((B, T), np.int32)
+    kv_seg = (np.arange(T)[None] < np.array([[1136], [850]])).astype(np.int32)
+    return qs / 8, k, v, None, q_seg, kv_seg, do
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("case", list(CASES) + ["fft all-masked rows"])
+@pytest.mark.parametrize("case", list(CASES) + ["fft all-masked rows", "3g fft segments"])
 def test_kernels_match_plain_backward_on_card(case, dtype):
     """K6b and K6c on the card against ``_reference_bwd`` on the same inputs
     and the same residuals (K6's own): fp32 within 1e-4 * (1 + |ref|); bf16,
@@ -375,18 +388,22 @@ def test_kernels_match_plain_backward_on_card(case, dtype):
     element within one bf16 ulp (2^-7 * |ref| + 1e-5 * max |ref|) and the
     whole within ||err|| <= 2^-9 * ||ref||, so a rounding point missed (about
     0.4 % on most elements) fails; one launch of each. The FFT-like case has
-    key tiles that bf16 K6c skips and rows whose keys are all masked."""
+    key tiles that K6c and fp32 K6b skip and rows whose keys are all masked;
+    the 3g FFT case has the skipped tiles of a train step's batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     _, tdt, _ = DTYPES[dtype]
     dev = torch.device("cuda")
-    inputs = _fft_masked_inputs() if case == "fft all-masked rows" else _kernel_inputs(case)
+    inputs = {"fft all-masked rows": _fft_masked_inputs,
+              "3g fft segments": _fft_3g_inputs}.get(case, lambda: _kernel_inputs(case))()
     qs, k, v, ab, q_seg, kv_seg, do = (
         None if x is None else _tt(x, tdt).to(dev) for x in inputs)
     if ab is not None:      # in rows padded to 16 bytes, as try_flash makes it
         ab = tfl.empty_bias(*ab.shape, ab.dtype, dev).copy_(ab)
     out, m, l = tfl._launch(qs, k, v, ab, q_seg, kv_seg, residuals=True)
+    if case in ("fft all-masked rows", "3g fft segments"):
+        assert tfl.skippable_tiles(m, q_seg, kv_seg, k.shape[2]).any()
     before = dict(launch_counts)
     got = tfl.flash_attention_bwd(qs, k, v, ab, q_seg, kv_seg, out, m, l, do)
     assert launch_counts["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
