@@ -21,9 +21,12 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    uniform, a beam-history, an identity and a one-slot row-origin table and
    at each cluster size, timed L2-warm and HBM-cold, and HBM-cold at T=1024
    beside K1 in turn; K4 fbank of a 4 s and a
-   10 s waveform; K3b ``int8_vocab_topk_v2`` (two launches: the stream,
-   then the selection; its first launch timed alone too, and k=128 on the
-   repeated rows) and K3a ``int8_vocab_topk`` at the base_v2 vocabulary
+   10 s waveform (beside the launch floor, and cuFFT's ``rfft`` of the
+   prepared frames as a part); K3b ``int8_vocab_topk_v2`` (two launches:
+   the stream, then the selection; its first launch timed alone too, and
+   k=128 on the repeated rows) and K3a ``int8_vocab_topk`` (the same two
+   launches with a list a tile, at its default tile and at 512, 1024 and
+   2048, timed in turns with K3b) at the base_v2 vocabulary
    (V=256102, D=1024, k=11, N=5 and 10), with the time of the
    full-vocabulary step the candidate beam replaces; K6 flash
    attention at the fused option's main-path shapes (the Shaw encoder at 4
@@ -112,11 +115,13 @@ directory of ``profile_main_path``).
     python3 chip_smoke.py --k6b-parts [bf16|fp32]
     python3 chip_smoke.py --k6c-parts [bf16|fp32]
     python3 chip_smoke.py --k3b-parts
+    python3 chip_smoke.py --k3a-parts
+    python3 chip_smoke.py --k4-parts
 
 time fp32 K6 at every ``FLASH_SHAPES`` shape, bf16 K6b (K6c) at the 10 s
-Shaw shape (``fp32``: fp32 K6b (K6c) at every shape), or K3b's stream at the
-base_v2 vocabulary, as built and with one part left out at a time
-(``kernel_parts``): where its time goes.
+Shaw shape (``fp32``: fp32 K6b (K6c) at every shape), K3b's stream or K3a's
+first launch at the base_v2 vocabulary, or K4 at 4 s and 10 s, as built and
+with one part left out at a time (``kernel_parts``): where its time goes.
 
     python3 chip_smoke.py --k12-trace
 
@@ -468,14 +473,14 @@ def phase_decode_attention(name: str, floor_ms: float) -> dict:
             "bound_ms_1024": tm["bound_1024"][0]}
 
 
-# the vocabulary top-k kernels: (id, wrapper, its first launch alone, the
-# TPU kernel it replaces)
+# the vocabulary top-k kernels: (id, wrapper, the TPU kernel it replaces)
 VOCAB_KERNELS = {
-    "vocab_topk_v2": ("K3b", "int8_vocab_topk_v2", "_launch_stream",
+    "vocab_topk_v2": ("K3b", "int8_vocab_topk_v2",
                       "seamless_communication_tpu/ops/kernels/vocab_topk.py:170"),
-    "vocab_topk": ("K3a", "int8_vocab_topk", "_launch_v1",
+    "vocab_topk": ("K3a", "int8_vocab_topk",
                    "seamless_communication_tpu/ops/kernels/vocab_topk.py:45"),
 }
+K3A_TILES = (512, 1024, 2048)      # K3a's tiles held and timed beside its default
 
 
 def check_topk(label: str, got, ref, plain_logits) -> int:
@@ -507,14 +512,17 @@ def check_topk(label: str, got, ref, plain_logits) -> int:
 
 
 def phase_vocab_topk(smi: str) -> list:
-    """K3b and K3a against their plain version ``_reference`` at V=256102,
-    D=1024, k=11, N=5 and 10, x rows of unit variance in fp32 and bf16: on
-    the int8 table of a seeded unit-variance (V, D) matrix, and on a table
-    whose rows repeat every 1000 (equal logits across tiles, which must go to
-    the lowest id). Then device times by CUDA-graph replay of the kernel
-    launch alone, the whole function, the plain version and the
-    full-vocabulary step the candidate beam replaces (the widened tied
-    projection, the log-softmax and the stable sort over K*V)."""
+    """K3b and K3a (at its default tile, ``fill_tile`` of the stream's grid,
+    and at each tile of ``K3A_TILES``) against their plain version
+    ``_reference`` at V=256102, D=1024, k=11, N=5 and 10, x rows of unit
+    variance in fp32 and bf16: on the int8 table of a seeded unit-variance
+    (V, D) matrix, and on a table whose rows repeat every 1000 (equal logits
+    across tiles and blocks, which must go to the lowest id), there also at
+    k = ``MAX_K``. Then device times by CUDA-graph replay of each function
+    and its first launch alone, in turns (K3b, K3a at each tile, K3b), the
+    plain version, and the full-vocabulary step the candidate beam replaces
+    (the widened tied projection, the log-softmax and the stable sort over
+    K*V)."""
     import torch
 
     from seamless_communication_torch.ops.kernels import vocab_topk as vt
@@ -531,10 +539,19 @@ def phase_vocab_topk(smi: str) -> list:
     tie_table = table[:1000].repeat(reps, 1)[:V_MAIN].contiguous()
     tie_scale = scale[:1000].repeat(reps)[:V_MAIN].contiguous()
     xs = {n: torch.randn((n, D_MAIN), generator=gen, device=dev) for n in (5, 10)}
-    entries = []
-    for name, (kid, wrapper, launch, replaces) in VOCAB_KERNELS.items():
-        fn, kernel_alone = getattr(vt, wrapper), getattr(vt, launch)
-        max_err, ties = 0.0, 0
+    # (id, label, the function, its first launch alone)
+    variants = [("K3b", "K3b", vt.int8_vocab_topk_v2, vt._launch_stream)]
+    default = {n: vt.fill_tile(V_MAIN, vt._stream_grid(n, D_MAIN, V_MAIN, K_CAND))
+               for n in xs}
+    for tile in (None, *K3A_TILES):
+        variants.append(("K3a", f"K3a tile={tile or 'default'}",
+                         functools.partial(vt.int8_vocab_topk, tile=tile),
+                         lambda x, *a, tile=tile: vt._launch_stream(
+                             x, *a, tile or default[x.shape[0]])))
+    log(f"K3a default tile (fill_tile of the stream's grid): "
+        + ", ".join(f"N={n} {t}" for n, t in default.items()))
+    max_err, ties = {"K3a": 0.0, "K3b": 0.0}, {"K3a": 0, "K3b": 0}
+    for kid, name, fn, _ in variants:
         for n, x32 in xs.items():
             for dtype in (torch.float32, torch.bfloat16):
                 x = x32.to(dtype)
@@ -544,54 +561,66 @@ def phase_vocab_topk(smi: str) -> list:
                     ref = vt._reference(x, t, s, K_CAND)
                     plain_logits = torch.matmul(x.float(), t.to(dtype).float().T) * s
                     torch.cuda.synchronize()
-                    label = f"{kid} N={n} {str(dtype)[6:]} {tname}"
-                    ties += check_topk(label, got, ref, plain_logits)
+                    label = f"{name} N={n} {str(dtype)[6:]} {tname}"
+                    ties[kid] += check_topk(label, got, ref, plain_logits)
                     err = float((got[0] - ref[0]).abs().max())
                     if dtype is torch.float32:
-                        max_err = max(max_err, err)
+                        max_err[kid] = max(max_err[kid], err)
                     log(f"{label}: ids match (ties allowed), vals max abs err {err:.3g}, "
                         f"logz max abs err {float((got[2] - ref[2]).abs().max()):.3g}")
-        if kid == "K3b":
-            # the largest k K3b takes, on the repeated rows: the 128 best are
-            # copies of one row, ids ascending
-            for n, x32 in xs.items():
-                got = fn(x32, tie_table, tie_scale, vt.MAX_K)
-                ref = vt._reference(x32, tie_table, tie_scale, vt.MAX_K)
-                plain_logits = torch.matmul(x32, tie_table.float().T) * tie_scale
-                torch.cuda.synchronize()
-                ties += check_topk(f"K3b N={n} float32 repeated rows k={vt.MAX_K}", got, ref,
-                                   plain_logits)
-            log(f"K3b k={vt.MAX_K} on the repeated rows: ids match")
-        times = {}
+        # the largest k, on the repeated rows: the 128 best are copies of one
+        # row, ids ascending
         for n, x32 in xs.items():
-            for dtype in (torch.float32, torch.bfloat16):
-                x = x32.to(dtype)
-                times[n, dtype] = (
-                    cuda_time_ms(lambda: kernel_alone(x, table, scale, K_CAND)),
-                    cuda_time_ms(lambda: fn(x, table, scale, K_CAND)),
-                    cuda_time_ms(lambda: vt._reference(x, table, scale, K_CAND),
-                                 calls=3, reps=10))
-        bounds = {}
-        for n, dtype in times:
-            elem = torch.finfo(dtype).bits // 8
-            bytes_s = vt.bound_bytes(n, D_MAIN, V_MAIN, K_CAND, elem=elem) / HBM_BYTES_PER_S
-            flops_s = 2 * n * V_MAIN * D_MAIN / PEAK_FP32_FLOPS
-            bounds[n, dtype] = (max(bytes_s, flops_s) * 1e3,
-                                "bytes" if bytes_s >= flops_s else "operations")
-        for (n, dtype), (k_ms, f_ms, p_ms) in times.items():
-            log(f"{kid} time N={n} {str(dtype)[6:]:8s}: first launch alone "
-                f"{k_ms * 1e3:.2f} us, whole function {f_ms * 1e3:.2f} us, plain "
-                f"{p_ms * 1e3:.2f} us, bound {bounds[n, dtype][0] * 1e3:.2f} us "
-                f"({bounds[n, dtype][1]}); library: none (no single PyTorch call "
-                f"computes this function) [{smi}]")
-        log(f"{kid}: {ties} ties between near-equal plain logits")
-        # the decoder runs in fp32, beam 5 with B=1 gives N=5
-        _, f_ms, p_ms = times[5, torch.float32]
-        entries.append({"name": name, "route": "cuda",
-                        "source": "seamless_communication_torch/csrc/vocab_topk.cu",
-                        "replaces": replaces, "max_abs_err": max_err, "ms": f_ms,
-                        "plain_ms": p_ms, "bound_ms": bounds[5, torch.float32][0],
-                        "bound_by": bounds[5, torch.float32][1], "library_ms": None})
+            got = fn(x32, tie_table, tie_scale, vt.MAX_K)
+            ref = vt._reference(x32, tie_table, tie_scale, vt.MAX_K)
+            plain_logits = torch.matmul(x32, tie_table.float().T) * tie_scale
+            torch.cuda.synchronize()
+            ties[kid] += check_topk(f"{name} N={n} float32 repeated rows k={vt.MAX_K}", got,
+                                    ref, plain_logits)
+        log(f"{name} k={vt.MAX_K} on the repeated rows: ids match")
+    times, plain = {}, {}
+    for n, x32 in xs.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            for name, fn, first in [v[1:] for v in variants] + [variants[0][1:]]:
+                f_ms = cuda_time_ms(lambda: fn(x, table, scale, K_CAND))
+                k_ms = cuda_time_ms(lambda: first(x, table, scale, K_CAND))
+                times.setdefault((name, n, dtype), []).append((f_ms, k_ms))
+            plain[n, dtype] = cuda_time_ms(lambda: vt._reference(x, table, scale, K_CAND),
+                                           calls=3, reps=10)
+    bounds = {}
+    for n, dtype in plain:
+        elem = torch.finfo(dtype).bits // 8
+        bytes_s = vt.bound_bytes(n, D_MAIN, V_MAIN, K_CAND, elem=elem) / HBM_BYTES_PER_S
+        flops_s = 2 * n * V_MAIN * D_MAIN / PEAK_FP32_FLOPS
+        bounds[n, dtype] = (max(bytes_s, flops_s) * 1e3,
+                            "bytes" if bytes_s >= flops_s else "operations")
+    for (name, n, dtype), runs in times.items():
+        us = " and ".join(f"whole function {f * 1e3:.2f} us, first launch alone "
+                          f"{k * 1e3:.2f} us" for f, k in runs)
+        k3b = " / ".join(f"{f * 1e3:.2f}" for f, _ in times["K3b", n, dtype])
+        log(f"{name} time N={n} {str(dtype)[6:]:8s}: {us}; K3b's function in the same "
+            f"turn {k3b} us; plain {plain[n, dtype] * 1e3:.2f} us, bound "
+            f"{bounds[n, dtype][0] * 1e3:.2f} us ({bounds[n, dtype][1]}); library: none "
+            f"(no single PyTorch call computes this function) [{smi}]")
+    for kid in ("K3a", "K3b"):
+        log(f"{kid}: {ties[kid]} ties between near-equal plain logits")
+    entries = []
+    # the decoder runs in fp32, beam 5 with B=1 gives N=5
+    for name, kid, label in (("vocab_topk_v2", "K3b", "K3b"),
+                             ("vocab_topk", "K3a", "K3a tile=default")):
+        f_ms = min(f for f, _ in times[label, 5, torch.float32])
+        entry = {"name": name, "route": "cuda",
+                 "source": "seamless_communication_torch/csrc/vocab_topk.cu",
+                 "replaces": VOCAB_KERNELS[name][2], "max_abs_err": max_err[kid],
+                 "ms": f_ms, "plain_ms": plain[5, torch.float32],
+                 "bound_ms": bounds[5, torch.float32][0],
+                 "bound_by": bounds[5, torch.float32][1], "library_ms": None}
+        if kid == "K3a":
+            entry["tile"] = default[5]
+            entry["ms_by_tile"] = {tile: times[f"K3a tile={tile}", 5, torch.float32][0][0]
+                                   for tile in K3A_TILES}
+        entries.append(entry)
     embed = {"embedding_i8": table, "row_scale": scale}
     for n, x in xs.items():
         B, K = n // 5, 5
@@ -796,16 +825,35 @@ def phase_indexed(smi: str, floor_ms: float) -> dict:
             "bound_ms_1024": b1024, "k1_ms_hbm_1024": min(cold["K1"])}
 
 
-def phase_fbank(smi: str) -> dict:
-    """K4 against its plain version at 16 kHz: a 4 s waveform with
-    max_frames 512 and a 10 s one with max_frames 1024, each seeded
-    speech-like noise (noise shaped by a slow envelope) plus a tone. On the
+FBANK_CASES = ((4.0, 512), (10.0, 1024))   # (seconds, max_frames) of K4's waveforms
+
+
+def fbank_waveform(rng, seconds: float):
+    """Seeded speech-like noise (noise shaped by a slow envelope) plus a
+    tone, at 16 kHz, on the card."""
+    import numpy as np
+    import torch
+
+    n = int(16000 * seconds)
+    tt = np.arange(n) / 16000.0
+    envelope = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * tt) ** 2
+    wav = (0.1 * envelope * rng.standard_normal(n)
+           + 0.2 * np.sin(2 * np.pi * 220.0 * tt)).astype(np.float32)
+    return torch.as_tensor(wav, device="cuda")
+
+
+def phase_fbank(smi: str, floor_ms: float) -> dict:
+    """K4 against its plain version at 16 kHz on ``FBANK_CASES``: a 4 s
+    waveform with max_frames 512 and a 10 s one with max_frames 1024. On the
     energetic bins (plain log-mel > 0, as tests/unit/test_pallas_kernels.py
     holds the JAX kernel) within atol 2e-2, rtol 1e-3 and a mean error below
-    2e-3; frames past the end within 1e-6. The bound is the larger of the bytes
-    (the samples read, the output written) over the memory rate and the fp32
-    operations of the frames that read a sample (an FFT's and the mel
-    filters' nonzero weights', ``fbank.bound``) over the fp32 rate."""
+    2e-3; frames past the end within 1e-6. Device times beside the launch
+    floor and the bound: the larger of the bytes (the samples read, the
+    output written) over the memory rate and the fp32 operations of the
+    frames that read a sample (an FFT's and the mel filters' nonzero
+    weights', ``fbank.bound``) over the fp32 rate. cuFFT's batched
+    ``torch.fft.rfft`` of the prepared frames is timed as a part of the
+    function (the port never calls it)."""
     import numpy as np
     import torch
 
@@ -813,13 +861,9 @@ def phase_fbank(smi: str) -> dict:
 
     rng = np.random.default_rng(6)
     max_err, results = 0.0, {}
-    for seconds, max_frames in ((4.0, 512), (10.0, 1024)):
-        n = int(16000 * seconds)
-        tt = np.arange(n) / 16000.0
-        envelope = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * tt) ** 2
-        wav = (0.1 * envelope * rng.standard_normal(n)
-               + 0.2 * np.sin(2 * np.pi * 220.0 * tt)).astype(np.float32)
-        x = torch.as_tensor(wav, device="cuda")
+    for seconds, max_frames in FBANK_CASES:
+        x = fbank_waveform(rng, seconds)
+        n = x.shape[0]
         got = fb.fbank(x, max_frames=max_frames)
         ref = fb._reference(x, max_frames)
         torch.cuda.synchronize()
@@ -827,28 +871,37 @@ def phase_fbank(smi: str) -> dict:
         err = (got - ref).abs()
         lim = 2e-2 + 1e-3 * ref.abs()
         past = fb.needed_frames(n, max_frames)
+        past_err = float((got[past:] - ref[past:]).abs().max()) if past < max_frames else 0.0
         if not (bool((err[m] <= lim[m]).all()) and float(err[m].mean()) < 2e-3
-                and bool(((got[past:] - ref[past:]).abs() <= 1e-6).all())):
+                and past_err <= 1e-6):
             raise AssertionError(f"K4 {seconds} s: max err {float(err[m].max()):.3g}, "
-                                 f"mean {float(err[m].mean()):.3g} on energetic bins")
+                                 f"mean {float(err[m].mean()):.3g} on energetic bins, "
+                                 f"{past_err:.3g} past the end")
         max_err = max(max_err, float(err[m].max()))
         k_ms = cuda_time_ms(lambda: fb.fbank(x, max_frames=max_frames))
         p_ms = cuda_time_ms(lambda: fb._reference(x, max_frames))
+        frames = fb._frames_prepared(x, max_frames)
+        rfft_ms = cuda_time_ms(lambda: torch.fft.rfft(frames, n=fb.NFFT, dim=-1))
         nbytes, flops = fb.bound(n, max_frames)
         bytes_s, flops_s = nbytes / HBM_BYTES_PER_S, flops / PEAK_FP32_FLOPS
         bound = (max(bytes_s, flops_s) * 1e3, "bytes" if bytes_s >= flops_s else "operations")
         results[seconds] = (k_ms, p_ms, bound)
-        log(f"K4 {seconds:.0f} s, max_frames {max_frames}: {int(m.sum())} energetic bins, "
-            f"max abs err {float(err[m].max()):.3g}, mean {float(err[m].mean()):.3g} "
-            f"(atol 2e-2 + rtol 1e-3, mean < 2e-3); device kernel {k_ms * 1e3:.2f} us, "
-            f"plain {p_ms * 1e3:.2f} us, bound {bound[0] * 1e3:.2f} us ({bound[1]}: "
+        plan = fb.frame_plan(max_frames)
+        log(f"K4 {seconds:.0f} s, max_frames {max_frames} ({plan['blocks']} blocks of "
+            f"{plan['frames']} frames): {int(m.sum())} energetic bins, max abs err "
+            f"{float(err[m].max()):.3g}, mean {float(err[m].mean()):.3g} (atol 2e-2 + rtol "
+            f"1e-3, mean < 2e-3), past the end {past_err:.3g}; device kernel "
+            f"{k_ms * 1e3:.2f} us, launch floor {floor_ms * 1e3:.2f} us, plain "
+            f"{p_ms * 1e3:.2f} us, bound {bound[0] * 1e3:.2f} us ({bound[1]}: "
             f"{flops / 1e9:.3f} Gflop, {nbytes / 1e6:.3f} MB); library: none [{smi}]")
+        log(f"K4 {seconds:.0f} s: cuFFT torch.fft.rfft of the {max_frames} prepared frames "
+            f"(a part, not the function): {rfft_ms * 1e3:.2f} us [{smi}]")
     k_ms, p_ms, bound = results[10.0]
     return {"name": "fbank", "route": "cuda",
             "source": "seamless_communication_torch/csrc/fbank.cu",
             "replaces": "seamless_communication_tpu/ops/kernels/fbank_pallas.py:74",
             "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": None}
+            "bound_by": bound[1], "library_ms": None, "ms_4s": results[4.0][0]}
 
 
 # K6 at the shapes of the main path with the fused option on (B=1, H=16,
@@ -1472,15 +1525,36 @@ K3B_PARTS = {
         "#pragma unroll\n        for (int u = 0; u < 4; ++u) {\n          float w[8][4];",
         "#pragma unroll\n        for (int u = 0; u < 0; ++u) {\n          float w[8][4];")],
 }
+# K3a's first launch is K3b's stream with a list a tile
+K3A_PARTS = {
+    **K3B_PARTS,
+    "the flushes left out but each block's last (wrong out)": [(
+        "const bool flush = kPerTile && (t + 1 == t1 || (t + 1) % span == 0);",
+        "const bool flush = kPerTile && t + 1 == t1;")],
+}
+K4_PARTS = {
+    "as built": [],
+    "staging only (wrong out)": [(
+        "  const int f = f0 + warp;\n", "  if (n > 0) return;\n  const int f = f0 + warp;\n")],
+    "without the FFT (wrong out)": [(
+        "  fft256(zr, zi, re, im, tw_c, tw_s, lane);\n",
+        "  for (int m = 0; m < 8; ++m) {\n    re[lane + 32 * m] = zr[m];\n"
+        "    im[lane + 32 * m] = zi[m];\n  }\n  __syncwarp();\n")],
+    "without the mel (wrong out)": [(
+        "      if (j < len[u]) acc[u] = fmaf(re[lo[u] + j], w_s[off[u] + j], acc[u]);\n",
+        "      if (j < len[u]) acc[u] = re[lo[u]] + w_s[off[u]];\n")],
+}
 
 
 def kernel_parts(smi: str, which: str, dtype: str = "bf16") -> None:
     """``python3 chip_smoke.py --k6b-parts [bf16|fp32]`` (``--k6c-parts``,
-    ``--k6-parts``, ``--k3b-parts``): K6b (K6c) of ``dtype``, bf16 at
-    ``FLASH_MAIN`` and fp32 at every ``FLASH_SHAPES`` shape, fp32 K6 at every
-    shape, or K3b's stream at N = 5 and 10 in fp32, as built and with each
+    ``--k6-parts``, ``--k3b-parts``, ``--k3a-parts``, ``--k4-parts``): K6b
+    (K6c) of ``dtype``, bf16 at ``FLASH_MAIN`` and fp32 at every
+    ``FLASH_SHAPES`` shape, fp32 K6 at every shape, K3b's stream at N = 5
+    and 10 in fp32, K3a's first launch there at each tile of ``K3A_TILES``,
+    or K4 at ``FBANK_CASES``, as built and with each
     part of ``K6B_PARTS[dtype]`` (``K6C_PARTS[dtype]``, ``K6_PARTS``,
-    ``K3B_PARTS``) left out, each a copy of its source built with the
+    ``K3B_PARTS``, ``K3A_PARTS``, ``K4_PARTS``) left out, each a copy of its source built with the
     package's nvcc flags into a temporary directory and loaded in place of
     the built library; device µs by CUDA-graph replay, the best of three."""
     import ctypes
@@ -1499,9 +1573,11 @@ def kernel_parts(smi: str, which: str, dtype: str = "bf16") -> None:
     parts, kernel, kid = {"k6b": (K6B_PARTS[dtype], fl.KERNEL_DKV, "K6b"),
                           "k6c": (K6C_PARTS[dtype], fl.KERNEL_DQ, "K6c"),
                           "k6": (K6_PARTS, fl.KERNEL, "K6"),
-                          "k3b": (K3B_PARTS, vt.KERNEL, "K3b")}[which]
-    src = build.CSRC_DIR / {"k3b": "vocab_topk.cu", "k6": "flash_attention.cu"}.get(
-        which, "flash_attention_bwd.cu")
+                          "k3b": (K3B_PARTS, vt.KERNEL, "K3b"),
+                          "k3a": (K3A_PARTS, vt.KERNEL_V1, "K3a"),
+                          "k4": (K4_PARTS, "fbank", "K4")}[which]
+    src = build.CSRC_DIR / {"k3b": "vocab_topk.cu", "k3a": "vocab_topk.cu", "k4": "fbank.cu",
+                            "k6": "flash_attention.cu"}.get(which, "flash_attention_bwd.cu")
     tmp = Path(tempfile.mkdtemp())
     for header in build._sources(src, [])[1:]:
         (tmp / header.name).write_bytes(header.read_bytes())
@@ -1522,7 +1598,27 @@ def kernel_parts(smi: str, which: str, dtype: str = "bf16") -> None:
     with concurrent.futures.ThreadPoolExecutor(len(parts)) as pool:
         libs = list(pool.map(compile_part, enumerate(parts)))
     dev = torch.device("cuda")
-    if which == "k3b":
+    if which == "k4":
+        from seamless_communication_torch.ops.kernels import fbank as fb
+
+        rng = np.random.default_rng(6)
+        cases = [(seconds, max_frames, fbank_waveform(rng, seconds))
+                 for seconds, max_frames in FBANK_CASES]
+        try:
+            for name, lib in libs:
+                so = ctypes.CDLL(str(lib))
+                so.fbank.argtypes, so.fbank.restype = fb._ARGTYPES, ctypes.c_int
+                so.cuda_error_string.argtypes = [ctypes.c_int]
+                so.cuda_error_string.restype = ctypes.c_char_p
+                fb._function[:] = [so.fbank, so.cuda_error_string]
+                us = [min(cuda_time_ms(lambda: fb.fbank(x, max_frames=mf))
+                          for _ in range(3)) * 1e3 for _, mf, x in cases]
+                log(f"K4, {name}: " + ", ".join(f"{sec:.0f} s {t:.2f} us" for (sec, _, _), t
+                                                 in zip(cases, us)) + f" [{smi}]")
+        finally:
+            fb._function.clear()
+        return
+    if which in ("k3b", "k3a"):
         from seamless_communication_torch.ops.quantization import quantize_embedding
 
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -1540,10 +1636,13 @@ def kernel_parts(smi: str, which: str, dtype: str = "bf16") -> None:
                     so.cuda_error_string.argtypes = [ctypes.c_int]
                     so.cuda_error_string.restype = ctypes.c_char_p
                     vt._functions[entry] = (fn, so.cuda_error_string)
-                us = {n: min(cuda_time_ms(lambda: vt._launch_stream(x, table, scale, K_CAND))
-                             for _ in range(3)) * 1e3 for n, x in xs.items()}
-                log(f"K3b stream, fp32, {name}: N=5 {us[5]:.2f} us, N=10 {us[10]:.2f} us "
-                    f"[{smi}]")
+                for tile in (None,) if which == "k3b" else K3A_TILES:
+                    us = {n: min(cuda_time_ms(lambda: vt._launch_stream(x, table, scale,
+                                                                         K_CAND, tile))
+                                 for _ in range(3)) * 1e3 for n, x in xs.items()}
+                    what = "K3b stream" if tile is None else f"K3a first launch, tile={tile}"
+                    log(f"{what}, fp32, {name}: N=5 {us[5]:.2f} us, N=10 {us[10]:.2f} us "
+                        f"[{smi}]")
         finally:
             vt._functions.clear()
             vt._grids.clear()
@@ -3814,7 +3913,8 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         profile_main_path(dev["smi"])
         return 0
-    if sys.argv[1:2] in (["--k6-parts"], ["--k6b-parts"], ["--k6c-parts"], ["--k3b-parts"]):
+    if sys.argv[1:2] in (["--k6-parts"], ["--k6b-parts"], ["--k6c-parts"], ["--k3b-parts"],
+                         ["--k3a-parts"], ["--k4-parts"]):
         which = sys.argv[1][2:].split("-")[0]
         dtypes = sys.argv[2:] or ["bf16"]
         if len(dtypes) > 1 or dtypes[0] not in ("bf16", "fp32") or (
@@ -3835,7 +3935,7 @@ def main() -> int:
     k1 = phase_decode_attention("decode_attention_int8", floor_ms)
     k2 = phase_decode_attention("decode_attention_int4", floor_ms)
     k5 = phase_indexed(dev["smi"], floor_ms)
-    k4 = phase_fbank(dev["smi"])
+    k4 = phase_fbank(dev["smi"], floor_ms)
     k3b, k3a = phase_vocab_topk(dev["smi"])
     k6 = phase_flash_attention(dev["smi"])
     k6b, k6c = phase_flash_attention_bwd(dev["smi"])

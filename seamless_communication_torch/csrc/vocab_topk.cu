@@ -11,8 +11,8 @@
 //           :120)
 // The plain PyTorch versions are in
 // seamless_communication_torch/ops/kernels/vocab_topk.py: `_reference` (the
-// whole function), `_tiles_reference` (what K3a and K3b's first stage write)
-// and `_select_reference` (K3b's second stage).
+// whole function), `_tiles_reference` (what K3a's and K3b's first stage
+// write) and `_select_reference` (the second stage of both).
 //
 // For the table row v and each x row n:
 //   l[n, v] = (sum_d x[n, d] * q[v, d]) * row_scale[v]
@@ -25,7 +25,7 @@
 // 39 us at N = 5 and 78 us at N = 10 at the fp32 rate outside the tensor
 // cores, so at N = 5 the function is bound by bytes, at N = 10 level.
 //
-// K3b, two launches a call.
+// K3b, two launches a call (K3a, below, the same two).
 //
 // vocab_topk_v2 (stage 1, the stream): a grid sized to the card (as many
 // blocks as fit at once: two an SM up to 8 x rows, one above) walks
@@ -57,15 +57,18 @@
 // of a warp argmax over the lanes' best heads (ties to the lowest id), in
 // which only the winning lane reads its lists again.
 //
-// K3a (vocab_tile_kernel): one block of 256 threads (8 warps) per tile of
-// 128 rows, 2001 blocks at V = 256102. The x rows are staged in shared memory
-// as fp32, up to 10 rows a pass (more rows take more passes, which read the
-// tile again, from L2). A warp owns 16 table rows and takes them 4 at a
-// time: each lane loads 16 bytes of each of the 4 rows and multiplies them
-// with the staged x rows; shuffles reduce each dot product, and each tile's
-// k best, found in k rounds of a warp-wide argmax, and its (max, sum of exp)
-// are written per x row. The wrapper selects the top k of the tiles'
-// candidates.
+// K3a (vocab_topk, then vocab_topk_v2_select): the same stream kernel with
+// one difference, a template policy (kPerTile). Its lists and stats are those
+// of the K3a tiles of `tile` rows (a multiple of 128): a block's range is a
+// run of whole K3a tiles, and at each K3a tile's last 128-row tile the block
+// writes its lists and stats of that tile and empties them (`Args::span`,
+// the 128-row tiles of a K3a tile); K3b's blocks write once, after their
+// range. A K3a tile of fewer than k rows below V pads its list with (-inf,
+// kNoId). The selection is K3b's second launch over the ceil(V / tile)
+// lists. What a K3a tile costs beyond K3b: refilling its emptied lists (about
+// k (1 + ln(rows / k)) insertions a list), so the default tile
+// (`ops/kernels/vocab_topk.py fill_tile`) gives each block one K3a tile,
+// as many rows as a K3b block's range.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,35 +78,7 @@
 
 namespace {
 
-constexpr int kTile = 128;                    // vocabulary rows per block
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kTile / kWarps;  // 16
-constexpr int kR = 4;                         // table rows a lane takes at once
-constexpr int kMaxRows = 10;                  // x rows per pass
-constexpr int kXFloats = 10240;               // 40 KB of staged x rows
-constexpr float kNeg = -1e30f;
 constexpr float kMagic = 8388736.0f;          // 2^23 + 128
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Byte j of a word of int8 values, given the word xor 0x80808080 (each byte
 // then holds q + 128 in [1, 255]): 0x4B0000bb is the float 2^23 + bb.
@@ -115,164 +90,8 @@ __device__ __forceinline__ unsigned word(const uint4& q, int w) {
   return w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
 }
 
-// Where x[n, d] sits in row n of the staged copy: the 4 values of word w of
-// the 16-byte chunk c = 32 i + lane are float4 number (4 i + w) * 32 + lane.
-__device__ __forceinline__ int staged(int d) {
-  const int c = d >> 4, w = (d >> 2) & 3;
-  return ((((c >> 5) * 4 + w) * 32 + (c & 31)) << 2) | (d & 3);
-}
-
-__host__ __device__ __forceinline__ int staged_row(int D) {
-  return (D + 511) / 512 * 512;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) vocab_tile_kernel(
-    const T* __restrict__ x, const int8_t* __restrict__ table,
-    const float* __restrict__ row_scale, int N, int D, int V, int rows_per_pass,
-    int k, float* __restrict__ top_vals,
-    int32_t* __restrict__ top_idx, float* __restrict__ tile_max,
-    float* __restrict__ tile_se) {
-  __shared__ __align__(16) float x_s[kXFloats];
-  __shared__ float l_s[kMaxRows][kTile];
-
-  const int g = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunks = D >> 4;
-  const int Dp = staged_row(D);
-
-  for (int n0 = 0; n0 < N; n0 += rows_per_pass) {
-    const int nc = min(rows_per_pass, N - n0);
-    __syncthreads();  // the previous pass is done with x_s and l_s
-    for (int e = threadIdx.x; e < nc * D; e += kThreads) {
-      const int n = e / D, d = e - n * D;
-      x_s[n * Dp + staged(d)] = to_f32<T>(x[(size_t)(n0 + n) * D + d]);
-    }
-    __syncthreads();
-
-    // ---- logits of this warp's 16 rows, 4 rows at a time ------------------
-    for (int r0 = warp * kRowsPerWarp; r0 < (warp + 1) * kRowsPerWarp; r0 += kR) {
-      const int v0 = g * kTile + r0;
-      float acc[kR][kMaxRows];
-#pragma unroll
-      for (int r = 0; r < kR; ++r)
-#pragma unroll
-        for (int n = 0; n < kMaxRows; ++n) acc[r][n] = 0.f;
-
-      for (int c = lane; c < chunks; c += 32) {
-        uint4 q[kR];
-#pragma unroll
-        for (int r = 0; r < kR; ++r)
-          q[r] = (v0 + r < V)
-                     ? __ldg(reinterpret_cast<const uint4*>(table + (size_t)(v0 + r) * D) + c)
-                     : make_uint4(0u, 0u, 0u, 0u);
-        const float4* xc =
-            reinterpret_cast<const float4*>(x_s) + (c >> 5) * 4 * 32 + lane;
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          float t[kR][4];
-#pragma unroll
-          for (int r = 0; r < kR; ++r) {
-            const unsigned biased = word(q[r], w) ^ 0x80808080u;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) t[r][j] = widen(biased, j);
-          }
-#pragma unroll
-          for (int n = 0; n < kMaxRows; ++n) {
-            if (n < nc) {
-              const float4 xv = xc[n * (Dp / 4) + w * 32];
-#pragma unroll
-              for (int r = 0; r < kR; ++r) {
-                float a = acc[r][n];
-                a = fmaf(t[r][0], xv.x, a);
-                a = fmaf(t[r][1], xv.y, a);
-                a = fmaf(t[r][2], xv.z, a);
-                a = fmaf(t[r][3], xv.w, a);
-                acc[r][n] = a;
-              }
-            }
-          }
-        }
-      }
-
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const int v = v0 + r;
-        const float sc = (v < V) ? __ldg(row_scale + v) : 0.f;
-#pragma unroll
-        for (int n = 0; n < kMaxRows; ++n) {
-          if (n < nc) {  // nc is the same for the whole block
-            const float s = warp_sum(acc[r][n]);
-            if (lane == 0) l_s[n][r0 + r] = (v < V) ? s * sc : kNeg;
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- per x row: tile stats and the tile's top k ----------------------
-    for (int n = warp; n < nc; n += kWarps) {
-      const size_t row = (size_t)(n0 + n);
-      float l[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) l[j] = l_s[n][lane + 32 * j];
-      const float m = warp_max(fmaxf(fmaxf(l[0], l[1]), fmaxf(l[2], l[3])));
-      float se = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (g * kTile + lane + 32 * j < V) se += expf(l[j] - m);
-      se = warp_sum(se);
-      if (lane == 0) {
-        tile_max[(size_t)g * N + row] = m;
-        tile_se[(size_t)g * N + row] = se;
-      }
-      {
-        for (int s = 0; s < k; ++s) {
-          // this lane's best (its columns ascend, so > keeps the lowest)
-          float bv = l[0];
-          int bc = lane;
-#pragma unroll
-          for (int j = 1; j < 4; ++j)
-            if (l[j] > bv) {
-              bv = l[j];
-              bc = lane + 32 * j;
-            }
-          for (int o = 16; o > 0; o >>= 1) {
-            const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-            const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
-            if (ov > bv || (ov == bv && oc < bc)) {
-              bv = ov;
-              bc = oc;
-            }
-          }
-          if (lane == 0) {
-            top_vals[((size_t)g * N + row) * k + s] = bv;
-            top_idx[((size_t)g * N + row) * k + s] = g * kTile + bc;
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (bc == lane + 32 * j) l[j] = kNeg;
-        }
-      }
-    }
-  }
-}
-
-
-template <typename T>
-int launch_tiles(const void* x, const int8_t* table, const float* row_scale, int N, int D,
-                 int V, int k, float* top_vals, int32_t* top_idx, float* tile_max,
-                 float* tile_se, cudaStream_t st) {
-  const int fit = kXFloats / staged_row(D);
-  const int rows = fit < kMaxRows ? fit : kMaxRows;
-  const int G = (V + kTile - 1) / kTile;
-  vocab_tile_kernel<T><<<G, kThreads, 0, st>>>(static_cast<const T*>(x), table, row_scale,
-                                               N, D, V, rows, k, top_vals, top_idx,
-                                               tile_max, tile_se);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// K3b
+// The stream (K3b's and K3a's first launch) and the selection (their second)
 // ---------------------------------------------------------------------------
 
 namespace stream {
@@ -288,6 +107,7 @@ constexpr int kListEntries = 1536;          // rows of a pass x k, at most
 constexpr int kMaxXFloats = 16384;          // staged x rows of a pass (64 KB)
 constexpr int kMaxK = 128;
 constexpr int kMaxBlocks = 1024;            // stream blocks, at most
+constexpr int kMaxLists = 2048;             // lists the selection merges, at most
 constexpr int kSelectThreads = 256;
 constexpr int kSelectCache = 2048;          // stage 2: list entries cached (16 KB)
 constexpr unsigned kFull = 0xffffffffu;
@@ -303,10 +123,11 @@ struct Args {
   int x_bf16;
   const float* row_scale;
   int N, D, Dp, V, k, tiles;
-  float* cand_val;      // (G, N, k)
-  int32_t* cand_idx;    // (G, N, k)
-  float* blk_max;       // (G, N)
-  float* blk_se;        // (G, N)
+  int span;             // K3a: the 128-row tiles of a list (K3b: unused)
+  float* cand_val;      // (L, N, k), L lists: K3b the G blocks, K3a the ceil(V / tile) tiles
+  int32_t* cand_idx;    // (L, N, k)
+  float* blk_max;       // (L, N)
+  float* blk_se;        // (L, N)
 };
 
 // x rows a pass, and the dynamic shared memory of the stream kernel
@@ -322,8 +143,11 @@ inline size_t smem_bytes(int np, int Dp, int k) {
          (size_t)kWarps * np * kRows * 4 + 16 * kStages;
 }
 
-// One block: the tiles [t0, t1) of the table, NP x rows a pass.
-template <int NP>
+// One block: the tiles [t0, t1) of the table, NP x rows a pass. K3b
+// (kPerTile false): the block's lists and stats are written once, after its
+// last tile (list blk); K3a (kPerTile true): at the last tile of each K3a
+// tile of `span` tiles (list t / span), and emptied after each write.
+template <int NP, bool kPerTile>
 __global__ void __launch_bounds__(kThreads, NP <= 8 ? 2 : 1)
 vocab_stream_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
   constexpr int NPW = (NP + kWarps - 1) / kWarps;   // x rows a warp finishes
@@ -338,8 +162,17 @@ vocab_stream_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int blk = blockIdx.x, G = gridDim.x;
-  const int t0 = (int)((long long)blk * a.tiles / G);
-  const int t1 = (int)((long long)(blk + 1) * a.tiles / G);
+  // the block's units (K3b: 128-row tiles, K3a: K3a tiles) and their tiles
+  const int span = kPerTile ? a.span : 1;
+  int t0, t1;
+  if constexpr (kPerTile) {
+    const int units = (a.tiles + span - 1) / span;
+    t0 = (int)((long long)blk * units / G) * span;
+    t1 = min((int)((long long)(blk + 1) * units / G) * span, a.tiles);
+  } else {
+    t0 = (int)((long long)blk * a.tiles / G);
+    t1 = (int)((long long)(blk + 1) * a.tiles / G);
+  }
   const int slices = a.Dp / kSlice, passes = (a.N + NP - 1) / NP, k = a.k;
 
   if (tid == 0) {
@@ -454,7 +287,10 @@ vocab_stream_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
       hopper::named_sync(1, kWarps * 32);
 
       // ---- the tile's logits of the warp's x rows: running stats, and the
-      // block's k best (a logit goes in only when it beats the list's last)
+      // list's k best (a logit goes in only when it beats the list's last);
+      // K3a: at a K3a tile's last tile its lists and stats are written and
+      // emptied
+      const bool flush = kPerTile && (t + 1 == t1 || (t + 1) % span == 0);
 #pragma unroll
       for (int qn = 0; qn < NPW; ++qn) {
         const int n = warp + kWarps * qn;
@@ -514,37 +350,67 @@ vocab_stream_kernel(const __grid_constant__ CUtensorMap map, const Args a) {
             want = __ballot_sync(kFull, pred);
           }
         }
+        if (flush) {
+          // the list and stats of x row n0 + n (only this warp touches
+          // them), as K3b's blocks write theirs below; then empty
+          __syncwarp();
+          const size_t row = (size_t)(t / span) * a.N + n0 + n;
+          for (int j = lane; j < k; j += 32) {
+            a.cand_val[row * k + j] = nv_s[j];
+            a.cand_idx[row * k + j] = ni_s[j];
+            nv_s[j] = -INFINITY;
+            ni_s[j] = kNoId;
+          }
+          float mm = m[qn], ss = se[qn];
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            const float m2 = __shfl_xor_sync(kFull, mm, o), s2 = __shfl_xor_sync(kFull, ss, o);
+            const float mx = fmaxf(mm, m2);
+            ss = mx == -INFINITY ? 0.f : ss * expf(mm - mx) + s2 * expf(m2 - mx);
+            mm = mx;
+          }
+          if (lane == 0) {
+            a.blk_max[row] = mm;
+            a.blk_se[row] = ss;
+          }
+          m[qn] = -INFINITY;
+          se[qn] = 0.f;
+          __syncwarp();
+        }
       }
       hopper::named_sync(1, kWarps * 32);   // red is read
     }
 
-    // ---- the block's lists and stats of the warp's x rows
+    // ---- K3b: the block's lists and stats of the warp's x rows
+    if constexpr (!kPerTile) {
 #pragma unroll
-    for (int qn = 0; qn < NPW; ++qn) {
-      const int n = warp + kWarps * qn;
-      if (n >= NP || n0 + n >= a.N) break;
-      const size_t row = (size_t)blk * a.N + n0 + n;
-      for (int j = lane; j < k; j += 32) {
-        a.cand_val[row * k + j] = lv[n * k + j];
-        a.cand_idx[row * k + j] = li[n * k + j];
-      }
-      float mm = m[qn], ss = se[qn];
+      for (int qn = 0; qn < NPW; ++qn) {
+        const int n = warp + kWarps * qn;
+        if (n >= NP || n0 + n >= a.N) break;
+        const size_t row = (size_t)blk * a.N + n0 + n;
+        for (int j = lane; j < k; j += 32) {
+          a.cand_val[row * k + j] = lv[n * k + j];
+          a.cand_idx[row * k + j] = li[n * k + j];
+        }
+        float mm = m[qn], ss = se[qn];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float m2 = __shfl_xor_sync(kFull, mm, o), s2 = __shfl_xor_sync(kFull, ss, o);
-        const float mx = fmaxf(mm, m2);
-        ss = mx == -INFINITY ? 0.f : ss * expf(mm - mx) + s2 * expf(m2 - mx);
-        mm = mx;
-      }
-      if (lane == 0) {
-        a.blk_max[row] = mm;
-        a.blk_se[row] = ss;
+        for (int o = 16; o > 0; o >>= 1) {
+          const float m2 = __shfl_xor_sync(kFull, mm, o), s2 = __shfl_xor_sync(kFull, ss, o);
+          const float mx = fmaxf(mm, m2);
+          ss = mx == -INFINITY ? 0.f : ss * expf(mm - mx) + s2 * expf(m2 - mx);
+          mm = mx;
+        }
+        if (lane == 0) {
+          a.blk_max[row] = mm;
+          a.blk_se[row] = ss;
+        }
       }
     }
   }
 }
 
-// Stage 2: one block per x row n. The block caches the lists' first C
+// Stage 2: one block per x row n, over G lists (K3b: the stream's blocks;
+// K3a: its tiles). The block caches the lists' first C
 // entries in shared memory and combines the stats into logz; then warp 0
 // takes k rounds: lane l keeps the best head of the lists l, l + 32, ...,
 // the warp's best is the round's pick, and its lane advances that list and
@@ -559,20 +425,26 @@ vocab_select_kernel(const float* __restrict__ cand_val, const int32_t* __restric
   __shared__ float shared_m;
   __shared__ float cache_v[kSelectCache];
   __shared__ int cache_i[kSelectCache];
-  __shared__ float stat_m[kMaxBlocks], stat_s[kMaxBlocks];
-  __shared__ float hv[kMaxBlocks];   // the value and id at each list's head
-  __shared__ int hi[kMaxBlocks], head[kMaxBlocks];
+  __shared__ float hv[kMaxLists];   // the value and id at each list's head
+  __shared__ int hi[kMaxLists], head[kMaxLists];
   const int n = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int C = min(k, kSelectCache / G);
 
-  // ---- the blocks' stats and their lists' first C entries, every load in
-  // flight at once
+  // ---- the lists' stats (in registers: list tid + 256 u) and their first C
+  // entries, every load in flight at once
+  constexpr int S = kMaxLists / kSelectThreads;
+  float stat_m[S], stat_s[S];
   float lm = -INFINITY;
-  for (int g = tid; g < G; g += kSelectThreads) {
-    const float mg = blk_max[(size_t)g * N + n];
-    stat_m[g] = mg;
-    stat_s[g] = blk_se[(size_t)g * N + n];
-    lm = fmaxf(lm, mg);
+#pragma unroll
+  for (int u = 0; u < S; ++u) {
+    const int g = tid + kSelectThreads * u;
+    stat_m[u] = -INFINITY;
+    stat_s[u] = 0.f;
+    if (g < G) {
+      stat_m[u] = blk_max[(size_t)g * N + n];
+      stat_s[u] = blk_se[(size_t)g * N + n];
+    }
+    lm = fmaxf(lm, stat_m[u]);
   }
   {
     constexpr int U = kSelectCache / kSelectThreads;
@@ -610,8 +482,10 @@ vocab_select_kernel(const float* __restrict__ cand_val, const int32_t* __restric
   __syncthreads();
   const float M = shared_m;
   float ls = 0.f;
+#pragma unroll
+  for (int u = 0; u < S; ++u)
+    if (stat_m[u] != -INFINITY) ls += stat_s[u] * expf(stat_m[u] - M);
   for (int g = tid; g < G; g += kSelectThreads) {
-    if (stat_m[g] != -INFINITY) ls += stat_s[g] * expf(stat_m[g] - M);
     head[g] = 0;
     hv[g] = cache_v[g * C];
     hi[g] = cache_i[g * C];
@@ -683,16 +557,16 @@ vocab_select_kernel(const float* __restrict__ cand_val, const int32_t* __restric
   }
 }
 
-template <int NP>
+template <int NP, bool kPerTile>
 int launch_stream(const CUtensorMap& map, const Args& a, int G, cudaStream_t st) {
   const size_t bytes = smem_bytes(NP, a.Dp, a.k);
   static size_t allowed = 0;   // the shared memory allowed so far
   if (bytes > allowed) {
-    const cudaError_t err = hopper::allow_smem(vocab_stream_kernel<NP>, bytes);
+    const cudaError_t err = hopper::allow_smem(vocab_stream_kernel<NP, kPerTile>, bytes);
     if (err != cudaSuccess) return (int)err;
     allowed = bytes;
   }
-  vocab_stream_kernel<NP><<<G, kThreads, bytes, st>>>(map, a);
+  vocab_stream_kernel<NP, kPerTile><<<G, kThreads, bytes, st>>>(map, a);
   return (int)cudaGetLastError();
 }
 
@@ -701,10 +575,10 @@ int launch_stream(const CUtensorMap& map, const Args& a, int G, cudaStream_t st)
 template <int NP>
 int grid_of(int Dp, int k, int tiles) {
   const size_t bytes = smem_bytes(NP, Dp, k);
-  cudaError_t err = hopper::allow_smem(vocab_stream_kernel<NP>, bytes);
+  cudaError_t err = hopper::allow_smem(vocab_stream_kernel<NP, false>, bytes);
   int per_sm = 0, dev = 0, sms = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vocab_stream_kernel<NP>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vocab_stream_kernel<NP, false>,
                                                         kThreads, bytes);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -729,7 +603,10 @@ int dispatch_grid(int np, int Dp, int k, int tiles) {
 
 int dispatch_stream(int np, const CUtensorMap& map, const Args& a, int G, cudaStream_t st) {
   switch (np) {
-#define CASE(P) case P: return launch_stream<P>(map, a, G, st);
+#define CASE(P)                                                    \
+  case P:                                                          \
+    return a.span ? launch_stream<P, true>(map, a, G, st)          \
+                  : launch_stream<P, false>(map, a, G, st);
     STREAM_NP_CASES(CASE)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
@@ -748,12 +625,12 @@ bool valid_shape(int N, int D, int V, int k) {
 
 extern "C" {
 
-// K3b. dtype: 0 = float32, 1 = bfloat16 (x). x (N, D) contiguous, table (V,
-// D) int8 (16-byte aligned) and row_scale (V,) f32 on the card; 1 <= k <=
-// 128, D a multiple of 16 up to 16384.
+// dtype: 0 = float32, 1 = bfloat16 (x). x (N, D) contiguous, table (V, D)
+// int8 (16-byte aligned) and row_scale (V,) f32 on the card; 1 <= k <= 128,
+// D a multiple of 16 up to 16384.
 
 // The grid of vocab_topk_v2 at these sizes: the blocks that fit on the card
-// at once, at most one a 128-row tile and 2048; negative: a CUDA error.
+// at once, at most one a 128-row tile and 1024; negative: a CUDA error.
 int vocab_topk_v2_grid(int N, int D, int V, int k) {
   if (!stream::valid_shape(N, D, V, k)) return -(int)cudaErrorInvalidValue;
   const int Dp = (D + stream::kSlice - 1) / stream::kSlice * stream::kSlice;
@@ -761,60 +638,69 @@ int vocab_topk_v2_grid(int N, int D, int V, int k) {
   return stream::dispatch_grid(stream::rows_a_pass(N, Dp, k), Dp, k, tiles);
 }
 
-// Stage 1 with G blocks (vocab_topk_v2_grid's): each block's k best (value,
-// id) of its rows, sorted (value descending, id ascending), and (max, sum
-// of exp): cand_val (G, N, k) f32, cand_idx (G, N, k) int32, blk_max and
-// blk_se (G, N) f32. Block g takes the 128-row tiles [g T / G, (g + 1) T / G)
-// of the T = ceil(V / 128). Launches on `stream` and returns
-// cudaGetLastError() as an int (0 = launched).
-int vocab_topk_v2(int dtype, const void* x, const int8_t* table, const float* row_scale,
-                  int N, int D, int V, int k, int G, float* cand_val, int32_t* cand_idx,
-                  float* blk_max, float* blk_se, void* stream) {
+// The stream with G blocks over units of `span` 128-row tiles (span 0: K3b,
+// a unit is a tile and a block writes one list): block g takes the units
+// [g U / G, (g + 1) U / G) of the U = ceil(T / max(span, 1)), T = ceil(V /
+// 128); lists of k best (value, id), sorted (value descending, id
+// ascending), and (max, sum of exp) per x row.
+static int stream_launch(int dtype, const void* x, const int8_t* table,
+                         const float* row_scale, int N, int D, int V, int k, int span,
+                         int G, float* cand_val, int32_t* cand_idx, float* blk_max,
+                         float* blk_se, void* st) {
   if (!stream::valid_shape(N, D, V, k) || (dtype != 0 && dtype != 1) || G < 1 ||
-      G > stream::kMaxBlocks)
+      G > stream::kMaxBlocks || span < 0)
     return (int)cudaErrorInvalidValue;
   const int Dp = (D + stream::kSlice - 1) / stream::kSlice * stream::kSlice;
   const int tiles = (V + stream::kRows - 1) / stream::kRows;
-  if (G > tiles) return (int)cudaErrorInvalidValue;
+  const int unit = span ? span : 1;
+  if (G > (tiles + unit - 1) / unit) return (int)cudaErrorInvalidValue;
   CUtensorMap map;
   const cudaError_t err = hopper::make_map_u8(&map, table, D, V, D, stream::kRows);
   if (err != cudaSuccess) return (int)err;
-  const stream::Args a{x, dtype, row_scale, N, D, Dp, V, k, tiles,
+  const stream::Args a{x, dtype, row_scale, N, D, Dp, V, k, tiles, span,
                        cand_val, cand_idx, blk_max, blk_se};
   return stream::dispatch_stream(stream::rows_a_pass(N, Dp, k), map, a, G,
-                                 static_cast<cudaStream_t>(stream));
+                                 static_cast<cudaStream_t>(st));
 }
 
-// Stage 2: the G blocks' lists and stats -> top_vals (N, k) f32, top_idx
-// (N, k) int32, logz (N,) f32.
+// K3b stage 1 with G blocks (vocab_topk_v2_grid's): each block's list and
+// stats of its rows, cand_val (G, N, k) f32, cand_idx (G, N, k) int32,
+// blk_max and blk_se (G, N) f32. Block g takes the 128-row tiles [g T / G,
+// (g + 1) T / G). Launches on `stream` and returns cudaGetLastError() as an
+// int (0 = launched).
+int vocab_topk_v2(int dtype, const void* x, const int8_t* table, const float* row_scale,
+                  int N, int D, int V, int k, int G, float* cand_val, int32_t* cand_idx,
+                  float* blk_max, float* blk_se, void* stream) {
+  return stream_launch(dtype, x, table, row_scale, N, D, V, k, 0, G, cand_val, cand_idx,
+                       blk_max, blk_se, stream);
+}
+
+// K3a stage 1 with G blocks (at most vocab_topk_v2_grid's and the tiles):
+// each K3a tile's list and stats, over tiles of `tile` rows (a multiple of
+// 128, k <= tile; the last tile cut at V): tile_val (L, N, k) f32, tile_idx
+// (L, N, k) int32, tile_max and tile_se (L, N) f32, L = ceil(V / tile).
+int vocab_topk(int dtype, const void* x, const int8_t* table, const float* row_scale,
+               int N, int D, int V, int k, int tile, int G, float* tile_val,
+               int32_t* tile_idx, float* tile_max, float* tile_se, void* stream) {
+  if (tile < stream::kRows || tile % stream::kRows || k > tile ||
+      (V + tile - 1) / tile > stream::kMaxLists)
+    return (int)cudaErrorInvalidValue;
+  return stream_launch(dtype, x, table, row_scale, N, D, V, k, tile / stream::kRows, G,
+                       tile_val, tile_idx, tile_max, tile_se, stream);
+}
+
+// Stage 2 of both: the G lists and stats (G <= 2048) -> top_vals (N, k) f32,
+// top_idx (N, k) int32, logz (N,) f32.
 int vocab_topk_v2_select(int N, int G, int k, const float* cand_val,
                          const int32_t* cand_idx, const float* blk_max,
                          const float* blk_se, float* top_vals, int32_t* top_idx,
                          float* logz, void* stream) {
-  if (N < 1 || G < 1 || G > stream::kMaxBlocks || k < 1 || k > stream::kMaxK)
+  if (N < 1 || G < 1 || G > stream::kMaxLists || k < 1 || k > stream::kMaxK)
     return (int)cudaErrorInvalidValue;
   stream::vocab_select_kernel<<<N, stream::kSelectThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
       cand_val, cand_idx, blk_max, blk_se, N, G, k, top_vals, top_idx, logz);
   return (int)cudaGetLastError();
-}
-
-// K3a. x (N, D) as above; each 128-row tile's k largest (k <= 128):
-// top_vals (G, N, k) f32 and top_idx (G, N, k) int32, tile_max and tile_se
-// (G, N) f32, G = ceil(V / 128).
-int vocab_topk(int dtype, const void* x, const int8_t* table, const float* row_scale,
-               int N, int D, int V, int k, float* top_vals, int32_t* top_idx,
-               float* tile_max, float* tile_se, void* stream) {
-  if (N < 1 || D < 16 || D % 16 || D > kXFloats || V < 1 || k < 1 || k > kTile)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_tiles<float>(x, table, row_scale, N, D, V, k, top_vals, top_idx,
-                               tile_max, tile_se, st);
-  if (dtype == 1)
-    return launch_tiles<__nv_bfloat16>(x, table, row_scale, N, D, V, k, top_vals,
-                                       top_idx, tile_max, tile_se, st);
-  return (int)cudaErrorInvalidValue;
 }
 
 const char* cuda_error_string(int err) {

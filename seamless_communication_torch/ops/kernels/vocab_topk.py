@@ -19,16 +19,19 @@ tokens. Ties go to the lowest vocabulary id, as ``jax.lax.top_k`` does.
   (``stream_bounds``), and writes each block's k best (value, id) and its
   (max, Σexp) per x row; the second merges them into the top k and the
   logsumexp. k is at most ``MAX_K``.
-- ``int8_vocab_topk`` (K3a): CUDA kernel ``vocab_topk``, which replaces the
-  TPU kernel ``_kernel`` of the same file (:45). It writes each 128-row
-  tile's top k and stats; the wrapper selects the top k of the tiles'
-  candidates (``_select_reference``, eager).
+- ``int8_vocab_topk`` (K3a): CUDA kernels ``vocab_topk`` and
+  ``vocab_topk_v2_select``, which replace the TPU kernel ``_kernel`` of the
+  same file (:45) and the selection XLA runs after it. Two launches a call:
+  K3b's stream, whose blocks take runs of whole K3a tiles of ``tile`` rows
+  and write each tile's k best (value, id) and (max, Σexp) per x row
+  (``tile_bounds``), then K3b's selection over those lists. The default
+  tile fills the stream's grid (``fill_tile``).
 
 For tensors on the card a wrapper launches its kernels; for tensors on the
 CPU it computes ``_reference``, the plain PyTorch version of the same
 function, which is also what the kernels are held against on the card.
-``_tiles_reference`` is the plain version of what K3a and K3b's first
-launch write, ``_select_reference`` of K3b's second. Every selection here
+``_tiles_reference`` is the plain version of what K3a's and K3b's first
+launch write, ``_select_reference`` of their second. Every selection here
 is ``ops/topk.py top_k``, a stable sort, so ties rank as in JAX.
 """
 
@@ -41,13 +44,14 @@ import torch
 from seamless_communication_torch.ops.kernels import launch_counts
 from seamless_communication_torch.ops.topk import top_k
 
-NEG = -1e30                   # K3a's logit of a tile row past V
-NO_ID = 2 ** 31 - 1           # the id of an empty entry of a K3b block list
-TILE = 128                    # vocabulary rows of a tile
+NEG = -1e30                   # the TPU kernel's logit of a tile row past V
+NO_ID = 2 ** 31 - 1           # the id of an empty entry of a list
+TILE = 128                    # vocabulary rows of a stream tile
 KERNEL = "vocab_topk_v2"      # K3b, both launches
-KERNEL_V1 = "vocab_topk"      # K3a
-MAX_DIM = 10240               # x rows are staged in 40 KB of shared memory
-MAX_K = 128                   # the largest k K3b takes
+KERNEL_V1 = "vocab_topk"      # K3a, both launches
+MAX_DIM = 16384               # x rows are staged in 64 KB of shared memory
+MAX_K = 128                   # the largest k the kernels take
+MAX_LISTS = 2048              # the most lists the selection merges
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -78,12 +82,28 @@ def stream_bounds(V: int, G: int) -> list:
     return [min(g * T // G * TILE, V) for g in range(G + 1)]
 
 
+def tile_bounds(V: int, tile: int) -> list:
+    """The table rows of K3a's tiles: [0, tile, 2 tile, ..., V], the last
+    tile cut at V; tile g's lists are rows [bounds[g], bounds[g + 1])."""
+    return list(range(0, V, tile)) + [V]
+
+
+def fill_tile(V: int, G: int) -> int:
+    """K3a's default tile over a stream grid of G blocks: the least multiple
+    of 128 of which at most G tiles cover V, so that each block takes one
+    tile, as many rows as a K3b block's range (a K3a tile's lists restart
+    empty, and a block of several tiles pays for refilling them each
+    time)."""
+    tiles = -(-V // TILE)
+    return TILE * -(-tiles // G)
+
+
 def _tiles_reference(x, table, row_scale, k: int, bounds=None):
     """Plain PyTorch version of what a first launch writes: for each range of
-    table rows [bounds[g], bounds[g + 1]) (default: K3a's 128-row tiles, the
-    last one running past V, its rows past V at NEG), each x row's k best
-    (value, id) in (value descending, id ascending) order, padded with
-    (-inf, ``NO_ID``) where the range holds fewer than k rows, and the
+    table rows [bounds[g], bounds[g + 1]) (default: 128-row tiles, the last
+    running past V as the TPU kernel's do, its rows past V at NEG), each x
+    row's k best (value, id) in (value descending, id ascending) order,
+    padded with (-inf, ``NO_ID``) where the range holds fewer than k rows, and the
     range's max and Σexp (over rows below V). Returns (vals (G, N, k) f32,
     ids (G, N, k) i32, max (G, N) f32, Σexp (G, N) f32)."""
     V = table.shape[0]
@@ -115,8 +135,8 @@ def _logz(tile_max, tile_se):
 
 
 def _select_reference(vals, idx, tile_max, tile_se, k: int):
-    """Plain PyTorch version of K3b's second launch (and K3a's eager
-    selection): the ranges' candidates (G, N, k), each list sorted ->
+    """Plain PyTorch version of the second launch of K3b and K3a: the
+    ranges' candidates (G, N, k), each list sorted ->
     (top_vals, top_idx, logz): the top k of the G·k candidates taken
     range-major, so that equal values keep the lowest vocabulary id."""
     N = vals.shape[1]
@@ -135,7 +155,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRY = {"vocab_topk_v2_grid": [_I] * 4,
           KERNEL: [_I] + [_P] * 3 + [_I] * 5 + [_P] * 5,
           "vocab_topk_v2_select": [_I] * 3 + [_P] * 8,
-          KERNEL_V1: [_I] + [_P] * 3 + [_I] * 4 + [_P] * 5}
+          KERNEL_V1: [_I] + [_P] * 3 + [_I] * 6 + [_P] * 5}
 _grids: dict = {}
 
 
@@ -155,7 +175,7 @@ def _function(name: str):
     return _functions[name]
 
 
-def _check(kernel, x, table, row_scale, k):
+def _check(kernel, x, table, row_scale, k, tile=None):
     if x.dim() != 2 or x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{kernel}: x must be (N, D) float32 or bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -175,7 +195,10 @@ def _check(kernel, x, table, row_scale, k):
                          f"{MAX_DIM}, got N={N}, D={D}")
     if table.data_ptr() % 16:
         raise ValueError(f"{kernel}: the table must be 16-byte aligned")
-    limit = min(V, TILE if kernel == KERNEL_V1 else MAX_K)
+    if tile is not None and (tile < TILE or tile % TILE or -(-V // tile) > MAX_LISTS):
+        raise ValueError(f"{kernel}: tile={tile} must be a multiple of {TILE} with at "
+                         f"most {MAX_LISTS} tiles over V={V}")
+    limit = min(V, MAX_K, tile or MAX_K)
     if not 1 <= k <= limit:
         raise ValueError(f"{kernel}: k={k} outside [1, {limit}]")
 
@@ -197,30 +220,36 @@ def _stream_grid(N: int, D: int, V: int, k: int) -> int:
     return _grids[key]
 
 
-def _launch_stream(x, table, row_scale, k: int):
-    """K3b's first launch -> (vals (G, N, k), ids (G, N, k), max (G, N),
-    Σexp (G, N)) of the G blocks of ``stream_bounds(V, G)``."""
-    _check(KERNEL, x, table, row_scale, k)
+def _launch_stream(x, table, row_scale, k: int, tile=None):
+    """The first launch: K3b's (``tile`` None) -> (vals (G, N, k), ids (G,
+    N, k), max (G, N), Σexp (G, N)) of the G blocks of ``stream_bounds(V,
+    G)``; K3a's -> the same of the tiles of ``tile_bounds(V, tile)``, over
+    a grid of at most K3b's blocks and one a tile."""
+    kernel = KERNEL if tile is None else KERNEL_V1
+    _check(kernel, x, table, row_scale, k, tile)
     (N, D), V = x.shape, table.shape[0]
     with torch.cuda.device(x.device):
         G = _stream_grid(N, D, V, k)
-        vals = torch.empty((G, N, k), dtype=torch.float32, device=x.device)
-        ids = torch.empty((G, N, k), dtype=torch.int32, device=x.device)
-        bmax = torch.empty((G, N), dtype=torch.float32, device=x.device)
+        L = G if tile is None else len(tile_bounds(V, tile)) - 1
+        vals = torch.empty((L, N, k), dtype=torch.float32, device=x.device)
+        ids = torch.empty((L, N, k), dtype=torch.int32, device=x.device)
+        bmax = torch.empty((L, N), dtype=torch.float32, device=x.device)
         bse = torch.empty_like(bmax)
-        fn, error_string = _function(KERNEL)
+        fn, error_string = _function(kernel)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), table.data_ptr(),
-                 row_scale.data_ptr(), N, D, V, k, G, vals.data_ptr(), ids.data_ptr(),
-                 bmax.data_ptr(), bse.data_ptr(), stream)
-    _raise_on(KERNEL, err, error_string)
-    launch_counts[KERNEL] += 1
+        ptrs = (vals.data_ptr(), ids.data_ptr(), bmax.data_ptr(), bse.data_ptr(), stream)
+        head = (_DTYPE_CODES[x.dtype], x.data_ptr(), table.data_ptr(),
+                row_scale.data_ptr(), N, D, V, k)
+        err = (fn(*head, G, *ptrs) if tile is None
+               else fn(*head, tile, min(G, L), *ptrs))
+    _raise_on(kernel, err, error_string)
+    launch_counts[kernel] += 1
     return vals, ids, bmax, bse
 
 
-def _launch_select(vals, ids, bmax, bse, k: int):
-    """K3b's second launch: the blocks' lists and stats -> (top_vals,
-    top_idx, logz)."""
+def _launch_select(vals, ids, bmax, bse, k: int, kernel: str = KERNEL):
+    """The second launch of K3b (of K3a: ``kernel=KERNEL_V1``, the count it
+    adds to): the lists and stats -> (top_vals, top_idx, logz)."""
     G, N, _ = vals.shape
     dev = vals.device
     top_vals = torch.empty((N, k), dtype=torch.float32, device=dev)
@@ -233,27 +262,8 @@ def _launch_select(vals, ids, bmax, bse, k: int):
                  bse.data_ptr(), top_vals.data_ptr(), top_idx.data_ptr(),
                  logz.data_ptr(), stream)
     _raise_on("vocab_topk_v2_select", err, error_string)
-    launch_counts[KERNEL] += 1
+    launch_counts[kernel] += 1
     return top_vals, top_idx, logz
-
-
-def _launch_v1(x, table, row_scale, k: int):
-    _check(KERNEL_V1, x, table, row_scale, k)
-    (N, D), V = x.shape, table.shape[0]
-    G = -(-V // TILE)
-    vals = torch.empty((G, N, k), dtype=torch.float32, device=x.device)
-    idx = torch.empty((G, N, k), dtype=torch.int32, device=x.device)
-    tile_max = torch.empty((G, N), dtype=torch.float32, device=x.device)
-    tile_se = torch.empty_like(tile_max)
-    fn, error_string = _function(KERNEL_V1)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), table.data_ptr(),
-                 row_scale.data_ptr(), N, D, V, k, vals.data_ptr(), idx.data_ptr(),
-                 tile_max.data_ptr(), tile_se.data_ptr(), stream)
-    _raise_on(KERNEL_V1, err, error_string)
-    launch_counts[KERNEL_V1] += 1
-    return vals, idx, tile_max, tile_se
 
 
 def int8_vocab_topk_v2(x, table_i8, row_scale, k: int):
@@ -270,14 +280,21 @@ def int8_vocab_topk_v2(x, table_i8, row_scale, k: int):
     return _launch_select(*_launch_stream(x, table_i8, row_scale, k), k)
 
 
-def int8_vocab_topk(x, table_i8, row_scale, k: int):
-    """The same contract as :func:`int8_vocab_topk_v2`, through the kernel
-    that selects each tile's top k itself (k at most 128)."""
+def int8_vocab_topk(x, table_i8, row_scale, k: int, *, tile=None):
+    """The same contract as :func:`int8_vocab_topk_v2`, through lists of
+    each tile of ``tile`` rows (a multiple of 128, at least k; at most
+    ``MAX_LISTS`` tiles), as the TPU kernel's ``tile``. None: on the card,
+    ``fill_tile`` of the stream's grid at these sizes."""
     if x.device.type == "cpu":
         return _reference(x, table_i8, row_scale, k)
     if x.device.type != "cuda":
         raise ValueError(f"{KERNEL_V1}: no kernel for device {x.device}")
-    return _select_reference(*_launch_v1(x, table_i8, row_scale, k), k)
+    if tile is None:
+        _check(KERNEL_V1, x, table_i8, row_scale, k)
+        with torch.cuda.device(x.device):
+            tile = fill_tile(table_i8.shape[0], _stream_grid(*x.shape, table_i8.shape[0], k))
+    lists = _launch_stream(x, table_i8, row_scale, k, tile)
+    return _launch_select(*lists, k, kernel=KERNEL_V1)
 
 
 def bound_bytes(N: int, D: int, V: int, k: int, *, elem: int) -> int:
