@@ -89,6 +89,19 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
       (the first loss within 1e-3 relative of the option's);
       then gradient parity at 4 conformer + 4 decoder layers in fp32, S2T
       and S2S with the whole T2U, the option on against off.
+   h. The offline entry point: ``base_v2`` and ``CodeHifiGanConfig()`` on
+      seeded bf16 weights written by the port's exporter as fp16 ``.pt``
+      files (2.27 B parameters, 4.7 GiB) with synthetic SentencePiece
+      files and two cards inheriting the packaged ones, in a temporary
+      directory removed at the end; read back by
+      ``load_unity_model_and_tokenizers(..., quantize=True)`` and
+      ``load_vocoder`` (each leaf held before quantizing to the file's
+      value, exactly; the load's stages timed); then
+      ``cli.predict.main`` in-process: a 10 s S2ST request cut to 127 decode
+      steps (K1 24 times a step, the WAV 16 kHz, finite, within [-1, 1],
+      text and units those of a Translator built on the loaded tree), and an
+      S2TT request with ``--quantize_bits 4`` (its hypotheses checked, one
+      int4 linear held to its dequantized plain product).
    Each path's launches are counted from 0 just before it.
 4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
    tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
@@ -96,7 +109,9 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    and units, and waveforms within 1e-4; so must the lazy reorder (K5), the
    n-gram block, banned sequences, MinTox and FbankInput; and, with the
    fused option on (K6), ``tiny_v1`` S2ST and T2ST (the AR unit decode on
-   K1) and ``tiny_v2`` S2ST; and two ``tiny_v2`` train steps with the option
+   K1) and ``tiny_v2`` S2ST; ``tiny_v2`` S2ST through ``.pt`` files and the
+   loaders (same text, waveforms within 1e-4); and two ``tiny_v2`` train
+   steps with the option
    on (K6, K6b, K6c on the card) give the CPU's losses within 1e-5 and its
    params within 1e-4.
 
@@ -122,6 +137,11 @@ time fp32 K6 at every ``FLASH_SHAPES`` shape, bf16 K6b (K6c) at the 10 s
 Shaw shape (``fp32``: fp32 K6b (K6c) at every shape), K3b's stream or K3a's
 first launch at the base_v2 vocabulary, or K4 at 4 s and 10 s, as built and
 with one part left out at a time (``kernel_parts``): where its time goes.
+
+    python3 chip_smoke.py --offline
+
+builds the kernels and runs only phase 3h and phase 4's ``tiny_v2`` through
+the loaders.
 
     python3 chip_smoke.py --k12-trace
 
@@ -2030,15 +2050,13 @@ def k5_trace(smi: str) -> None:
 # phase 3
 # ---------------------------------------------------------------------------
 
-def synthetic_tokenizer(num_words: int = 1200):
-    """An NLLB tokenizer over a seeded synthetic SentencePiece vocabulary of
-    up to ``num_words`` words (no real SentencePiece model ships with the
-    repo)."""
+def synthetic_spm(num_words: int = 1200) -> bytes:
+    """A seeded synthetic SentencePiece model of up to ``num_words`` words
+    (no real SentencePiece model ships with the repo), as a file's bytes."""
     import numpy as np
 
-    from seamless_communication_torch.text.nllb import NllbTokenizer
     from seamless_communication_torch.text.spm import (
-        TYPE_CONTROL, TYPE_NORMAL, TYPE_UNKNOWN, SentencePieceModel, build_spm_model,
+        TYPE_CONTROL, TYPE_NORMAL, TYPE_UNKNOWN, build_spm_model,
     )
 
     rng = np.random.default_rng(0)
@@ -2047,8 +2065,16 @@ def synthetic_tokenizer(num_words: int = 1200):
                      for _ in range(num_words)} | {".", ",", "\u2581the", "\u2581a"})
     base = [("<unk>", 0.0, TYPE_UNKNOWN), ("<s>", 0.0, TYPE_CONTROL),
             ("</s>", 0.0, TYPE_CONTROL)]
-    return NllbTokenizer(SentencePieceModel.from_bytes(build_spm_model(
-        base + [(p, -2.0, TYPE_NORMAL) for p in pieces])), langs=["__eng__", "__fra__"])
+    return build_spm_model(base + [(p, -2.0, TYPE_NORMAL) for p in pieces])
+
+
+def synthetic_tokenizer(num_words: int = 1200):
+    """An NLLB tokenizer over ``synthetic_spm(num_words)``."""
+    from seamless_communication_torch.text.nllb import NllbTokenizer
+    from seamless_communication_torch.text.spm import SentencePieceModel
+
+    return NllbTokenizer(SentencePieceModel.from_bytes(synthetic_spm(num_words)),
+                         langs=["__eng__", "__fra__"])
 
 
 def check_hypotheses(res, prefix, max_len: int, eos: int) -> None:
@@ -2070,19 +2096,25 @@ def check_hypotheses(res, prefix, max_len: int, eos: int) -> None:
                                  f"length {n} < {max_len}")
 
 
-def synthetic_char_tokenizer():
-    """A char tokenizer over the letters, the word boundary and the
-    characters of "<unk>" and of the punctuation pieces."""
-    from seamless_communication_torch.text.char_tokenizer import CharTokenizer
+def synthetic_char_spm() -> bytes:
+    """A char SentencePiece model over the letters, the word boundary and the
+    characters of "<unk>" and of the punctuation pieces, as a file's bytes."""
     from seamless_communication_torch.text.spm import (
-        TYPE_CONTROL, TYPE_NORMAL, TYPE_UNKNOWN, SentencePieceModel, build_spm_model,
+        TYPE_CONTROL, TYPE_NORMAL, TYPE_UNKNOWN, build_spm_model,
     )
 
     chars = ["\u2581"] + list("abcdefghijklmnopqrstuvwxyz.,<>")
     base = [("<unk>", 0.0, TYPE_UNKNOWN), ("<s>", 0.0, TYPE_CONTROL),
             ("</s>", 0.0, TYPE_CONTROL)]
-    return CharTokenizer(SentencePieceModel.from_bytes(build_spm_model(
-        base + [(c, -1.0, TYPE_NORMAL) for c in chars])))
+    return build_spm_model(base + [(c, -1.0, TYPE_NORMAL) for c in chars])
+
+
+def synthetic_char_tokenizer():
+    """A char tokenizer over ``synthetic_char_spm()``."""
+    from seamless_communication_torch.text.char_tokenizer import CharTokenizer
+    from seamless_communication_torch.text.spm import SentencePieceModel
+
+    return CharTokenizer(SentencePieceModel.from_bytes(synthetic_char_spm()))
 
 
 LANG_SPKR = {"multilingual": {"eng": 0, "fra": 1}, "multispkr": {"eng": [0], "fra": [1]}}
@@ -2852,6 +2884,345 @@ def phase_v1(translator, cfg, noise, smi: str) -> dict:
                           "unit_steps": unit_steps, "units": units, "audio_s": audio_s,
                           "peak_gib": peak, "launches": got})
     return {"launches": dict(launch_counts), "requests": stats}
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: the offline entry point from a .pt checkpoint
+# ---------------------------------------------------------------------------
+
+OFFLINE_CARD, OFFLINE_VOCODER = "smoke_m4t_v2", "smoke_vocoder_v2"
+
+
+@contextlib.contextmanager
+def offline_dir():
+    """A temporary directory on ``SEAMLESS_CARDS_DIR`` for the checkpoints,
+    tokenizers and cards of a run through the loaders; removed at the end."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_offline_"))
+    old = os.environ.get("SEAMLESS_CARDS_DIR")
+    os.environ["SEAMLESS_CARDS_DIR"] = str(d)
+    try:
+        yield d
+    finally:
+        if old is None:
+            os.environ.pop("SEAMLESS_CARDS_DIR", None)
+        else:
+            os.environ["SEAMLESS_CARDS_DIR"] = old
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def write_cards(d, card_extra: str = "", num_words: int = 1200) -> None:
+    """The synthetic NLLB and char SentencePiece files and two cards in
+    ``d``: ``OFFLINE_CARD``, the packaged ``seamlessM4T_v2_large`` card with
+    ``d/unity.pt`` and these tokenizers (and ``card_extra``'s fields), and
+    ``OFFLINE_VOCODER``, ``vocoder_v2`` with ``d/vocoder.pt``."""
+    (d / "nllb.model").write_bytes(synthetic_spm(num_words))
+    (d / "char.model").write_bytes(synthetic_char_spm())
+    (d / f"{OFFLINE_CARD}.yaml").write_text(
+        f"name: {OFFLINE_CARD}\nbase: seamlessM4T_v2_large\n"
+        f"checkpoint: {d / 'unity.pt'}\ntokenizer: {d / 'nllb.model'}\n"
+        f"char_tokenizer: {d / 'char.model'}\n{card_extra}")
+    (d / f"{OFFLINE_VOCODER}.yaml").write_text(
+        f"name: {OFFLINE_VOCODER}\nbase: vocoder_v2\ncheckpoint: {d / 'vocoder.pt'}\n")
+
+
+def hold_leaves(label: str, want, got, same) -> int:
+    """Every leaf pair of ``want`` and ``got`` passes ``same(want_leaf,
+    got_leaf)`` (same paths too); returns the number of leaves."""
+    if isinstance(want, dict):
+        if set(want) != set(got):
+            raise AssertionError(f"{label}: keys {sorted(set(want) ^ set(got))[:4]} differ")
+        return sum(hold_leaves(f"{label}/{k}", want[k], got[k], same) for k in want)
+    if isinstance(want, (list, tuple)):
+        if len(want) != len(got):
+            raise AssertionError(f"{label}: {len(got)} items, not {len(want)}")
+        return sum(hold_leaves(f"{label}/{i}", a, b, same)
+                   for i, (a, b) in enumerate(zip(want, got)))
+    if not same(want, got):
+        raise AssertionError(f"{label}: the loaded leaf differs from the file's value")
+    return 1
+
+
+def phase_offline(smi: str) -> dict:
+    """3h. The offline entry point at full width. ``base_v2`` UnitY and
+    ``CodeHifiGanConfig()`` on seeded bf16 weights are exported by the port's
+    exporter as fp16 ``.pt`` files with their cards (``write_cards``, the
+    packaged v2-large and vocoder_v2 cards as bases); the loaders read
+    them back (``load_unity_model_and_tokenizers(..., quantize=True)``,
+    ``load_vocoder``), each leaf held before quantizing to the file's fp16
+    value exactly (rounded to the loaded dtype; the vocoder's folded weight
+    norms rounded back to fp16); then ``cli.predict.main`` serves a 10 s S2ST
+    request on the card, the text decode cut to 127 steps: K1 launched 24
+    times a decode step (counted from 0), the WAV 16 kHz, finite, within
+    [-1, 1], the text and units those of a Translator built in-process on
+    the loaded tree; then an S2TT request with ``--quantize_bits 4`` whose
+    hypotheses pass ``check_hypotheses``, and one of its int4 linears held
+    to the plain product of its dequantized weight on the card."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.audio.wav import read_wav, write_wav
+    from seamless_communication_torch.checkpoint.fairseq_export import (
+        export_unity, export_vocoder,
+    )
+    from seamless_communication_torch.cli import loading, predict
+    from seamless_communication_torch.inference.generator import SequenceGeneratorOptions
+    from seamless_communication_torch.inference.translator import Translator
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.vocoder.codehifigan import (
+        CodeHifiGanConfig, code_hifigan_init,
+    )
+    from seamless_communication_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seamless_communication_torch.ops.modules import linear
+    from seamless_communication_torch.ops.quantization import unpack_int4
+
+    dev = torch.device("cuda")
+    cfg = get_arch("base_v2")
+    kw = dict(dtype=torch.bfloat16, device=dev)
+    params = unity.unity_init(torch.Generator(device=dev).manual_seed(5), cfg, **kw)
+    vocoder = code_hifigan_init(torch.Generator(device=dev).manual_seed(6),
+                                CodeHifiGanConfig(), **kw)
+    n_unity = sum(t.numel() for t in {id(t): t for t in tensor_leaves(params)}.values())
+    n_voc = sum(t.numel() for t in tensor_leaves(vocoder))
+    max_len = ["--text_generation_max_len_a", "0", "--text_generation_max_len_b", "126"]
+    with offline_dir() as d:
+        t0 = time.perf_counter()
+        torch.save({"model": export_unity(params, dtype=torch.float16)}, d / "unity.pt")
+        torch.save({"generator": export_vocoder(vocoder, dtype=torch.float16)},
+                   d / "vocoder.pt")
+        export_s = time.perf_counter() - t0
+        gc.collect()
+        write_cards(d)
+        sizes = {f: os.path.getsize(d / f) for f in ("unity.pt", "vocoder.pt")}
+        log(f"3h exported base_v2 ({n_unity / 1e9:.3f} B parameters) and the unit "
+            f"HiFi-GAN ({n_voc / 1e6:.1f} M) as fp16 .pt files in {export_s:.1f} s: "
+            f"unity.pt {sizes['unity.pt'] / 2**30:.3f} GiB, vocoder.pt "
+            f"{sizes['vocoder.pt'] / 2**20:.1f} MiB [{smi}]")
+        stats: dict = {"unity_params": n_unity, "vocoder_params": n_voc,
+                       "export_s": export_s, "file_bytes": sizes}
+
+        # the loaders, each leaf held before quantizing
+        held = {}
+        quantize = loading.quantize_params
+
+        def hold_then_quantize(tree, **qkw):
+            held["unity"] = hold_leaves("unity", params, tree, lambda w, g: torch.equal(
+                w.to(torch.float16).to(g.dtype), g))
+            return quantize(tree, **qkw)
+
+        loading.quantize_params = hold_then_quantize
+        unity_timings: dict = {}
+        try:
+            t0 = time.perf_counter()
+            tree, _, text_tok, unit_tok, char_tok = loading.load_unity_model_and_tokenizers(
+                OFFLINE_CARD, quantize=True, timings=unity_timings)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        finally:
+            loading.quantize_params = quantize
+        t0 = time.perf_counter()
+        voc_tree, voc_cfg, idx_map = loading.load_vocoder(OFFLINE_VOCODER)
+        torch.cuda.synchronize()
+        voc_s = time.perf_counter() - t0
+        held["vocoder"] = hold_leaves("vocoder", vocoder, voc_tree, lambda w, g: torch.equal(
+            w.to(torch.float16), g.to(torch.float16)))
+        log(f"3h loaded unity.pt in {load_s:.2f} s = " + ", ".join(
+            f"{k} {v:.2f}" for k, v in unity_timings.items())
+            + f" s; vocoder.pt in {voc_s:.2f} s; {held['unity']} UnitY leaves and "
+            f"{held['vocoder']} vocoder leaves equal the files' fp16 values; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card [{smi}]")
+        stats.update(load_s=load_s, load_stages_s=unity_timings,
+                     vocoder_load_s=voc_s, held_leaves=held)
+        del params, vocoder
+        gc.collect()
+
+        # m4t_predict S2ST on the card
+        wav = (np.random.default_rng(11).standard_normal(10 * 16000) * 0.1).astype(np.float32)
+        write_wav(str(d / "in.wav"), wav, 16000)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = predict.main([str(d / "in.wav"), "s2st", "eng", "--model_name", OFFLINE_CARD,
+                            "--vocoder_name", OFFLINE_VOCODER, "--local_pt_path",
+                            str(d / "unity.pt"), "--output_path", str(d / "out.wav"),
+                            "--quantize", *max_len])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = launch_counts["decode_attention_int8"]
+        gen = res.translator.generator.last_result
+        layers = cfg.nllb.num_decoder_layers
+        if k1 != layers * gen.steps or launch_counts["decode_attention_int4"]:
+            raise AssertionError(f"3h S2ST: K1 launched {k1} times in {gen.steps} decode "
+                                 f"steps, not {layers} a step (K2 "
+                                 f"{launch_counts['decode_attention_int4']})")
+        check_hypotheses(gen, text_tok.target_prefix("eng").tolist(), gen.tokens.shape[-1],
+                         cfg.nllb.eos_idx)
+        out, rate = read_wav(str(d / "out.wav"))
+        if rate != 16000 or not len(out) or not np.isfinite(out).all() \
+                or np.abs(out).max() > 1.0:
+            raise AssertionError(f"3h S2ST: the WAV ({rate} Hz, {len(out)} samples) is "
+                                 "empty, not finite or outside [-1, 1]")
+        check_waveforms("3h S2ST", res.speech, voc_cfg.hifigan.total_upsample)
+        request = dict(res.translator.last_timings)
+        load_stages = res.load_timings
+        res_speech, res_texts = res.speech, res.texts
+        del res
+        gc.collect()
+        opts = SequenceGeneratorOptions(soft_max_seq_len=(0, 126))
+        ref = Translator(tree, cfg, text_tok, unit_tok, char_tok, vocoder_params=voc_tree,
+                         vocoder_cfg=voc_cfg, lang_spkr_idx_map=idx_map, text_opts=opts,
+                         unit_opts=SequenceGeneratorOptions(soft_max_seq_len=(25, 50)))
+        ref_texts, ref_speech = ref.predict(str(d / "in.wav"), "s2st", "eng")
+        ref_gen = ref.generator.last_result
+        wav_err = float(np.abs(ref_speech.audio_wavs[0] - res_speech.audio_wavs[0]).max())
+        same_tokens = torch.equal(ref_gen.tokens[:, 0].cpu(), gen.tokens[:, 0].cpu())
+        if (ref_texts != res_texts or not same_tokens or ref_speech.units != res_speech.units
+                or wav_err > 1e-4):
+            raise AssertionError(f"3h: m4t_predict's text, tokens or units differ from "
+                                 f"the in-process Translator's ({res_texts[0][:60]!r} vs "
+                                 f"{ref_texts[0][:60]!r}; waveforms {wav_err:.3g})")
+        del ref
+        gc.collect()
+        log(f"3h m4t_predict S2ST 10 s: wall {wall:.2f} s (loading included: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in load_stages.items()) + " s); request "
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in request.items())
+            + f" ms, {request['text_decode'] * 1e3 / gen.steps:.2f} ms a decode step; "
+            f"{gen.steps} decode steps, K1 launches {k1}; "
+            f"{len(res_speech.units[0])} units, {len(out) / rate:.2f} s of audio; "
+            f"text {res_texts[0][:40]!r}, tokens and units identical to the in-process "
+            f"Translator's, waveform max abs difference {wav_err:.3g} [{smi}]")
+        stats.update(predict_wall_s=wall, predict_load_stages_s=load_stages,
+                     request_stages_ms={k: v * 1e3 for k, v in request.items()},
+                     steps=gen.steps, k1_launches=k1, units=len(res_speech.units[0]))
+        launches = k1
+        del tree, voc_tree
+        gc.collect()
+
+        # m4t_predict S2TT with int4 weights
+        t0 = time.perf_counter()
+        before = launch_counts["decode_attention_int8"]
+        res = predict.main([str(d / "in.wav"), "s2tt", "eng", "--model_name", OFFLINE_CARD,
+                            "--local_pt_path", str(d / "unity.pt"), "--quantize",
+                            "--quantize_bits", "4", *max_len])
+        torch.cuda.synchronize()
+        wall4 = time.perf_counter() - t0
+        gen = res.translator.generator.last_result
+        check_hypotheses(gen, text_tok.target_prefix("eng").tolist(), gen.tokens.shape[-1],
+                         cfg.nllb.eos_idx)
+        k1_4 = launch_counts["decode_attention_int8"] - before
+        if k1_4 != layers * gen.steps:
+            raise AssertionError(f"3h int4 S2TT: K1 launched {k1_4} times in {gen.steps} "
+                                 "steps")
+        lin = res.translator.params["text_decoder"]["stack"]["layers"][0]["ffn"]["inner_proj"]
+        q = unpack_int4(lin["weight_i4"]).float()
+        G = lin["scale4"].shape[0]
+        x = torch.randn((5, 1, q.shape[0]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(12))
+        w = (q.reshape(G, -1, q.shape[1]) * lin["scale4"][:, None, :]).reshape(q.shape)
+        plain = x @ w + lin["bias"].float()
+        got = linear(lin, x)
+        lin_err = float((got - plain).abs().max())
+        if not lin_err <= 1e-4 * float(plain.abs().max()):
+            raise AssertionError(f"3h: the int4 linear differs from its dequantized plain "
+                                 f"product by {lin_err:.3g}")
+        request4 = {k: v * 1e3 for k, v in res.translator.last_timings.items()}
+        log(f"3h m4t_predict S2TT 10 s with --quantize_bits 4: wall {wall4:.2f} s "
+            f"(loading included: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in res.load_timings.items()) + " s); request "
+            + ", ".join(f"{k} {v:.1f}" for k, v in request4.items())
+            + f" ms, {request4['text_decode'] / gen.steps:.2f} ms a decode step; "
+            f"{gen.steps} decode steps, K1 launches {k1_4}, text "
+            f"{res.texts[0][:40]!r}; int4 linear {tuple(q.shape)} vs its dequantized plain "
+            f"product: max abs error {lin_err:.3g} [{smi}]")
+        stats.update(int4_wall_s=wall4, int4_request_stages_ms=request4,
+                     int4_steps=gen.steps, int4_linear_err=lin_err)
+        del res
+        gc.collect()
+    return {"launches": launches, "stats": stats}
+
+
+def tensor_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensor_leaves(v)
+    else:
+        yield tree
+
+
+def phase_tiny_offline() -> None:
+    """tiny_v2 through the loaders: a seeded fp32 tiny_v2 UnitY and a
+    ``CodeHifiGanConfig()`` unit HiFi-GAN exported as ``.pt`` files, loaded in
+    fp32 by ``load_unity_model_and_tokenizers`` and ``load_vocoder`` onto the
+    card and onto the CPU, then a 2 s S2ST request with int8 KV, the decode
+    cut to 17 steps, on each:
+    text, tokens and units identical, K1 launched twice a decode step (two
+    decoder layers) on the card and never on the CPU, waveforms within
+    1e-4."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.checkpoint.fairseq_export import (
+        export_unity, export_vocoder,
+    )
+    from seamless_communication_torch.cli import loading
+    from seamless_communication_torch.inference.generator import SequenceGeneratorOptions
+    from seamless_communication_torch.inference.translator import Translator
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.vocoder.codehifigan import (
+        CodeHifiGanConfig, code_hifigan_init,
+    )
+    from seamless_communication_torch.ops.kernels import launch_counts
+
+    cfg = get_arch("tiny_v2")
+    gen = torch.Generator().manual_seed(7)
+    params = unity.unity_init(gen, cfg)
+    vocoder = code_hifigan_init(gen, CodeHifiGanConfig())
+    wav = (np.random.default_rng(8).standard_normal(2 * 16000) * 0.1).astype(np.float32)
+    opts = SequenceGeneratorOptions(soft_max_seq_len=(0, 16), kv_cache_int8=True)
+    out = {}
+    with offline_dir() as d:
+        torch.save({"model": export_unity(params)}, d / "unity.pt")
+        torch.save({"generator": export_vocoder(vocoder)}, d / "vocoder.pt")
+        write_cards(d, "model_arch: tiny_v2\nlangs: [eng, fra]\nnum_units: 100\n"
+                       "unit_langs: [eng, fra]\n", num_words=200)
+        for device in ("cuda", "cpu"):
+            tree, _, text_tok, unit_tok, char_tok = loading.load_unity_model_and_tokenizers(
+                OFFLINE_CARD, dtype=torch.float32, device=device)
+            voc, voc_cfg, idx_map = loading.load_vocoder(OFFLINE_VOCODER, device=device)
+            tr = Translator(tree, cfg, text_tok, unit_tok, char_tok, vocoder_params=voc,
+                            vocoder_cfg=voc_cfg, lang_spkr_idx_map=idx_map,
+                            text_opts=opts, device=device)
+            before = launch_counts["decode_attention_int8"]
+            texts, speech = tr.predict(wav, "s2st", "eng")
+            res = tr.generator.last_result
+            k1 = launch_counts["decode_attention_int8"] - before
+            want = cfg.nllb.num_decoder_layers * res.steps if device == "cuda" else 0
+            if k1 != want:
+                raise AssertionError(f"tiny_v2 loaded on {device}: {k1} K1 launches, "
+                                     f"expected {want}")
+            out[device] = (texts, res.tokens[:, 0].cpu(), speech)
+    (tc, kc, sc), (tp, kp, sp) = out["cuda"], out["cpu"]
+    err = max((float(np.abs(a - b).max(initial=0.0))
+               for a, b in zip(sc.audio_wavs, sp.audio_wavs)), default=0.0)
+    if not (tc == tp and torch.equal(kc, kp) and sc.units == sp.units) or err > 1e-4 \
+            or [a.shape for a in sc.audio_wavs] != [b.shape for b in sp.audio_wavs]:
+        raise AssertionError(f"tiny_v2 through the loaders: the card and the CPU differ "
+                             f"(texts {tc == tp}, units {sc.units == sp.units}, "
+                             f"waveforms {err:.3g})")
+    log(f"tiny_v2 through the loaders (.pt files, fp32): S2ST text, tokens and "
+        f"{len(sc.units[0])} units identical on the card and the CPU, waveform max "
+        f"abs difference {err:.3g}")
 
 
 # ---------------------------------------------------------------------------
@@ -3929,6 +4300,10 @@ def main() -> int:
     if sys.argv[1:] == ["--k5-trace"]:
         k5_trace(dev["smi"])
         return 0
+    if sys.argv[1:] == ["--offline"]:
+        phase_offline(dev["smi"])
+        phase_tiny_offline()
+        return 0
     floor_ms = launch_floor_ms()
     log(f"launch floor (a one-element in-place add, CUDA-graph replay): "
         f"{floor_ms * 1e3:.2f} us [{dev['smi']}]")
@@ -3965,6 +4340,9 @@ def main() -> int:
     k6["launches"] = fused["launches"]["flash_attention"] + v1["launches"]["flash_attention"]
     del v1_translator, vocoder
     gc.collect()
+    offline = phase_offline(dev["smi"])
+    k1["launches_3h"] = offline["launches"]     # 3h's m4t_predict S2ST request
+    gc.collect()
     train = phase_train(dev["smi"])
     k6["launches"] += train["launches"]["flash_attention"]
     for row, name in ((k6b, "flash_attention_bwd_dkv"), (k6c, "flash_attention_bwd_dq")):
@@ -3975,10 +4353,12 @@ def main() -> int:
     phase_tiny_t2t()
     phase_tiny_options()
     phase_tiny_v1_and_fused()
+    phase_tiny_offline()
     phase_tiny_train()
     log(json.dumps({"main_path": s2tt["requests"] + s2st["requests"] + t2t["requests"],
                     "lazy": lazy["requests"], "fused": fused["requests"],
-                    "v1": v1["requests"], "train": train, "card": dev["smi"]}))
+                    "v1": v1["requests"], "offline": offline["stats"], "train": train,
+                    "card": dev["smi"]}))
     log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5, k6, k6b, k6c]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

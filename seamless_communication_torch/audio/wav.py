@@ -1,9 +1,10 @@
-"""Dependency-free WAV reading and polyphase resampling (a copy of
-``seamless_communication_tpu/audio/wav.py``'s reader and resampler)."""
+"""Dependency-free WAV I/O and polyphase resampling (a copy of
+``seamless_communication_tpu/audio/wav.py``)."""
 
 from __future__ import annotations
 
 import struct
+import wave
 from math import gcd
 from typing import Tuple
 
@@ -47,6 +48,18 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     if channels > 1:
         x = x.reshape(-1, channels).mean(axis=1)
     return x, rate
+
+
+def write_wav(path: str, waveform: np.ndarray, sample_rate: int) -> None:
+    """Write a mono float32 waveform in [-1, 1] as a PCM16 WAV (clipped,
+    scaled by 32767 and truncated toward zero)."""
+    pcm = np.clip(np.asarray(waveform, np.float32), -1.0, 1.0)
+    pcm = (pcm * 32767.0).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.tobytes())
 
 
 def resample(waveform: np.ndarray, orig_rate: int, new_rate: int) -> np.ndarray:

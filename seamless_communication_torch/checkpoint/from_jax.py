@@ -4,7 +4,9 @@ The input is the JAX parameter tree with numpy leaves (the caller maps
 ``np.asarray`` over it; nothing here imports JAX). Leaves become torch
 tensors with the same names and layouts (linear weights ``(in, out)``, conv
 weights WIO), quantized leaves included (``weight_i8``/``scale``,
-``embedding_i8``/``row_scale``). The JAX package stacks the layers of a
+``embedding_i8``/``row_scale``, and ``weight_i4``/``scale4``,
+``embedding_i4``/``row_scale4``, whose ``jnp.int4`` values the port packs two
+to a byte: ``ops/quantization.py``). The JAX package stacks the layers of a
 stack on a leading axis for ``lax.scan``; the port keeps a list of per-layer
 dicts, so those leaves are split along their first axis.
 
@@ -20,13 +22,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from seamless_communication_torch.ops.quantization import pack_int4, unpack_int4
+
+
+# leaves of int4 values: jnp.int4 in the JAX tree, packed int8 in the port's
+INT4_KEYS = ("weight_i4", "embedding_i4")
+
 
 def to_torch(tree, device: Optional[torch.device] = None):
-    """Every numpy leaf of ``tree`` as a torch tensor (dicts and lists kept).
-    A code HiFi-GAN tree comes across as it is: its ``upsampler`` and
-    ``resblocks`` lists are per layer in the JAX package too."""
+    """Every numpy leaf of ``tree`` as a torch tensor (dicts and lists kept;
+    int4 leaves packed). A code HiFi-GAN tree comes across as it is: its
+    ``upsampler`` and ``resblocks`` lists are per layer in the JAX package
+    too."""
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
+        return {k: (pack_int4(torch.from_numpy(np.asarray(v).astype(np.int8))).to(device)
+                    if k in INT4_KEYS else to_torch(v, device))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_torch(v, device) for v in tree]
     a = np.array(tree, copy=True)
@@ -113,9 +124,10 @@ def unity_params_from_jax(tree: dict, device=None) -> dict:
 def to_numpy(tree):
     """Every tensor leaf of ``tree`` as a numpy array (dicts and lists kept);
     bfloat16 leaves come out widened to float32 (exact), numpy having no
-    bfloat16 of its own."""
+    bfloat16 of its own, and packed int4 leaves unpacked to int8."""
     if isinstance(tree, dict):
-        return {k: to_numpy(v) for k, v in tree.items()}
+        return {k: (unpack_int4(v.detach().cpu()).numpy() if k in INT4_KEYS
+                    else to_numpy(v)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_numpy(v) for v in tree]
     t = tree.detach().cpu()

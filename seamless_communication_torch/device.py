@@ -1,4 +1,4 @@
-"""Where the port's entry points run."""
+"""Where the port's entry points run, and moving parameter trees there."""
 
 from __future__ import annotations
 
@@ -16,3 +16,24 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         raise RuntimeError("no CUDA device available; pass device='cpu' to run "
                            "on the CPU")
     return torch.device("cuda")
+
+
+def params_to(params, device: Union[str, torch.device], dtype: Optional[torch.dtype] = None):
+    """``params`` with every tensor on ``device``, and every floating tensor in
+    ``dtype`` where given; subtrees shared by two keys stay shared."""
+    seen: dict = {}
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            if dtype is not None and node.is_floating_point():
+                return node.to(device, dtype)
+            return node.to(device)
+        if isinstance(node, dict):
+            if id(node) not in seen:
+                seen[id(node)] = {k: walk(v) for k, v in node.items()}
+            return seen[id(node)]
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)

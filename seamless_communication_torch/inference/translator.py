@@ -16,6 +16,7 @@ passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import enum
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Union
@@ -27,7 +28,7 @@ from seamless_communication_torch.audio.fbank import (
     FbankConfig, fbank_numpy, normalize_per_mel_bin,
 )
 from seamless_communication_torch.audio.wav import read_wav, resample
-from seamless_communication_torch.device import resolve_device
+from seamless_communication_torch.device import params_to, resolve_device
 from seamless_communication_torch.inference.generator import (
     SequenceGeneratorOptions, UnitYGenerator, _bucket, stage_end,
 )
@@ -39,6 +40,33 @@ from seamless_communication_torch.models.vocoder.codehifigan import (
 )
 from seamless_communication_torch.text.char_tokenizer import CharTokenizer
 from seamless_communication_torch.text.nllb import NllbTokenizer
+
+
+class Task(enum.Enum):
+    S2ST = enum.auto()
+    S2TT = enum.auto()
+    T2ST = enum.auto()
+    T2TT = enum.auto()
+    ASR = enum.auto()
+
+
+class Modality(enum.Enum):
+    SPEECH = "speech"
+    TEXT = "text"
+
+
+def get_modalities_from_task_str(task_str: str) -> tuple[Modality, Modality]:
+    """(input modality, output modality) of a task name, in any case."""
+    try:
+        task = Task[task_str.upper()]
+    except KeyError:
+        valid = ", ".join(t.name.lower() for t in Task)
+        raise ValueError(f"unknown task {task_str!r}; expected one of: {valid}") from None
+    speech_in = task in (Task.S2ST, Task.S2TT, Task.ASR)
+    speech_out = task in (Task.S2ST, Task.T2ST)
+    return (Modality.SPEECH if speech_in else Modality.TEXT,
+            Modality.SPEECH if speech_out else Modality.TEXT)
+
 
 TEXT_TASKS = ("s2tt", "asr", "t2tt")         # text out
 SPEECH_TASKS = ("s2st", "t2st")               # speech out
@@ -60,25 +88,6 @@ class FbankInput:
     applies the Translator's fbank normalization itself."""
     fbank: np.ndarray
     lengths: np.ndarray
-
-
-def params_to(params, device: torch.device):
-    """``params`` with every tensor on ``device`` (shared subtrees stay
-    shared)."""
-    seen: dict = {}
-
-    def walk(node):
-        if isinstance(node, torch.Tensor):
-            return node.to(device)
-        if isinstance(node, dict):
-            if id(node) not in seen:
-                seen[id(node)] = {k: walk(v) for k, v in node.items()}
-            return seen[id(node)]
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        return node
-
-    return walk(params)
 
 
 class Translator:
@@ -310,11 +319,12 @@ class Translator:
         return out
 
     @torch.inference_mode()
-    def synthesize(self, units: List[List[int]], tgt_lang: str, *, spkr: int = -1
-                   ) -> List[np.ndarray]:
+    def synthesize(self, units: List[List[int]], tgt_lang: str, *, spkr: int = -1,
+                   dur_prediction: bool = True) -> List[np.ndarray]:
         """Unit lists -> fp32 waveforms, one utterance at a time: units
         bucketed to 32, each repeated by its predicted duration up to 4 frames
-        a unit in all; language and speaker ids from ``lang_spkr_idx_map``."""
+        a unit in all (one frame a unit without ``dur_prediction``); language
+        and speaker ids from ``lang_spkr_idx_map``."""
         lang_map = self.lang_spkr_idx_map.get("multilingual", {})
         spkr_map = self.lang_spkr_idx_map.get("multispkr", {})
         lang_id = lang_map.get(tgt_lang, 0)
@@ -334,7 +344,7 @@ class Translator:
             arr[0, :len(u)] = u
             res = code_hifigan_forward(self.vocoder_params, self.vocoder_cfg, ids(arr),
                                        ids([len(u)]), ids([lang_id]), ids([spkr_id]),
-                                       max_unit_len=U * 4)
+                                       dur_prediction=dur_prediction, max_unit_len=U * 4)
             n = int(res.sample_lengths[0])
             out.append(res.waveform[0, :n].float().cpu().numpy())
         return out

@@ -5,9 +5,16 @@ port runs:
   - ``base``     v1 large: w2v-BERT 600m speech encoder (XL rel-pos, SAME
                  depthwise conv, batch norm) + NLLB dense_1b (vocab 256102) +
                  AR T2U (unit vocab 10082)
+  - ``medium``   v1 medium: w2v-BERT 300m (12 XL layers) + NLLB dense_600m
+                 (12 + 12 layers, vocab 256206) + a 4 + 4 layer AR T2U
   - ``base_v2``  v2 large: conformer_shaw 600m speech encoder (Shaw rel-pos,
                  causal depthwise conv) + NLLB dense_1b decoder (vocab 256102)
                  + NAR T2U
+  - ``seamless_micro``, ``seamless_nano``  the on-device archs: a 6-layer XL
+                 conformer over stride-4 fbank stacks (320 features), a 1 + 3
+                 layer NLLB (vocab 20010) and a 1 + 1 layer AR T2U, at width
+                 512 and 256 (both named ``seamless_nano`` in ``arch``, as in
+                 the JAX package)
   - ``tiny_v1``, ``tiny_v2``  the tiny archs of the tests
 
 Each carries one T2U (``models/unity/t2u.py``: ``ar_t2u`` for v1,
@@ -77,6 +84,20 @@ def _base_v1() -> UnitYConfig:
     )
 
 
+@register_arch("medium")
+def _medium() -> UnitYConfig:
+    return UnitYConfig(
+        model_dim=1024,
+        speech=SpeechEncoderConfig(
+            conformer=_xl_conformer(dim=1024, layers=12), model_dim=1024),
+        nllb=NllbConfig(num_encoder_layers=12, num_decoder_layers=12,
+                        ffn_inner_dim=4096, vocab_size=256206, max_seq_len=1024),
+        ar_t2u=ArT2UConfig(num_encoder_layers=4, num_decoder_layers=4,
+                           ffn_inner_dim=4096, unit_vocab_size=10082),
+        arch="medium",
+    )
+
+
 @register_arch("base_v2")
 def _base_v2() -> UnitYConfig:
     return UnitYConfig(
@@ -85,6 +106,34 @@ def _base_v2() -> UnitYConfig:
         nar_t2u=NarT2UConfig(unit_vocab_size=10082, char_vocab_size=10943),
         arch="base_v2",
     )
+
+
+def _nano_family(model_dim: int) -> UnitYConfig:
+    return UnitYConfig(
+        model_dim=model_dim,
+        speech=SpeechEncoderConfig(
+            model_dim=model_dim, feature_dim=320, fbank_stride=4,
+            ffn_inner_dim=model_dim * 4, num_adaptor_heads=16,
+            conformer=_xl_conformer(dim=model_dim, layers=6, heads=16,
+                                    ffn=model_dim * 4)),
+        nllb=NllbConfig(dim=model_dim, num_encoder_layers=1, num_decoder_layers=3,
+                        num_heads=16, ffn_inner_dim=model_dim * 8,
+                        vocab_size=20010, max_seq_len=1024),
+        ar_t2u=ArT2UConfig(model_dim=model_dim, num_encoder_layers=1,
+                           num_decoder_layers=1, num_heads=16,
+                           ffn_inner_dim=model_dim * 8, unit_vocab_size=10082),
+        arch="seamless_nano",
+    )
+
+
+@register_arch("seamless_micro")
+def _seamless_micro() -> UnitYConfig:
+    return _nano_family(512)
+
+
+@register_arch("seamless_nano")
+def _seamless_nano() -> UnitYConfig:
+    return _nano_family(256)
 
 
 @register_arch("tiny_v2")

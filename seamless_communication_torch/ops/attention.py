@@ -303,17 +303,24 @@ def self_attention_step_nocache_int8(params: dict, x_t: torch.Tensor,
     return y, kq, ks, vq, vs
 
 
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """(..., n) int4 values (n even) -> (..., n/2) int8, split-half packed:
+    byte j holds value j in its low nibble and value j + n/2 in its high
+    nibble. Packed in int32 (``hi * 16`` rather than a shift of a negative
+    int8)."""
+    n = q.shape[-1]
+    if n % 2:
+        raise ValueError(f"int4 packing needs an even last axis, got {n}")
+    q = q.to(torch.int32)
+    return ((q[..., :n // 2] & 0x0F) | (q[..., n // 2:] * 16)).to(torch.int8)
+
+
 def quantize_kv_rows_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(..., Dh) -> packed int4 rows (..., Dh/2) int8 + per-row fp32 scales
-    absmax/7, round half to even. Split-half packing: byte j holds value j in
-    its low nibble and value j + Dh/2 in its high nibble. Packed in int32
-    (``hi * 16`` rather than a shift of a negative int8)."""
+    """(..., Dh) -> packed int4 rows (..., Dh/2) int8 (``pack_int4``) +
+    per-row fp32 scales absmax/7, round half to even."""
     xf = x.float()
-    dh = xf.shape[-1]
     s = torch.clamp_min(true_div(xf.abs().amax(dim=-1), 7.0), 1e-8)
-    q = torch.round(xf / s[..., None]).clamp(-7, 7).to(torch.int32)
-    lo, hi = q[..., :dh // 2], q[..., dh // 2:]
-    return ((lo & 0x0F) | (hi * 16)).to(torch.int8), s
+    return pack_int4(torch.round(xf / s[..., None]).clamp(-7, 7)), s
 
 
 def unpack_int4(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -51,10 +51,13 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, *, bias: bool =
 
 def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W (+ b), fp32 accumulation, returns x.dtype. Dispatches to the
-    int8 weight-only path for params rewritten by ``quantize_params``."""
+    int8 or int4 weight-only path for params rewritten by ``quantize_params``."""
     if "weight_i8" in params:
         from seamless_communication_torch.ops.quantization import linear_quantized
         return linear_quantized(params, x)
+    if "weight_i4" in params:
+        from seamless_communication_torch.ops.quantization import linear_quantized_int4
+        return linear_quantized_int4(params, x)
     w = params["weight"].to(x.dtype)
     y = torch.matmul(x.float(), w.float())
     b = params.get("bias")
@@ -97,12 +100,17 @@ def embedding_init(gen: torch.Generator, vocab_size: int, dim: int, *,
 def embedding(params: dict, ids: torch.Tensor, *, scale: Optional[float] = None
               ) -> torch.Tensor:
     """Token-id lookup times an optional ``scale`` (sqrt(dim) in transformer
-    frontends). Dispatches to the int8 row-quantized table when present."""
+    frontends). Dispatches to the int8 or int4 quantized table when present."""
     if "embedding_i8" in params:
         from seamless_communication_torch.ops.quantization import (
             embedding_lookup_quantized,
         )
         return embedding_lookup_quantized(params, ids, scale_mult=scale)
+    if "embedding_i4" in params:
+        from seamless_communication_torch.ops.quantization import (
+            embedding_lookup_quantized_int4,
+        )
+        return embedding_lookup_quantized_int4(params, ids, scale_mult=scale)
     e = params["embedding"][ids]
     if scale is not None:
         e = e * torch.full((), scale, dtype=e.dtype, device=e.device)

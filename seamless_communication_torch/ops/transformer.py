@@ -358,12 +358,17 @@ def embedding_frontend(embed_params: dict, ids: torch.Tensor, cfg: TransformerCo
 
 
 def tied_projection(embed_params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits through the tied embedding matrix, fp32; the int8 row-quantized
-    table when present."""
+    """Logits through the tied embedding matrix, fp32; the int8 or int4
+    quantized table when present."""
     if "embedding_i8" in embed_params:
         from seamless_communication_torch.ops.quantization import (
             tied_projection_quantized,
         )
         return tied_projection_quantized(embed_params, x)
+    if "embedding_i4" in embed_params:
+        from seamless_communication_torch.ops.quantization import (
+            tied_projection_quantized_int4,
+        )
+        return tied_projection_quantized_int4(embed_params, x)
     w = embed_params["embedding"]
     return torch.matmul(x.float(), w.to(x.dtype).float().T)

@@ -23,7 +23,18 @@ new = {"seamless_communication_torch.ops.fused_attention",
        "seamless_communication_torch.ops.remat",
        "seamless_communication_torch.train.loss",
        "seamless_communication_torch.train.lr",
-       "seamless_communication_torch.train.trainer"}
+       "seamless_communication_torch.train.trainer",
+       "seamless_communication_torch.assets",
+       "seamless_communication_torch.checkpoint.convert_fairseq2",
+       "seamless_communication_torch.checkpoint.convert_hf",
+       "seamless_communication_torch.checkpoint.fairseq_export",
+       "seamless_communication_torch.checkpoint.serialize",
+       "seamless_communication_torch.cli.loading",
+       "seamless_communication_torch.cli.predict"}
+# the asset cards the port reads are its own copies
+from seamless_communication_torch import assets
+if assets.CARDS_DIR.resolve().parent != __import__("pathlib").Path(pkg.__path__[0]).resolve():
+    bad.append(str(assets.CARDS_DIR))
 print(len(names) if new <= set(names) else 0, ";".join(bad))
 """
 
