@@ -46,7 +46,9 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    (fp32 K6, K6b and K6c also with 32- and 64-row or -key blocks), the
    attention shapes of phase 3g's train steps in both dtypes, and the NAR
    T2U's FFT shape with rows in a segment no key has, whose key tiles K6c
-   and fp32 K6b may not skip (``phase_flash_sweep``).
+   and fp32 K6b may not skip (``phase_flash_sweep``); and K6 at the
+   streaming re-encode's shape (T = 512 with the chunk-causal bias of the
+   ``streaming`` arch, fp32 and bf16, beside SDPA; ``streaming_flash_case``).
    ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
@@ -102,6 +104,18 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
       text and units those of a Translator built on the loaded tree), and an
       S2TT request with ``--quantize_bits 4`` (its hypotheses checked, one
       int4 linear held to its dequantized plain product).
+   i. SeamlessStreaming: the ``streaming`` UnitY (chunk-causal conformer,
+      no text encoder or decoder, NAR T2U) and the dense_1b EMMA decoder on
+      seeded bf16 weights written as fp16 ``.pt`` files and read back by
+      ``load_unity_model_and_tokenizers`` and ``load_monotonic_decoder``;
+      the encoder with the fused option and without (within 2e-3); then
+      with ``SEAMLESS_FUSED_ATTN=1`` 10 s of audio streamed in 320 ms chunks
+      through ``build_s2t_pipeline`` and ``build_s2st_pipeline`` +
+      ``StreamingSession`` in each mode (unfused, fused re-encode,
+      incremental), the EMMA decoder int8: ms a chunk against the 320 ms
+      budget, xRT, tokens, READ/WRITE actions and the smallest margin of the
+      decision statistic to the threshold, units and audio seconds, K6
+      launches (more than 0 in the fused mode), peak memory.
    Each path's launches are counted from 0 just before it.
 4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
    tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
@@ -110,7 +124,10 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    n-gram block, banned sequences, MinTox and FbankInput; and, with the
    fused option on (K6), ``tiny_v1`` S2ST and T2ST (the AR unit decode on
    K1) and ``tiny_v2`` S2ST; ``tiny_v2`` S2ST through ``.pt`` files and the
-   loaders (same text, waveforms within 1e-4); and two ``tiny_v2`` train
+   loaders (same text, waveforms within 1e-4); the tiny streaming models
+   of ``tests/test_torch_streaming.py`` (S2TT in each mode, S2ST linear and
+   tree: the same tokens, segments and units, waveforms within 1e-4); and
+   two ``tiny_v2`` train
    steps with the option
    on (K6, K6b, K6c on the card) give the CPU's losses within 1e-5 and its
    params within 1e-4.
@@ -142,6 +159,11 @@ with one part left out at a time (``kernel_parts``): where its time goes.
 
 builds the kernels and runs only phase 3h and phase 4's ``tiny_v2`` through
 the loaders.
+
+    python3 chip_smoke.py --streaming
+
+builds the kernels and runs only phase 2's K6 at the streaming shape, phase
+3i and phase 4's tiny streaming models.
 
     python3 chip_smoke.py --k12-trace
 
@@ -3226,6 +3248,469 @@ def phase_tiny_offline() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: SeamlessStreaming
+# ---------------------------------------------------------------------------
+
+STREAM_CARD, MONO_CARD = "smoke_streaming_unity", "smoke_streaming_mono"
+STREAM_MODES = (("unfused", False), ("fused", True), ("incremental", "incremental"))
+STREAM_SECONDS = 10.0
+CHUNK_MS = 320
+
+
+def streaming_flash_case(smi: str) -> dict:
+    """Phase 2's K6 at the streaming re-encode's shape: the fused agent pads
+    the fbank of 10 s to 1024 frames, so the conformer attends over T = 512
+    stacked frames (499 valid) with the chunk-causal bias of the
+    ``streaming`` arch (chunk 8, every chunk to the left) plus the key
+    padding and the Shaw relative logits folded into ``ab``. K6 against its
+    plain version in fp32 and bf16 (as ``phase_flash_attention`` holds
+    them), timed beside the library's SDPA with the same float mask and the
+    bound over the logits the mask leaves; under ``ab`` the fp32 kernel
+    skips no tile pair (``skippable_tiles_fwd``), which is counted."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from seamless_communication_torch.ops.conformer import chunk_attention_bias
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+    B, H, T, Dh, valid = 1, H_MAIN, 512, DH_MAIN, 499
+    qkv = [torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32,
+                           device=dev) for _ in range(3)]
+    qkv[0] = qkv[0] / Dh ** 0.5
+    pad = torch.where(torch.arange(T, device=dev) < valid, 0.0, -1e9)
+    chunk = chunk_attention_bias(T, 8, -1, device=dev)
+    rel = torch.as_tensor(rng.standard_normal((B, H, T, T)) * 0.5, dtype=torch.float32,
+                          device=dev)
+    ab32 = fl.padded_bias((rel + pad + chunk).broadcast_to((B, H, T, T)), torch.float32)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qs, k, v = (x.to(dtype) for x in qkv)
+        ab = ab32 if dtype is torch.float32 else fl.padded_bias(ab32, dtype)
+        got = fl.flash_attention(qs, k, v, ab)
+        ref = fl._reference(qs, k, v, ab)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if not bool((err <= tol[dtype] * (1 + ref.float().abs())).all()):
+            raise AssertionError(f"K6 streaming re-encode {dtype}: out max err "
+                                 f"{float(err.max()):.3g} over tolerance")
+        k_ms = cuda_time_ms(lambda: fl.flash_attention(qs, k, v, ab))
+        p_ms = cuda_time_ms(lambda: fl._reference(qs, k, v, ab), calls=5, reps=20)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=ab, scale=1.0), calls=5, reps=20)
+        pairs = fl.unmasked_pairs(B, H, T, T, ab)
+        bound = fl.bound(B, H, T, T, Dh, dtype, True, False, pairs)
+        skipped = int(fl.skippable_tiles_fwd(None, None, T, T, ab).sum())
+        log(f"K6 streaming re-encode 10 s, T={T} ({valid} valid, chunk-causal bias, "
+            f"chunk 8), {str(dtype)[6:]}: out max abs err {float(err.max()):.3g} "
+            f"(rtol=atol={tol[dtype]}); device kernel {k_ms * 1e3:.2f} us, plain "
+            f"{p_ms * 1e3:.2f} us, library SDPA with the float mask {lib_ms * 1e3:.2f} us, "
+            f"bound {bound[0] * 1e3:.2f} us ({bound[1]}; {pairs} unmasked logits of "
+            f"{H * T * T}), {skipped} tile pairs skipped, kernel at "
+            f"{k_ms / bound[0]:.1f}x its bound [{smi}]")
+        out[str(dtype)[6:]] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                               "bound_ms": bound[0], "bound_by": bound[1],
+                               "max_abs_err": float(err.max()), "tiles_skipped": skipped,
+                               "unmasked_pairs": pairs}
+    return out
+
+
+def write_streaming_cards(d, unity_extra: str = "", num_words: int = 1200) -> None:
+    """The synthetic tokenizers and two cards in ``d``: ``STREAM_CARD``, the
+    packaged ``seamless_streaming_unity`` card with the ``streaming`` arch,
+    ``d/unity.pt`` and these tokenizers (and ``unity_extra``'s fields), and
+    ``MONO_CARD``, ``seamless_streaming_monotonic_decoder`` with
+    ``d/mono.pt``."""
+    (d / "nllb.model").write_bytes(synthetic_spm(num_words))
+    (d / "char.model").write_bytes(synthetic_char_spm())
+    (d / f"{STREAM_CARD}.yaml").write_text(
+        f"name: {STREAM_CARD}\nbase: seamless_streaming_unity\nmodel_arch: streaming\n"
+        f"checkpoint: {d / 'unity.pt'}\ntokenizer: {d / 'nllb.model'}\n"
+        f"char_tokenizer: {d / 'char.model'}\n{unity_extra}")
+    (d / f"{MONO_CARD}.yaml").write_text(
+        f"name: {MONO_CARD}\nbase: seamless_streaming_monotonic_decoder\n"
+        f"checkpoint: {d / 'mono.pt'}\n")
+
+
+def stream_timed(pipe, wav, tgt_lang: str = "eng"):
+    """``StreamingSession(pipe).run(wav)`` with each ``process`` call timed
+    (host wall to a synchronized card) -> (outputs, per-call ms, per-call
+    stage ms summed over the agents' ``last_timings``, wall s)."""
+    import torch
+
+    from seamless_communication_torch.streaming.pipeline import StreamingSession
+
+    times, stages = [], []
+    process = pipe.process
+    timed_agents = [a for a in pipe.agents if hasattr(a, "last_timings")]
+
+    def timed(seg):
+        for a in timed_agents:
+            a.last_timings = {}
+        t0 = time.perf_counter()
+        out = process(seg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        split: dict = {}
+        for a in timed_agents:
+            for k, v in a.last_timings.items():
+                split[k] = split.get(k, 0.0) + v * 1e3
+        stages.append(split)
+        return out
+
+    pipe.process = timed
+    session = StreamingSession(pipe, segment_size_ms=CHUNK_MS, tgt_lang=tgt_lang)
+    t0 = time.perf_counter()
+    outs = list(session.run(wav))
+    torch.cuda.synchronize()
+    return outs, times, stages, time.perf_counter() - t0
+
+
+def text_decoder_agent(pipe):
+    return next(a for a in pipe.agents if hasattr(a, "policy_counts"))
+
+
+def phase_streaming(smi: str, out_dir: str = "chiprun_out") -> dict:
+    """3i. SeamlessStreaming at full width: the ``streaming`` UnitY (the
+    24-layer Shaw conformer with chunk-causal attention, chunk 8, no text
+    encoder, the NAR T2U 6 + 6) and the dense_1b EMMA decoder
+    (``MonotonicDecoderConfig()``) on seeded bf16 weights, written as fp16
+    ``.pt`` files by the port's exporters (the UnitY without a text decoder,
+    as the released checkpoint) with cards inheriting the packaged ones, read
+    back by ``load_unity_model_and_tokenizers`` and ``load_monotonic_decoder``
+    (every leaf equal to the file's fp16 value), with ``CodeHifiGanConfig()``
+    (fp32, seeded). The speech encoder on 10 s with the fused option and
+    without: within 2e-3. Then, with ``SEAMLESS_FUSED_ATTN=1``, 10 s of seeded
+    audio streamed in 320 ms chunks through ``build_s2t_pipeline`` and
+    ``build_s2st_pipeline`` + ``StreamingSession`` in each mode (unfused
+    encoder and decoder agents, the fused re-encode, the incremental
+    encoder), the EMMA decoder int8 by the builders' auto, the default policy
+    (threshold 0.5, ``max_len_b`` 200, 50 writes a call). Each run: tokens
+    written > 0, S2ST units > 0 with finite waveforms within [-1, 1] and
+    whole unit frames, a finished last segment; K6 launched in the fused
+    mode. Launches are counted from 0 just before each run. The statistic
+    at every decision of every run goes to
+    ``<out_dir>/streaming_decisions.json``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.assets import load_card
+    from seamless_communication_torch.checkpoint.fairseq_export import (
+        export_monotonic, export_unity,
+    )
+    from seamless_communication_torch.cli import loading
+    from seamless_communication_torch.models.monotonic.model import (
+        MonotonicDecoderConfig, monotonic_decoder_init,
+    )
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
+    from seamless_communication_torch.models.vocoder.codehifigan import (
+        CodeHifiGanConfig, code_hifigan_init,
+    )
+    from seamless_communication_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seamless_communication_torch.streaming.pipeline import (
+        build_s2st_pipeline, build_s2t_pipeline,
+    )
+
+    dev = torch.device("cuda")
+    cfg = get_arch("streaming")
+    kw = dict(dtype=torch.bfloat16, device=dev)
+    params = unity.unity_init(torch.Generator(device=dev).manual_seed(21), cfg, **kw)
+    del params["text_decoder"]          # the streaming UnitY has none
+    mono = monotonic_decoder_init(torch.Generator(device=dev).manual_seed(22),
+                                  MonotonicDecoderConfig(), **kw)
+    n_unity = sum(t.numel() for t in tensor_leaves(params))
+    n_mono = sum(t.numel() for t in tensor_leaves(mono))
+    stats: dict = {"unity_params": n_unity, "mono_params": n_mono}
+    with offline_dir() as d:
+        t0 = time.perf_counter()
+        torch.save({"model": export_unity(params, dtype=torch.float16)}, d / "unity.pt")
+        torch.save({"model": export_monotonic(mono, dtype=torch.float16)}, d / "mono.pt")
+        export_s = time.perf_counter() - t0
+        gc.collect()
+        write_streaming_cards(d)
+        sizes = {f: os.path.getsize(d / f) for f in ("unity.pt", "mono.pt")}
+        timings: dict = {"unity": {}, "mono": {}}
+        t0 = time.perf_counter()
+        tree, _, text_tok, _, char_tok = loading.load_unity_model_and_tokenizers(
+            STREAM_CARD, timings=timings["unity"])
+        mono_tree, mono_cfg = loading.load_monotonic_decoder(MONO_CARD,
+                                                             timings=timings["mono"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = lambda w, g: torch.equal(w.to(torch.float16).to(g.dtype), g)  # noqa: E731
+        held = (hold_leaves("unity", params, tree, same)
+                + hold_leaves("mono", mono, mono_tree, same))
+    log(f"3i exported the streaming UnitY ({n_unity / 1e9:.3f} B parameters, no text "
+        f"decoder) and the dense_1b EMMA decoder ({n_mono / 1e9:.3f} B) as fp16 .pt "
+        f"files in {export_s:.1f} s (unity.pt {sizes['unity.pt'] / 2**30:.3f} GiB, mono.pt "
+        f"{sizes['mono.pt'] / 2**30:.3f} GiB); loaded in {load_s:.2f} s ("
+        + "; ".join(f"{k}: " + ", ".join(f"{s} {v:.2f}" for s, v in t.items())
+                    for k, t in timings.items())
+        + f" s); {held} leaves equal the files' fp16 values [{smi}]")
+    stats.update(export_s=export_s, file_bytes=sizes, load_s=load_s, load_stages_s=timings)
+    del params, mono
+    gc.collect()
+
+    vocoder_cfg = CodeHifiGanConfig()
+    vocoder = code_hifigan_init(torch.Generator(device=dev).manual_seed(23), vocoder_cfg,
+                                dtype=torch.float32, device=dev)
+    idx_map = load_card("vocoder_v2")["model_config"]["lang_spkr_idx_map"]
+    unit_tok = UnitTokenizer(vocoder_cfg.num_units, ["eng", "fra"], "base_v2")
+    rng = np.random.default_rng(24)
+    wav = (rng.standard_normal(int(STREAM_SECONDS * 16000)) * 0.1).astype(np.float32)
+
+    # the re-encode's conformer with the fused option and without
+    from seamless_communication_torch.audio.fbank import fbank_numpy
+    fb = fbank_numpy(wav)
+    T = -(-fb.shape[0] // 128) * 128
+    fbp = np.zeros((1, T, 80), np.float32)
+    fbp[0, :fb.shape[0]] = fb
+    with torch.inference_mode():
+        encs = {}
+        for on in (True, False):
+            with fused_attention(on):
+                encs[on] = unity.encode_speech(
+                    tree, cfg, torch.as_tensor(fbp, device=dev),
+                    torch.tensor([fb.shape[0]], device=dev)).seqs.float()
+    err = (encs[True] - encs[False]).abs()
+    if not bool((err <= 2e-3 + 2e-3 * encs[False].abs()).all()):
+        raise AssertionError(f"3i: the streaming encoder with and without the fused "
+                             f"option differs by up to {float(err.max()):.3g}")
+    log(f"3i: the streaming speech encoder on 10 s ({T // 2} conformer frames, chunk-"
+        f"causal) with the fused option (K6) and without: max abs difference "
+        f"{float(err.max()):.3g} (atol 2e-3 + rtol 2e-3)")
+    del encs
+
+    runs, k6, tokens, decisions = [], 0, {}, {}
+    hop = vocoder_cfg.hifigan.total_upsample
+    n_source = -(-len(wav) // int(CHUNK_MS * 16))
+    with fused_attention(True):
+        for task in ("s2tt", "s2st"):
+            for mode, fused in STREAM_MODES:
+                if task == "s2tt":
+                    pipe = build_s2t_pipeline(tree, cfg, mono_tree, mono_cfg, text_tok,
+                                              tgt_lang="eng", fused=fused)
+                else:
+                    pipe = build_s2st_pipeline(tree, cfg, mono_tree, mono_cfg, text_tok,
+                                               unit_tok, char_tok, vocoder, vocoder_cfg,
+                                               idx_map, tgt_lang="eng", fused=fused)
+                dec = text_decoder_agent(pipe)
+                if "weight_i8" not in dec.params["layers"][0]["ffn"]["inner_proj"]:
+                    raise AssertionError("3i: the EMMA decoder is not int8 on the card")
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                outs, times, stages, wall = stream_timed(pipe, wav)
+                launches = dict(launch_counts)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                label = f"3i {task.upper()} {mode}"
+                counts = dict(dec.policy_counts)
+                stat = np.asarray(dec.decision_stats, np.float64)
+                margin = float(np.abs(stat - dec.decision_threshold).min()) \
+                    if stat.size else None
+                if counts["tokens"] <= 0:
+                    raise AssertionError(f"{label}: no token written")
+                if not outs or not outs[-1][1].finished:
+                    raise AssertionError(f"{label}: the stream did not finish")
+                # the source chunks that ran the model: each stage's median;
+                # the drain calls: each stage's total
+                working = [st for st in stages[:n_source] if st]
+                split = {k: statistics.median(st.get(k, 0.0) for st in working)
+                         for k in sorted({k for st in working for k in st})}
+                drain = {k: sum(st.get(k, 0.0) for st in stages[n_source:])
+                         for k in sorted({k for st in stages[n_source:] for k in st})}
+                work_ms = [t for t, st in zip(times[:n_source], stages) if st]
+                row = {"task": task, "mode": mode, "calls": len(times),
+                       "source_chunks": n_source, "chunk_ms": times[:n_source],
+                       "working_chunks": len(work_ms),
+                       "working_median_ms": statistics.median(work_ms),
+                       "stage_median_ms": split, "drain_ms": times[n_source:],
+                       "drain_stage_ms": drain, "wall_s": wall,
+                       "xrt": wall / STREAM_SECONDS, "policy": counts,
+                       "decisions": int(stat.size), "min_margin": margin,
+                       "margins_under_0.05": int((np.abs(stat - dec.decision_threshold)
+                                                  < 0.05).sum()),
+                       "stat_range": [float(stat.min()), float(stat.max())]
+                       if stat.size else None,
+                       "k6_launches": launches["flash_attention"], "peak_gib": peak}
+                extra = ""
+                if task == "s2st":
+                    wavs = [np.asarray(s.content) for _, s in outs
+                            if type(s).__name__ == "SpeechSegment" and not s.is_empty]
+                    samples = sum(w.size for w in wavs)
+                    if samples == 0 or samples % hop:
+                        raise AssertionError(f"{label}: {samples} samples, not a "
+                                             f"positive multiple of {hop}")
+                    for w in wavs:
+                        if not np.isfinite(w).all() or np.abs(w).max() > 1.0:
+                            raise AssertionError(f"{label}: a waveform chunk is not "
+                                                 "finite or outside [-1, 1]")
+                    row.update(units=samples // hop, audio_s=samples / 16000,
+                               speech_segments=len(wavs))
+                    extra = (f"; {samples // hop} units, {samples / 16000:.2f} s of audio "
+                             f"in {len(wavs)} segments")
+                if mode == "fused" and launches["flash_attention"] <= 0:
+                    raise AssertionError(f"{label}: K6 never launched with the fused "
+                                         "option on")
+                k6 += launches["flash_attention"]
+                tokens[task, mode] = list(dec.states.target_indices)
+                src = times[:n_source]
+                log(f"{label}: {len(times)} process calls ({n_source} source chunks of "
+                    f"{CHUNK_MS} ms, {len(times) - n_source} drain calls); ms a source "
+                    f"chunk median {statistics.median(src):.1f}, max {max(src):.1f} "
+                    f"(budget {CHUNK_MS}); the {len(work_ms)} that ran the model: median "
+                    f"{statistics.median(work_ms):.1f} = " + ", ".join(
+                        f"{k} {v:.1f}" for k, v in split.items())
+                    + f"; drain {sum(times[n_source:]):.1f} ms = " + ", ".join(
+                        f"{k} {v:.1f}" for k, v in drain.items()) + f"; wall "
+                    f"{wall:.2f} s, xRT {wall / STREAM_SECONDS:.3f}; {counts['tokens']} "
+                    f"tokens in {counts['write']} WRITE and {counts['read']} READ "
+                    f"actions, {stat.size} decisions, statistic "
+                    f"{row['stat_range']}, smallest margin to the threshold "
+                    f"{dec.decision_threshold}: {margin} ({row['margins_under_0.05']} "
+                    f"within 0.05){extra}; K6 launches "
+                    f"{launches['flash_attention']}; peak {peak:.2f} GiB [{smi}]")
+                runs.append(row)
+                decisions[f"{task} {mode}"] = [float(x) for x in stat]
+                threshold = dec.decision_threshold
+                del pipe, dec
+                gc.collect()
+    same = {f"{task} {mode}": tokens[task, mode] == tokens["s2tt", "unfused"]
+            for task, mode in tokens}
+    log(f"3i: the final target tokens equal the unfused S2TT run's: {same} (the "
+        f"incremental encoder keeps bf16 keys and values, the re-encode fp32 ones)")
+    # the statistic at every decision of every run, too long for the output
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "streaming_decisions.json"), "w") as f:
+        json.dump({"threshold": threshold, "card": smi, "statistic": decisions}, f)
+    stats.update(runs=runs, same_tokens_as_unfused_s2tt=same)
+    return {"launches": k6, "stats": stats}
+
+
+def tiny_streaming_models(gen):
+    """The tiny models of tests/test_torch_streaming.py from ``gen``: the
+    tiny_v2 UnitY, the same with the chunk-causal encoder of the JAX
+    incremental test, the monotonic decoder (dim 64, 2 layers, 4 heads,
+    vocab 256), the tiny vocoder, and the toy tokenizers."""
+    import dataclasses
+
+    from seamless_communication_torch.models.monotonic.model import (
+        MonotonicDecoderConfig, monotonic_decoder_init,
+    )
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
+    from seamless_communication_torch.models.vocoder.codehifigan import (
+        CodeHifiGanConfig, code_hifigan_init,
+    )
+    from seamless_communication_torch.models.vocoder.hifigan import HifiGanConfig
+    from seamless_communication_torch.models.wav2vec2.encoder import SpeechEncoderConfig
+    from seamless_communication_torch.ops.conformer import ConformerConfig
+    from seamless_communication_torch.text.char_tokenizer import CharTokenizer
+    from seamless_communication_torch.text.nllb import NllbTokenizer
+    from seamless_communication_torch.text.spm import (
+        TYPE_CONTROL, TYPE_NORMAL, TYPE_UNKNOWN, SentencePieceModel, build_spm_model,
+    )
+
+    base = [("<unk>", 0.0, TYPE_UNKNOWN), ("<s>", 0.0, TYPE_CONTROL),
+            ("</s>", 0.0, TYPE_CONTROL)]
+    chars = ["▁"] + list("abc.,")
+    words = ["▁aa", "▁bb", "▁cc", ",", "."]
+    text = NllbTokenizer(SentencePieceModel.from_bytes(build_spm_model(
+        base + [(w, -2.0, TYPE_NORMAL) for w in words]
+        + [(c, -10.0, TYPE_NORMAL) for c in chars])), ["__eng__", "__fra__"])
+    char = CharTokenizer(SentencePieceModel.from_bytes(build_spm_model(
+        base + [(c, -1.0, TYPE_NORMAL) for c in chars])))
+    cfg = get_arch("tiny_v2")
+    chunk_cfg = dataclasses.replace(cfg, speech=SpeechEncoderConfig(
+        model_dim=64, feature_dim=160, ffn_inner_dim=128, num_adaptor_heads=4,
+        chunk_size=4, left_chunk_num=-1,
+        conformer=ConformerConfig(dim=64, ffn_inner_dim=128, num_heads=4, num_layers=2,
+                                  depthwise_kernel_size=7, pos_type="shaw",
+                                  shaw_max_left=8, shaw_max_right=3)))
+    mono_cfg = MonotonicDecoderConfig(model_dim=64, num_layers=2, num_heads=4,
+                                      ffn_inner_dim=128, vocab_size=256,
+                                      num_monotonic_energy_layers=2)
+    voc_cfg = CodeHifiGanConfig(**TINY_VOCODER, hifigan=HifiGanConfig(**TINY_HIFIGAN))
+    return dict(cfg=cfg, unity=unity.unity_init(gen, cfg), chunk_cfg=chunk_cfg,
+                chunk_unity=unity.unity_init(gen, chunk_cfg), mono_cfg=mono_cfg,
+                mono=monotonic_decoder_init(gen, mono_cfg), voc_cfg=voc_cfg,
+                voc=code_hifigan_init(gen, voc_cfg), text=text, char=char,
+                units=UnitTokenizer(100, ["eng", "fra"], "base_v2"))
+
+
+def phase_tiny_streaming() -> None:
+    """The tiny streaming models of the CPU tests on the card and on the CPU,
+    fp32, a 2 s tone in 320 ms chunks, decision threshold 0.001: S2TT
+    unfused and fused on tiny_v2 and incremental on the chunk-causal encoder,
+    S2ST linear (unfused, fused) and tree (fused) must write the same tokens
+    and emit the same segments in the same order with the same ``finished``
+    flags, the same texts and units, and waveforms within 1e-4."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.streaming.pipeline import (
+        build_s2st_pipeline, build_s2st_tree_pipeline, build_s2t_pipeline,
+    )
+
+    m = tiny_streaming_models(torch.Generator().manual_seed(31))
+    wav = (0.1 * np.sin(2 * np.pi * 300 * np.arange(32000) / 16000)).astype(np.float32)
+    kw = dict(tgt_lang="eng", min_starting_wait_w2vbert=16, decision_threshold=0.001,
+              max_len_b=12, max_consecutive_writes=6)
+    s2st_args = lambda: (m["text"], m["units"], m["char"], m["voc"], m["voc_cfg"],  # noqa: E731
+                         {"multilingual": {"eng": 0}, "multispkr": {"eng": [0]}})
+    cases = [("S2TT unfused", lambda dv: build_s2t_pipeline(
+                  m["unity"], m["cfg"], m["mono"], m["mono_cfg"], m["text"], fused=False,
+                  device=dv, **kw)),
+             ("S2TT fused", lambda dv: build_s2t_pipeline(
+                  m["unity"], m["cfg"], m["mono"], m["mono_cfg"], m["text"], fused=True,
+                  device=dv, **kw)),
+             ("S2TT incremental", lambda dv: build_s2t_pipeline(
+                  m["chunk_unity"], m["chunk_cfg"], m["mono"], m["mono_cfg"], m["text"],
+                  fused="incremental", device=dv, **kw))]
+    for name, build, fused in (("S2ST unfused", build_s2st_pipeline, False),
+                               ("S2ST fused", build_s2st_pipeline, True),
+                               ("S2ST tree fused", build_s2st_tree_pipeline, True)):
+        cases.append((name, lambda dv, b=build, f=fused: b(
+            m["unity"], m["cfg"], m["mono"], m["mono_cfg"], *s2st_args(), fused=f,
+            device=dv, min_unit_chunk_size=5, text_bucket=32, **kw)))
+    for name, build in cases:
+        got = {}
+        for device in ("cuda", "cpu"):
+            pipe = build(device)
+            outs = stream_timed(pipe, wav)[0]
+            segs = [(i, type(s).__name__, s.content, bool(s.finished)) for i, s in outs]
+            got[device] = (list(text_decoder_agent(pipe).states.target_indices), segs)
+        (tc, sc), (tp, sp) = got["cuda"], got["cpu"]
+        if tc != tp or [(i, k, f) for i, k, _, f in sc] != [(i, k, f) for i, k, _, f in sp]:
+            raise AssertionError(f"tiny {name}: tokens or segments differ between the "
+                                 f"card ({tc}) and the CPU ({tp})")
+        err = 0.0
+        for (_, kind, a, _), (_, _, b, _) in zip(sc, sp):
+            if kind == "SpeechSegment":
+                a, b = np.asarray(a), np.asarray(b)
+                if a.shape != b.shape:
+                    raise AssertionError(f"tiny {name}: waveform shapes {a.shape}, "
+                                         f"{b.shape}")
+                err = max(err, float(np.abs(a - b).max(initial=0.0)))
+            elif not (a is None and b is None) and str(a) != str(b):
+                raise AssertionError(f"tiny {name}: segment {a!r} on the card, {b!r} on "
+                                     "the CPU")
+        if err > 1e-4 or not tc:
+            raise AssertionError(f"tiny {name}: waveforms differ by {err:.3g} or no "
+                                 "token was written")
+        log(f"tiny {name}: {len(tc)} tokens and {len(sc)} segments identical on the card "
+            f"and the CPU, waveform max abs difference {err:.3g}")
+
+
+# ---------------------------------------------------------------------------
 # phase 3g: training
 # ---------------------------------------------------------------------------
 
@@ -4304,6 +4789,13 @@ def main() -> int:
         phase_offline(dev["smi"])
         phase_tiny_offline()
         return 0
+    if sys.argv[1:] == ["--streaming"]:
+        k6s = streaming_flash_case(dev["smi"])
+        streaming = phase_streaming(dev["smi"])
+        phase_tiny_streaming()
+        log(json.dumps({"streaming": streaming["stats"], "k6_streaming": k6s,
+                        "k6_launches_3i": streaming["launches"], "card": dev["smi"]}))
+        return 0
     floor_ms = launch_floor_ms()
     log(f"launch floor (a one-element in-place add, CUDA-graph replay): "
         f"{floor_ms * 1e3:.2f} us [{dev['smi']}]")
@@ -4313,6 +4805,7 @@ def main() -> int:
     k4 = phase_fbank(dev["smi"], floor_ms)
     k3b, k3a = phase_vocab_topk(dev["smi"])
     k6 = phase_flash_attention(dev["smi"])
+    k6["streaming"] = streaming_flash_case(dev["smi"])    # the 3i re-encode's shape
     k6b, k6c = phase_flash_attention_bwd(dev["smi"])
     phase_flash_sweep(dev["smi"])
     if sys.argv[1:] == ["--kernels"]:
@@ -4343,6 +4836,10 @@ def main() -> int:
     offline = phase_offline(dev["smi"])
     k1["launches_3h"] = offline["launches"]     # 3h's m4t_predict S2ST request
     gc.collect()
+    streaming = phase_streaming(dev["smi"])
+    k6["launches"] += streaming["launches"]
+    k6["launches_3i"] = streaming["launches"]
+    gc.collect()
     train = phase_train(dev["smi"])
     k6["launches"] += train["launches"]["flash_attention"]
     for row, name in ((k6b, "flash_attention_bwd_dkv"), (k6c, "flash_attention_bwd_dq")):
@@ -4354,10 +4851,12 @@ def main() -> int:
     phase_tiny_options()
     phase_tiny_v1_and_fused()
     phase_tiny_offline()
+    phase_tiny_streaming()
     phase_tiny_train()
     log(json.dumps({"main_path": s2tt["requests"] + s2st["requests"] + t2t["requests"],
                     "lazy": lazy["requests"], "fused": fused["requests"],
-                    "v1": v1["requests"], "offline": offline["stats"], "train": train,
+                    "v1": v1["requests"], "offline": offline["stats"],
+                    "streaming": streaming["stats"], "train": train,
                     "card": dev["smi"]}))
     log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5, k6, k6b, k6c]}))
     print(json.dumps({"ok": True, "device": {

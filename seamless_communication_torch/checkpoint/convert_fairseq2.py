@@ -17,10 +17,12 @@ into numpy (which fails on a bf16 checkpoint), the port keeps each tensor in
 its dtype and widens only the folded ones to fp32. The layers of a stack stay
 a list, and the text encoder shares the text decoder's ``embed`` dict.
 
+The SeamlessStreaming EMMA monotonic decoder converts too
+(``monotonic_tree_from_pt``, either key space).
+
 Not here yet: the expressive models' prosody encoder (ECAPA) and FiLM leaves,
-which raise naming ROADMAP entry 11, and the monotonic decoder, PRETSSEL,
-aligner, MuTox, raw wav2vec2 and conformer-shaw converters (entries 10, 11,
-13).
+which raise naming ROADMAP entry 11, and the PRETSSEL, aligner, MuTox, raw
+wav2vec2 and conformer-shaw converters (entries 11, 13).
 """
 
 from __future__ import annotations
@@ -614,6 +616,102 @@ def vocoder_tree_from_pt(sd: Mapping) -> dict:
             "conv_post": conv_wn(f"{g}.conv_post"),
         },
     }
+
+
+# ---------------------------------------------------------------------------
+# the EMMA monotonic decoder (reference monotonic_decoder/loader.py:22-77)
+# ---------------------------------------------------------------------------
+
+_MONOTONIC_RULES = [
+    (r"^decoder\.embed_tokens\.", "text_decoder_frontend.embed."),
+    (r"^decoder\.layers\.([0-9]+)\.self_attn\.out_proj\.",
+     r"text_decoder.layers.\1.self_attn.output_proj."),
+    (r"^decoder\.layers\.([0-9]+)\.self_attn\.", r"text_decoder.layers.\1.self_attn."),
+    (r"^decoder\.layers\.([0-9]+)\.self_attn_layer_norm\.",
+     r"text_decoder.layers.\1.self_attn_layer_norm."),
+    (r"^decoder\.layers\.([0-9]+)\.encoder_attn\.out_proj\.",
+     r"text_decoder.layers.\1.encoder_decoder_attn.output_proj."),
+    (r"^decoder\.layers\.([0-9]+)\.encoder_attn\.energy_bias",
+     r"text_decoder.layers.\1.p_choose_layer.energy_bias"),
+    (r"^decoder\.layers\.([0-9]+)\.encoder_attn\.source_energy_layer\.",
+     r"text_decoder.layers.\1.p_choose_layer.k_energy_proj."),
+    (r"^decoder\.layers\.([0-9]+)\.encoder_attn\.target_energy_layer\.",
+     r"text_decoder.layers.\1.p_choose_layer.q_energy_proj."),
+    (r"^decoder\.layers\.([0-9]+)\.encoder_attn\.",
+     r"text_decoder.layers.\1.encoder_decoder_attn."),
+    (r"^decoder\.layers\.([0-9]+)\.encoder_attn_layer_norm\.",
+     r"text_decoder.layers.\1.encoder_decoder_attn_layer_norm."),
+    (r"^decoder\.layers\.([0-9]+)\.fc1\.", r"text_decoder.layers.\1.ffn.inner_proj."),
+    (r"^decoder\.layers\.([0-9]+)\.fc2\.", r"text_decoder.layers.\1.ffn.output_proj."),
+    (r"^decoder\.layers\.([0-9]+)\.final_layer_norm\.",
+     r"text_decoder.layers.\1.ffn_layer_norm."),
+    (r"^decoder\.layer_norm\.", "text_decoder.layer_norm."),
+    (r"^decoder\.output_projection\.", "final_proj."),
+]
+
+
+def monotonic_fairseq1_to_fairseq2(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A fairseq1 ``decoder.*``-keyed monotonic (EMMA) checkpoint -> the
+    fairseq2 key space, as the reference's ``convert_monotonic_checkpoint``:
+    the key remap (the energy layers' rules before the generic
+    ``encoder_attn`` one: the first match wins), the NLLB-100 dummy-row drop,
+    the control-symbol permutation (BOS, PAD, EOS, UNK) -> (PAD, UNK, BOS,
+    EOS) of the first four rows, and the embedding tied to ``final_proj``.
+    Unmatched keys (versions, float tensors) are dropped."""
+    compiled = [(re.compile(p), r) for p, r in _MONOTONIC_RULES]
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in state_dict.items():
+        for rx, repl in compiled:
+            if rx.match(key):
+                out[rx.sub(repl, key)] = _t(val)
+                break
+    embeds = out["final_proj.weight"]
+    if embeds.shape[0] == 256103:       # the NLLB-100 dummy token
+        embeds = embeds[:-1]
+    embeds = embeds.clone()
+    embeds[[0, 1, 2, 3]] = embeds[[1, 3, 0, 2]].clone()
+    out["final_proj.weight"] = embeds
+    out["text_decoder_frontend.embed.weight"] = embeds
+    return out
+
+
+def monotonic_tree_from_pt(sd: Mapping[str, Any]) -> dict:
+    """A monotonic decoder state dict in either key space -> the port's
+    tree; fairseq2-native checkpoints are told apart as the reference does
+    (a ``text_decoder.layers.0.self_attn.k_proj.weight`` key)."""
+    if "text_decoder.layers.0.self_attn.k_proj.weight" not in sd:
+        sd = monotonic_fairseq1_to_fairseq2(sd)
+    return monotonic_tree_from_fairseq2(sd)
+
+
+def monotonic_tree_from_fairseq2(sd: Mapping[str, Any]) -> dict:
+    """A fairseq2-keyed monotonic decoder -> ``{"embed", "layers": [per-layer
+    dicts], "layer_norm"}``. The energy MLPs are torch Sequentials (Linear,
+    ReLU, ...): their linears are the indices that have a weight, in order."""
+    layers = []
+    for i in range(_num_layers(sd, r"text_decoder\.layers\.([0-9]+)\.")):
+        p = f"text_decoder.layers.{i}"
+        pc = f"{p}.p_choose_layer"
+        rx = re.compile(rf"{re.escape(pc)}\.q_energy_proj\.layers\.([0-9]+)\.weight$")
+        idx = sorted({int(m.group(1)) for k in sd if (m := rx.match(k))})
+        layers.append({
+            "self_attn_layer_norm": _ln(sd, f"{p}.self_attn_layer_norm"),
+            "self_attn": _mha(sd, f"{p}.self_attn"),
+            "cross_attn_layer_norm": _ln(sd, f"{p}.encoder_decoder_attn_layer_norm"),
+            "cross_attn": _mha(sd, f"{p}.encoder_decoder_attn"),
+            "p_choose": {
+                "energy_bias": _t(sd[f"{pc}.energy_bias"]).reshape(1),
+                "q_energy_proj": [_linear(sd, f"{pc}.q_energy_proj.layers.{j}")
+                                  for j in idx],
+                "k_energy_proj": [_linear(sd, f"{pc}.k_energy_proj.layers.{j}")
+                                  for j in idx],
+            },
+            "ffn": {"layer_norm": _ln(sd, f"{p}.ffn_layer_norm"),
+                    "inner_proj": _linear(sd, f"{p}.ffn.inner_proj"),
+                    "output_proj": _linear(sd, f"{p}.ffn.output_proj")},
+        })
+    return {"embed": {"embedding": _t(sd["final_proj.weight"])}, "layers": layers,
+            "layer_norm": _ln(sd, "text_decoder.layer_norm")}
 
 
 def load_pt_state_dict(path: str) -> Dict[str, torch.Tensor]:

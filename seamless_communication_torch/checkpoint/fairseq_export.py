@@ -1,8 +1,10 @@
 """Synthetic fairseq2-keyed checkpoints from the port's trees (counterpart of
-``export_unity`` and ``export_vocoder`` in
+``export_unity``, ``export_vocoder``, ``export_monotonic`` and
+``export_monotonic_fairseq1`` in
 ``seamless_communication_tpu/checkpoint/fairseq_export.py``).
 
-These invert ``convert_fairseq2``: a UnitY or unit HiFi-GAN tree becomes a
+These invert ``convert_fairseq2``: a UnitY, monotonic decoder or unit
+HiFi-GAN tree becomes a
 state dict in torch layouts (linear (out, in), conv1d (out, in, k), transposed
 conv (in, out, k), weight-norm g/v pairs with g = ||v||, batch norm as an
 identity: running mean 0, running variance 1 - eps), which the loaders turn
@@ -156,7 +158,10 @@ def export_unity(params: dict, *, conv_batch_norm: bool = False,
         _x_ln(sd, f"{p}.ffn_layer_norm", ap["ffn_layer_norm"])
         _x_lin(sd, f"{p}.ffn.inner_proj", ap["ffn"]["inner_proj"])
         _x_lin(sd, f"{p}.ffn.output_proj", ap["ffn"]["output_proj"])
-    _x_decoder(sd, "text_decoder", "text_decoder_frontend.embed", params["text_decoder"])
+    # the streaming UnitY has no text decoder (the monotonic one is separate)
+    if "text_decoder" in params:
+        _x_decoder(sd, "text_decoder", "text_decoder_frontend.embed",
+                   params["text_decoder"])
     if "text_encoder" in params:
         _x_encoder(sd, "text_encoder", "text_encoder_frontend.embed",
                    params["text_encoder"])
@@ -192,6 +197,66 @@ def export_unity(params: dict, *, conv_batch_norm: bool = False,
             _x_ln(sd, f"{p}.conv1d_layer_norm", lp["conv_layer_norm"])
         _x_ln(sd, "t2u_model.decoder.layer_norm", t2u["layer_norm"])
         _x_lin(sd, "t2u_model.final_proj", t2u["final_proj"])
+    return _cast(sd, dtype)
+
+
+def export_monotonic(params: dict, *, dtype: Optional[torch.dtype] = None) -> dict:
+    """A port monotonic decoder tree -> a fairseq2-keyed state dict. The
+    energy MLPs' linears go to the even indices of their Sequentials
+    (Linear, ReLU, ...), as in the released checkpoints."""
+    sd: dict = {}
+    for i, lp in enumerate(params["layers"]):
+        p = f"text_decoder.layers.{i}"
+        _x_ln(sd, f"{p}.self_attn_layer_norm", lp["self_attn_layer_norm"])
+        _x_mha(sd, f"{p}.self_attn", lp["self_attn"])
+        _x_ln(sd, f"{p}.encoder_decoder_attn_layer_norm", lp["cross_attn_layer_norm"])
+        _x_mha(sd, f"{p}.encoder_decoder_attn", lp["cross_attn"])
+        pc = f"{p}.p_choose_layer"
+        sd[f"{pc}.energy_bias"] = _t(_np(lp["p_choose"]["energy_bias"]))
+        for j, (qp, kp) in enumerate(zip(lp["p_choose"]["q_energy_proj"],
+                                         lp["p_choose"]["k_energy_proj"])):
+            _x_lin(sd, f"{pc}.q_energy_proj.layers.{2 * j}", qp)
+            _x_lin(sd, f"{pc}.k_energy_proj.layers.{2 * j}", kp)
+        _x_ln(sd, f"{p}.ffn_layer_norm", lp["ffn"]["layer_norm"])
+        _x_lin(sd, f"{p}.ffn.inner_proj", lp["ffn"]["inner_proj"])
+        _x_lin(sd, f"{p}.ffn.output_proj", lp["ffn"]["output_proj"])
+    _x_ln(sd, "text_decoder.layer_norm", params["layer_norm"])
+    sd["final_proj.weight"] = _t(_np(params["embed"]["embedding"]))
+    return _cast(sd, dtype)
+
+
+def export_monotonic_fairseq1(params: dict, *, dtype: Optional[torch.dtype] = None
+                              ) -> dict:
+    """The fairseq1 key space of the EMMA decoder (``decoder.*``,
+    ``encoder_attn.{source,target}_energy_layer``, ``energy_bias``), the
+    control-symbol permutation inverted so that ``monotonic_tree_from_pt``
+    gives the tree back."""
+    sd: dict = {"decoder.version": torch.zeros(1),
+                "decoder.embed_positions._float_tensor": torch.zeros(1)}
+    for i, lp in enumerate(params["layers"]):
+        p = f"decoder.layers.{i}"
+        _x_ln(sd, f"{p}.self_attn_layer_norm", lp["self_attn_layer_norm"])
+        for k in ("q_proj", "k_proj", "v_proj"):
+            _x_lin(sd, f"{p}.self_attn.{k}", lp["self_attn"][k])
+        _x_lin(sd, f"{p}.self_attn.out_proj", lp["self_attn"]["output_proj"])
+        _x_ln(sd, f"{p}.encoder_attn_layer_norm", lp["cross_attn_layer_norm"])
+        for k in ("q_proj", "k_proj", "v_proj"):
+            _x_lin(sd, f"{p}.encoder_attn.{k}", lp["cross_attn"][k])
+        _x_lin(sd, f"{p}.encoder_attn.out_proj", lp["cross_attn"]["output_proj"])
+        sd[f"{p}.encoder_attn.energy_bias"] = _t(_np(lp["p_choose"]["energy_bias"]))
+        for j, (qp, kp) in enumerate(zip(lp["p_choose"]["q_energy_proj"],
+                                         lp["p_choose"]["k_energy_proj"])):
+            _x_lin(sd, f"{p}.encoder_attn.target_energy_layer.layers.{2 * j}", qp)
+            _x_lin(sd, f"{p}.encoder_attn.source_energy_layer.layers.{2 * j}", kp)
+        _x_ln(sd, f"{p}.final_layer_norm", lp["ffn"]["layer_norm"])
+        _x_lin(sd, f"{p}.fc1", lp["ffn"]["inner_proj"])
+        _x_lin(sd, f"{p}.fc2", lp["ffn"]["output_proj"])
+    _x_ln(sd, "decoder.layer_norm", params["layer_norm"])
+    # the converter maps rows (1, 3, 0, 2) to (0, 1, 2, 3): write them there
+    emb = _np(params["embed"]["embedding"]).copy()
+    emb[[1, 3, 0, 2]] = emb[[0, 1, 2, 3]].copy()
+    sd["decoder.output_projection.weight"] = _t(emb)
+    sd["decoder.embed_tokens.weight"] = _t(emb)
     return _cast(sd, dtype)
 
 

@@ -47,10 +47,15 @@ def to_torch(tree, device: Optional[torch.device] = None):
 
 
 def unstack_layers(stacked: dict) -> list:
-    """A dict of (L, ...) stacked leaves -> a list of L per-layer dicts."""
+    """A dict of (L, ...) stacked leaves (lists of such sub-trees included,
+    as the monotonic decoder's energy layers) -> a list of L per-layer
+    dicts."""
     def leaves(node):
         if isinstance(node, dict):
             for v in node.values():
+                yield from leaves(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
                 yield from leaves(v)
         else:
             yield node
@@ -60,6 +65,8 @@ def unstack_layers(stacked: dict) -> list:
     def take(node, i):
         if isinstance(node, dict):
             return {k: take(v, i) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):     # a list of stacked sub-trees
+            return [take(v, i) for v in node]
         return node[i]
 
     return [take(stacked, i) for i in range(n)]
@@ -117,6 +124,13 @@ def unity_params_from_jax(tree: dict, device=None) -> dict:
     return params
 
 
+def monotonic_params_from_jax(tree: dict, device=None) -> dict:
+    """An EMMA monotonic decoder tree ({"embed", "layers": stacked,
+    "layer_norm"}): the layers become a list, each layer's energy MLPs a
+    list of per-layer linears."""
+    return to_torch(dict(tree, layers=unstack_layers(tree["layers"])), device)
+
+
 # ---------------------------------------------------------------------------
 # port -> JAX layout
 # ---------------------------------------------------------------------------
@@ -140,6 +154,8 @@ def stack_layers(layers: list) -> dict:
     first = layers[0]
     if isinstance(first, dict):
         return {k: stack_layers([layer[k] for layer in layers]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [stack_layers([layer[j] for layer in layers]) for j in range(len(first))]
     return np.stack(layers)
 
 
@@ -169,3 +185,10 @@ def unity_params_to_numpy(params: dict) -> dict:
             out["t2u"] = dict(t2u, encoder=_restack(t2u["encoder"]),
                               decoder=_restack(t2u["decoder"]))
     return out
+
+
+def monotonic_params_to_numpy(params: dict) -> dict:
+    """A port monotonic decoder tree as numpy leaves in the JAX tree's
+    layout (the layers stacked again)."""
+    tree = to_numpy(params)
+    return dict(tree, layers=stack_layers(tree["layers"]))

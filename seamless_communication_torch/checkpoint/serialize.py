@@ -19,8 +19,17 @@ from typing import Any
 import numpy as np
 
 from seamless_communication_torch.checkpoint.from_jax import (
-    to_numpy, to_torch, unity_params_from_jax, unity_params_to_numpy,
+    monotonic_params_from_jax, monotonic_params_to_numpy, to_numpy, to_torch,
+    unity_params_from_jax, unity_params_to_numpy,
 )
+
+
+def _is_monotonic(tree: Any) -> bool:
+    """An EMMA monotonic decoder tree: ``layers`` with a p_choose layer."""
+    if not (isinstance(tree, dict) and "layers" in tree and "embed" in tree):
+        return False
+    layers = tree["layers"]
+    return "p_choose" in (layers[0] if isinstance(layers, list) else layers)
 
 
 def _flatten(tree: Any, prefix: str, out: dict) -> dict:
@@ -46,10 +55,12 @@ def _listify(node):
 
 
 def save_params_npz(path: str, params: Any) -> None:
-    """A port UnitY tree (or any tree of tensors) to a ``.npz`` file in the
-    JAX tree's layout."""
+    """A port UnitY or monotonic decoder tree (or any tree of tensors) to a
+    ``.npz`` file in the JAX tree's layout."""
     if isinstance(params, dict) and "speech_encoder" in params:
         tree = unity_params_to_numpy(params)
+    elif _is_monotonic(params):
+        tree = monotonic_params_to_numpy(params)
     else:
         tree = to_numpy(params)
     np.savez(path, **_flatten(tree, "", {}))
@@ -57,8 +68,8 @@ def save_params_npz(path: str, params: Any) -> None:
 
 def load_params_npz(path: str, device=None) -> Any:
     """A ``.npz`` file of either package -> a port tree of tensors: a UnitY
-    tree (a ``speech_encoder`` at its root) in the port's layout, any other
-    tree as the file nests it."""
+    tree (a ``speech_encoder`` at its root) or a monotonic decoder tree in
+    the port's layout, any other tree as the file nests it."""
     root: dict = {}
     with np.load(path, allow_pickle=False) as flat:
         for key in flat.files:
@@ -70,6 +81,8 @@ def load_params_npz(path: str, device=None) -> Any:
     tree = _listify(root)
     if isinstance(tree, dict) and "speech_encoder" in tree:
         return unity_params_from_jax(tree, device)
+    if _is_monotonic(tree):
+        return monotonic_params_from_jax(tree, device)
     return to_torch(tree, device)
 
 

@@ -1,6 +1,9 @@
 """Asset card -> the port's parameters and tokenizers (counterpart of
 ``seamless_communication_tpu/cli/loading.py``).
 
+``load_monotonic_decoder`` loads SeamlessStreaming's EMMA decoder from its
+original ``.pt`` (either key space) or a ``.npz`` parameter file.
+
 Two checkpoint routes:
   1. the reference's original ``.pt`` files (fairseq1 or fairseq2 keyed),
      through ``checkpoint/convert_fairseq2.py`` and ``torch.load`` alone;
@@ -30,9 +33,12 @@ import torch
 from seamless_communication_torch.assets import load_card, resolve_asset
 from seamless_communication_torch.checkpoint.convert_fairseq2 import (
     apply_unity_fixups, fairseq1_to_fairseq2_auto, is_fairseq1_unity,
-    load_pt_state_dict, unity_tree_from_fairseq2, vocoder_tree_from_pt,
+    load_pt_state_dict, monotonic_tree_from_pt, unity_tree_from_fairseq2,
+    vocoder_tree_from_pt,
 )
+from seamless_communication_torch.checkpoint.serialize import load_params
 from seamless_communication_torch.device import params_to, resolve_device
+from seamless_communication_torch.models.monotonic.model import MonotonicDecoderConfig
 from seamless_communication_torch.models.unity.builder import get_arch
 from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
 from seamless_communication_torch.models.vocoder.codehifigan import CodeHifiGanConfig
@@ -171,3 +177,32 @@ def load_vocoder(card_name: str = "vocoder_v2", *, dtype=None,
             local_hf_path or "facebook/seamless-m4t-v2-large")
         tree = convert_hf_code_hifigan(model.vocoder)
     return params_to(tree, device, dtype), cfg, idx_map
+
+
+def load_monotonic_decoder(card_name: str = "seamless_streaming_monotonic_decoder", *,
+                           dtype=None, local_pt_path: Optional[str] = None, device=None,
+                           timings: Optional[dict] = None):
+    """-> (monotonic decoder params on ``device`` in ``dtype`` (bf16 by
+    default), MonotonicDecoderConfig()), dense_1b being the one released
+    arch. The checkpoint: ``local_pt_path``, else the card's; a ``.pt`` file
+    converts through ``monotonic_tree_from_pt``, anything else loads as the
+    port's parameter file. ``timings`` gets the stages' wall seconds
+    (torch_load, convert, transfer)."""
+    device = resolve_device(device)
+    dtype = dtype or torch.bfloat16
+    timings = {} if timings is None else timings
+    card = load_card(card_name)
+    path = resolve_asset(str(local_pt_path or card["checkpoint"]))
+    t0 = time.perf_counter()
+    if path.endswith(".pt"):
+        sd = load_pt_state_dict(path)
+        t0 = _stage(timings, "torch_load", t0, device)
+        tree = monotonic_tree_from_pt(sd)
+        del sd
+    else:
+        tree = load_params(path)
+    t0 = _stage(timings, "convert", t0, device)
+    params = params_to(tree, device, dtype)
+    del tree
+    _stage(timings, "transfer", t0, device)
+    return params, MonotonicDecoderConfig()

@@ -10,6 +10,10 @@ port runs:
   - ``base_v2``  v2 large: conformer_shaw 600m speech encoder (Shaw rel-pos,
                  causal depthwise conv) + NLLB dense_1b decoder (vocab 256102)
                  + NAR T2U
+  - ``streaming`` the SeamlessStreaming UnitY: base_v2's speech encoder with
+                 chunked attention (chunk 8, all chunks to the left), no text
+                 encoder, base_v2's NAR T2U (its text decoder is the
+                 monotonic one, ``models/monotonic``)
   - ``seamless_micro``, ``seamless_nano``  the on-device archs: a 6-layer XL
                  conformer over stride-4 fbank stacks (320 features), a 1 + 3
                  layer NLLB (vocab 20010) and a 1 + 1 layer AR T2U, at width
@@ -105,6 +109,19 @@ def _base_v2() -> UnitYConfig:
         nllb=NllbConfig(vocab_size=256102, max_seq_len=4096),
         nar_t2u=NarT2UConfig(unit_vocab_size=10082, char_vocab_size=10943),
         arch="base_v2",
+    )
+
+
+@register_arch("streaming")
+def _streaming() -> UnitYConfig:
+    base = _base_v2()
+    return UnitYConfig(
+        speech=SpeechEncoderConfig(conformer=_shaw_conformer(), chunk_size=8,
+                                   left_chunk_num=-1),
+        nllb=base.nllb,
+        use_text_encoder=False,
+        nar_t2u=base.nar_t2u,
+        arch="streaming",
     )
 
 

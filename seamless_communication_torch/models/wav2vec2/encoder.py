@@ -2,17 +2,21 @@
 ``seamless_communication_tpu/models/wav2vec2/encoder.py``): stride-2 fbank
 stacking (80 -> 160 mel), LN + projection, the conformer stack, the
 ``x + 0.5 * ffn(x)`` intermediate FFN, and the UnitY adaptor (strided GLU
-convs on the attention input and the residual, 8x time downsampling)."""
+convs on the attention input and the residual, 8x time downsampling). With
+``chunk_size`` set (the SeamlessStreaming encoder) the conformer attends
+chunk-causally (``ops/conformer.py chunk_attention_bias``);
+``conformer_shaw_standalone_forward`` runs the frontend and the conformer
+stack alone."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from seamless_communication_torch.ops import attention as attn_ops
 from seamless_communication_torch.ops.conformer import (
-    ConformerConfig, conformer_encoder, conformer_stack_init,
+    ConformerConfig, chunk_attention_bias, conformer_encoder, conformer_stack_init,
 )
 from seamless_communication_torch.ops.masks import (
     apply_padding_mask, lengths_to_padding_mask, padding_bias,
@@ -32,6 +36,9 @@ class SpeechEncoderConfig(NamedTuple):
     adaptor_stride: int = 8
     num_adaptor_heads: int = 16
     ffn_inner_dim: int = 4096
+    # the streaming encoder's chunked attention (None: full attention)
+    chunk_size: Optional[int] = None
+    left_chunk_num: int = -1
 
 
 def stack_fbank_frames(fbank: torch.Tensor, frame_lens: torch.Tensor, stride: int = 2
@@ -100,6 +107,21 @@ def _adaptor_layer(p: dict, x: torch.Tensor, lengths: torch.Tensor,
     return x + linear(p["ffn"]["output_proj"], h), new_len
 
 
+def conformer_shaw_standalone_forward(params: dict, fbank: torch.Tensor,
+                                      frame_lens: torch.Tensor,
+                                      cfg: Optional[SpeechEncoderConfig] = None
+                                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pretrained conformer-shaw encoder alone: frontend (stack x2 -> LN
+    -> projection) and the conformer stack, no intermediate FFN and no
+    adaptor -> ((B, T // 2, D) output, (B,) lengths)."""
+    cfg = cfg or SpeechEncoderConfig()
+    x, lens = stack_fbank_frames(fbank, frame_lens, stride=cfg.fbank_stride)
+    x = layer_norm(params["feature_projection"]["layer_norm"], x)
+    x = linear(params["feature_projection"]["projection"], x)
+    mask = lengths_to_padding_mask(lens, x.shape[1])
+    return conformer_encoder(params["encoder"], x, cfg.conformer, padding_mask=mask), lens
+
+
 def speech_encoder_forward(params: dict, fbank: torch.Tensor, frame_lens: torch.Tensor,
                            cfg: SpeechEncoderConfig
                            ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -111,7 +133,12 @@ def speech_encoder_forward(params: dict, fbank: torch.Tensor, frame_lens: torch.
     x = linear(params["feature_projection"]["projection"], x)
 
     mask = lengths_to_padding_mask(lens, x.shape[1])
-    x = conformer_encoder(params["encoder"], x, cfg.conformer, padding_mask=mask)
+    chunk_bias = None
+    if cfg.chunk_size is not None:
+        chunk_bias = chunk_attention_bias(x.shape[1], cfg.chunk_size, cfg.left_chunk_num,
+                                          device=x.device)
+    x = conformer_encoder(params["encoder"], x, cfg.conformer, padding_mask=mask,
+                          chunk_bias=chunk_bias)
 
     h = torch.relu(linear(params["intermediate_ffn"]["inner_proj"], x))
     x = x + 0.5 * linear(params["intermediate_ffn"]["output_proj"], h)

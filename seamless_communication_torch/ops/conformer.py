@@ -12,7 +12,9 @@ The two variants of SeamlessM4T's speech encoder:
         per-channel affine at load time;
     v2: Shaw attention, causal depthwise conv (left pad k-1), layer norm.
 Both store the conv norm as ``{"scale", "bias"}`` under ``norm``. The stack
-is a list of per-layer parameter dicts, run in a Python loop.
+is a list of per-layer parameter dicts, run in a Python loop. The
+SeamlessStreaming encoder's chunked attention is one more additive bias
+(``chunk_attention_bias``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from seamless_communication_torch.ops import attention as attn_ops
 from seamless_communication_torch.ops import remat
-from seamless_communication_torch.ops.masks import apply_padding_mask, padding_bias
+from seamless_communication_torch.ops.masks import NEG_INF, apply_padding_mask, padding_bias
 from seamless_communication_torch.ops.modules import (
     conv1d, conv1d_init, glu, layer_norm, layer_norm_init, linear, linear_init, swish,
 )
@@ -129,11 +131,35 @@ def conformer_layer(params: dict, x: torch.Tensor, cfg: ConformerConfig, *,
 
 
 def conformer_encoder(layers: list, x: torch.Tensor, cfg: ConformerConfig, *,
-                      padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      padding_mask: Optional[torch.Tensor] = None,
+                      chunk_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run the conformer stack (a list of per-layer params) over (B, T, D);
-    each layer is a checkpoint region under ``ops/remat.py remat_layers``."""
+    each layer is a checkpoint region under ``ops/remat.py remat_layers``.
+
+    ``chunk_bias``: an optional additive (T, T) bias, the chunked attention
+    of the streaming speech encoder (``chunk_attention_bias``), added to the
+    padding bias."""
     bias = padding_bias(padding_mask)
+    if chunk_bias is not None:
+        cb = chunk_bias[None, None]
+        bias = cb if bias is None else bias + cb
     for layer_params in layers:
         x = remat.layer_call(conformer_layer, layer_params, x, cfg, attn_bias=bias,
                              padding_mask=padding_mask)
     return x
+
+
+def chunk_attention_bias(seq_len: int, chunk_size: int, left_chunk_num: int, *,
+                         device=None) -> torch.Tensor:
+    """Additive (T, T) fp32 bias restricting each position to its own chunk of
+    ``chunk_size`` and ``left_chunk_num`` chunks before it (all of them for
+    -1): 0 where allowed, ``NEG_INF`` elsewhere. The SeamlessStreaming speech
+    encoder's chunked attention."""
+    idx = torch.arange(seq_len, device=device)
+    chunk = torch.div(idx, chunk_size, rounding_mode="floor")
+    start_chunk = (torch.clamp_min(chunk - left_chunk_num, 0) if left_chunk_num >= 0
+                   else torch.zeros_like(chunk))
+    start, end = start_chunk * chunk_size, (chunk + 1) * chunk_size
+    j = idx[None, :]
+    ok = (j >= start[:, None]) & (j < end[:, None])
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)

@@ -6,6 +6,10 @@ attention through the flash-attention kernel K6
 ``try_flash`` adapts the ``_sdpa(q, k, v, bias, extra_logits, scale)``
 contract to the kernel, as the JAX package adapts it to its library kernel:
 
+- q, k and v of mixed dtypes are promoted to the widest (fp32 queries of
+  the int8 EMMA decoder over the incremental encoder's bf16 keys and
+  values), as the plain path's product promotes them; the output comes
+  back in v's dtype;
 - q is scaled first, in q's dtype (the kernel adds no scale), so
   ``logits = q*scale @ k^T + extra_logits + bias``;
 - a pure key-padding bias (B, 1, 1, Tk) with no ``extra_logits`` becomes
@@ -74,6 +78,10 @@ def try_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None and bias.dim() != 4:
         return None
 
+    out_dtype = v.dtype
+    dtype = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+
     kv_valid = None
     if (bias is not None and extra_logits is None
             and bias.shape[1] == 1 and bias.shape[2] == 1):
@@ -95,4 +103,4 @@ def try_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_seg = kv_valid.broadcast_to((B, Tk)).to(torch.int32).contiguous()
         q_seg = torch.ones((B, Tq), dtype=torch.int32, device=q.device)
     qs = (q * scale).to(q.dtype)
-    return flash_attention(qs, k, v, ab, q_seg, kv_seg).to(v.dtype)
+    return flash_attention(qs, k, v, ab, q_seg, kv_seg).to(out_dtype)

@@ -390,7 +390,8 @@ def test_packaged_cards_equal_jax(monkeypatch):
     names = list_cards()
     assert names == sorted(["seamlessM4T_v2_large", "seamlessM4T_large",
                             "seamlessM4T_medium", "unity_nllb-100", "unity_nllb-200",
-                            "vocoder_v2", "vocoder_36langs"])
+                            "vocoder_v2", "vocoder_36langs", "seamless_streaming_unity",
+                            "seamless_streaming_monotonic_decoder"])
     for name in names:
         assert load_card(name) == jload_card(name), name
     assert load_card("seamlessM4T_v2_large")["model_arch"] == "base_v2"

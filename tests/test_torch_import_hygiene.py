@@ -30,7 +30,18 @@ new = {"seamless_communication_torch.ops.fused_attention",
        "seamless_communication_torch.checkpoint.fairseq_export",
        "seamless_communication_torch.checkpoint.serialize",
        "seamless_communication_torch.cli.loading",
-       "seamless_communication_torch.cli.predict"}
+       "seamless_communication_torch.cli.predict",
+       "seamless_communication_torch.models.monotonic.model",
+       "seamless_communication_torch.models.wav2vec2.incremental",
+       "seamless_communication_torch.streaming.fused",
+       "seamless_communication_torch.streaming.pipeline",
+       "seamless_communication_torch.streaming.agents.common",
+       "seamless_communication_torch.streaming.agents.detokenizer",
+       "seamless_communication_torch.streaming.agents.offline_w2v_bert_encoder",
+       "seamless_communication_torch.streaming.agents.online_feature_extractor",
+       "seamless_communication_torch.streaming.agents.online_text_decoder",
+       "seamless_communication_torch.streaming.agents.online_unit_decoder",
+       "seamless_communication_torch.streaming.agents.online_vocoder"}
 # the asset cards the port reads are its own copies
 from seamless_communication_torch import assets
 if assets.CARDS_DIR.resolve().parent != __import__("pathlib").Path(pkg.__path__[0]).resolve():
@@ -71,6 +82,36 @@ def test_default_device_needs_a_card(device):
         "try:\n"
         "    t = Translator({}, get_arch('tiny_v2'), None, device=dev)\n"
         "    print('device', t.device)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n",
+        CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+    if device is None:
+        assert proc.stdout.startswith("raised no CUDA device"), proc.stdout
+    else:
+        assert proc.stdout.strip() == "device cpu"
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_streaming_default_device_needs_a_card(device):
+    """The streaming pipelines too: without a card the default device raises."""
+    proc = _run(
+        "import torch\n"
+        "from seamless_communication_torch.models.monotonic.model import (\n"
+        "    MonotonicDecoderConfig, monotonic_decoder_init)\n"
+        "from seamless_communication_torch.models.unity.builder import get_arch\n"
+        "from seamless_communication_torch.streaming.pipeline import build_s2t_pipeline\n"
+        "cfg = MonotonicDecoderConfig(model_dim=16, num_layers=1, num_heads=2,\n"
+        "                             ffn_inner_dim=16, vocab_size=8,\n"
+        "                             num_monotonic_energy_layers=1)\n"
+        "mono = monotonic_decoder_init(torch.Generator().manual_seed(0), cfg)\n"
+        "class Tok:\n"
+        "    class vocab_info: eos_idx = 3\n"
+        "    def lang_token(self, lang): return 4\n"
+        f"dev = {device!r}\n"
+        "try:\n"
+        "    p = build_s2t_pipeline({}, get_arch('tiny_v2'), mono, cfg, Tok(), device=dev)\n"
+        "    print('device', p.agents[1].device)\n"
         "except RuntimeError as e:\n"
         "    print('raised', e)\n",
         CUDA_VISIBLE_DEVICES="")
