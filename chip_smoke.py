@@ -4,6 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. Four phases; any failure exits non-zero.
+Each part's wall seconds are printed as ``phase <label>: <s> s``.
 
 1. Device: requires CUDA, prints the card's name and power limit, turns TF32
    off for the parity phases, builds every kernel of ``csrc/`` (one ``nvcc``
@@ -48,7 +49,9 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    T2U's FFT shape with rows in a segment no key has, whose key tiles K6c
    and fp32 K6b may not skip (``phase_flash_sweep``); and K6 at the
    streaming re-encode's shape (T = 512 with the chunk-causal bias of the
-   ``streaming`` arch, fp32 and bf16, beside SDPA; ``streaming_flash_case``).
+   ``streaming`` arch, fp32 and bf16, beside SDPA; ``streaming_flash_case``),
+   and at PRETSSEL's FFT decoder shape (B=1, H=2, Dh=128, T=1280 with key
+   segment ids, fp32 and bf16, beside SDPA; ``pretssel_flash_case``).
    ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
@@ -116,6 +119,20 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
       budget, xRT, tokens, READ/WRITE actions and the smallest margin of the
       decision statistic to the threshold, units and audio seconds, K6
       launches (more than 0 in the fused mode), peak memory.
+   j. SeamlessExpressive: ``expressivity_v2`` (the ECAPA prosody encoder,
+      the FiLM NAR T2U, the tanh-GELU NLLB) and the 24 kHz PRETSSEL on
+      seeded bf16 weights written as fp16 ``.pt`` files and read back by
+      the loaders inside ``cli.expressivity_predict.main`` (every leaf the
+      file's value), which serves 10 s of noise with
+      ``SEAMLESS_FUSED_ATTN=1`` and int8 weights, the text decode cut to
+      127 steps: the wall by stage (speech encoder, prosody encoder, text
+      decode and ms a step, re-decode, T2U, PRETSSEL pre-mel, wave
+      synthesis), units, mel frames, 24 kHz audio seconds, peak memory; K1
+      24 times a step, K6 inside PRETSSEL as often as its shapes make
+      eligible; the WAV finite and within [-1, 1]; PRETSSEL again with the
+      option off (within 1e-3). Then one expressive streaming session of 10
+      s, fused (``build_expressive_s2st_pipeline`` on 3i's loaded streaming
+      models), its text decode cut to 127 tokens: ms a chunk, xRT.
    Each path's launches are counted from 0 just before it.
 4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
    tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
@@ -126,7 +143,11 @@ Run from the root of a checkout. Four phases; any failure exits non-zero.
    K1) and ``tiny_v2`` S2ST; ``tiny_v2`` S2ST through ``.pt`` files and the
    loaders (same text, waveforms within 1e-4); the tiny streaming models
    of ``tests/test_torch_streaming.py`` (S2TT in each mode, S2ST linear and
-   tree: the same tokens, segments and units, waveforms within 1e-4); and
+   tree: the same tokens, segments and units, waveforms within 1e-4);
+   ``tiny_expressive`` with the tiny PRETSSEL of
+   ``tests/test_torch_pretssel.py``, fused (S2ST with the prosody input and
+   ``PretsselGenerator``, and the expressive streaming pipeline: the same
+   tokens, units and segments, waveforms within 1e-4); and
    two ``tiny_v2`` train
    steps with the option
    on (K6, K6b, K6c on the card) give the CPU's losses within 1e-5 and its
@@ -165,6 +186,11 @@ the loaders.
 builds the kernels and runs only phase 2's K6 at the streaming shape, phase
 3i and phase 4's tiny streaming models.
 
+    python3 chip_smoke.py --expressive
+
+builds the kernels and runs only phase 2's K6 at PRETSSEL's shape, phase
+3j and phase 4's tiny expressive case.
+
     python3 chip_smoke.py --k12-trace
 
 times copies of K1 at the main path's shape, as built and with variants
@@ -200,6 +226,18 @@ K_CAND = 11                        # candidates a beam: 2 * beam 5 + 1
 
 def log(*a):
     print(*a, flush=True)
+
+
+PHASE_S: dict = {}      # each phase's wall seconds, in the order run
+
+
+def timed(label: str, fn, *a, **kw):
+    """``fn(*a, **kw)``, its wall seconds logged and kept in ``PHASE_S``."""
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    PHASE_S[label] = time.perf_counter() - t0
+    log(f"phase {label}: {PHASE_S[label]:.1f} s")
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -3591,7 +3629,9 @@ def phase_streaming(smi: str, out_dir: str = "chiprun_out") -> dict:
     with open(os.path.join(out_dir, "streaming_decisions.json"), "w") as f:
         json.dump({"threshold": threshold, "card": smi, "statistic": decisions}, f)
     stats.update(runs=runs, same_tokens_as_unfused_s2tt=same)
-    return {"launches": k6, "stats": stats}
+    return {"launches": k6, "stats": stats,
+            "models": {"unity": tree, "cfg": cfg, "mono": mono_tree, "mono_cfg": mono_cfg,
+                       "text": text_tok, "char": char_tok}}
 
 
 def tiny_streaming_models(gen):
@@ -3708,6 +3748,491 @@ def phase_tiny_streaming() -> None:
                                  "token was written")
         log(f"tiny {name}: {len(tc)} tokens and {len(sc)} segments identical on the card "
             f"and the CPU, waveform max abs difference {err:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: SeamlessExpressive
+# ---------------------------------------------------------------------------
+
+EXPR_CARD, PRETSSEL_CARD = "smoke_expressivity", "smoke_pretssel"
+EXPR_SECONDS = 10.0
+PRETSSEL_T, PRETSSEL_VALID = 1280, 1242     # phase 2's K6 at PRETSSEL's decoder
+
+
+def pretssel_flash_case(smi: str) -> dict:
+    """Phase 2's K6 at PRETSSEL's FFT decoder shape: B=1, H=2, Dh=128 (the
+    model's 256 over 2 heads), T = 1280 mel frames (1242 valid) under a pure
+    key-padding mask, which ``try_flash`` turns into key segment ids. K6
+    against its plain version in fp32 (the loaded vocoder's dtype) and
+    bf16, within rtol = atol = 1e-5 and 1.6e-2; timed beside the library's
+    SDPA with the segment mask as a float mask and the bound over the
+    unmasked logits; the fp32 kernel's skipped key tiles counted."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(41)
+    B, H, T, Dh, valid = 1, 2, PRETSSEL_T, 128, PRETSSEL_VALID
+    qkv = [torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32,
+                           device=dev) for _ in range(3)]
+    qkv[0] = qkv[0] / Dh ** 0.5
+    q_seg = torch.ones((B, T), dtype=torch.int32, device=dev)
+    kv_seg = (torch.arange(T, device=dev) < valid).to(torch.int32)[None].contiguous()
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qs, k, v = (x.to(dtype) for x in qkv)
+        args = (qs, k, v, None, q_seg, kv_seg)
+        got = fl.flash_attention(*args)
+        ref = fl._reference(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if not bool((err <= tol[dtype] * (1 + ref.float().abs())).all()):
+            raise AssertionError(f"K6 PRETSSEL decoder {dtype}: out max err "
+                                 f"{float(err.max()):.3g} over tolerance")
+        mask = torch.where(q_seg[:, None, :, None] == kv_seg[:, None, None, :], 0.0,
+                           fl.MASK_VALUE).to(dtype)
+        k_ms = cuda_time_ms(lambda: fl.flash_attention(*args))
+        p_ms = cuda_time_ms(lambda: fl._reference(*args), calls=5, reps=20)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, scale=1.0), calls=5, reps=20)
+        pairs = fl.unmasked_pairs(B, H, T, T, None, q_seg, kv_seg)
+        bound = fl.bound(B, H, T, T, Dh, dtype, False, True, pairs)
+        skipped = int(fl.skippable_tiles_fwd(q_seg, kv_seg, T, T, None).sum())
+        log(f"K6 PRETSSEL FFT decoder, B={B} H={H} Dh={Dh} T={T} ({valid} valid keys, "
+            f"key segment ids), {str(dtype)[6:]}: out max abs err {float(err.max()):.3g} "
+            f"(rtol=atol={tol[dtype]}); device kernel {k_ms * 1e3:.2f} us, plain "
+            f"{p_ms * 1e3:.2f} us, library SDPA with the float mask {lib_ms * 1e3:.2f} us, "
+            f"bound {bound[0] * 1e3:.2f} us ({bound[1]}; {pairs} unmasked logits of "
+            f"{H * T * T}), {skipped} tile pairs skipped, kernel at "
+            f"{k_ms / bound[0]:.1f}x its bound [{smi}]")
+        out[str(dtype)[6:]] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                               "bound_ms": bound[0], "bound_by": bound[1],
+                               "max_abs_err": float(err.max()), "tiles_skipped": skipped,
+                               "unmasked_pairs": pairs}
+    return out
+
+
+def write_expressive_cards(d, unity_extra: str = "", voc_extra: str = "",
+                           num_words: int = 1200) -> None:
+    """The synthetic tokenizers and two cards in ``d``: ``EXPR_CARD``, the
+    packaged ``seamless_expressivity`` card with ``d/unity.pt`` and these
+    tokenizers (and ``unity_extra``'s fields), and ``PRETSSEL_CARD``,
+    ``vocoder_pretssel`` (24 kHz) with ``d/pretssel.pt`` (and
+    ``voc_extra``'s)."""
+    (d / "nllb.model").write_bytes(synthetic_spm(num_words))
+    (d / "char.model").write_bytes(synthetic_char_spm())
+    (d / f"{EXPR_CARD}.yaml").write_text(
+        f"name: {EXPR_CARD}\nbase: seamless_expressivity\ncheckpoint: {d / 'unity.pt'}\n"
+        f"tokenizer: {d / 'nllb.model'}\nchar_tokenizer: {d / 'char.model'}\n"
+        f"{unity_extra}")
+    (d / f"{PRETSSEL_CARD}.yaml").write_text(
+        f"name: {PRETSSEL_CARD}\nbase: vocoder_pretssel\ncheckpoint: {d / 'pretssel.pt'}\n"
+        f"{voc_extra}")
+
+
+@contextlib.contextmanager
+def pretssel_launches(record: list):
+    """While open, each ``PretsselGenerator.predict`` appends to ``record``
+    the launches its call made (the counts' difference) and the K6 launches
+    its shapes make eligible: 4 encoder layers where the units (bucketed)
+    reach 128, 4 decoder layers where the mel frames do."""
+    from unittest import mock
+
+    from seamless_communication_torch.inference import pretssel_generator as pg
+    from seamless_communication_torch.ops.kernels import launch_counts
+
+    predict = pg.PretsselGenerator.predict
+
+    def counted(self, units_batch, *a, **kw):
+        before = dict(launch_counts)
+        out = predict(self, units_batch, *a, **kw)
+        expected = 0
+        for units in units_batch:
+            if units:
+                u_arr, _, _, M = pg.unit_batch(units)
+                expected += (self.cfg.num_encoder_layers * (u_arr.shape[1] >= 128)
+                             + self.cfg.num_decoder_layers * (M >= 128))
+        record.append(({k: launch_counts[k] - before[k] for k in launch_counts}, expected))
+        return out
+
+    with mock.patch.object(pg.PretsselGenerator, "predict", counted):
+        yield
+
+
+STREAM_EXPR_MAX_LEN = 127      # 3j's stream: its text decode cut to 127 tokens
+
+
+def phase_expressive(smi: str, stream_models: Optional[dict] = None) -> dict:
+    """3j. SeamlessExpressive at full width: ``expressivity_v2`` (base_v2's
+    speech encoder, the tanh-GELU dense_1b decoder, the FiLM NAR T2U 4 + 4,
+    the ECAPA-TDNN prosody encoder) and the 24 kHz PRETSSEL on seeded bf16
+    weights, written as fp16 ``.pt`` files by the port's exporters with
+    cards inheriting the packaged ones; ``cli.expressivity_predict.main``
+    in-process on 10 s of seeded noise with ``SEAMLESS_FUSED_ATTN=1`` and
+    int8 weights, the text decode cut to 127 steps, its loads holding every
+    leaf to the file's fp16 value (the UnitY's before quantizing; PRETSSEL's
+    folded weight norms rounded back to fp16). K1 launched 24 times a
+    decode step, K6 inside PRETSSEL as often as its shapes make eligible,
+    each counted from 0; the WAV 24 kHz, finite, within [-1, 1], 240
+    samples a mel frame. PRETSSEL again with the option off: the waveform
+    within 1e-3 (K6 against the plain attention through 8 FFT layers and
+    the HiFi-GAN). Then one expressive streaming session in the fused mode
+    (``build_expressive_s2st_pipeline``: the ``streaming`` UnitY and the
+    dense_1b EMMA decoder, the loaded PRETSSEL): 10 s in 320 ms chunks, the
+    text decode cut to ``STREAM_EXPR_MAX_LEN`` tokens, ms a chunk and xRT.
+    The streaming models are ``stream_models``, 3i's loaded ones
+    (``phase_streaming``'s ``models``), or else drawn seeded bf16 in
+    memory."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.assets import load_card
+    from seamless_communication_torch.audio.wav import read_wav, write_wav
+    from seamless_communication_torch.checkpoint.fairseq_export import (
+        export_pretssel, export_unity,
+    )
+    from seamless_communication_torch.cli import expressivity_predict, loading
+    from seamless_communication_torch.models.monotonic.model import (
+        MonotonicDecoderConfig, monotonic_decoder_init,
+    )
+    from seamless_communication_torch.models.pretssel.vocoder import (
+        pretssel_24khz_config, pretssel_init,
+    )
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
+    from seamless_communication_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seamless_communication_torch.streaming.pipeline import (
+        build_expressive_s2st_pipeline,
+    )
+
+    dev = torch.device("cuda")
+    cfg = get_arch("expressivity_v2")
+    pcfg = pretssel_24khz_config()
+    kw = dict(dtype=torch.bfloat16, device=dev)
+    params = unity.unity_init(torch.Generator(device=dev).manual_seed(42), cfg, **kw)
+    voc = pretssel_init(torch.Generator(device=dev).manual_seed(43), pcfg, **kw)
+    n_unity = sum(t.numel() for t in {id(t): t for t in tensor_leaves(params)}.values())
+    n_voc = sum(t.numel() for t in tensor_leaves(voc))
+    # 3i's streaming models stay on the card for the stream: left out of the
+    # request's peak
+    resident = sum(t.numel() * t.element_size() for t in {
+        id(t): t for k in ("unity", "mono")
+        for t in tensor_leaves((stream_models or {}).get(k, {}))
+        if isinstance(t, torch.Tensor) and t.is_cuda}.values())
+    hop = pcfg.hifigan.total_upsample
+    stats: dict = {"unity_params": n_unity, "pretssel_params": n_voc}
+    with offline_dir() as d:
+        t0 = time.perf_counter()
+        torch.save({"model": export_unity(params, dtype=torch.float16)}, d / "unity.pt")
+        torch.save({"model": export_pretssel(voc, pcfg, dtype=torch.float16)},
+                   d / "pretssel.pt")
+        export_s = time.perf_counter() - t0
+        gc.collect()
+        write_expressive_cards(d)
+        sizes = {f: os.path.getsize(d / f) for f in ("unity.pt", "pretssel.pt")}
+        log(f"3j exported expressivity_v2 ({n_unity / 1e9:.3f} B parameters) and the 24 kHz "
+            f"PRETSSEL ({n_voc / 1e6:.1f} M) as fp16 .pt files in {export_s:.1f} s: "
+            f"unity.pt {sizes['unity.pt'] / 2**30:.3f} GiB, pretssel.pt "
+            f"{sizes['pretssel.pt'] / 2**20:.1f} MiB [{smi}]")
+        stats.update(export_s=export_s, file_bytes=sizes)
+
+        # the CLI's own loads, each leaf held as it loads; the seeded trees
+        # are released after their check, and the peak is the request's
+        held, seeded = {}, {"unity": params, "pretssel": voc}
+        del params, voc
+        quantize, load_voc = loading.quantize_params, loading.load_pretssel_vocoder
+
+        def hold_then_quantize(tree, **qkw):
+            held["unity"] = hold_leaves("unity", seeded.pop("unity"), tree,
+                                        lambda w, g: torch.equal(
+                                            w.to(torch.float16).to(g.dtype), g))
+            return quantize(tree, **qkw)
+
+        def hold_vocoder(*a, **vkw):
+            out = load_voc(*a, **vkw)
+            voc = seeded.pop("pretssel")
+            want = dict(voc, gcmvn_mean=voc["gcmvn_mean"] * 0,
+                        gcmvn_std=voc["gcmvn_std"] * 0 + 1)
+            held["pretssel"] = hold_leaves("pretssel", want, out[0], lambda w, g: torch.equal(
+                w.to(torch.float16), g.to(torch.float16)))
+            del voc, want
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        wav = (np.random.default_rng(44).standard_normal(int(EXPR_SECONDS * 16000))
+               * 0.1).astype(np.float32)
+        write_wav(str(d / "in.wav"), wav, 16000)
+        record: list = []
+        loading.quantize_params, loading.load_pretssel_vocoder = hold_then_quantize, hold_vocoder
+        try:
+            with fused_attention(True), pretssel_launches(record):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                res = expressivity_predict.main([
+                    str(d / "in.wav"), "--tgt_lang", "fra", "--model_name", EXPR_CARD,
+                    "--vocoder_name", PRETSSEL_CARD, "--local_pt_path", str(d / "unity.pt"),
+                    "--output_path", str(d / "out.wav"), "--quantize",
+                    "--text_generation_max_len_a", "0", "--text_generation_max_len_b", "126"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(launch_counts)
+                peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        finally:
+            loading.quantize_params, loading.load_pretssel_vocoder = quantize, load_voc
+        (pre_launches, pre_expected), = record
+        gen = res.translator.generator.last_result
+        layers = cfg.nllb.num_decoder_layers
+        k1 = launches["decode_attention_int8"]
+        if k1 != layers * gen.steps or launches["decode_attention_int4"]:
+            raise AssertionError(f"3j: K1 launched {k1} times in {gen.steps} decode steps, "
+                                 f"not {layers} a step")
+        k6_pre = pre_launches["flash_attention"]
+        if k6_pre != pre_expected or k6_pre <= 0:
+            raise AssertionError(f"3j: K6 launched {k6_pre} times inside PRETSSEL, its "
+                                 f"shapes make {pre_expected} attentions eligible")
+        out, rate = read_wav(str(d / "out.wav"))
+        frames = res.generator.last_mel_frames[0]
+        if (rate != 24000 or not len(out) or len(res.waveform) != frames * hop
+                or not np.isfinite(res.waveform).all() or np.abs(res.waveform).max() > 1.0):
+            raise AssertionError(f"3j: the WAV ({rate} Hz, {len(out)} samples, {frames} mel "
+                                 "frames) is empty, not finite, outside [-1, 1] or not "
+                                 f"{hop} samples a frame")
+        check_hypotheses(gen, res.translator.text_tokenizer.target_prefix("fra").tolist(),
+                         gen.tokens.shape[-1], cfg.nllb.eos_idx)
+        request = {k: v * 1e3 for k, v in res.translator.last_timings.items()}
+        request.update({k: v * 1e3 for k, v in res.generator.last_timings.items()})
+        mc = load_card(PRETSSEL_CARD)["model_config"]
+        stats_g = mc["gcmvn_stats"]
+        from seamless_communication_torch.audio.fbank import fbank_numpy
+        fbank = fbank_numpy(wav)
+        gcmvn = ((fbank - np.asarray(stats_g["mean"])[None])
+                 / np.asarray(stats_g["std"])[None]).astype(np.float32)
+        with fused_attention(False):
+            plain = res.generator.predict(res.units, "fra", gcmvn[None],
+                                          np.array([gcmvn.shape[0]]))[0]
+        wav_err = float(np.abs(plain - res.waveform).max())
+        if plain.shape != res.waveform.shape or wav_err > 1e-3:
+            raise AssertionError(f"3j: PRETSSEL with the fused option and without differs "
+                                 f"by {wav_err:.3g}")
+        log(f"3j expressivity_predict S2ST 10 s, fused, int8: wall {wall:.2f} s (loading "
+            f"included: " + ", ".join(f"{k} {v:.2f}" for k, v in res.load_timings.items())
+            + " s); request " + ", ".join(f"{k} {v:.1f}" for k, v in request.items())
+            + f" ms, {request['text_decode'] / gen.steps:.2f} ms a decode step; {gen.steps} "
+            f"decode steps, K1 launches {k1}, K6 launches {launches['flash_attention']} "
+            f"({k6_pre} inside PRETSSEL); {len(res.units[0])} units, {frames} mel frames, "
+            f"{len(res.waveform) / 24000:.2f} s of 24 kHz audio; peak from the loaded "
+            f"trees on {peak:.2f} GiB (3i's streaming models, {resident / 2**30:.2f} GiB, "
+            f"left out); "
+            f"{held['unity']} UnitY and {held['pretssel']} PRETSSEL leaves equal the "
+            f"files' fp16 values; PRETSSEL with the option off: waveform max abs "
+            f"difference {wav_err:.3g}; text {res.texts[0][:40]!r} [{smi}]")
+        stats.update(predict_wall_s=wall, load_stages_s=res.load_timings,
+                     request_stages_ms=request, steps=gen.steps, k1_launches=k1,
+                     k6_launches=launches["flash_attention"], k6_pretssel=k6_pre,
+                     units=len(res.units[0]), mel_frames=frames,
+                     audio_s=len(res.waveform) / 24000, peak_gib=peak, held_leaves=held,
+                     fused_vs_plain_wav_err=wav_err)
+        pretssel_tree = res.generator.params
+        gcmvn_mean, gcmvn_std = stats_g["mean"], stats_g["std"]
+        langs = {lang: i for i, lang in enumerate(mc["langs"])}
+        del res
+        gc.collect()
+
+    # one expressive streaming session, fused
+    if stream_models is None:
+        scfg = get_arch("streaming")
+        stream_unity = unity.unity_init(torch.Generator(device=dev).manual_seed(45), scfg,
+                                        **kw)
+        del stream_unity["text_decoder"]
+        mono_cfg = MonotonicDecoderConfig()
+        mono = monotonic_decoder_init(torch.Generator(device=dev).manual_seed(46),
+                                      mono_cfg, **kw)
+        text_tok, char_tok = synthetic_tokenizer(), synthetic_char_tokenizer()
+    else:
+        stream_unity, scfg, mono, mono_cfg, text_tok, char_tok = (
+            stream_models[k] for k in ("unity", "cfg", "mono", "mono_cfg", "text", "char"))
+    unit_tok = UnitTokenizer(10000, ["eng", "fra"], "streaming")
+    swav = (np.random.default_rng(47).standard_normal(int(STREAM_SECONDS * 16000))
+            * 0.1).astype(np.float32)
+    with fused_attention(True):
+        pipe = build_expressive_s2st_pipeline(
+            stream_unity, scfg, mono, mono_cfg, text_tok, unit_tok, char_tok,
+            pretssel_tree, pcfg, langs, gcmvn_mean, gcmvn_std, sample_rate=24000,
+            tgt_lang="fra", fused=True)
+        text_decoder_agent(pipe).max_len_a = 0
+        text_decoder_agent(pipe).max_len_b = STREAM_EXPR_MAX_LEN
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        outs, times, stages, swall = stream_timed(pipe, swav, tgt_lang="fra")
+        slaunches = dict(launch_counts)
+    speak = torch.cuda.max_memory_allocated() / 2**30
+    n_source = -(-len(swav) // int(CHUNK_MS * 16))
+    wavs = [np.asarray(s.content) for _, s in outs
+            if type(s).__name__ == "SpeechSegment" and not s.is_empty]
+    samples = sum(w.size for w in wavs)
+    if not outs or not outs[-1][1].finished or samples == 0 or samples % hop:
+        raise AssertionError(f"3j streaming: the stream did not finish or gave {samples} "
+                             f"samples, not a positive multiple of {hop}")
+    for w in wavs:
+        if not np.isfinite(w).all() or np.abs(w).max() > 1.0:
+            raise AssertionError("3j streaming: a waveform chunk is not finite or outside "
+                                 "[-1, 1]")
+    if slaunches["flash_attention"] <= 0:
+        raise AssertionError("3j streaming: K6 never launched with the fused option on")
+    src = times[:n_source]
+    pretssel_ms = sum(st.get("vocoder", 0.0) for st in stages)
+    dec = text_decoder_agent(pipe)
+    log(f"3j expressive streaming S2ST fused, 10 s: {len(times)} process calls "
+        f"({n_source} source chunks, {len(times) - n_source} drain calls); ms a 320 ms "
+        f"chunk median {statistics.median(src):.1f}, max {max(src):.1f}; drain "
+        f"{sum(times[n_source:]):.1f} ms; PRETSSEL {pretssel_ms:.1f} ms in {len(wavs)} "
+        f"segments; wall {swall:.2f} s, xRT {swall / STREAM_SECONDS:.3f}; "
+        f"{dec.policy_counts['tokens']} tokens, {samples // hop} mel frames, "
+        f"{samples / 24000:.2f} s of 24 kHz audio; K6 launches "
+        f"{slaunches['flash_attention']}; peak {speak:.2f} GiB [{smi}]")
+    stats["streaming"] = {"calls": len(times), "source_chunks": n_source,
+                          "chunk_ms": src, "median_ms": statistics.median(src),
+                          "max_ms": max(src), "drain_ms": times[n_source:],
+                          "pretssel_ms": pretssel_ms, "segments": len(wavs),
+                          "wall_s": swall, "xrt": swall / STREAM_SECONDS,
+                          "tokens": dec.policy_counts["tokens"], "mel_frames": samples // hop,
+                          "audio_s": samples / 24000,
+                          "k6_launches": slaunches["flash_attention"], "peak_gib": speak}
+    del pipe, dec, stream_unity, mono, pretssel_tree
+    gc.collect()
+    return {"launches": {"decode_attention_int8": k1,
+                         "flash_attention": launches["flash_attention"]
+                         + slaunches["flash_attention"]},
+            "stats": stats}
+
+
+# the tiny PRETSSEL of tests/test_torch_pretssel.py
+TINY_PRETSSEL = dict(num_units=112, model_dim=32, num_heads=2, ffn_inner_dim=64,
+                     conv_kernel_size=5, num_encoder_layers=2, num_decoder_layers=2,
+                     num_langs=4, lang_embed_dim=8, prosody_dim=16, pn_conv_dim=16,
+                     pn_layers=2, pn_kernel_size=5, var_pred_hidden=16)
+
+
+def tiny_pretssel(gen):
+    from seamless_communication_torch.models.pretssel.ecapa_tdnn import EcapaConfig
+    from seamless_communication_torch.models.pretssel.streamable import SeanetConfig
+    from seamless_communication_torch.models.pretssel.vocoder import (
+        PretsselConfig, pretssel_init,
+    )
+    from seamless_communication_torch.models.vocoder.hifigan import HifiGanConfig
+
+    cfg = PretsselConfig(
+        **TINY_PRETSSEL,
+        hifigan=HifiGanConfig(model_in_dim=80, upsample_initial_channel=32,
+                              upsample_rates=(5, 3), upsample_kernel_sizes=(10, 6),
+                              resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 2),),
+                              add_ups_out_pad=True, final_tanh=False),
+        seanet=SeanetConfig(dimension=16, n_filters=4, ratios=(5, 2), lstm=2),
+        ecapa=EcapaConfig(channels=(16, 16, 16, 16, 32), attention_channels=8,
+                          res2net_scale=4, se_channels=8, embed_dim=16))
+    return pretssel_init(gen, cfg), cfg
+
+
+def phase_tiny_expressive() -> None:
+    """``tiny_expressive`` and the tiny PRETSSEL, fp32, on the card and on the
+    CPU with ``SEAMLESS_FUSED_ATTN=1``: a 3 s S2ST through the Translator
+    with the prosody input (int8 KV, the decode cut to 17 steps) and
+    ``PretsselGenerator``, then the expressive streaming pipeline (the tiny
+    streaming models, fused) on a 2 s tone. The same tokens, units and
+    segments; waveforms within 1e-4; on the card K1 and K6 launched (K6 in
+    PRETSSEL's attentions of 128 or more positions)."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.audio.fbank import fbank_numpy
+    from seamless_communication_torch.inference.generator import SequenceGeneratorOptions
+    from seamless_communication_torch.inference.pretssel_generator import PretsselGenerator
+    from seamless_communication_torch.inference.translator import Translator
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
+    from seamless_communication_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seamless_communication_torch.streaming.pipeline import (
+        build_expressive_s2st_pipeline,
+    )
+
+    gen = torch.Generator().manual_seed(51)
+    cfg = get_arch("tiny_expressive")
+    params = unity.unity_init(gen, cfg)
+    voc, vcfg = tiny_pretssel(gen)
+    m = tiny_streaming_models(gen)
+    rng = np.random.default_rng(52)
+    wav = (rng.standard_normal(3 * 16000) * 0.1).astype(np.float32)
+    fb = fbank_numpy(wav)
+    gcmvn = ((fb - fb.mean(0)) / (fb.std(0) + 1e-5)).astype(np.float32)
+    mean, std = np.full(80, 8.0, np.float32), np.full(80, 4.0, np.float32)
+    opts = SequenceGeneratorOptions(soft_max_seq_len=(0, 16), kv_cache_int8=True)
+    tone = (0.1 * np.sin(2 * np.pi * 300 * np.arange(32000) / 16000)).astype(np.float32)
+    got = {}
+    with fused_attention(True):
+        for device in ("cuda", "cpu"):
+            reset_launch_counts()
+            tr = Translator(params, cfg, m["text"], UnitTokenizer(100, ["eng", "fra"],
+                                                                  "tiny_expressive"),
+                            m["char"], text_opts=opts, device=device)
+            texts, speech = tr.predict(wav, "s2st", "eng", prosody_encoder_input=gcmvn)
+            pg = PretsselGenerator(voc, vcfg, lang_to_index={"eng": 0}, device=device)
+            wavs = pg.predict(speech.units, "eng", gcmvn[None], np.array([len(gcmvn)]))
+            offline = dict(launch_counts)
+            pipe = build_expressive_s2st_pipeline(
+                m["unity"], m["cfg"], m["mono"], m["mono_cfg"], m["text"], m["units"],
+                m["char"], voc, vcfg, {"eng": 0}, mean, std, tgt_lang="eng",
+                min_starting_wait_w2vbert=16, decision_threshold=0.001,
+                min_unit_chunk_size=5, fused=True, device=device)
+            text_decoder_agent(pipe).max_len_b = 10
+            text_decoder_agent(pipe).max_consecutive_writes = 5
+            outs = stream_timed(pipe, tone)[0]
+            segs = [(i, type(s).__name__, s.content, bool(s.finished)) for i, s in outs]
+            got[device] = (texts, tr.generator.last_result.tokens[:, 0].cpu(), speech.units,
+                           wavs, list(text_decoder_agent(pipe).states.target_indices), segs,
+                           offline)
+    (tc, kc, uc, wc, sc_tok, sc, lc), (tp, kp, up, wp, sp_tok, sp, _) = got["cuda"], got["cpu"]
+    if tc != tp or not torch.equal(kc, kp) or uc != up or not uc[0]:
+        raise AssertionError(f"tiny expressive S2ST: the card and the CPU differ (texts "
+                             f"{tc == tp}, units {uc == up})")
+    err = max(float(np.abs(a - b).max(initial=0.0)) for a, b in zip(wc, wp))
+    if [a.shape for a in wc] != [b.shape for b in wp] or err > 1e-4:
+        raise AssertionError(f"tiny expressive PRETSSEL: waveforms differ by {err:.3g}")
+    if lc["decode_attention_int8"] <= 0 or lc["flash_attention"] <= 0:
+        raise AssertionError(f"tiny expressive on the card: K1 {lc['decode_attention_int8']}"
+                             f", K6 {lc['flash_attention']} launches")
+    if sc_tok != sp_tok or [(i, k, f) for i, k, _, f in sc] != [(i, k, f) for i, k, _, f in sp]:
+        raise AssertionError("tiny expressive streaming: tokens or segments differ between "
+                             "the card and the CPU")
+    serr = 0.0
+    for (_, kind, a, _), (_, _, b, _) in zip(sc, sp):
+        if kind == "SpeechSegment":
+            a, b = np.asarray(a), np.asarray(b)
+            if a.shape != b.shape:
+                raise AssertionError(f"tiny expressive streaming: waveform shapes {a.shape}, "
+                                     f"{b.shape}")
+            serr = max(serr, float(np.abs(a - b).max(initial=0.0)))
+        elif not (a is None and b is None) and str(a) != str(b):
+            raise AssertionError(f"tiny expressive streaming: segment {a!r} on the card, "
+                                 f"{b!r} on the CPU")
+    if serr > 1e-4:
+        raise AssertionError(f"tiny expressive streaming: waveforms differ by {serr:.3g}")
+    log(f"tiny_expressive + tiny PRETSSEL, fused: S2ST text, tokens and {len(uc[0])} units "
+        f"identical on the card and the CPU, waveform max abs difference {err:.3g} (K1 "
+        f"{lc['decode_attention_int8']}, K6 {lc['flash_attention']} launches on the card); "
+        f"expressive streaming: {len(sc_tok)} tokens and {len(sc)} segments identical, "
+        f"waveform max abs difference {serr:.3g}")
 
 
 # ---------------------------------------------------------------------------
@@ -4796,67 +5321,85 @@ def main() -> int:
         log(json.dumps({"streaming": streaming["stats"], "k6_streaming": k6s,
                         "k6_launches_3i": streaming["launches"], "card": dev["smi"]}))
         return 0
+    if sys.argv[1:] == ["--expressive"]:
+        k6p = timed("2 K6 PRETSSEL", pretssel_flash_case, dev["smi"])
+        expressive = timed("3j", phase_expressive, dev["smi"])
+        timed("4 expressive", phase_tiny_expressive)
+        log(json.dumps({"expressive": expressive["stats"], "k6_pretssel": k6p,
+                        "launches_3j": expressive["launches"], "phase_s": PHASE_S,
+                        "card": dev["smi"]}))
+        return 0
     floor_ms = launch_floor_ms()
     log(f"launch floor (a one-element in-place add, CUDA-graph replay): "
         f"{floor_ms * 1e3:.2f} us [{dev['smi']}]")
-    k1 = phase_decode_attention("decode_attention_int8", floor_ms)
-    k2 = phase_decode_attention("decode_attention_int4", floor_ms)
-    k5 = phase_indexed(dev["smi"], floor_ms)
-    k4 = phase_fbank(dev["smi"], floor_ms)
-    k3b, k3a = phase_vocab_topk(dev["smi"])
-    k6 = phase_flash_attention(dev["smi"])
-    k6["streaming"] = streaming_flash_case(dev["smi"])    # the 3i re-encode's shape
-    k6b, k6c = phase_flash_attention_bwd(dev["smi"])
-    phase_flash_sweep(dev["smi"])
+    k1 = timed("2 K1", phase_decode_attention, "decode_attention_int8", floor_ms)
+    k2 = timed("2 K2", phase_decode_attention, "decode_attention_int4", floor_ms)
+    k5 = timed("2 K5", phase_indexed, dev["smi"], floor_ms)
+    k4 = timed("2 K4", phase_fbank, dev["smi"], floor_ms)
+    k3b, k3a = timed("2 K3", phase_vocab_topk, dev["smi"])
+    k6 = timed("2 K6", phase_flash_attention, dev["smi"])
+    # the 3i re-encode's shape and 3j's PRETSSEL decoder
+    k6["streaming"] = timed("2 K6 streaming", streaming_flash_case, dev["smi"])
+    k6["pretssel"] = timed("2 K6 PRETSSEL", pretssel_flash_case, dev["smi"])
+    k6b, k6c = timed("2 K6b K6c", phase_flash_attention_bwd, dev["smi"])
+    timed("2 sweep", phase_flash_sweep, dev["smi"])
     if sys.argv[1:] == ["--kernels"]:
         return 0
-    base_v2 = build_base_v2()
+    base_v2 = timed("3 base_v2 build", build_base_v2)
     # each kernel's launches are counted over its own path, reset just before
-    s2tt = phase_s2tt(*base_v2, dev["smi"])
+    s2tt = timed("3a", phase_s2tt, *base_v2, dev["smi"])
     k1["launches"] = s2tt["launches"]
-    s2st = phase_s2st(*base_v2, dev["smi"])
+    s2st = timed("3b", phase_s2st, *base_v2, dev["smi"])
     k2["launches"] = s2st["launches"]
     translator, tok, cfg, noise = base_v2
-    t2t = phase_t2t(translator, tok, cfg, dev["smi"])
+    t2t = timed("3c", phase_t2t, translator, tok, cfg, dev["smi"])
     k3b["launches"] = t2t["launches"]["vocab_topk_v2"]
     k3a["launches"] = t2t["launches"]["vocab_topk"]     # not on any path: 0
-    lazy = phase_lazy(*base_v2, dev["smi"])
+    lazy = timed("3d", phase_lazy, *base_v2, dev["smi"])
     k5["launches"] = lazy["launches"]["decode_attention_indexed"]
     k4["launches"] = lazy["launches"]["fbank"]          # not on any path: 0
-    fused = phase_fused(*base_v2, dev["smi"])
+    fused = timed("3e", phase_fused, *base_v2, dev["smi"])
     vocoder = (translator.vocoder_params, translator.vocoder_cfg)
     del base_v2, translator
     gc.collect()        # 3d's MinTox translator holds base_v2's tree in a cycle
     log(f"base_v2 released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     v1_translator, v1_cfg = build_base_v1(*vocoder)
-    v1 = phase_v1(v1_translator, v1_cfg, noise, dev["smi"])
+    v1 = timed("3f", phase_v1, v1_translator, v1_cfg, noise, dev["smi"])
     k6["launches"] = fused["launches"]["flash_attention"] + v1["launches"]["flash_attention"]
     del v1_translator, vocoder
     gc.collect()
-    offline = phase_offline(dev["smi"])
+    offline = timed("3h", phase_offline, dev["smi"])
     k1["launches_3h"] = offline["launches"]     # 3h's m4t_predict S2ST request
     gc.collect()
-    streaming = phase_streaming(dev["smi"])
+    streaming = timed("3i", phase_streaming, dev["smi"])
     k6["launches"] += streaming["launches"]
     k6["launches_3i"] = streaming["launches"]
     gc.collect()
-    train = phase_train(dev["smi"])
+    # 3j's stream runs on 3i's loaded streaming models
+    expressive = timed("3j", phase_expressive, dev["smi"], streaming.pop("models"))
+    k1["launches_3j"] = expressive["launches"]["decode_attention_int8"]
+    k6["launches"] += expressive["launches"]["flash_attention"]
+    k6["launches_3j"] = expressive["launches"]["flash_attention"]
+    gc.collect()
+    train = timed("3g", phase_train, dev["smi"])
     k6["launches"] += train["launches"]["flash_attention"]
     for row, name in ((k6b, "flash_attention_bwd_dkv"), (k6c, "flash_attention_bwd_dq")):
         row["launches"] = train["launches"][name]
         row["launches_fp32"] = train["launches_fp32"][name]   # 3g's fp32 gradient parity
-    phase_tiny_cuda_vs_cpu()
-    phase_tiny_s2st()
-    phase_tiny_t2t()
-    phase_tiny_options()
-    phase_tiny_v1_and_fused()
-    phase_tiny_offline()
-    phase_tiny_streaming()
-    phase_tiny_train()
+    for label, phase in (("4 cuda vs cpu", phase_tiny_cuda_vs_cpu),
+                         ("4 s2st", phase_tiny_s2st), ("4 t2t", phase_tiny_t2t),
+                         ("4 options", phase_tiny_options),
+                         ("4 v1 and fused", phase_tiny_v1_and_fused),
+                         ("4 offline", phase_tiny_offline),
+                         ("4 streaming", phase_tiny_streaming),
+                         ("4 expressive", phase_tiny_expressive),
+                         ("4 train", phase_tiny_train)):
+        timed(label, phase)
     log(json.dumps({"main_path": s2tt["requests"] + s2st["requests"] + t2t["requests"],
                     "lazy": lazy["requests"], "fused": fused["requests"],
                     "v1": v1["requests"], "offline": offline["stats"],
-                    "streaming": streaming["stats"], "train": train,
+                    "streaming": streaming["stats"], "expressive": expressive["stats"],
+                    "train": train, "phase_s": PHASE_S,
                     "card": dev["smi"]}))
     log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5, k6, k6b, k6c]}))
     print(json.dumps({"ok": True, "device": {

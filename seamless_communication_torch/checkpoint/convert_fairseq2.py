@@ -18,11 +18,14 @@ its dtype and widens only the folded ones to fp32. The layers of a stack stay
 a list, and the text encoder shares the text decoder's ``embed`` dict.
 
 The SeamlessStreaming EMMA monotonic decoder converts too
-(``monotonic_tree_from_pt``, either key space).
+(``monotonic_tree_from_pt``, either key space), and SeamlessExpressive: the
+expressive UnitY's ECAPA prosody encoder, FiLM layers and prosody projection
+(``unity_tree_from_fairseq2``), and the PRETSSEL vocoder
+(``pretssel_tree_from_pt``: its flat, interleaved ``layers`` list decoded
+by the config, the LSTM's two biases folded into one).
 
-Not here yet: the expressive models' prosody encoder (ECAPA) and FiLM leaves,
-which raise naming ROADMAP entry 11, and the PRETSSEL, aligner, MuTox, raw
-wav2vec2 and conformer-shaw converters (entries 11, 13).
+Not here yet: the aligner, MuTox, raw wav2vec2 and conformer-shaw converters
+(ROADMAP entry 13).
 """
 
 from __future__ import annotations
@@ -404,15 +407,6 @@ def apply_unity_fixups(sd: Dict[str, Any], *, is_nllb_100: Optional[bool] = None
 # fairseq2 paths -> the port's tree
 # ---------------------------------------------------------------------------
 
-def _not_yet(sd: Mapping) -> None:
-    """The expressive models' parts the port has no model for yet."""
-    if "prosody_encoder_model.fc.weight" in sd or "t2u_model.prosody_proj.weight" in sd \
-            or any(".film." in k for k in sd):
-        raise NotImplementedError(
-            "this checkpoint has the expressive models' prosody encoder or FiLM "
-            "leaves; the port converts them with ROADMAP entry 11 (SeamlessExpressive)")
-
-
 def _conformer_layer_tree(sd: Mapping, p: str) -> dict:
     """One conformer block (ffn1, self-attention (Shaw or XL), conv module,
     ffn2) at fairseq2 path prefix ``p``."""
@@ -450,8 +444,9 @@ def unity_tree_from_fairseq2(sd: Mapping, *, v2: bool = True) -> dict:
     """A fairseq2-keyed UnitY state dict -> the port's UnitY tree: speech
     encoder, text decoder and text encoder (where the state dict has them;
     the encoder shares the decoder's embedding), NAR (v2) or AR (v1) T2U.
-    ``v2`` is taken as the JAX package takes it; the layers' keys decide."""
-    _not_yet(sd)
+    ``v2`` is taken as the JAX package takes it; the layers' keys decide.
+    An expressive checkpoint adds the ECAPA prosody encoder and the T2U's
+    FiLM layers and prosody projection."""
     n_enc = _num_layers(sd, r"speech_encoder\.inner\.layers\.([0-9]+)\.")
     n_adapt = _num_layers(sd, r"speech_encoder\.adaptor_layers\.([0-9]+)\.")
     adaptors = []
@@ -497,6 +492,9 @@ def unity_tree_from_fairseq2(sd: Mapping, *, v2: bool = True) -> dict:
         params["t2u"] = _nar_t2u_tree(sd)
     elif "t2u_model.decoder.layers.0.encoder_decoder_attn.q_proj.weight" in sd:
         params["t2u"] = _ar_t2u_tree(sd)
+    # the expressive models' prosody encoder (global_prosody)
+    if "prosody_encoder_model.fc.weight" in sd:
+        params["prosody_encoder"] = ecapa_tree_from_fairseq2(sd, prefix="prosody_encoder_model")
     return params
 
 
@@ -530,35 +528,65 @@ def _decoder_tree(sd, prefix, embed_prefix) -> dict:
 
 
 def _nar_t2u_tree(sd) -> dict:
+    """The NAR T2U; an expressive checkpoint's FiLM layers (the duration
+    predictor's, every decoder layer's) and ``prosody_proj`` where present."""
     enc = _encoder_tree(sd, "t2u_model.encoder", "t2u_model.decoder_frontend.embed")
-    n = _num_layers(sd, r"t2u_model\.decoder\.layers\.([0-9]+)\.")
-    vp = "t2u_model.decoder_frontend.variance_adaptor.duration_predictor"
-
-    def vconv(name):
-        return (_conv(sd, f"{vp}.{name}.0") if f"{vp}.{name}.0.weight" in sd
-                else _conv(sd, f"{vp}.{name}"))
-
     one = torch.ones(1, dtype=torch.float64)     # the JAX package's np.ones(1)
-    return {
+    vp = "t2u_model.decoder_frontend.variance_adaptor.duration_predictor"
+    layers, _ = _fft_layers_tree(sd, "t2u_model.decoder")
+    p = {
         "encoder": enc["stack"],
         "embed_char": _embed(sd, "t2u_model.decoder_frontend.embed_char"),
         "pos_emb_alpha_char": _t(sd.get("t2u_model.decoder_frontend.pos_emb_alpha_char",
                                         one)),
         "pos_emb_alpha": _t(sd.get("t2u_model.decoder_frontend.pos_emb_alpha", one)),
-        "duration_predictor": {"conv1": vconv("conv1"), "ln1": _ln(sd, f"{vp}.ln1"),
-                               "conv2": vconv("conv2"), "ln2": _ln(sd, f"{vp}.ln2"),
-                               "proj": _linear(sd, f"{vp}.proj")},
-        "decoder_layers": [{
-            "self_attn": _mha(sd, f"t2u_model.decoder.layers.{i}.self_attn"),
-            "self_attn_layer_norm": _ln(
-                sd, f"t2u_model.decoder.layers.{i}.self_attn_layer_norm"),
-            "conv1": _conv(sd, f"t2u_model.decoder.layers.{i}.conv1d.conv1"),
-            "conv2": _conv(sd, f"t2u_model.decoder.layers.{i}.conv1d.conv2"),
-            "conv_layer_norm": _ln(sd, f"t2u_model.decoder.layers.{i}.conv1d_layer_norm"),
-        } for i in range(n)],
+        "duration_predictor": _variance_predictor_tree(sd, vp),
+        "decoder_layers": layers,
         "layer_norm": _ln(sd, "t2u_model.decoder.layer_norm"),
         "final_proj": _linear(sd, "t2u_model.final_proj"),
     }
+    if "t2u_model.prosody_proj.weight" in sd:
+        p["prosody_proj"] = _linear(sd, "t2u_model.prosody_proj")
+    return p
+
+
+def _film(sd, prefix: str) -> dict:
+    return {"proj": _linear(sd, f"{prefix}.proj"), "s_gamma": _t(sd[f"{prefix}.s_gamma"]),
+            "s_beta": _t(sd[f"{prefix}.s_beta"])}
+
+
+def _fft_layers_tree(sd, prefix: str) -> tuple:
+    """FFT layers ``{prefix}.layers.N.{self_attn, self_attn_layer_norm,
+    conv1d.conv1/conv2, conv1d_layer_norm, film}`` and the stack's final
+    ``layer_norm`` where it has one (the NAR T2U's; PRETSSEL's post-norm
+    stacks have none) -> (list of layers, norm or None)."""
+    n = _num_layers(sd, rf"{re.escape(prefix)}\.layers\.([0-9]+)\.")
+    layers = []
+    for i in range(n):
+        p = f"{prefix}.layers.{i}"
+        lp = {"self_attn": _mha(sd, f"{p}.self_attn"),
+              "self_attn_layer_norm": _ln(sd, f"{p}.self_attn_layer_norm"),
+              "conv1": _conv(sd, f"{p}.conv1d.conv1"),
+              "conv2": _conv(sd, f"{p}.conv1d.conv2"),
+              "conv_layer_norm": _ln(sd, f"{p}.conv1d_layer_norm")}
+        if f"{p}.film.proj.weight" in sd:
+            lp["film"] = _film(sd, f"{p}.film")
+        layers.append(lp)
+    norm = _ln(sd, f"{prefix}.layer_norm") if f"{prefix}.layer_norm.weight" in sd else None
+    return layers, norm
+
+
+def _variance_predictor_tree(sd, prefix: str) -> dict:
+    def vconv(name):
+        return (_conv(sd, f"{prefix}.{name}.0") if f"{prefix}.{name}.0.weight" in sd
+                else _conv(sd, f"{prefix}.{name}"))
+
+    p = {"conv1": vconv("conv1"), "ln1": _ln(sd, f"{prefix}.ln1"),
+         "conv2": vconv("conv2"), "ln2": _ln(sd, f"{prefix}.ln2"),
+         "proj": _linear(sd, f"{prefix}.proj")}
+    if f"{prefix}.film.proj.weight" in sd:
+        p["film"] = _film(sd, f"{prefix}.film")
+    return p
 
 
 def _ar_t2u_tree(sd) -> dict:
@@ -583,14 +611,7 @@ def vocoder_tree_from_pt(sd: Mapping) -> dict:
     g = "code_generator"
 
     def conv_wn(prefix, transpose=False):
-        if f"{prefix}.weight_g" in sd:
-            w = _fold_weight_norm(sd[f"{prefix}.weight_g"], sd[f"{prefix}.weight_v"])
-        else:
-            w = _t(sd[f"{prefix}.weight"])
-        p = {"weight": _convT_w(w) if transpose else _conv_w(w)}
-        if f"{prefix}.bias" in sd:
-            p["bias"] = _t(sd[f"{prefix}.bias"])
-        return p
+        return _conv_wn(sd, prefix, transpose=transpose)
 
     n_ups = _num_layers(sd, rf"{g}\.ups\.([0-9]+)\.")
     n_res = _num_layers(sd, rf"{g}\.resblocks\.([0-9]+)\.")
@@ -615,6 +636,164 @@ def vocoder_tree_from_pt(sd: Mapping) -> dict:
             "resblocks": resblocks,
             "conv_post": conv_wn(f"{g}.conv_post"),
         },
+    }
+
+
+def _conv_wn(sd, prefix: str, *, transpose: bool = False) -> dict:
+    """A conv whose weight may be a weight-norm g/v pair (folded)."""
+    if f"{prefix}.weight_g" in sd:
+        w = _fold_weight_norm(sd[f"{prefix}.weight_g"], sd[f"{prefix}.weight_v"])
+    else:
+        w = _t(sd[f"{prefix}.weight"])
+    p = {"weight": _convT_w(w) if transpose else _conv_w(w)}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = _t(sd[f"{prefix}.bias"])
+    return p
+
+
+# ---------------------------------------------------------------------------
+# ECAPA-TDNN (the expressive models' prosody encoder)
+# ---------------------------------------------------------------------------
+
+def ecapa_tree_from_fairseq2(sd: Mapping, *, prefix: str = "prosody_encoder_model"
+                             ) -> dict:
+    """Keys {prefix}.blocks.0 (TDNN), blocks.1..N (SE-Res2Net: tdnn1,
+    res2net_block.blocks.j, tdnn2, se_block.conv1/2, shortcut where the
+    widths differ), mfa, asp.{tdnn, conv}, asp_norm, fc -> the tree of
+    ``models/pretssel/ecapa_tdnn.py``."""
+    def tdnn(p):
+        return {"conv": _conv(sd, f"{p}.conv"), "norm": _ln(sd, f"{p}.norm")}
+
+    n_blocks = _num_layers(sd, rf"{re.escape(prefix)}\.blocks\.([0-9]+)\.")
+    blocks = [tdnn(f"{prefix}.blocks.0")]
+    for i in range(1, n_blocks):
+        p = f"{prefix}.blocks.{i}"
+        n_r = _num_layers(sd, rf"{re.escape(p)}\.res2net_block\.blocks\.([0-9]+)\.")
+        b = {"tdnn1": tdnn(f"{p}.tdnn1"),
+             "res2net": {"blocks": [tdnn(f"{p}.res2net_block.blocks.{j}")
+                                    for j in range(n_r)]},
+             "tdnn2": tdnn(f"{p}.tdnn2"),
+             "se": {"conv1": _conv(sd, f"{p}.se_block.conv1"),
+                    "conv2": _conv(sd, f"{p}.se_block.conv2")}}
+        if f"{p}.shortcut.weight" in sd:
+            b["shortcut"] = _conv(sd, f"{p}.shortcut")
+        blocks.append(b)
+    return {"blocks": blocks, "mfa": tdnn(f"{prefix}.mfa"),
+            "asp_tdnn": tdnn(f"{prefix}.asp.tdnn"),
+            "asp_conv": _conv(sd, f"{prefix}.asp.conv"),
+            "asp_norm": _ln(sd, f"{prefix}.asp_norm"),
+            "fc": _conv(sd, f"{prefix}.fc")}
+
+
+# ---------------------------------------------------------------------------
+# the PRETSSEL expressive vocoder (fairseq2 module paths)
+# ---------------------------------------------------------------------------
+
+def _lstm_tree(sd, prefix: str) -> list:
+    """torch LSTM keys -> [{"wx": {weight, bias}, "wh": {weight}}] a layer,
+    the two biases folded into ``wx``'s, as the JAX package folds them."""
+    layers = []
+    k = 0
+    while f"{prefix}.weight_ih_l{k}" in sd:
+        layers.append({"wx": {"weight": _lin_w(sd[f"{prefix}.weight_ih_l{k}"]),
+                              "bias": _t(sd[f"{prefix}.bias_ih_l{k}"])
+                              + _t(sd[f"{prefix}.bias_hh_l{k}"])},
+                       "wh": {"weight": _lin_w(sd[f"{prefix}.weight_hh_l{k}"])}})
+        k += 1
+    return layers
+
+
+def pretssel_tree_from_pt(sd: Mapping, cfg) -> dict:
+    """A PRETSSEL checkpoint -> the tree of ``models/pretssel/vocoder.py``.
+
+    ``cfg`` (a ``PretsselConfig``) decodes the reference's flat ``layers``
+    list: the postnet's convs first, then the SEANet stream layers in four
+    chunks, interleaved with the HiFi-GAN's conv_pre, upsamplers, resblocks
+    and conv_post. The gcmvn statistics are card data, not checkpoint
+    tensors: they stay at the identity for the caller to fill."""
+    pn = cfg.pn_layers
+    n_ups = len(cfg.hifigan.upsample_rates)
+    n_k = len(cfg.hifigan.resblock_kernel_sizes)
+    n_ratios = len(cfg.seanet.ratios)
+    n_streams = 6 * n_ratios + 8
+    chunk = n_streams // 4
+
+    def li(s: int) -> str:
+        """A stream layer's position -> its index in the flat list."""
+        if s < chunk:
+            idx = pn + s
+        elif s < 2 * chunk:
+            idx = pn + 1 + s
+        elif s < 3 * chunk:
+            idx = pn + 1 + n_ups + s
+        else:
+            idx = pn + 1 + n_ups + n_ups * n_k + s
+        return f"layers.{idx}"
+
+    def sconv(s: int) -> dict:
+        return _conv_wn(sd, f"{li(s)}.conv.conv")
+
+    def sres(s: int) -> dict:
+        p = {"conv1": _conv_wn(sd, f"{li(s)}.block.1.conv.conv"),
+             "conv2": _conv_wn(sd, f"{li(s)}.block.3.conv.conv")}
+        if f"{li(s)}.shortcut.conv.conv.weight" in sd:
+            p["shortcut"] = _conv_wn(sd, f"{li(s)}.shortcut.conv.conv")
+        return p
+
+    r = n_ratios
+    seanet: dict = {
+        "enc_in": sconv(0),
+        "enc_blocks": [{"res": sres(1 + 3 * i), "down": sconv(3 + 3 * i)}
+                       for i in range(r)],
+        "enc_lstm": _lstm_tree(sd, f"{li(1 + 3 * r)}.lstm"),
+        "enc_out": sconv(3 + 3 * r),
+        "dec_in": sconv(4 + 3 * r),
+        "dec_lstm": _lstm_tree(sd, f"{li(5 + 3 * r)}.lstm"),
+        "dec_blocks": [{"up": _conv_wn(sd, f"{li(7 + 3 * r + 3 * i)}.convtr.convtr",
+                                       transpose=True),
+                        "res": sres(8 + 3 * r + 3 * i)} for i in range(r)],
+        "dec_out": sconv(7 + 6 * r),
+    }
+    resblocks = []
+    for i in range(n_ups):
+        for j in range(n_k):
+            p = f"layers.{pn + 3 * chunk + n_ups + 1 + i * n_k + j}"
+            n_c = _num_layers(sd, rf"{re.escape(p)}\.convs1\.([0-9]+)\.")
+            resblocks.append({"convs1": [_conv_wn(sd, f"{p}.convs1.{c}") for c in range(n_c)],
+                              "convs2": [_conv_wn(sd, f"{p}.convs2.{c}") for c in range(n_c)]})
+    hifigan = {
+        "conv_pre": _conv_wn(sd, f"layers.{pn + chunk}"),
+        "upsampler": [_conv_wn(sd, f"layers.{pn + 2 * chunk + 1 + i}", transpose=True)
+                      for i in range(n_ups)],
+        "resblocks": resblocks,
+        "conv_post": _conv_wn(sd, f"layers.{pn + n_streams + n_ups * (1 + n_k) + 1}"),
+    }
+    va = "decoder_frontend.variance_adaptor"
+    mean, scale = _t(sd["mean"]), _t(sd["scale"])
+    return {
+        "prosody_encoder": ecapa_tree_from_fairseq2(
+            sd, prefix="encoder_frontend.prosody_encoder"),
+        "embed_tokens": _embed(sd, "encoder_frontend.embed_tokens"),
+        "embed_lang": _embed(sd, "encoder_frontend.embed_lang"),
+        "pos_emb_alpha_enc": _t(sd["encoder_frontend.pos_emb_alpha"]),
+        "pos_emb_alpha_dec": _t(sd["decoder_frontend.pos_emb_alpha"]),
+        "encoder_layers": _fft_layers_tree(sd, "encoder")[0],
+        "pitch_predictor": _variance_predictor_tree(sd, f"{va}.pitch_predictor"),
+        "embed_pitch": _conv(sd, f"{va}.embed_pitch"),
+        "vuv_predictor": _variance_predictor_tree(sd, f"{va}.vuv_predictor"),
+        "energy_predictor": _variance_predictor_tree(sd, f"{va}.energy_predictor"),
+        "embed_energy": _conv(sd, f"{va}.embed_energy"),
+        "decoder_layers": _fft_layers_tree(sd, "decoder")[0],
+        "final_proj": _linear(sd, "final_proj"),
+        # postnet: Sequential(Conv1d, BatchNorm1d, [Tanh], Dropout), BN folded
+        "postnet": [{"conv": _conv(sd, f"layers.{i}.0"), "norm": _bn_fold(sd, f"layers.{i}.1")}
+                    for i in range(pn)],
+        "hifigan": hifigan,
+        "seanet": seanet,
+        "mean": mean,
+        "scale": scale,
+        "gcmvn_mean": torch.zeros_like(mean),
+        "gcmvn_std": torch.ones_like(scale),
     }
 
 

@@ -1,10 +1,10 @@
 """Synthetic fairseq2-keyed checkpoints from the port's trees (counterpart of
-``export_unity``, ``export_vocoder``, ``export_monotonic`` and
-``export_monotonic_fairseq1`` in
+``export_unity``, ``export_ecapa``, ``export_pretssel``, ``export_vocoder``,
+``export_monotonic`` and ``export_monotonic_fairseq1`` in
 ``seamless_communication_tpu/checkpoint/fairseq_export.py``).
 
-These invert ``convert_fairseq2``: a UnitY, monotonic decoder or unit
-HiFi-GAN tree becomes a
+These invert ``convert_fairseq2``: a UnitY (expressive ones too), PRETSSEL,
+monotonic decoder or unit HiFi-GAN tree becomes a
 state dict in torch layouts (linear (out, in), conv1d (out, in, k), transposed
 conv (in, out, k), weight-norm g/v pairs with g = ||v||, batch norm as an
 identity: running mean 0, running variance 1 - eps), which the loaders turn
@@ -64,6 +64,66 @@ def _x_mha(sd, prefix, p):
         _x_lin(sd, f"{prefix}.{k}", p[k])
 
 
+def _x_film(sd, prefix, p):
+    _x_lin(sd, f"{prefix}.proj", p["proj"])
+    sd[f"{prefix}.s_gamma"] = _t(_np(p["s_gamma"]))
+    sd[f"{prefix}.s_beta"] = _t(_np(p["s_beta"]))
+
+
+def _x_convT(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(np.transpose(_np(p["weight"]), (1, 2, 0)))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(_np(p["bias"]))
+
+
+def _x_wn(sd, prefix, p, dtype=None, *, transpose=False):
+    """A conv as a weight-norm g/v pair with g = ||v|| (fp32), so that the
+    fold gives v back; with ``dtype``, the norm of v as the file holds it."""
+    w = _np(p["weight"])
+    v = (np.transpose(w, (1, 2, 0)) if transpose         # (k, in, out) -> (in, out, k)
+         else np.transpose(w, (2, 1, 0)))                # (k, in, out) -> (out, in, k)
+    if dtype is not None:
+        v = _np(torch.from_numpy(np.ascontiguousarray(v)).to(dtype).float())
+    sd[f"{prefix}.weight_g"] = _t(np.sqrt((v ** 2).sum(axis=tuple(range(1, v.ndim)),
+                                                       keepdims=True)))
+    sd[f"{prefix}.weight_v"] = _t(v)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(_np(p["bias"]))
+
+
+def _x_lstm(sd, prefix, layers):
+    """torch LSTM keys; ``wx``'s bias goes to ``bias_ih`` and ``bias_hh`` is
+    zero, so the converter's sum gives it back in any dtype."""
+    for k, lp in enumerate(layers):
+        sd[f"{prefix}.weight_ih_l{k}"] = _t(_np(lp["wx"]["weight"]).T)
+        sd[f"{prefix}.weight_hh_l{k}"] = _t(_np(lp["wh"]["weight"]).T)
+        b = _np(lp["wx"]["bias"])
+        sd[f"{prefix}.bias_ih_l{k}"] = _t(b)
+        sd[f"{prefix}.bias_hh_l{k}"] = _t(np.zeros_like(b))
+
+
+def _x_variance_predictor(sd, prefix, p):
+    _x_conv(sd, f"{prefix}.conv1.0", p["conv1"])
+    _x_ln(sd, f"{prefix}.ln1", p["ln1"])
+    _x_conv(sd, f"{prefix}.conv2.0", p["conv2"])
+    _x_ln(sd, f"{prefix}.ln2", p["ln2"])
+    _x_lin(sd, f"{prefix}.proj", p["proj"])
+    if "film" in p:
+        _x_film(sd, f"{prefix}.film", p["film"])
+
+
+def _x_fft_layers(sd, prefix, layers):
+    for i, lp in enumerate(layers):
+        p = f"{prefix}.layers.{i}"
+        _x_mha(sd, f"{p}.self_attn", lp["self_attn"])
+        _x_ln(sd, f"{p}.self_attn_layer_norm", lp["self_attn_layer_norm"])
+        _x_conv(sd, f"{p}.conv1d.conv1", lp["conv1"])
+        _x_conv(sd, f"{p}.conv1d.conv2", lp["conv2"])
+        _x_ln(sd, f"{p}.conv1d_layer_norm", lp["conv_layer_norm"])
+        if "film" in lp:
+            _x_film(sd, f"{p}.film", lp["film"])
+
+
 def _x_bn_identity(sd, prefix, p):
     """BatchNorm1d keys whose fold gives the affine {scale, bias} exactly:
     running_var = 1 - eps, so sqrt(var + 1e-5) == 1."""
@@ -101,6 +161,30 @@ def _x_decoder(sd, prefix, embed_prefix, tree):
     _x_ln(sd, f"{prefix}.layer_norm", tree["stack"]["layer_norm"])
 
 
+def export_ecapa(sd: dict, prefix: str, tree: dict) -> None:
+    """An ECAPA-TDNN tree's keys under ``prefix``, into ``sd``."""
+    def tdnn(p, t):
+        _x_conv(sd, f"{p}.conv", t["conv"])
+        _x_ln(sd, f"{p}.norm", t["norm"])
+
+    tdnn(f"{prefix}.blocks.0", tree["blocks"][0])
+    for i, b in enumerate(tree["blocks"][1:], start=1):
+        p = f"{prefix}.blocks.{i}"
+        tdnn(f"{p}.tdnn1", b["tdnn1"])
+        for j, rb in enumerate(b["res2net"]["blocks"]):
+            tdnn(f"{p}.res2net_block.blocks.{j}", rb)
+        tdnn(f"{p}.tdnn2", b["tdnn2"])
+        _x_conv(sd, f"{p}.se_block.conv1", b["se"]["conv1"])
+        _x_conv(sd, f"{p}.se_block.conv2", b["se"]["conv2"])
+        if "shortcut" in b:
+            _x_conv(sd, f"{p}.shortcut", b["shortcut"])
+    tdnn(f"{prefix}.mfa", tree["mfa"])
+    tdnn(f"{prefix}.asp.tdnn", tree["asp_tdnn"])
+    _x_conv(sd, f"{prefix}.asp.conv", tree["asp_conv"])
+    _x_ln(sd, f"{prefix}.asp_norm", tree["asp_norm"])
+    _x_conv(sd, f"{prefix}.fc", tree["fc"])
+
+
 def _cast(sd: dict, dtype, keep=()) -> dict:
     if dtype is None:
         return sd
@@ -112,7 +196,8 @@ def export_unity(params: dict, *, conv_batch_norm: bool = False,
                  dtype: Optional[torch.dtype] = None) -> dict:
     """A port UnitY tree -> a fairseq2-keyed state dict. ``conv_batch_norm``
     writes each conformer layer's conv norm as an identity batch norm (the
-    v1 models' layout)."""
+    v1 models' layout). An expressive tree adds its ECAPA prosody encoder,
+    its FiLM layers and ``prosody_proj``."""
     sd: dict = {}
     se = params["speech_encoder"]
     _x_ln(sd, "speech_encoder_frontend.post_extract_layer_norm",
@@ -165,6 +250,8 @@ def export_unity(params: dict, *, conv_batch_norm: bool = False,
     if "text_encoder" in params:
         _x_encoder(sd, "text_encoder", "text_encoder_frontend.embed",
                    params["text_encoder"])
+    if "prosody_encoder" in params:
+        export_ecapa(sd, "prosody_encoder_model", params["prosody_encoder"])
     t2u = params.get("t2u")
     if t2u is not None and "embed_char" not in t2u:
         # AR T2U (v1): an encoder-decoder over the unit vocabulary
@@ -181,20 +268,12 @@ def export_unity(params: dict, *, conv_batch_norm: bool = False,
         sd["t2u_model.decoder_frontend.pos_emb_alpha"] = _t(_np(t2u["pos_emb_alpha"]))
         sd["t2u_model.decoder_frontend.pos_emb_alpha_char"] = _t(
             _np(t2u["pos_emb_alpha_char"]))
-        vp = "t2u_model.decoder_frontend.variance_adaptor.duration_predictor"
-        dp = t2u["duration_predictor"]
-        _x_conv(sd, f"{vp}.conv1.0", dp["conv1"])
-        _x_ln(sd, f"{vp}.ln1", dp["ln1"])
-        _x_conv(sd, f"{vp}.conv2.0", dp["conv2"])
-        _x_ln(sd, f"{vp}.ln2", dp["ln2"])
-        _x_lin(sd, f"{vp}.proj", dp["proj"])
-        for i, lp in enumerate(t2u["decoder_layers"]):
-            p = f"t2u_model.decoder.layers.{i}"
-            _x_mha(sd, f"{p}.self_attn", lp["self_attn"])
-            _x_ln(sd, f"{p}.self_attn_layer_norm", lp["self_attn_layer_norm"])
-            _x_conv(sd, f"{p}.conv1d.conv1", lp["conv1"])
-            _x_conv(sd, f"{p}.conv1d.conv2", lp["conv2"])
-            _x_ln(sd, f"{p}.conv1d_layer_norm", lp["conv_layer_norm"])
+        _x_variance_predictor(
+            sd, "t2u_model.decoder_frontend.variance_adaptor.duration_predictor",
+            t2u["duration_predictor"])
+        if "prosody_proj" in t2u:
+            _x_lin(sd, "t2u_model.prosody_proj", t2u["prosody_proj"])
+        _x_fft_layers(sd, "t2u_model.decoder", t2u["decoder_layers"])
         _x_ln(sd, "t2u_model.decoder.layer_norm", t2u["layer_norm"])
         _x_lin(sd, "t2u_model.final_proj", t2u["final_proj"])
     return _cast(sd, dtype)
@@ -268,16 +347,7 @@ def export_vocoder(params: dict, *, dtype: Optional[torch.dtype] = None) -> dict
     g = "code_generator"
 
     def conv_wn(prefix, p, transpose=False):
-        w = _np(p["weight"])
-        v = (np.transpose(w, (1, 2, 0)) if transpose     # (k, in, out) -> (in, out, k)
-             else np.transpose(w, (2, 1, 0)))            # (k, in, out) -> (out, in, k)
-        if dtype is not None:          # the norm of the values the file holds
-            v = _np(torch.from_numpy(np.ascontiguousarray(v)).to(dtype).float())
-        sd[f"{prefix}.weight_g"] = _t(np.sqrt((v ** 2).sum(
-            axis=tuple(range(1, v.ndim)), keepdims=True)))
-        sd[f"{prefix}.weight_v"] = _t(v)
-        if "bias" in p:
-            sd[f"{prefix}.bias"] = _t(_np(p["bias"]))
+        _x_wn(sd, prefix, p, dtype, transpose=transpose)
 
     _x_embed(sd, f"{g}.dict", params["unit_embedding"])
     _x_embed(sd, f"{g}.spkr", params["speaker_embedding"])
@@ -299,3 +369,72 @@ def export_vocoder(params: dict, *, dtype: Optional[torch.dtype] = None) -> dict
             conv_wn(f"{g}.resblocks.{i}.convs2.{j}", c)
     conv_wn(f"{g}.conv_post", h["conv_post"])
     return _cast(sd, dtype, keep=".weight_g")
+
+
+def export_pretssel(params: dict, cfg, *, dtype: Optional[torch.dtype] = None) -> dict:
+    """A PRETSSEL tree -> its checkpoint's state dict, the flat ``layers``
+    list built as the reference builds it, independently of the converter's
+    index arithmetic: the SEANet stream layers in construction order, cut
+    into four chunks and interleaved with the postnet, the HiFi-GAN's
+    conv_pre, upsamplers, resblocks and conv_post (weight-norm pairs). The
+    postnet's norms are identity batch norms; the gcmvn statistics are not
+    written (card data). ``dtype`` casts as ``export_vocoder`` does."""
+    sd: dict = {}
+    export_ecapa(sd, "encoder_frontend.prosody_encoder", params["prosody_encoder"])
+    _x_embed(sd, "encoder_frontend.embed_tokens", params["embed_tokens"])
+    _x_embed(sd, "encoder_frontend.embed_lang", params["embed_lang"])
+    sd["encoder_frontend.pos_emb_alpha"] = _t(_np(params["pos_emb_alpha_enc"]))
+    sd["decoder_frontend.pos_emb_alpha"] = _t(_np(params["pos_emb_alpha_dec"]))
+    _x_fft_layers(sd, "encoder", params["encoder_layers"])
+    _x_fft_layers(sd, "decoder", params["decoder_layers"])
+    va = "decoder_frontend.variance_adaptor"
+    for name in ("pitch_predictor", "vuv_predictor", "energy_predictor"):
+        _x_variance_predictor(sd, f"{va}.{name}", params[name])
+    _x_conv(sd, f"{va}.embed_pitch", params["embed_pitch"])
+    _x_conv(sd, f"{va}.embed_energy", params["embed_energy"])
+    _x_lin(sd, "final_proj", params["final_proj"])
+    sd["mean"] = _t(_np(params["mean"]))
+    sd["scale"] = _t(_np(params["scale"]))
+
+    sea = params["seanet"]
+    stream: list = [("conv", sea["enc_in"])]
+    for blk in sea["enc_blocks"]:
+        stream += [("res", blk["res"]), ("elu", None), ("conv", blk["down"])]
+    stream += [("lstm", sea["enc_lstm"]), ("elu", None), ("conv", sea["enc_out"]),
+               ("conv", sea["dec_in"]), ("lstm", sea["dec_lstm"])]
+    for blk in sea["dec_blocks"]:
+        stream += [("elu", None), ("convtr", blk["up"]), ("res", blk["res"])]
+    stream += [("elu", None), ("conv", sea["dec_out"])]
+    chunk = len(stream) // 4
+    hifi = params["hifigan"]
+    flat: list = [("postnet", p) for p in params["postnet"]]
+    flat += stream[:chunk] + [("wnconv", hifi["conv_pre"])]
+    flat += stream[chunk:2 * chunk] + [("wnconvtr", up) for up in hifi["upsampler"]]
+    flat += stream[2 * chunk:3 * chunk] + [("hifires", rb) for rb in hifi["resblocks"]]
+    flat += stream[3 * chunk:] + [("wnconv", hifi["conv_post"])]
+    for idx, (kind, tree) in enumerate(flat):
+        p = f"layers.{idx}"
+        if kind == "postnet":
+            _x_conv(sd, f"{p}.0", tree["conv"])
+            _x_bn_identity(sd, f"{p}.1", tree["norm"])
+        elif kind == "conv":
+            _x_conv(sd, f"{p}.conv.conv", tree)
+        elif kind == "convtr":
+            _x_convT(sd, f"{p}.convtr.convtr", tree)
+        elif kind == "res":
+            _x_conv(sd, f"{p}.block.1.conv.conv", tree["conv1"])
+            _x_conv(sd, f"{p}.block.3.conv.conv", tree["conv2"])
+        elif kind == "lstm":
+            _x_lstm(sd, f"{p}.lstm", tree)
+        elif kind == "wnconv":
+            _x_wn(sd, p, tree, dtype)
+        elif kind == "wnconvtr":
+            _x_wn(sd, p, tree, dtype, transpose=True)
+        elif kind == "hifires":
+            for j, c in enumerate(tree["convs1"]):
+                _x_wn(sd, f"{p}.convs1.{j}", c, dtype)
+            for j, c in enumerate(tree["convs2"]):
+                _x_wn(sd, f"{p}.convs2.{j}", c, dtype)
+    # the batch norms' statistics stay fp32 too: their fold is the identity
+    # only at fp32 (1 - 1e-5 rounds to 1 in fp16)
+    return _cast(sd, dtype, keep=(".weight_g", ".running_mean", ".running_var"))

@@ -1,6 +1,7 @@
 """Carry parameters of the JAX package over to the port.
 
-The input is the JAX parameter tree with numpy leaves (the caller maps
+The input is a JAX parameter tree (UnitY, expressive ones too, PRETSSEL,
+monotonic decoder, vocoder) with numpy leaves (the caller maps
 ``np.asarray`` over it; nothing here imports JAX). Leaves become torch
 tensors with the same names and layouts (linear weights ``(in, out)``, conv
 weights WIO), quantized leaves included (``weight_i8``/``scale``,
@@ -31,9 +32,9 @@ INT4_KEYS = ("weight_i4", "embedding_i4")
 
 def to_torch(tree, device: Optional[torch.device] = None):
     """Every numpy leaf of ``tree`` as a torch tensor (dicts and lists kept;
-    int4 leaves packed). A code HiFi-GAN tree comes across as it is: its
-    ``upsampler`` and ``resblocks`` lists are per layer in the JAX package
-    too."""
+    int4 leaves packed). A code HiFi-GAN or a PRETSSEL tree comes across as
+    it is: their layers (upsamplers, resblocks, FFT layers, ECAPA blocks,
+    LSTM layers) are lists in the JAX package too."""
     if isinstance(tree, dict):
         return {k: (pack_int4(torch.from_numpy(np.asarray(v).astype(np.int8))).to(device)
                     if k in INT4_KEYS else to_torch(v, device))
@@ -121,6 +122,8 @@ def unity_params_from_jax(tree: dict, device=None) -> dict:
         params["text_encoder"] = enc
     if "t2u" in tree:
         params["t2u"] = t2u_from_jax(tree["t2u"], device)
+    if "prosody_encoder" in tree:       # an expressive model's ECAPA (lists, no stacks)
+        params["prosody_encoder"] = to_torch(tree["prosody_encoder"], device)
     return params
 
 
@@ -184,6 +187,8 @@ def unity_params_to_numpy(params: dict) -> dict:
         else:
             out["t2u"] = dict(t2u, encoder=_restack(t2u["encoder"]),
                               decoder=_restack(t2u["decoder"]))
+    if "prosody_encoder" in tree:
+        out["prosody_encoder"] = tree["prosody_encoder"]
     return out
 
 

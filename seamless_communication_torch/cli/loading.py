@@ -2,7 +2,9 @@
 ``seamless_communication_tpu/cli/loading.py``).
 
 ``load_monotonic_decoder`` loads SeamlessStreaming's EMMA decoder from its
-original ``.pt`` (either key space) or a ``.npz`` parameter file.
+original ``.pt`` (either key space) or a ``.npz`` parameter file;
+``load_pretssel_vocoder`` SeamlessExpressive's PRETSSEL vocoder (16 or 24
+kHz, as the card's ``sample_rate`` says) from its ``.pt`` or a ``.npz``.
 
 Two checkpoint routes:
   1. the reference's original ``.pt`` files (fairseq1 or fairseq2 keyed),
@@ -33,12 +35,15 @@ import torch
 from seamless_communication_torch.assets import load_card, resolve_asset
 from seamless_communication_torch.checkpoint.convert_fairseq2 import (
     apply_unity_fixups, fairseq1_to_fairseq2_auto, is_fairseq1_unity,
-    load_pt_state_dict, monotonic_tree_from_pt, unity_tree_from_fairseq2,
-    vocoder_tree_from_pt,
+    load_pt_state_dict, monotonic_tree_from_pt, pretssel_tree_from_pt,
+    unity_tree_from_fairseq2, vocoder_tree_from_pt,
 )
 from seamless_communication_torch.checkpoint.serialize import load_params
 from seamless_communication_torch.device import params_to, resolve_device
 from seamless_communication_torch.models.monotonic.model import MonotonicDecoderConfig
+from seamless_communication_torch.models.pretssel.vocoder import (
+    pretssel_16khz_config, pretssel_24khz_config,
+)
 from seamless_communication_torch.models.unity.builder import get_arch
 from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
 from seamless_communication_torch.models.vocoder.codehifigan import CodeHifiGanConfig
@@ -206,3 +211,38 @@ def load_monotonic_decoder(card_name: str = "seamless_streaming_monotonic_decode
     del tree
     _stage(timings, "transfer", t0, device)
     return params, MonotonicDecoderConfig()
+
+
+def load_pretssel_vocoder(card_name: str = "vocoder_pretssel", *, dtype=None,
+                          local_pt_path: Optional[str] = None, device=None,
+                          timings: Optional[dict] = None):
+    """-> (PRETSSEL params on ``device`` in ``dtype`` (fp32 by default),
+    PretsselConfig, the card's ``model_config`` (langs, gcmvn_stats),
+    sample rate). The card's ``sample_rate`` (24000 by default) picks the 16
+    kHz or the 24 kHz config. The checkpoint: ``local_pt_path``, else the
+    card's (the gated ``pretssel_melhifigan_wm*.pt`` through
+    ``SEAMLESS_GATED_ASSETS``); a ``.pt`` converts through
+    ``pretssel_tree_from_pt``, anything else loads as the port's parameter
+    file. The vocoder's gcmvn statistics stay at the identity, as the JAX
+    package leaves them. ``timings`` gets the stages' wall seconds
+    (torch_load, convert, transfer)."""
+    device = resolve_device(device)
+    dtype = dtype or torch.float32
+    timings = {} if timings is None else timings
+    card = load_card(card_name)
+    sample_rate = int(card.get("sample_rate", 24000))
+    cfg = pretssel_16khz_config() if sample_rate == 16000 else pretssel_24khz_config()
+    path = resolve_asset(str(local_pt_path or card["checkpoint"]))
+    t0 = time.perf_counter()
+    if path.endswith(".pt"):
+        sd = load_pt_state_dict(path)
+        t0 = _stage(timings, "torch_load", t0, device)
+        tree = pretssel_tree_from_pt(sd, cfg)
+        del sd
+    else:
+        tree = load_params(path)
+    t0 = _stage(timings, "convert", t0, device)
+    params = params_to(tree, device, dtype)
+    del tree
+    _stage(timings, "transfer", t0, device)
+    return params, cfg, card.get("model_config") or {}, sample_rate

@@ -8,7 +8,9 @@ Pass 1: beam search of the text hypothesis from the speech or text encoder
         2K+1 tokens from the fused vocabulary kernel.
 Pass 2: re-decode the best hypothesis through the text decoder (full
         sequence) to get its features, run the T2U on them and detokenize
-        the units: the NAR T2U of the v2 models (argmax), or the AR T2U of
+        the units: the NAR T2U of the v2 models (argmax; an expressive
+        model's conditioned on the ECAPA embedding of the source's
+        gcmvn-normalised fbank), or the AR T2U of
         the v1 models, a beam search over unit tokens from the prefix
         [eos, lang] over its KV-cached decoder (int8 KV on the card: the
         decode-attention kernel at every layer of every step).
@@ -111,7 +113,8 @@ class UnitYGenerator:
         self.device = device
         self.last_result: Optional[BeamSearchResult] = None
         self.last_unit_result: Optional[BeamSearchResult] = None   # AR T2U
-        # wall seconds of the re-decode and the T2U in the last generate_units
+        # wall seconds of the re-decode, the prosody encoder (expressive
+        # models) and the T2U in the last generate_units
         self.last_timings: dict = {}
 
     def generate_text(self, enc: unity.EncoderOutput, tgt_lang: str, *,
@@ -170,14 +173,23 @@ class UnitYGenerator:
                        enc: unity.EncoderOutput, tgt_lang: str, *,
                        duration_factor: float = 1.0, max_unit_len: int = 2048,
                        ngram_filtering: bool = False,
+                       prosody_fbank: Optional[np.ndarray] = None,
+                       prosody_lens: Optional[np.ndarray] = None,
                        unit_opts_override: Optional[SequenceGeneratorOptions] = None
                        ) -> List[List[int]]:
         """Pass 2: re-decode the text, run the T2U (NAR or AR), detokenize
         to raw units. Returns one list of unit ids per utterance.
-        ``unit_opts_override``: the AR T2U's beam options for this call."""
-        if "prosody_encoder" in self.params:
-            raise NotImplementedError("expressive models (prosody encoder, FiLM) "
-                                      "are not ported yet")
+        ``unit_opts_override``: the AR T2U's beam options for this call.
+
+        ``prosody_fbank`` (B, T, 80), ``prosody_lens`` (B,): the source's
+        gcmvn-normalised fbank, which an expressive model (one with a
+        ``prosody_encoder``) requires; its ECAPA embedding (the wall of
+        ``last_timings["prosody_encoder"]``) is the NAR T2U's prosody input
+        and FiLM condition. Other models ignore it."""
+        expressive = "prosody_encoder" in self.params
+        if expressive and prosody_fbank is None:
+            raise ValueError("expressive model (prosody_encoder present) requires "
+                             "prosody_fbank for unit generation")
         dev = self.device
         self.last_timings = {}
         t0 = time.perf_counter()
@@ -195,11 +207,19 @@ class UnitYGenerator:
             char_ids, _, char_counts = text_to_char_seqs(
                 self.text_tokenizer, self.char_tokenizer, ids,
                 max_char_len=_bucket(max_text * 12, 64))
+            prosody = None
+            if expressive:
+                prosody = unity.encode_prosody(
+                    self.params, self.cfg,
+                    torch.as_tensor(np.asarray(prosody_fbank, np.float32), device=dev),
+                    torch.as_tensor(np.asarray(prosody_lens, np.int64), device=dev))
+                t0 = stage_end(self.last_timings, "prosody_encoder", t0, dev)
             out = unity.t2u_nar(self.params, self.cfg, feats, lens,
                                 torch.as_tensor(char_ids, device=dev),
                                 torch.as_tensor(char_counts, device=dev),
                                 max_unit_len=max_unit_len,
-                                duration_factor=duration_factor)
+                                duration_factor=duration_factor,
+                                prosody_embed=prosody, film_cond=prosody)
             units = out.unit_logits.argmax(dim=-1).cpu().numpy()
             unit_lens = out.unit_lengths.cpu().numpy()
             raw = self.unit_tokenizer.decode(units)     # offset -4, EOS -> pad

@@ -10,8 +10,10 @@ re-decode, the T2U (the v2 models' host char frontend and NAR T2U, or the v1
 models' AR T2U beam search) and the unit HiFi-GAN vocoder. With
 ``apply_mintox`` the outputs are checked for added toxicity against the
 source (ETOX) and the offending items re-generated with the toxic words
-banned in the beam (MinTox). It runs on the CUDA card unless the caller
-passes ``device="cpu"``.
+banned in the beam (MinTox). An expressive model's T2U takes the source's
+gcmvn-normalised fbank as ``prosody_encoder_input`` (its waveform comes
+from ``inference/pretssel_generator.py``). It runs on the CUDA card unless
+the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -195,6 +197,8 @@ class Translator:
                 unit_generation_opts: Optional[SequenceGeneratorOptions] = None,
                 banned_sequences: Optional[tuple] = None,
                 ngram_filtering: bool = False, max_unit_len: int = 2048,
+                prosody_encoder_input: Optional[np.ndarray] = None,
+                prosody_input_lens: Optional[np.ndarray] = None,
                 src_text: Optional[str] = None,
                 _apply_mintox: Optional[bool] = None
                 ) -> tuple[List[str], Optional[BatchedSpeechOutput]]:
@@ -206,7 +210,10 @@ class Translator:
         requires.
 
         ``unit_generation_opts``: the AR T2U's beam options for this call
-        (v1 models). ``banned_sequences``: ((N, M) int array, (N,) lengths)
+        (v1 models). ``prosody_encoder_input``: the gcmvn-normalised source
+        fbank, (T, 80) or (B, T, 80), which an expressive model's T2U
+        requires; ``prosody_input_lens`` (B,) its valid frames (all of them
+        where not given). ``banned_sequences``: ((N, M) int array, (N,) lengths)
         token sequences the text beam must not complete. With MinTox on
         (``apply_mintox``, or ``_apply_mintox`` for this call) the source
         text is ``src_text``, the text input, or the ASR of the speech input
@@ -245,9 +252,18 @@ class Translator:
                     sample_rate=sample_rate, banned_base=banned_sequences)
             return texts, None
 
+        pf = pl = None
+        if prosody_encoder_input is not None:
+            pf = np.asarray(prosody_encoder_input, np.float32)
+            if pf.ndim == 2:
+                pf = pf[None]
+            pl = (np.asarray(prosody_input_lens, np.int32)
+                  if prosody_input_lens is not None
+                  else np.full((pf.shape[0],), pf.shape[1], np.int32))
         units = self.generator.generate_units(
             tokens, tok_lens, enc, tgt_lang, duration_factor=duration_factor,
             max_unit_len=max_unit_len, ngram_filtering=ngram_filtering,
+            prosody_fbank=pf, prosody_lens=pl,
             unit_opts_override=unit_generation_opts)
         self.last_timings.update(self.generator.last_timings)
         if do_mintox:
@@ -255,7 +271,9 @@ class Translator:
                 input, task, tgt_lang, src_lang, src_text, texts, units,
                 sample_rate=sample_rate, banned_base=banned_sequences,
                 duration_factor=duration_factor, max_unit_len=max_unit_len,
-                ngram_filtering=ngram_filtering)
+                ngram_filtering=ngram_filtering,
+                prosody_encoder_input=prosody_encoder_input,
+                prosody_input_lens=prosody_input_lens)
         t0 = time.perf_counter()
         audio_wavs: List[np.ndarray] = []
         if self.vocoder_params is not None:

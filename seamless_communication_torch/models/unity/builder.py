@@ -10,6 +10,11 @@ port runs:
   - ``base_v2``  v2 large: conformer_shaw 600m speech encoder (Shaw rel-pos,
                  causal depthwise conv) + NLLB dense_1b decoder (vocab 256102)
                  + NAR T2U
+  - ``expressivity_v2`` the SeamlessExpressive (Prosody UnitY2) model:
+                 base_v2's speech encoder, an NLLB dense_1b decoder with the
+                 (tanh) GELU and max length 10000, a 4 + 4 layer NAR T2U
+                 with FiLM and the prosody projection (unit vocab 10005,
+                 char vocab 10904), and the ECAPA-TDNN prosody encoder
   - ``streaming`` the SeamlessStreaming UnitY: base_v2's speech encoder with
                  chunked attention (chunk 8, all chunks to the left), no text
                  encoder, base_v2's NAR T2U (its text decoder is the
@@ -19,11 +24,12 @@ port runs:
                  layer NLLB (vocab 20010) and a 1 + 1 layer AR T2U, at width
                  512 and 256 (both named ``seamless_nano`` in ``arch``, as in
                  the JAX package)
-  - ``tiny_v1``, ``tiny_v2``  the tiny archs of the tests
+  - ``tiny_v1``, ``tiny_v2``, ``tiny_expressive``  the tiny archs of the tests
 
 Each carries one T2U (``models/unity/t2u.py``: ``ar_t2u`` for v1,
 ``nar_t2u`` for v2) and the NLLB text encoder (``use_text_encoder``), whose
-embedding is tied to the decoder's.
+embedding is tied to the decoder's. The expressive archs carry their own
+ECAPA prosody encoder (``ecapa``), whose embedding conditions the T2U.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
 from seamless_communication_torch.models.nllb.model import NllbConfig
+from seamless_communication_torch.models.pretssel.ecapa_tdnn import EcapaConfig
 from seamless_communication_torch.models.unity.t2u import ArT2UConfig, NarT2UConfig
 from seamless_communication_torch.models.wav2vec2.encoder import SpeechEncoderConfig
 from seamless_communication_torch.ops.conformer import ConformerConfig
@@ -46,6 +53,8 @@ class UnitYConfig:
     # exactly one of these set
     nar_t2u: Optional[NarT2UConfig] = None
     ar_t2u: Optional[ArT2UConfig] = None
+    prosody_encoder_dim: int = 0      # the ECAPA embedding's dim (512) when expressive
+    ecapa: Optional[EcapaConfig] = None
     arch: str = "base_v2"
 
 
@@ -109,6 +118,20 @@ def _base_v2() -> UnitYConfig:
         nllb=NllbConfig(vocab_size=256102, max_seq_len=4096),
         nar_t2u=NarT2UConfig(unit_vocab_size=10082, char_vocab_size=10943),
         arch="base_v2",
+    )
+
+
+@register_arch("expressivity_v2")
+def _expressivity_v2() -> UnitYConfig:
+    return UnitYConfig(
+        speech=SpeechEncoderConfig(conformer=_shaw_conformer()),
+        nllb=NllbConfig(vocab_size=256102, max_seq_len=10000, activation="gelu"),
+        nar_t2u=NarT2UConfig(num_encoder_layers=4, num_decoder_layers=4,
+                             unit_vocab_size=10005, char_vocab_size=10904,
+                             max_seq_len=10000, film_cond_dim=512, prosody_proj_dim=512),
+        prosody_encoder_dim=512,
+        ecapa=EcapaConfig(),
+        arch="expressivity_v2",
     )
 
 
@@ -191,4 +214,24 @@ def _tiny_v1() -> UnitYConfig:
                            num_heads=4, ffn_inner_dim=128, unit_vocab_size=112,
                            max_seq_len=256),
         arch="tiny_v1",
+    )
+
+
+@register_arch("tiny_expressive")
+def _tiny_expressive() -> UnitYConfig:
+    base = _tiny_v2()
+    return UnitYConfig(
+        model_dim=64,
+        speech=base.speech,
+        nllb=NllbConfig(dim=64, num_encoder_layers=2, num_decoder_layers=2,
+                        num_heads=4, ffn_inner_dim=128, vocab_size=256,
+                        max_seq_len=512, activation="gelu"),
+        nar_t2u=NarT2UConfig(model_dim=64, num_encoder_layers=2, num_decoder_layers=2,
+                             num_heads=4, ffn_inner_dim=128, unit_vocab_size=112,
+                             char_vocab_size=64, dur_predictor_hidden=32,
+                             max_seq_len=512, film_cond_dim=32, prosody_proj_dim=32),
+        prosody_encoder_dim=32,
+        ecapa=EcapaConfig(channels=(32, 32, 32, 32, 96), attention_channels=16,
+                          res2net_scale=4, se_channels=16, embed_dim=32),
+        arch="tiny_expressive",
     )

@@ -4,7 +4,9 @@ speech encoder, the text decoder, the T2U (NAR for v2, AR for v1) and the
 text encoder; ``encode_speech`` and ``encode_text``; the beam-search step of
 the X2T view (full-vocabulary or candidate form); the full-sequence
 re-decode ``decode_text``; ``project``, the tied output projection; and
-``t2u_nar``. The AR T2U's decode is in ``inference/generator.py``."""
+``t2u_nar`` (with the prosody embedding and FiLM condition of an expressive
+model); ``encode_prosody``, the expressive models' ECAPA embedding. The AR
+T2U's decode is in ``inference/generator.py``."""
 
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ import torch
 from seamless_communication_torch.models.nllb.model import (
     text_decoder_cache, text_decoder_forward, text_decoder_init, text_decoder_step,
     text_decoder_step_topk, text_encoder_forward, text_encoder_init,
+)
+from seamless_communication_torch.models.pretssel.ecapa_tdnn import (
+    ecapa_forward, ecapa_init,
 )
 from seamless_communication_torch.models.unity.builder import UnitYConfig
 from seamless_communication_torch.models.unity.t2u import (
@@ -30,10 +35,11 @@ from seamless_communication_torch.ops.transformer import tied_projection
 def unity_init(gen: torch.Generator, cfg: UnitYConfig, *, dtype=torch.float32,
                device=None) -> dict:
     """Random parameters of the speech encoder, the text decoder, (where the
-    config has them) the NAR or the AR T2U and the text encoder, drawn from ``gen`` in
-    that order (``gen`` must live on ``device``). The text encoder shares the
-    decoder's ``embed`` dict, as NLLB ties the two tables; it is drawn last, so
-    the other parts are the same draws with or without it."""
+    config has them) the NAR or the AR T2U, the text encoder and the ECAPA
+    prosody encoder, drawn from ``gen`` in that order (``gen`` must live on
+    ``device``). The text encoder shares the decoder's ``embed`` dict, as
+    NLLB ties the two tables; it and the prosody encoder are drawn last, so
+    the other parts are the same draws with or without them."""
     kw = dict(dtype=dtype, device=device)
     params = {"speech_encoder": speech_encoder_init(gen, cfg.speech, **kw),
               "text_decoder": text_decoder_init(gen, cfg.nllb, **kw)}
@@ -44,6 +50,8 @@ def unity_init(gen: torch.Generator, cfg: UnitYConfig, *, dtype=torch.float32,
     if cfg.use_text_encoder:
         params["text_encoder"] = text_encoder_init(
             gen, cfg.nllb, tie_embed=params["text_decoder"]["embed"], **kw)
+    if cfg.ecapa is not None:
+        params["prosody_encoder"] = ecapa_init(gen, cfg.ecapa, **kw)
     return params
 
 
@@ -114,7 +122,19 @@ def make_text_decode_step(params: dict, cfg: UnitYConfig, enc: EncoderOutput, *,
 
 def t2u_nar(params: dict, cfg: UnitYConfig, text_dec_out: torch.Tensor,
             text_lens: torch.Tensor, char_ids: torch.Tensor, char_counts: torch.Tensor,
-            *, max_unit_len: int, duration_factor: float = 1.0) -> NarT2UOutput:
+            *, max_unit_len: int, duration_factor: float = 1.0,
+            prosody_embed: Optional[torch.Tensor] = None,
+            film_cond: Optional[torch.Tensor] = None) -> NarT2UOutput:
     return nar_t2u_forward(params["t2u"], cfg.nar_t2u, text_dec_out, text_lens,
                            char_ids, char_counts, max_unit_len=max_unit_len,
-                           duration_factor=duration_factor)
+                           duration_factor=duration_factor,
+                           prosody_embed=prosody_embed, film_cond=film_cond)
+
+
+def encode_prosody(params: dict, cfg: UnitYConfig, fbank: torch.Tensor,
+                   lengths: torch.Tensor) -> torch.Tensor:
+    """A gcmvn-normalised fbank (B, T, 80) -> (B, 1, prosody_dim) ECAPA
+    embedding: the T2U's ``prosody_proj`` input and its FiLM condition."""
+    mask = lengths_to_padding_mask(lengths, fbank.shape[1])
+    emb = ecapa_forward(params["prosody_encoder"], fbank, cfg.ecapa, padding_mask=mask)
+    return emb[:, None, :]

@@ -17,9 +17,13 @@ vocabulary.
 ground-truth per-char durations upsample to units, and the duration
 predictor's raw output is returned for its loss.
 
+The expressive models (Prosody UnitY2) condition the NAR T2U on the ECAPA
+prosody embedding: ``prosody_proj`` of it is added to the encoder's output,
+and FiLM layers (``models/unity/film.py``) modulate the duration
+predictor's hidden states and every FFT layer's output.
+
 Upsampled lengths are static (``max_unit_len``) with validity masks, as in
-the JAX package. The FiLM and prosody branches (expressive models) are not
-ported yet.
+the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from seamless_communication_torch.models.unity.film import film, film_init
 from seamless_communication_torch.ops import attention as attn_ops
 from seamless_communication_torch.ops.masks import (
     apply_padding_mask, lengths_to_padding_mask, padding_bias,
@@ -59,8 +64,9 @@ class NarT2UConfig(NamedTuple):
     char_pad_idx: int = 1
     pos_pad_idx: int = 1             # sinusoidal-table offset = unit pad
     max_seq_len: int = 4096
-    film_cond_dim: int = 0           # expressive models only
-    prosody_proj_dim: int = 0
+    # expressive (FiLM) conditioning: 0 disables; expressivity_nar: 512
+    film_cond_dim: int = 0
+    prosody_proj_dim: int = 0        # the ECAPA embedding's dim, projected and added
 
     def enc_cfg(self) -> TransformerConfig:
         return TransformerConfig(self.model_dim, self.num_encoder_layers,
@@ -69,35 +75,37 @@ class NarT2UConfig(NamedTuple):
                                  self.max_seq_len, False)
 
 
-def _check_not_expressive(cfg: NarT2UConfig) -> None:
-    if cfg.film_cond_dim or cfg.prosody_proj_dim:
-        raise NotImplementedError("FiLM / prosody conditioning of the T2U is not "
-                                  "ported yet: it comes with the expressive slice")
-
-
 # ---------------------------------------------------------------------------
 # Variance predictor
 # ---------------------------------------------------------------------------
 
 def variance_predictor_init(gen: torch.Generator, dim: int, hidden: int, kernel: int,
-                            *, dtype=torch.float32, device=None) -> dict:
+                            *, film_cond_dim: int = 0, dtype=torch.float32,
+                            device=None) -> dict:
+    """``film_cond_dim`` > 0 adds a FiLM layer over the hidden states."""
     kw = dict(dtype=dtype, device=device)
-    return {"conv1": conv1d_init(gen, dim, hidden, kernel, **kw),
-            "ln1": layer_norm_init(hidden, **kw),
-            "conv2": conv1d_init(gen, hidden, hidden, kernel, **kw),
-            "ln2": layer_norm_init(hidden, **kw),
-            "proj": linear_init(gen, hidden, 1, **kw)}
+    p = {"conv1": conv1d_init(gen, dim, hidden, kernel, **kw),
+         "ln1": layer_norm_init(hidden, **kw),
+         "conv2": conv1d_init(gen, hidden, hidden, kernel, **kw),
+         "ln2": layer_norm_init(hidden, **kw),
+         "proj": linear_init(gen, hidden, 1, **kw)}
+    if film_cond_dim:
+        p["film"] = film_init(gen, film_cond_dim, hidden, **kw)
+    return p
 
 
-def variance_predictor(p: dict, x: torch.Tensor,
-                       padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """(B, T, D) -> (B, T) raw log-duration predictions."""
+def variance_predictor(p: dict, x: torch.Tensor, padding_mask: Optional[torch.Tensor],
+                       *, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T, D) -> (B, T) raw predictions; ``cond`` (B, 1, C) drives the
+    FiLM layer where the parameters have one."""
     h = apply_padding_mask(x, padding_mask)
     h = torch.relu(conv1d(p["conv1"], h, padding="SAME"))
     h = layer_norm(p["ln1"], h)
     h = apply_padding_mask(h, padding_mask)
     h = torch.relu(conv1d(p["conv2"], h, padding="SAME"))
     h = layer_norm(p["ln2"], h)
+    if "film" in p and cond is not None:
+        h = film(p["film"], h, cond)
     return linear(p["proj"], h)[..., 0]
 
 
@@ -120,15 +128,19 @@ def fft_layer_init(gen: torch.Generator, cfg: NarT2UConfig, *, dtype=torch.float
                    device=None) -> dict:
     kw = dict(dtype=dtype, device=device)
     d = cfg.model_dim
-    return {"self_attn": attn_ops.mha_init(gen, d, cfg.num_heads, **kw),
-            "self_attn_layer_norm": layer_norm_init(d, **kw),
-            "conv1": conv1d_init(gen, d, d, cfg.conv_kernel_size, **kw),
-            "conv2": conv1d_init(gen, d, d, cfg.conv_kernel_size, **kw),
-            "conv_layer_norm": layer_norm_init(d, **kw)}
+    p = {"self_attn": attn_ops.mha_init(gen, d, cfg.num_heads, **kw),
+         "self_attn_layer_norm": layer_norm_init(d, **kw),
+         "conv1": conv1d_init(gen, d, d, cfg.conv_kernel_size, **kw),
+         "conv2": conv1d_init(gen, d, d, cfg.conv_kernel_size, **kw),
+         "conv_layer_norm": layer_norm_init(d, **kw)}
+    if cfg.film_cond_dim:
+        p["film"] = film_init(gen, cfg.film_cond_dim, d, **kw)
+    return p
 
 
 def fft_layer(p: dict, x: torch.Tensor, bias: Optional[torch.Tensor],
-              padding_mask: Optional[torch.Tensor], cfg: NarT2UConfig) -> torch.Tensor:
+              padding_mask: Optional[torch.Tensor], cfg: NarT2UConfig, *,
+              cond: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = attn_ops.multi_head_attention(p["self_attn"], x, x, cfg.num_heads, bias=bias)
     x = layer_norm(p["self_attn_layer_norm"], x + h)
     res = x
@@ -136,7 +148,10 @@ def fft_layer(p: dict, x: torch.Tensor, bias: Optional[torch.Tensor],
     h = conv1d(p["conv1"], h, padding="SAME")
     h = torch.relu(apply_padding_mask(h, padding_mask))
     h = conv1d(p["conv2"], h, padding="SAME")
-    return layer_norm(p["conv_layer_norm"], res + h)
+    x = layer_norm(p["conv_layer_norm"], res + h)
+    if "film" in p and cond is not None:
+        x = film(p["film"], x, cond)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -146,22 +161,25 @@ def fft_layer(p: dict, x: torch.Tensor, bias: Optional[torch.Tensor],
 def nar_t2u_init(gen: torch.Generator, cfg: NarT2UConfig, *, dtype=torch.float32,
                  device=None) -> dict:
     """Random parameters; ``decoder_layers`` is a list of per-layer dicts (the
-    JAX package stacks them for its layer scan)."""
-    _check_not_expressive(cfg)
+    JAX package stacks them for its layer scan). An expressive config adds
+    the FiLM layers and ``prosody_proj``."""
     kw = dict(dtype=dtype, device=device)
-    return {
+    p = {
         "encoder": transformer_stack_init(gen, cfg.enc_cfg(), **kw),
         "embed_char": embedding_init(gen, cfg.char_vocab_size, cfg.model_dim, **kw),
         "pos_emb_alpha_char": torch.ones((1,), **kw),
         "pos_emb_alpha": torch.ones((1,), **kw),
         "duration_predictor": variance_predictor_init(
             gen, cfg.model_dim, cfg.dur_predictor_hidden, cfg.dur_predictor_kernel,
-            **kw),
+            film_cond_dim=cfg.film_cond_dim, **kw),
         "decoder_layers": [fft_layer_init(gen, cfg, **kw)
                            for _ in range(cfg.num_decoder_layers)],
         "layer_norm": layer_norm_init(cfg.model_dim, **kw),
         "final_proj": linear_init(gen, cfg.model_dim, cfg.unit_vocab_size, **kw),
     }
+    if cfg.prosody_proj_dim:
+        p["prosody_proj"] = linear_init(gen, cfg.prosody_proj_dim, cfg.model_dim, **kw)
+    return p
 
 
 class NarT2UOutput(NamedTuple):
@@ -181,11 +199,12 @@ def _alpha_sin_pos(x: torch.Tensor, alpha: torch.Tensor, pad_idx: int) -> torch.
 
 def nar_t2u_decode(params: dict, cfg: NarT2UConfig, enc: torch.Tensor,
                    char_ids: torch.Tensor, char_counts: torch.Tensor, *,
-                   max_unit_len: int, duration_factor: float = 1.0) -> NarT2UOutput:
+                   max_unit_len: int, duration_factor: float = 1.0,
+                   film_cond: Optional[torch.Tensor] = None) -> NarT2UOutput:
     """Char-level NAR decode of T2U-encoder features ``enc`` (B, T, D).
     ``char_ids`` (B, C_max) char token ids; ``char_counts`` (B, T) chars per
-    subword token (0 on pads), both from the host char frontend."""
-    _check_not_expressive(cfg)
+    subword token (0 on pads), both from the host char frontend;
+    ``film_cond`` (B, 1, C) the FiLM condition of an expressive model."""
     C = char_ids.shape[1]
     char_hidden, char_total = hard_upsample(enc, char_counts, C)
     char_mask = lengths_to_padding_mask(char_total, C)
@@ -193,7 +212,8 @@ def nar_t2u_decode(params: dict, cfg: NarT2UConfig, enc: torch.Tensor,
     char_hidden = _alpha_sin_pos(char_hidden, params["pos_emb_alpha_char"],
                                  cfg.pos_pad_idx) + char_emb
 
-    log_dur = variance_predictor(params["duration_predictor"], char_hidden, char_mask)
+    log_dur = variance_predictor(params["duration_predictor"], char_hidden, char_mask,
+                                 cond=film_cond)
     dur = durations_from_log(log_dur, char_mask, duration_factor=duration_factor)
 
     x, unit_total = hard_upsample(char_hidden, dur, max_unit_len)
@@ -202,7 +222,7 @@ def nar_t2u_decode(params: dict, cfg: NarT2UConfig, enc: torch.Tensor,
     unit_mask = lengths_to_padding_mask(unit_total, max_unit_len)
     bias = padding_bias(unit_mask)
     for lp in params["decoder_layers"]:
-        x = fft_layer(lp, x, bias, unit_mask, cfg)
+        x = fft_layer(lp, x, bias, unit_mask, cfg, cond=film_cond)
     x = layer_norm(params["layer_norm"], x)
     logits = linear(params["final_proj"], x).float()
     return NarT2UOutput(logits, unit_total, dur, char_total)
@@ -211,14 +231,27 @@ def nar_t2u_decode(params: dict, cfg: NarT2UConfig, enc: torch.Tensor,
 def nar_t2u_forward(params: dict, cfg: NarT2UConfig, text_dec_out: torch.Tensor,
                     text_lens: torch.Tensor, char_ids: torch.Tensor,
                     char_counts: torch.Tensor, *, max_unit_len: int,
-                    duration_factor: float = 1.0) -> NarT2UOutput:
-    """The full NAR T2U pass: the encoder over the text decoder's features,
-    then the char-level NAR decode."""
+                    duration_factor: float = 1.0,
+                    prosody_embed: Optional[torch.Tensor] = None,
+                    film_cond: Optional[torch.Tensor] = None) -> NarT2UOutput:
+    """The full NAR T2U pass: the encoder over the text decoder's features
+    (plus ``prosody_proj`` of ``prosody_embed`` (B, 1, P) where the model
+    has one), then the char-level NAR decode."""
+    enc = _encode(params, cfg, text_dec_out, text_lens, prosody_embed)
+    return nar_t2u_decode(params, cfg, enc, char_ids, char_counts,
+                          max_unit_len=max_unit_len, duration_factor=duration_factor,
+                          film_cond=film_cond)
+
+
+def _encode(params: dict, cfg: NarT2UConfig, text_dec_out: torch.Tensor,
+            text_lens: torch.Tensor, prosody_embed: Optional[torch.Tensor]
+            ) -> torch.Tensor:
     text_mask = lengths_to_padding_mask(text_lens, text_dec_out.shape[1])
     enc = transformer_encoder(params["encoder"], text_dec_out, cfg.enc_cfg(),
                               padding_mask=text_mask)
-    return nar_t2u_decode(params, cfg, enc, char_ids, char_counts,
-                          max_unit_len=max_unit_len, duration_factor=duration_factor)
+    if prosody_embed is not None and "prosody_proj" in params:
+        enc = enc + linear(params["prosody_proj"], prosody_embed)
+    return enc
 
 
 class NarT2UTrainOutput(NamedTuple):
@@ -231,17 +264,16 @@ class NarT2UTrainOutput(NamedTuple):
 def nar_t2u_train(params: dict, cfg: NarT2UConfig, text_dec_out: torch.Tensor,
                   text_lens: torch.Tensor, char_ids: torch.Tensor,
                   char_counts: torch.Tensor, gt_durations: torch.Tensor, *,
-                  max_unit_len: int) -> NarT2UTrainOutput:
+                  max_unit_len: int, prosody_embed: Optional[torch.Tensor] = None,
+                  film_cond: Optional[torch.Tensor] = None) -> NarT2UTrainOutput:
     """The teacher-forced NAR T2U pass of finetuning: the encoder over the
     text decoder's features, the char-level upsampling by ``char_counts``
     with the char embedding and positions, the duration predictor's raw
     log-durations, then the upsampling by the ground-truth durations
     ``gt_durations`` (B, C_max) (0 past each row's chars, the total capped
-    at ``max_unit_len``), the FFT layers and ``final_proj``."""
-    _check_not_expressive(cfg)
-    text_mask = lengths_to_padding_mask(text_lens, text_dec_out.shape[1])
-    enc = transformer_encoder(params["encoder"], text_dec_out, cfg.enc_cfg(),
-                              padding_mask=text_mask)
+    at ``max_unit_len``), the FFT layers and ``final_proj``; an expressive
+    model's ``prosody_embed`` and ``film_cond`` as in ``nar_t2u_forward``."""
+    enc = _encode(params, cfg, text_dec_out, text_lens, prosody_embed)
     C = char_ids.shape[1]
     char_hidden, char_total = hard_upsample(enc, char_counts, C)
     char_mask = lengths_to_padding_mask(char_total, C)
@@ -249,7 +281,8 @@ def nar_t2u_train(params: dict, cfg: NarT2UConfig, text_dec_out: torch.Tensor,
     char_hidden = _alpha_sin_pos(char_hidden, params["pos_emb_alpha_char"],
                                  cfg.pos_pad_idx) + char_emb
 
-    log_dur = variance_predictor(params["duration_predictor"], char_hidden, char_mask)
+    log_dur = variance_predictor(params["duration_predictor"], char_hidden, char_mask,
+                                 cond=film_cond)
 
     dur = torch.where(char_mask, gt_durations.to(torch.int32), 0)
     x, unit_total = hard_upsample(char_hidden, dur, max_unit_len)
@@ -258,7 +291,7 @@ def nar_t2u_train(params: dict, cfg: NarT2UConfig, text_dec_out: torch.Tensor,
     unit_mask = lengths_to_padding_mask(unit_total, max_unit_len)
     bias = padding_bias(unit_mask)
     for lp in params["decoder_layers"]:
-        x = fft_layer(lp, x, bias, unit_mask, cfg)
+        x = fft_layer(lp, x, bias, unit_mask, cfg, cond=film_cond)
     x = layer_norm(params["layer_norm"], x)
     logits = linear(params["final_proj"], x).float()
     return NarT2UTrainOutput(logits, log_dur, unit_total, char_mask)

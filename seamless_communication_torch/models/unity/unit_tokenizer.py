@@ -1,6 +1,6 @@
 """Speech-unit tokenizer (a copy of
 ``seamless_communication_tpu/models/unity/unit_tokenizer.py``; the
-``streaming`` arch counts as a v2 arch here).
+``streaming`` and ``tiny_expressive`` archs count as v2 archs here).
 
 Vocab = 4 control symbols + num_units + language symbols, in fairseq's
 control order bos=0, pad=1, eos=2, unk=3 (not the text vocab's order).
@@ -25,9 +25,11 @@ class UnitTokenizer:
         self.num_units = num_units
         self.langs = list(langs)
         self.lang_map = {lang: i for i, lang in enumerate(self.langs)}
-        # the streaming arch's T2U is v2's NAR one (the JAX package's copy
-        # takes "streaming" for an AR arch; its streaming card says base_v2)
-        self.is_nar_decoder = model_arch.split("_")[-1] == "v2" or model_arch == "streaming"
+        # the streaming and tiny_expressive archs' T2U is v2's NAR one (the
+        # JAX package's copy takes both for AR archs; its cards say base_v2
+        # and expressivity_v2)
+        self.is_nar_decoder = (model_arch.split("_")[-1] == "v2"
+                               or model_arch in ("streaming", "tiny_expressive"))
         self.lang_symbol_repetitions = 1 if self.is_nar_decoder else 2
         self.vocab_size = (num_units
                            + self.lang_symbol_repetitions * (len(self.langs) + 1) + 4)

@@ -18,6 +18,7 @@ import os
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from seamless_communication_torch.ops import attention as attn_ops
 from seamless_communication_torch.ops import remat
@@ -47,8 +48,10 @@ class TransformerConfig(NamedTuple):
     has_cross_attention: bool = False
 
 
-# NLLB's activation; the expressive variant's gelu comes with that model
-_ACTIVATIONS = {"relu": torch.relu}
+# NLLB's activations. The expressive NLLB's "gelu" is jax.nn.gelu's default,
+# the tanh approximation (the JAX package's choice; fairseq2's GELU is erf)
+_ACTIVATIONS = {"relu": torch.relu,
+                "gelu": lambda x: F.gelu(x, approximate="tanh")}
 
 
 # ---------------------------------------------------------------------------

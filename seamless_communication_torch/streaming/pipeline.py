@@ -1,7 +1,9 @@
 """Streaming agent pipelines and the session that drives them (counterpart
 of ``seamless_communication_tpu/streaming/pipeline.py``): the feature
 extractor, the speech encoder, the EMMA text decoder, then the detokenizer
-(S2TT) or the NAR unit decoder and the vocoder (S2ST), or both as a tree.
+(S2TT) or the NAR unit decoder and the vocoder (S2ST), or both as a tree;
+SeamlessExpressive's S2ST ends in the PRETSSEL vocoder agent instead, whose
+prosody input is the source audio received so far.
 
 ``fused`` picks the encoder and decoder agents: ``False`` the separate
 encoder and decoder agents of the reference (needed for ``no_early_stop`` and
@@ -25,6 +27,7 @@ import numpy as np
 
 from seamless_communication_torch.device import params_to, resolve_device
 from seamless_communication_torch.models.monotonic.model import MonotonicDecoderConfig
+from seamless_communication_torch.models.pretssel.vocoder import PretsselConfig
 from seamless_communication_torch.models.unity.builder import UnitYConfig
 from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
 from seamless_communication_torch.models.vocoder.codehifigan import CodeHifiGanConfig
@@ -48,6 +51,9 @@ from seamless_communication_torch.streaming.agents.online_unit_decoder import (
     NARUnitYUnitDecoderAgent,
 )
 from seamless_communication_torch.streaming.agents.online_vocoder import VocoderAgent
+from seamless_communication_torch.streaming.agents.pretssel_vocoder import (
+    PretsselVocoderAgent,
+)
 from seamless_communication_torch.streaming.fused import (
     FusedMMASpeechToTextDecoderAgent, FusedUnitYMMATextDecoderAgent,
     IncrementalFusedMMASpeechToTextDecoderAgent, IncrementalFusedUnitYMMATextDecoderAgent,
@@ -215,11 +221,48 @@ def build_s2st_tree_pipeline(unity_params: dict, unity_cfg: UnitYConfig,
     return TreeAgentPipeline(tree)
 
 
-def build_expressive_s2st_pipeline(*args, **kwargs):
-    """SeamlessExpressive streaming S2ST needs the PRETSSEL vocoder agent,
-    which the port takes up with the expressive models (ROADMAP entry 11)."""
-    raise NotImplementedError("the expressive streaming pipeline (PRETSSEL vocoder "
-                              "agent) comes with ROADMAP entry 11 (SeamlessExpressive)")
+def build_expressive_s2st_pipeline(unity_params: dict, unity_cfg: UnitYConfig,
+                                   mono_params: dict, mono_cfg: MonotonicDecoderConfig,
+                                   text_tokenizer: NllbTokenizer,
+                                   unit_tokenizer: UnitTokenizer,
+                                   char_tokenizer: CharTokenizer, pretssel_params: dict,
+                                   pretssel_cfg: PretsselConfig, lang_to_index: dict,
+                                   gcmvn_mean, gcmvn_std, *, sample_rate: int = 16000,
+                                   tgt_lang: str = "eng",
+                                   min_starting_wait_w2vbert: int = 192,
+                                   decision_threshold: float = 0.5,
+                                   min_unit_chunk_size: int = 50, denormalize: bool = False,
+                                   use_vad: bool = False,
+                                   mono_quantize_int8: Optional[bool] = None,
+                                   fused="auto", device=None) -> AgentPipeline:
+    """The SeamlessExpressive streaming S2ST pipeline: feature extractor,
+    encoder and EMMA text decoder (the UnitY variant; ``fused`` as in
+    ``build_s2t_pipeline``), NAR unit decoder, then the PRETSSEL vocoder
+    agent, which reads the audio the feature extractor has received for its
+    prosody input (normalised by ``gcmvn_mean``, ``gcmvn_std``). The text
+    decoder keeps its defaults (``max_len_b`` 200, 50 writes a call), as in
+    the JAX package. ``use_vad=True`` raises: the VAD agent comes with
+    ROADMAP entry 12."""
+    if use_vad:
+        raise NotImplementedError("use_vad=True needs the VAD agent (agents/vad.py), "
+                                  "which comes with ROADMAP entry 12")
+    unity_params, mono_params, device = _prepare(unity_params, mono_params,
+                                                 mono_quantize_int8, device)
+    feat = OnlineFeatureExtractorAgent(denormalize=denormalize)
+    head = _text_head(unity_params, unity_cfg, mono_params, mono_cfg, text_tokenizer,
+                      fused=_resolve_fused(fused, unity_cfg), unity_out=True,
+                      tgt_lang=tgt_lang, min_starting_wait_w2vbert=min_starting_wait_w2vbert,
+                      decision_threshold=decision_threshold, max_len_b=200,
+                      max_consecutive_writes=50, min_gen_len=0, device=device)
+    units = NARUnitYUnitDecoderAgent(unity_params, unity_cfg, unit_tokenizer,
+                                     text_tokenizer, char_tokenizer,
+                                     min_unit_chunk_size=min_unit_chunk_size, device=device)
+    vocoder = PretsselVocoderAgent(
+        pretssel_params, pretssel_cfg, lang_to_index=lang_to_index, gcmvn_mean=gcmvn_mean,
+        gcmvn_std=gcmvn_std, tgt_lang=tgt_lang, sample_rate=sample_rate,
+        upstream_audio_getter=lambda: [x for c in feat.states.source for x in c],
+        device=device)
+    return AgentPipeline([feat, *head, units, vocoder])
 
 
 class StreamingSession:

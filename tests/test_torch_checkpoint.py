@@ -324,7 +324,9 @@ def test_vocoder_tree_from_pt_equals_jax(jvocoder, tmp_path):
 
 def test_pt_of_bf16_and_expressive_leaves(jparams, tmp_path):
     """A bf16 checkpoint loads (the JAX package's ``.numpy()`` raises on
-    one) and keeps its dtype; FiLM and prosody leaves raise."""
+    one) and keeps its dtype; an expressive checkpoint's FiLM, prosody
+    and ECAPA leaves convert too (as the JAX converter converts them,
+    tests/test_torch_pretssel.py)."""
     sd = texport.export_unity(unity_want(jparams["tiny_v2"]), dtype=torch.bfloat16)
     path = tmp_path / "bf16.pt"
     torch.save({"model": sd}, path)
@@ -332,9 +334,13 @@ def test_pt_of_bf16_and_expressive_leaves(jparams, tmp_path):
         jf2.load_pt_state_dict(str(path))
     tree = tf2.unity_tree_from_fairseq2(tf2.load_pt_state_dict(str(path)))
     assert tree["t2u"]["final_proj"]["weight"].dtype == torch.bfloat16
-    sd["t2u_model.decoder.layers.0.film.proj.weight"] = torch.zeros(2, 2)
-    with pytest.raises(NotImplementedError, match="entry 11"):
-        tf2.unity_tree_from_fairseq2(sd)
+    jexp = junity.unity_init(jax.random.PRNGKey(9), jget_arch("tiny_expressive"))
+    sd = texport.export_unity(unity_want(jexp), dtype=torch.bfloat16)
+    tree = tf2.unity_tree_from_fairseq2(sd)
+    film = tree["t2u"]["decoder_layers"][0]["film"]
+    assert film["proj"]["weight"].dtype == torch.bfloat16
+    assert "prosody_proj" in tree["t2u"] and "film" in tree["t2u"]["duration_predictor"]
+    assert tree["prosody_encoder"]["fc"]["weight"].dtype == torch.bfloat16
 
 
 def test_apply_unity_fixups_nllb100():
@@ -391,7 +397,9 @@ def test_packaged_cards_equal_jax(monkeypatch):
     assert names == sorted(["seamlessM4T_v2_large", "seamlessM4T_large",
                             "seamlessM4T_medium", "unity_nllb-100", "unity_nllb-200",
                             "vocoder_v2", "vocoder_36langs", "seamless_streaming_unity",
-                            "seamless_streaming_monotonic_decoder"])
+                            "seamless_streaming_monotonic_decoder",
+                            "seamless_expressivity", "vocoder_pretssel",
+                            "vocoder_pretssel_16khz"])
     for name in names:
         assert load_card(name) == jload_card(name), name
     assert load_card("seamlessM4T_v2_large")["model_arch"] == "base_v2"

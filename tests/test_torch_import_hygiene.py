@@ -41,7 +41,14 @@ new = {"seamless_communication_torch.ops.fused_attention",
        "seamless_communication_torch.streaming.agents.online_feature_extractor",
        "seamless_communication_torch.streaming.agents.online_text_decoder",
        "seamless_communication_torch.streaming.agents.online_unit_decoder",
-       "seamless_communication_torch.streaming.agents.online_vocoder"}
+       "seamless_communication_torch.streaming.agents.online_vocoder",
+       "seamless_communication_torch.streaming.agents.pretssel_vocoder",
+       "seamless_communication_torch.models.unity.film",
+       "seamless_communication_torch.models.pretssel.ecapa_tdnn",
+       "seamless_communication_torch.models.pretssel.streamable",
+       "seamless_communication_torch.models.pretssel.vocoder",
+       "seamless_communication_torch.inference.pretssel_generator",
+       "seamless_communication_torch.cli.expressivity_predict"}
 # the asset cards the port reads are its own copies
 from seamless_communication_torch import assets
 if assets.CARDS_DIR.resolve().parent != __import__("pathlib").Path(pkg.__path__[0]).resolve():

@@ -277,13 +277,14 @@ def test_int8_mono_matches_jax(models, fused):
 
 def test_quantize_auto_and_expressive(models):
     """``mono_quantize_int8=None`` leaves a CPU tree as it is, ``True``
-    quantizes it; the expressive pipeline names the entry it waits for."""
+    quantizes it; the expressive pipeline's VAD agent names the entry it
+    waits for (the pipeline itself: tests/test_torch_expressive_streaming.py)."""
     _, tm = models
     tp = pipeline.build_s2t_pipeline(tm["unity"], tm["cfg"], tm["mono"], tm["mono_cfg"],
                                      tm["text"], device="cpu", **KW)
     assert "weight" in decoder(tp).params["layers"][0]["ffn"]["inner_proj"]
-    with pytest.raises(NotImplementedError, match="entry 11"):
-        pipeline.build_expressive_s2st_pipeline()
+    with pytest.raises(NotImplementedError, match="entry 12"):
+        pipeline.build_expressive_s2st_pipeline(*([None] * 12), use_vad=True)
     assert torch.equal(decoder(tp).params["embed"]["embedding"],
                        tm["mono"]["embed"]["embedding"])
     quantized = pipeline._maybe_quantize_mono(
