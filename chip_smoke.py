@@ -51,7 +51,12 @@ Each part's wall seconds are printed as ``phase <label>: <s> s``.
    streaming re-encode's shape (T = 512 with the chunk-causal bias of the
    ``streaming`` arch, fp32 and bf16, beside SDPA; ``streaming_flash_case``),
    and at PRETSSEL's FFT decoder shape (B=1, H=2, Dh=128, T=1280 with key
-   segment ids, fp32 and bf16, beside SDPA; ``pretssel_flash_case``).
+   segment ids, fp32 and bf16, beside SDPA; ``pretssel_flash_case``); K1
+   at 3k's batched decode (B = 40 rows: a group of 8 at beam 5, T=320,
+   Dh=64; L2-warm and HBM-cold beside its bound and the plain version, the
+   cluster size ``split_plan`` picks; ``decode_batch_case``) and K6 at 3l's
+   pooled adaptor (B = 4 slots, H=16, T=257, Dh=64, four valid lengths as
+   key segment ids, fp32 and bf16 beside SDPA; ``adaptor_flash_case``).
    ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
@@ -133,6 +138,20 @@ Each part's wall seconds are printed as ``phase <label>: <s> s``.
       option off (within 1e-3). Then one expressive streaming session of 10
       s, fused (``build_expressive_s2st_pipeline`` on 3i's loaded streaming
       models), its text decode cut to 127 tokens: ms a chunk, xRT.
+   k. Serving (after 3e, on base_v2's int8 tree): ``inference.serving.serve``
+      with ``max_batch=8``, the decode cut to 127 steps; eight S2TT requests
+      of 4-10 s posted at once as base64 WAV over HTTP, answered 200 by one
+      batched ``predict`` (K1 24 times a step over 40 rows), then the same
+      eight alone, then an S2ST request whose WAV is finite and within
+      [-1, 1]: latencies, requests per card-second batched and alone, ms a
+      decode step, K1 launches, peak memory.
+   l. The streaming pool (after 3j, on 3i's loaded models, the option on,
+      EMMA int8): ``BatchedStreamingPool(n_slots=4)`` with four 10 s
+      sessions one 320 ms chunk apart (session 0 on 3i's waveform): ms a pool
+      step, each session's xRT, K6 launches (the adaptor), peak memory,
+      beside 3i's incremental S2TT stream; session 0's decisions equal that
+      stream's up to the first decision with a margin under 1e-3; then one
+      session through /v1/stream/open, push, poll and close.
    Each path's launches are counted from 0 just before it.
 4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
    tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
@@ -147,7 +166,11 @@ Each part's wall seconds are printed as ``phase <label>: <s> s``.
    ``tiny_expressive`` with the tiny PRETSSEL of
    ``tests/test_torch_pretssel.py``, fused (S2ST with the prosody input and
    ``PretsselGenerator``, and the expressive streaming pipeline: the same
-   tokens, units and segments, waveforms within 1e-4); and
+   tokens, units and segments, waveforms within 1e-4); the tiny serving
+   case: the pool on the chunk-causal tiny card with three staggered
+   sessions (the CPU pool's segments) and the batcher over HTTP on tiny_v2
+   with int8 KV (the CPU ``predict``'s tokens and texts on the same
+   groups); and
    two ``tiny_v2`` train
    steps with the option
    on (K6, K6b, K6c on the card) give the CPU's losses within 1e-5 and its
@@ -190,6 +213,12 @@ builds the kernels and runs only phase 2's K6 at the streaming shape, phase
 
 builds the kernels and runs only phase 2's K6 at PRETSSEL's shape, phase
 3j and phase 4's tiny expressive case.
+
+    python3 chip_smoke.py --serving
+
+builds the kernels and runs only phase 2's K1 and K6 serving shapes, phase
+3k, phase 3i (which loads the streaming models), phase 3l and phase 4's
+tiny serving case.
 
     python3 chip_smoke.py --k12-trace
 
@@ -350,7 +379,8 @@ KERNELS = {
 # them; T=127 at Dh 16 and 48 gives packed-int4 rows of 8 and 24 bytes,
 # which K2 copies with cp.async instead of bulk copies
 DECODE_SWEEP = ((5, 128, 64), (5, 320, 64), (5, 1024, 64), (1, 320, 64), (10, 320, 64),
-                (5, 320, 128), (5, 8192, 64), (5, 127, 16), (5, 127, 48))
+                (40, 320, 64), (5, 320, 128), (5, 8192, 64), (5, 127, 16), (5, 127, 48))
+B_SERVE = 40                       # 3k's batched decode: a group of 8 at beam 5
 T_COLD, STEP_COLD = 1024, 640      # the HBM-cold reading at hard_max_seq_len
 COLD_BYTES = 100e6                 # cache bytes a cold reading rotates over: 2x L2
 
@@ -422,15 +452,16 @@ def decode_bound_ms(name: str, B: int, T: int, Dh: int, step: int, src, dtype) -
 
 def cold_time_ms(name: str, rng, B: int, T: int, Dh: int, step: int, dtype) -> float:
     """Device ms of one call whose caches come from HBM: the graph-captured
-    calls rotate over distinct cache sets, at least 20 and at least
-    ``COLD_BYTES`` of caches in all, one set a call."""
+    calls rotate over distinct cache sets, one set a call, at least 20 of
+    them and enough that ``COLD_BYTES`` of cache reads (the rows up to
+    ``step`` a call) pass between two calls on one set."""
     import torch
 
     from seamless_communication_torch.ops.kernels import decode_attention as da
 
     fn = getattr(da, KERNELS[name][1])
-    one = B * H_MAIN * T * (2 * Dh * KERNELS[name][4] // 8 + 2 * 4)   # caches + scales
-    n = max(20, math.ceil(COLD_BYTES / one))
+    read = B * H_MAIN * (step + 1) * (2 * Dh * KERNELS[name][4] // 8 + 2 * 4)  # K, V, scales
+    n = max(20, math.ceil(COLD_BYTES / read))
     src = torch.tensor(decode_origins(B)["repeated"], dtype=torch.int32, device="cuda")
     sets = [decode_inputs(rng, name, B, T, Dh, dtype) for _ in range(n)]
     turn = [0]
@@ -3411,7 +3442,38 @@ def text_decoder_agent(pipe):
     return next(a for a in pipe.agents if hasattr(a, "policy_counts"))
 
 
-def phase_streaming(smi: str, out_dir: str = "chiprun_out") -> dict:
+def stream_waveform(seed: int = 24):
+    """STREAM_SECONDS of seeded noise at 16 kHz (3i's waveform at seed 24)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(int(STREAM_SECONDS * 16000)) * 0.1).astype(np.float32)
+
+
+@contextlib.contextmanager
+def recording_bursts(record: list):
+    """Within the block, each write burst of a fused streaming agent records
+    its top-2 logit gaps and appends its decisions to ``record`` as
+    (statistic, top-2 logit gap, token written or None), the form of
+    ``BatchedStreamingPool.session_decisions``."""
+    from seamless_communication_torch.streaming import fused
+
+    orig = fused.monotonic_write_burst
+
+    def rec(*a, **kw):
+        burst = orig(*a, **dict(kw, with_gaps=True))
+        record.extend((st, gap, burst.tokens[i] if i < len(burst.tokens) else None)
+                      for i, (st, gap) in enumerate(zip(burst.stats, burst.gaps)))
+        return burst
+
+    fused.monotonic_write_burst = rec
+    try:
+        yield
+    finally:
+        fused.monotonic_write_burst = orig
+
+
+def phase_streaming(smi: str, out_dir: str = "chiprun_out", record: bool = True) -> dict:
     """3i. SeamlessStreaming at full width: the ``streaming`` UnitY (the
     24-layer Shaw conformer with chunk-causal attention, chunk 8, no text
     encoder, the NAR T2U 6 + 6) and the dense_1b EMMA decoder
@@ -3431,7 +3493,9 @@ def phase_streaming(smi: str, out_dir: str = "chiprun_out") -> dict:
     whole unit frames, a finished last segment; K6 launched in the fused
     mode. Launches are counted from 0 just before each run. The statistic
     at every decision of every run goes to
-    ``<out_dir>/streaming_decisions.json``."""
+    ``<out_dir>/streaming_decisions.json``. The incremental S2TT run's
+    tokens, its row and (``record``: with a top-2 logit gap a decision,
+    ``recording_bursts``) its decisions are returned as ``single``, for 3l."""
     import os
 
     import numpy as np
@@ -3501,8 +3565,7 @@ def phase_streaming(smi: str, out_dir: str = "chiprun_out") -> dict:
                                 dtype=torch.float32, device=dev)
     idx_map = load_card("vocoder_v2")["model_config"]["lang_spkr_idx_map"]
     unit_tok = UnitTokenizer(vocoder_cfg.num_units, ["eng", "fra"], "base_v2")
-    rng = np.random.default_rng(24)
-    wav = (rng.standard_normal(int(STREAM_SECONDS * 16000)) * 0.1).astype(np.float32)
+    wav = stream_waveform()
 
     # the re-encode's conformer with the fused option and without
     from seamless_communication_torch.audio.fbank import fbank_numpy
@@ -3526,7 +3589,7 @@ def phase_streaming(smi: str, out_dir: str = "chiprun_out") -> dict:
         f"{float(err.max()):.3g} (atol 2e-3 + rtol 2e-3)")
     del encs
 
-    runs, k6, tokens, decisions = [], 0, {}, {}
+    runs, k6, tokens, decisions, single = [], 0, {}, {}, None
     hop = vocoder_cfg.hifigan.total_upsample
     n_source = -(-len(wav) // int(CHUNK_MS * 16))
     with fused_attention(True):
@@ -3545,7 +3608,10 @@ def phase_streaming(smi: str, out_dir: str = "chiprun_out") -> dict:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 reset_launch_counts()
-                outs, times, stages, wall = stream_timed(pipe, wav)
+                bursts: list = []
+                with (recording_bursts(bursts) if record and (task, mode) == (
+                        "s2tt", "incremental") else contextlib.nullcontext()):
+                    outs, times, stages, wall = stream_timed(pipe, wav)
                 launches = dict(launch_counts)
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 label = f"3i {task.upper()} {mode}"
@@ -3617,6 +3683,9 @@ def phase_streaming(smi: str, out_dir: str = "chiprun_out") -> dict:
                     f"{launches['flash_attention']}; peak {peak:.2f} GiB [{smi}]")
                 runs.append(row)
                 decisions[f"{task} {mode}"] = [float(x) for x in stat]
+                if (task, mode) == ("s2tt", "incremental"):
+                    single = {"tokens": tokens[task, mode], "decisions": bursts, "row": row,
+                              "threshold": dec.decision_threshold}
                 threshold = dec.decision_threshold
                 del pipe, dec
                 gc.collect()
@@ -3629,7 +3698,7 @@ def phase_streaming(smi: str, out_dir: str = "chiprun_out") -> dict:
     with open(os.path.join(out_dir, "streaming_decisions.json"), "w") as f:
         json.dump({"threshold": threshold, "card": smi, "statistic": decisions}, f)
     stats.update(runs=runs, same_tokens_as_unfused_s2tt=same)
-    return {"launches": k6, "stats": stats,
+    return {"launches": k6, "stats": stats, "single": single,
             "models": {"unity": tree, "cfg": cfg, "mono": mono_tree, "mono_cfg": mono_cfg,
                        "text": text_tok, "char": char_tok}}
 
@@ -3748,6 +3817,610 @@ def phase_tiny_streaming() -> None:
                                  "token was written")
         log(f"tiny {name}: {len(tc)} tokens and {len(sc)} segments identical on the card "
             f"and the CPU, waveform max abs difference {err:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phases 2, 3k, 3l and 4: serving
+# ---------------------------------------------------------------------------
+
+SERVE_SECONDS = tuple(4.0 + 6.0 * i / 7 for i in range(8))   # 3k: 8 requests, 4-10 s
+POOL_SLOTS = 4
+POOL_SEEDS = (24, 61, 62, 63)           # 3l's sessions; seed 24 is 3i's waveform
+ADAPTOR_T, ADAPTOR_VALID = 257, (63, 61, 59, 1)   # the pool's adaptor: 2048 / 8 + 1 rows
+MARGIN = 1e-3                           # 3l: decisions nearer than this may flip
+
+
+def decode_batch_case(smi: str, floor_ms: float) -> dict:
+    """Phase 2's K1 at 3k's batched decode shape: a group of 8 requests at
+    beam 5 is B = 40 rows, H=16, T=320 (a cut decode's cache), Dh=64. Held
+    against its plain version (caches bit-equal, out within 2e-5 in fp32 and
+    1.6e-2 in bf16) for each origin pattern at steps 0, 137, 200 and 319 and
+    the first row of each slice of ``split_plan``; timed L2-warm and
+    HBM-cold at step 200 beside its bound, the plain version and the launch
+    floor; the cluster size ``split_plan`` picks is printed."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.ops.kernels import decode_attention as da
+
+    name = "decode_attention_int8"
+    B, T, Dh = B_SERVE, T_MAIN, DH_MAIN
+    plan = da.split_plan(B, H_MAIN, T, Dh, 8)
+    starts = [r.start for r in plan.slices(T) if 0 < r.start < T]
+    steps = sorted({0, 137, STEP_TIMED, T - 1, *starts})
+    rng = np.random.default_rng(16)
+    dev = torch.device("cuda")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        vecs, caches = decode_inputs(rng, name, B, T, Dh, dtype)
+        errs[dtype] = 0.0
+        for pattern, origins in decode_origins(B).items():
+            src = torch.tensor(origins, dtype=torch.int32, device=dev)
+            for step in steps:
+                errs[dtype] = max(errs[dtype], hold_decode_case(
+                    name, f"B={B} {str(dtype)[6:]} {pattern} step {step}",
+                    (*vecs, *caches, step, src)))
+    vecs, caches = decode_inputs(rng, name, B, T, Dh, torch.float32)
+    src = torch.tensor(decode_origins(B)["repeated"], dtype=torch.int32, device=dev)
+    args = (*vecs, *caches, STEP_TIMED, src)
+    ms = cuda_time_ms(lambda: da.fused_decode_self_attention_int8(*args))
+    plain_ms = cuda_time_ms(lambda: da._reference(*args))
+    ms_hbm = cold_time_ms(name, rng, B, T, Dh, STEP_TIMED, torch.float32)
+    bound, by = decode_bound_ms(name, B, T, Dh, STEP_TIMED, src.tolist(), torch.float32)
+    log(f"K1 batched B={B} H={H_MAIN} T={T} Dh={Dh}: split_plan cluster {plan.cluster}, "
+        f"slices of {plan.slice_rows} rows, tiles of {plan.tile_rows}; {len(steps)} steps x "
+        f"3 origin patterns, caches exact, out max abs err {errs[torch.float32]:.3g} (fp32, "
+        f"tol 2e-5), {errs[torch.bfloat16]:.3g} (bf16, tol 1.6e-2); step {STEP_TIMED}: "
+        f"L2-warm {ms * 1e3:.2f} us, HBM-cold {ms_hbm * 1e3:.2f} us, bound "
+        f"{bound * 1e3:.2f} us ({by}), plain {plain_ms * 1e3:.2f} us, launch floor "
+        f"{floor_ms * 1e3:.2f} us [{smi}]")
+    return {"B": B, "cluster": plan.cluster, "max_abs_err": errs[torch.float32],
+            "max_abs_err_bf16": errs[torch.bfloat16], "ms": ms, "ms_hbm": ms_hbm,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "floor_ms": floor_ms}
+
+
+def adaptor_flash_case(smi: str) -> dict:
+    """Phase 2's K6 at the streaming pool's adaptor: B = 4 slots, H=16,
+    Dh=64, T = 257 rows (2048 stacked frames through the stride-8 adaptor),
+    each slot with its own valid length (``ADAPTOR_VALID``: three sessions
+    and an idle slot) as key segment ids, as ``try_flash`` turns the
+    adaptor's key padding into them. K6 against its plain version in fp32
+    (the adaptor's dtype) and bf16 within rtol = atol = 1e-5 and 1.6e-2,
+    timed beside the library's SDPA with the segment mask as a float mask
+    and the bound over the unmasked logits; the fp32 kernel's skipped key
+    tiles counted."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(43)
+    B, H, T, Dh = POOL_SLOTS, H_MAIN, ADAPTOR_T, DH_MAIN
+    qkv = [torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32,
+                           device=dev) for _ in range(3)]
+    qkv[0] = qkv[0] / Dh ** 0.5
+    q_seg = torch.ones((B, T), dtype=torch.int32, device=dev)
+    valid = torch.tensor(ADAPTOR_VALID, device=dev)
+    kv_seg = (torch.arange(T, device=dev)[None] < valid[:, None]).to(torch.int32)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qs, k, v = (x.to(dtype) for x in qkv)
+        args = (qs, k, v, None, q_seg, kv_seg)
+        got = fl.flash_attention(*args)
+        ref = fl._reference(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if not bool((err <= tol[dtype] * (1 + ref.float().abs())).all()):
+            raise AssertionError(f"K6 pool adaptor {dtype}: out max err "
+                                 f"{float(err.max()):.3g} over tolerance")
+        mask = torch.where(q_seg[:, None, :, None] == kv_seg[:, None, None, :], 0.0,
+                           fl.MASK_VALUE).to(dtype)
+        k_ms = cuda_time_ms(lambda: fl.flash_attention(*args))
+        p_ms = cuda_time_ms(lambda: fl._reference(*args), calls=5, reps=20)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, scale=1.0), calls=5, reps=20)
+        pairs = fl.unmasked_pairs(B, H, T, T, None, q_seg, kv_seg)
+        bound = fl.bound(B, H, T, T, Dh, dtype, False, True, pairs)
+        skipped = int(fl.skippable_tiles_fwd(q_seg, kv_seg, T, T, None).sum())
+        log(f"K6 pool adaptor, B={B} H={H} Dh={Dh} T={T} (valid keys {ADAPTOR_VALID}, key "
+            f"segment ids), {str(dtype)[6:]}: out max abs err {float(err.max()):.3g} "
+            f"(rtol=atol={tol[dtype]}); device kernel {k_ms * 1e3:.2f} us, plain "
+            f"{p_ms * 1e3:.2f} us, library SDPA with the float mask {lib_ms * 1e3:.2f} us, "
+            f"bound {bound[0] * 1e3:.2f} us ({bound[1]}; {pairs} unmasked logits of "
+            f"{B * H * T * T}), {skipped} tile pairs skipped, kernel at "
+            f"{k_ms / bound[0]:.1f}x its bound [{smi}]")
+        out[str(dtype)[6:]] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                               "bound_ms": bound[0], "bound_by": bound[1],
+                               "max_abs_err": float(err.max()), "tiles_skipped": skipped,
+                               "unmasked_pairs": pairs}
+    return out
+
+
+def http_json(port: int, path: str, obj=None, timeout: float = 600.0):
+    """POST ``obj`` as JSON to ``path`` on the local server (GET where None)
+    -> (status, decoded body)."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    req = (urllib.request.Request(url) if obj is None else urllib.request.Request(
+        url, data=json.dumps(obj).encode(), headers={"Content-Type": "application/json"}))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def recording_predict(translator, calls: list):
+    """Make ``translator.predict`` (on the batcher's worker thread) append
+    each call's group, wall, stage walls, decode steps and K1 launches to
+    ``calls``, its hypotheses checked; ``del translator.predict`` undoes it."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import launch_counts
+
+    predict = translator.predict
+
+    def rec(inputs, task, tgt_lang, **kw):
+        before = launch_counts["decode_attention_int8"]
+        t0 = time.perf_counter()
+        out = predict(inputs, task, tgt_lang, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = translator.generator.last_result
+        check_hypotheses(res, translator.text_tokenizer.target_prefix(tgt_lang).tolist(),
+                         res.tokens.shape[-1], translator.cfg.nllb.eos_idx)
+        calls.append({"task": task, "n": len(inputs), "inputs": list(inputs), "wall_s": wall,
+                      "stages_s": dict(translator.last_timings), "steps": res.steps,
+                      "k1": launch_counts["decode_attention_int8"] - before,
+                      "tokens": res.tokens[:, 0].cpu(), "lengths": res.lengths[:, 0].cpu()})
+        return out
+
+    translator.predict = rec
+
+
+def phase_serving(translator, tok, cfg, smi: str) -> dict:
+    """3k. The dynamic batcher over HTTP on base_v2: ``serve(translator,
+    port=0, max_batch=8)`` on a Translator over 3a's int8 tree, the decode
+    cut to 127 steps (``hard_max_seq_len`` 128). Eight S2TT requests of
+    seeded noise, 4-10 s (``SERVE_SECONDS``), posted at once as base64 WAV
+    must come back 200 from one group of 8 (one ``predict``, B = 40 rows in
+    K1, 24 launches a step); then the same eight one at a time through a
+    server with ``max_batch=1``; then one
+    S2ST request, whose ``audio_b64`` must decode to a finite waveform within
+    [-1, 1]. Each ``predict``'s hypotheses are checked. Prints the batch's
+    wall and each request's latency, requests per card-second batched and
+    alone, ms a decode step, K1 launches from 0 and the peak memory."""
+    import base64
+    import threading
+
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.inference import serving
+    from seamless_communication_torch.inference.generator import (
+        SequenceGeneratorOptions,
+    )
+    from seamless_communication_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    t = s2st_translator(translator.params, cfg, tok, translator.vocoder_params,
+                        translator.vocoder_cfg,
+                        text_opts=SequenceGeneratorOptions(hard_max_seq_len=128))
+    calls: list = []
+    recording_predict(t, calls)
+    rng = np.random.default_rng(71)      # 3k's own draws: later phases keep their audio
+
+    def noise(seconds):
+        return (rng.standard_normal(int(seconds * 16000)) * 0.1).astype(np.float32)
+
+    wavs = [noise(s) for s in SERVE_SECONDS]
+    bodies = [{"task": "s2tt", "tgt_lang": "eng",
+               "audio_b64": base64.b64encode(serving._wav_bytes(w, 16000)).decode()}
+              for w in wavs]
+    srv = serving.serve(t, port=0, max_batch=len(bodies), max_wait_ms=2000)
+    port = srv.server_address[1]
+    n = len(bodies)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        results, lat = [None] * n, [0.0] * n
+
+        def work(i):
+            t0 = time.perf_counter()
+            results[i] = http_json(port, "/v1/translate", bodies[i])
+            lat[i] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(n)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        batch_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bad = [r for r in results if r is None or r[0] != 200]
+        if bad or len(calls) != 1 or calls[0]["n"] != n:
+            raise AssertionError(f"3k: the {n} concurrent requests were not one group "
+                                 f"answered 200: groups {[c['n'] for c in calls]}, {bad}")
+        group = calls[0]
+        if group["k1"] != cfg.nllb.num_decoder_layers * group["steps"] or group["k1"] <= 0:
+            raise AssertionError(f"3k: K1 launched {group['k1']} times in "
+                                 f"{group['steps']} steps of the group")
+        # alone: a server that batches nothing (max_batch 1 waits for no one)
+        alone_lat = []
+        srv1 = serving.serve(t, port=0, max_batch=1)
+        try:
+            for body in bodies:
+                t0 = time.perf_counter()
+                code, out = http_json(srv1.server_address[1], "/v1/translate", body)
+                alone_lat.append(time.perf_counter() - t0)
+                if code != 200:
+                    raise AssertionError(f"3k: a request alone got {code}: {out}")
+        finally:
+            srv1.shutdown()
+            srv1.batcher.close()
+        singles = calls[1:]
+        # each request's tokens alone against its row of the group
+        same = sum(bool(torch.equal(group["tokens"][next(
+            r for r, x in enumerate(group["inputs"]) if np.array_equal(x, c["inputs"][0]))],
+            c["tokens"][0])) for c in singles)
+        code, out = http_json(port, "/v1/translate", {
+            "task": "s2st", "tgt_lang": "eng",
+            "audio_b64": base64.b64encode(serving._wav_bytes(noise(6.0), 16000)).decode()})
+        if code != 200:
+            raise AssertionError(f"3k: the S2ST request got {code}: {out}")
+        audio = serving._decode_wav_b64(out["audio_b64"])
+        if not (audio.size and np.isfinite(audio).all() and np.abs(audio).max() <= 1.0
+                and out["sample_rate"] == 16000):
+            raise AssertionError("3k: the S2ST waveform is empty, not finite or outside "
+                                 "[-1, 1]")
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+        del t.predict
+    launches = launch_counts["decode_attention_int8"]
+    step_ms = group["stages_s"]["text_decode"] * 1e3 / group["steps"]
+    alone_step_ms = [c["stages_s"]["text_decode"] * 1e3 / c["steps"] for c in singles]
+    card_s_alone = sum(c["wall_s"] for c in singles)
+    stats = {"requests": n, "seconds": list(SERVE_SECONDS), "batch_wall_s": batch_wall,
+             "latency_s": lat, "latency_median_s": statistics.median(lat),
+             "latency_max_s": max(lat), "group_predict_s": group["wall_s"],
+             "group_stages_s": group["stages_s"], "steps": group["steps"],
+             "ms_per_step": step_ms, "alone_latency_s": alone_lat,
+             "alone_predict_s": [c["wall_s"] for c in singles],
+             "alone_ms_per_step": alone_step_ms,
+             "req_per_card_s_batched": n / group["wall_s"],
+             "req_per_card_s_alone": n / card_s_alone,
+             "req_per_s_http_batched": n / batch_wall,
+             "req_per_s_http_alone": n / sum(alone_lat), "same_tokens_as_alone": same,
+             "s2st_wall_s": calls[-1]["wall_s"], "s2st_audio_s": audio.size / 16000,
+             "k1_launches": launches, "k1_launches_group": group["k1"], "peak_gib": peak}
+    log(f"3k: {n} concurrent S2TT requests ({SERVE_SECONDS[0]:.1f}-{SERVE_SECONDS[-1]:.1f} s) "
+        f"in one group: batch wall {batch_wall * 1e3:.1f} ms (predict {group['wall_s'] * 1e3:.1f}"
+        f" ms = " + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in group["stages_s"].items())
+        + f"), latency median {stats['latency_median_s'] * 1e3:.1f} ms, max "
+        f"{max(lat) * 1e3:.1f} ms; {group['steps']} decode steps, {step_ms:.2f} ms a step "
+        f"(B*beam = {n * 5} rows); alone: latency median "
+        f"{statistics.median(alone_lat) * 1e3:.1f} ms, {statistics.median(alone_step_ms):.2f} "
+        f"ms a step; requests per card-second batched {n / group['wall_s']:.3f}, alone "
+        f"{n / card_s_alone:.3f} ({card_s_alone / group['wall_s']:.2f}x); {same} of {n} "
+        f"requests with the same tokens batched and alone; S2ST 6 s: "
+        f"{calls[-1]['wall_s'] * 1e3:.1f} ms, {audio.size / 16000:.2f} s of audio; K1 "
+        f"launches {launches} ({group['k1']} in the group); peak {peak:.2f} GiB [{smi}]")
+    return {"launches": launches, "stats": stats}
+
+
+def compare_decisions(got: list, want: list, threshold: float) -> dict:
+    """Two runs' decisions, (statistic, top-2 logit gap, token or None) each,
+    in order: the first decision where either run's margin (the statistic's
+    distance to ``threshold``, or the gap) is under ``MARGIN``, and the first
+    where their outcomes (the token written, or none) differ. The runs agree
+    if they never differ, or differ only from such a decision on."""
+    def margin(d):
+        return min(abs(d[0] - threshold), d[1])
+
+    low = next((i for i, (a, b) in enumerate(zip(got, want))
+                if min(margin(a), margin(b)) < MARGIN), None)
+    diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a[2] != b[2]), None)
+    if diff is None and len(got) != len(want):
+        diff = min(len(got), len(want))
+    at = low if low is not None else diff
+    return {"decisions": [len(got), len(want)], "first_low_margin": low,
+            "first_difference": diff, "agree": diff is None or (low is not None
+                                                                and low <= diff),
+            "at": at, "margins_at": None if at is None or at >= min(len(got), len(want))
+            else [margin(got[at]), margin(want[at])],
+            "min_margin": [min(map(margin, got), default=None),
+                           min(map(margin, want), default=None)]}
+
+
+def phase_pool(smi: str, models: dict, single: dict) -> dict:
+    """3l. The batched streaming pool at full width on 3i's loaded
+    ``streaming`` UnitY and dense_1b EMMA decoder (int8 weight-only), with
+    ``SEAMLESS_FUSED_ATTN=1``: ``BatchedStreamingPool(n_slots=4)`` and the
+    policy of 3i's incremental stream; four 10 s sessions of seeded noise
+    (session 0 on 3i's waveform) open one tick apart and push one 320 ms
+    chunk a tick, the pool stepping once a tick until all four finish. Each
+    pool step timed to a synchronized card (and split by the pool's
+    ``last_timings``; the pool records its decisions, a top-k over the
+    vocabulary a decision, as 3i's compared run does); each session's xRT from its open to its finish; K6
+    launches (the adaptor, once a decoded chunk) counted from 0, more than
+    0; the peak memory; beside them 3i's single incremental S2TT stream
+    (``single``). Session 0's decisions must agree with that stream's up to
+    the first decision where either run's margin is under ``MARGIN``
+    (``compare_decisions``). Then one more session through the HTTP routes
+    (/v1/stream/open, push, poll, close) on a pool of its own with
+    ``max_len_b`` 20: every status 200, the session finished."""
+    import torch
+
+    from seamless_communication_torch.inference import serving
+    from seamless_communication_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seamless_communication_torch.ops.quantization import quantize_params
+    from seamless_communication_torch.streaming.multi import BatchedStreamingPool
+
+    seg = int(CHUNK_MS * 16)
+    m = models
+    mono_q = quantize_params(m["mono"])
+    wavs = [stream_waveform(seed) for seed in POOL_SEEDS]
+    n_chunks = -(-len(wavs[0]) // seg)
+    with fused_attention(True):
+        pool = BatchedStreamingPool(m["unity"], m["cfg"], mono_q, m["mono_cfg"], m["text"],
+                                    n_slots=POOL_SLOTS, mono_quantize_int8=False,
+                                    record_decisions=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        sids, opened, done, step_ms, stages = {}, {}, {}, [], []
+        tokens = {}
+        t_start = time.perf_counter()
+        for tick in range(400):
+            for i, w in enumerate(wavs):
+                if tick == i:
+                    sids[i] = pool.open_session(tgt_lang="eng")
+                    opened[i] = time.perf_counter()
+                j = tick - i
+                if i in sids and 0 <= j < n_chunks:
+                    pool.push(sids[i], w[j * seg:(j + 1) * seg], finished=j == n_chunks - 1)
+            t0 = time.perf_counter()
+            pool.step()
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_ms.append((now - t0) * 1e3)
+            stages.append({k: v * 1e3 for k, v in pool.last_timings.items()})
+            for i, sid in sids.items():
+                tokens.setdefault(i, [])
+                tokens[i] += [t for g in pool.pop(sid) for t in g.token_indices]
+                if pool.session_finished(sid) and i not in done:
+                    done[i] = now
+            if len(done) == len(wavs):
+                break
+        else:
+            raise AssertionError("3l: the pooled sessions did not finish in 400 steps")
+        wall = time.perf_counter() - t_start
+        launches = dict(launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        decisions0 = pool.session_decisions(sids[0])
+        for sid in sids.values():
+            pool.close_session(sid)
+    if launches["flash_attention"] <= 0:
+        raise AssertionError("3l: K6 never launched in the pool's adaptor")
+    if not all(tokens.values()):
+        raise AssertionError(f"3l: a session wrote no token: {[len(t) for t in tokens.values()]}")
+    cmp = compare_decisions(decisions0, single["decisions"], single["threshold"])
+    if not cmp["agree"]:
+        raise AssertionError(f"3l: session 0 departs from 3i's incremental S2TT stream at "
+                             f"decision {cmp['first_difference']} with margins "
+                             f"{cmp['margins_at']} (none under {MARGIN} before it): {cmp}")
+    source = POOL_SLOTS - 1 + n_chunks         # the steps while audio still arrives
+    xrt = {i: (done[i] - opened[i]) / STREAM_SECONDS for i in done}
+    srow = single["row"]
+    work = [st for st in stages[:source] if "burst" in st]
+    split = {k: statistics.median(st.get(k, 0.0) for st in work)
+             for k in sorted({k for st in work for k in st})}
+    stats = {"slots": POOL_SLOTS, "steps": len(step_ms), "source_steps": source,
+             "step_ms": step_ms, "step_median_ms": statistics.median(step_ms[:source]),
+             "step_max_ms": max(step_ms[:source]), "drain_ms": step_ms[source:],
+             "stage_median_ms": split, "wall_s": wall, "xrt": xrt,
+             "tokens": {i: len(t) for i, t in tokens.items()},
+             "k6_launches": launches["flash_attention"], "peak_gib": peak,
+             "session0_vs_single": cmp,
+             "single": {"chunk_median_ms": statistics.median(srow["chunk_ms"]),
+                        "chunk_max_ms": max(srow["chunk_ms"]),
+                        "working_median_ms": srow["working_median_ms"],
+                        "xrt": srow["xrt"], "k6_launches": srow["k6_launches"],
+                        "peak_gib": srow["peak_gib"], "tokens": len(single["tokens"])}}
+    log(f"3l: {POOL_SLOTS} pooled 10 s sessions one tick apart: {len(step_ms)} pool steps "
+        f"({source} while audio arrives), ms a step median {stats['step_median_ms']:.1f}, "
+        f"max {stats['step_max_ms']:.1f} (budget {CHUNK_MS}) = " + ", ".join(
+            f"{k} {v:.1f}" for k, v in split.items())
+        + f"; drain {sum(step_ms[source:]):.1f} ms in {len(step_ms) - source} steps; wall "
+        f"{wall:.2f} s; xRT " + ", ".join(f"{xrt[i]:.3f}" for i in sorted(xrt))
+        + f"; tokens {[len(tokens[i]) for i in sorted(tokens)]}; K6 launches "
+        f"{launches['flash_attention']}; peak {peak:.2f} GiB. 3i's single incremental S2TT "
+        f"stream in this run: ms a chunk median {stats['single']['chunk_median_ms']:.1f}, max "
+        f"{stats['single']['chunk_max_ms']:.1f} (working median "
+        f"{srow['working_median_ms']:.1f}), xRT {srow['xrt']:.3f}, {len(single['tokens'])} "
+        f"tokens, K6 {srow['k6_launches']}, peak {srow['peak_gib']:.2f} GiB. Session 0 "
+        f"against it: {cmp['decisions']} decisions, first margin under {MARGIN} at "
+        f"{cmp['first_low_margin']}, first different outcome at {cmp['first_difference']}"
+        f" (margins there {cmp['margins_at']}; smallest margins {cmp['min_margin']}); "
+        f"tokens equal: {tokens[0] == single['tokens']} [{smi}]")
+
+    # one more session through the HTTP routes
+    http_pool = BatchedStreamingPool(m["unity"], m["cfg"], mono_q, m["mono_cfg"], m["text"],
+                                     n_slots=POOL_SLOTS, mono_quantize_int8=False,
+                                     max_len_b=20)
+    wav = stream_waveform(64)[:2 * 16000]
+    with fused_attention(True):
+        srv = serving.serve(stream_pool=http_pool, port=0, stream_tick_ms=10)
+        port = srv.server_address[1]
+        try:
+            t0 = time.perf_counter()
+            code, out = http_json(port, "/v1/stream/open", {"tgt_lang": "eng"})
+            codes, toks, polls = [code], [], 0
+            sid = out["session_id"]
+            n = -(-len(wav) // seg)
+            for j in range(n):
+                code, out = http_json(port, "/v1/stream/push", {
+                    "session_id": sid, "samples": wav[j * seg:(j + 1) * seg].tolist(),
+                    "finished": j == n - 1})
+                codes.append(code)
+                toks += [t for g in out["segments"] for t in g["tokens"]]
+            while not out["finished"] and polls < 300:
+                code, out = http_json(port, "/v1/stream/poll", {"session_id": sid})
+                codes.append(code)
+                polls += 1
+                toks += [t for g in out["segments"] for t in g["tokens"]]
+            code, closed = http_json(port, "/v1/stream/close", {"session_id": sid})
+            codes.append(code)
+            http_s = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+            srv.stream_service.stop()
+    if set(codes) != {200} or not out["finished"] or closed != {"status": "closed"}:
+        raise AssertionError(f"3l: the HTTP session got {codes}, finished "
+                             f"{out['finished']}, close {closed}")
+    log(f"3l: one 2 s session over /v1/stream (open, {n} pushes, {polls} polls, close): "
+        f"{len(codes)} responses 200, {len(toks)} tokens, finished, {http_s:.2f} s [{smi}]")
+    stats.update(http={"responses": len(codes), "polls": polls, "tokens": len(toks),
+                       "wall_s": http_s})
+    return {"launches": launches["flash_attention"], "stats": stats}
+
+
+def serving_tokenizer():
+    """An NLLB tokenizer of 225 two-letter words, for the tiny serving case."""
+    from seamless_communication_torch.text.nllb import NllbTokenizer
+    from seamless_communication_torch.text.spm import (
+        TYPE_CONTROL, TYPE_NORMAL, TYPE_UNKNOWN, SentencePieceModel, build_spm_model,
+    )
+
+    base = [("<unk>", 0.0, TYPE_UNKNOWN), ("<s>", 0.0, TYPE_CONTROL),
+            ("</s>", 0.0, TYPE_CONTROL)]
+    words = ["▁" + a + b for a in "abcdefghijklmno" for b in "abcdefghijklmno"]
+    return NllbTokenizer(SentencePieceModel.from_bytes(build_spm_model(
+        base + [(w, -2.0, TYPE_NORMAL) for w in words])), ["__eng__", "__fra__"])
+
+
+def phase_tiny_serving() -> None:
+    """The tiny serving case, card against CPU, fp32. The pool on the JAX
+    test's chunk-causal tiny card (``tiny_streaming_models``, its policy:
+    threshold 0.001, ``max_len_b`` 12, 6 writes a call) with three sessions
+    of 2, 1.5 and 1 s opening at ticks 0, 2 and 3 in four slots must write
+    the CPU pool's segments, token for token. The batcher on tiny_v2 (its
+    final layer-norm scale drawn at random, so that the random decoder writes
+    words; int8 KV: K1 on the card) must answer three S2TT and two T2TT
+    requests posted at once in two groups, with the tokens and texts of the
+    CPU ``Translator.predict`` on the same groups."""
+    import base64
+    import threading
+
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.inference import serving
+    from seamless_communication_torch.inference.generator import (
+        SequenceGeneratorOptions,
+    )
+    from seamless_communication_torch.inference.translator import Translator
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.streaming.multi import BatchedStreamingPool
+
+    m = tiny_streaming_models(torch.Generator().manual_seed(31))
+    seg = int(CHUNK_MS * 16)
+    tone = lambda hz, s: (0.1 * np.sin(2 * np.pi * hz * np.arange(int(s * 16000))  # noqa: E731
+                                       / 16000)).astype(np.float32)
+    schedule = [(0, tone(300, 2.0)), (2, tone(440, 1.5)), (3, tone(520, 1.0))]
+    n_chunks = [-(-len(w) // seg) for _, w in schedule]
+    got = {}
+    for device in ("cuda", "cpu"):
+        pool = BatchedStreamingPool(
+            m["chunk_unity"], m["chunk_cfg"], m["mono"], m["mono_cfg"], m["text"],
+            n_slots=POOL_SLOTS, min_starting_wait=16, decision_threshold=0.001,
+            max_len_b=12, max_consecutive_writes=6, mono_quantize_int8=False, device=device)
+        sids, segs = {}, {}
+        for tick in range(128):
+            for i, (start, w) in enumerate(schedule):
+                if tick == start:
+                    sids[i] = pool.open_session(tgt_lang="eng")
+                j = tick - start
+                if 0 <= j < n_chunks[i]:
+                    pool.push(sids[i], w[j * seg:(j + 1) * seg], finished=j == n_chunks[i] - 1)
+            pool.step()
+            for i, sid in sids.items():
+                segs.setdefault(i, [])
+                segs[i] += [(g.token_indices, g.text, g.finished) for g in pool.pop(sid)]
+            if len(sids) == len(schedule) and all(map(pool.session_finished, sids.values())):
+                break
+        else:
+            raise AssertionError(f"tiny pool on {device}: the sessions did not finish")
+        got[device] = segs
+    if got["cuda"] != got["cpu"] or not all(got["cpu"].values()):
+        raise AssertionError(f"tiny pool: the card's segments {got['cuda']} differ from the "
+                             f"CPU's {got['cpu']}")
+    log(f"tiny pool: {len(schedule)} staggered sessions, "
+        f"{[sum(len(t) for t, _, _ in s) for s in got['cpu'].values()]} tokens, the same "
+        "segments on the card and the CPU")
+
+    cfg = get_arch("tiny_v2")
+    params = unity.unity_init(torch.Generator().manual_seed(0), cfg)
+    ln = params["text_decoder"]["stack"]["layer_norm"]
+    ln["scale"] = torch.randn(ln["scale"].shape, generator=torch.Generator().manual_seed(5))
+    tok = serving_tokenizer()
+    opts = SequenceGeneratorOptions(beam_size=2, soft_max_seq_len=(0, 10),
+                                    kv_cache_int8=True)
+    tr = Translator(params, cfg, tok, text_opts=opts, device="cuda")
+    cpu = Translator(params, cfg, tok, text_opts=opts, device="cpu")
+    calls: list = []
+    recording_predict(tr, calls)
+    rng = np.random.default_rng(5)
+    bodies = ([{"task": "s2tt", "tgt_lang": "eng", "audio_b64": base64.b64encode(
+                serving._wav_bytes(rng.standard_normal(int(s * 16000)) * 0.1, 16000)).decode()}
+               for s in (1.0, 2.5, 1.7)]
+              + [{"task": "t2tt", "tgt_lang": "fra", "src_lang": "eng", "text": t}
+                 for t in ("aa bb", "cc aa bb cc aa")])
+    srv = serving.serve(tr, port=0, max_batch=len(bodies), max_wait_ms=3000)
+    results = [None] * len(bodies)
+    try:
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, http_json(srv.server_address[1], "/v1/translate", bodies[i])))
+            for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+        del tr.predict
+    if any(r is None or r[0] != 200 for r in results) or sorted(
+            (c["task"], c["n"]) for c in calls) != [("s2tt", 3), ("t2tt", 2)]:
+        raise AssertionError(f"tiny batcher: responses {results}, groups "
+                             f"{[(c['task'], c['n']) for c in calls]}")
+    # the CPU on each group in the order the batcher formed it: a response's
+    # text locates its row
+    for c in calls:
+        rows = [r for r, b in zip(results, bodies) if b["task"] == c["task"]]
+        inputs = [serving._decode_wav_b64(b["audio_b64"]) if "audio_b64" in b else b["text"]
+                  for b in bodies if b["task"] == c["task"]]
+        texts, _ = cpu.predict(inputs, c["task"], "eng" if c["task"] == "s2tt" else "fra",
+                               src_lang=None if c["task"] == "s2tt" else "eng")
+        res = cpu.generator.last_result
+        for r in rows:
+            if r[1]["text"] not in texts:
+                raise AssertionError(f"tiny batcher: the card's {r[1]['text']!r} is not "
+                                     f"among the CPU's texts {texts}")
+        if not all(texts) or sorted(map(tuple, res.tokens[:, 0].tolist())) != sorted(
+                map(tuple, c["tokens"].tolist())):
+            raise AssertionError(f"tiny batcher {c['task']}: tokens differ between the "
+                                 "card and the CPU, or a text is empty")
+    log(f"tiny batcher: 5 requests in 2 groups ({[(c['task'], c['n'], c['k1']) for c in calls]}"
+        " task, size, K1 launches), the CPU's tokens and texts on the card")
 
 
 # ---------------------------------------------------------------------------
@@ -5316,10 +5989,27 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--streaming"]:
         k6s = streaming_flash_case(dev["smi"])
-        streaming = phase_streaming(dev["smi"])
+        streaming = phase_streaming(dev["smi"], record=False)
         phase_tiny_streaming()
         log(json.dumps({"streaming": streaming["stats"], "k6_streaming": k6s,
                         "k6_launches_3i": streaming["launches"], "card": dev["smi"]}))
+        return 0
+    if sys.argv[1:] == ["--serving"]:
+        floor_ms = launch_floor_ms()
+        k1b = timed("2 K1 batched", decode_batch_case, dev["smi"], floor_ms)
+        k6a = timed("2 K6 adaptor", adaptor_flash_case, dev["smi"])
+        translator, tok, cfg, _ = timed("3 base_v2 build", build_base_v2)
+        serving = timed("3k", phase_serving, translator, tok, cfg, dev["smi"])
+        del translator
+        gc.collect()
+        streaming = timed("3i", phase_streaming, dev["smi"])
+        pool = timed("3l", phase_pool, dev["smi"], streaming.pop("models"),
+                     streaming["single"])
+        timed("4 serving", phase_tiny_serving)
+        log(json.dumps({"k1_batched": k1b, "k6_adaptor": k6a, "serving": serving["stats"],
+                        "launches_3k": serving["launches"], "pool": pool["stats"],
+                        "launches_3l": pool["launches"], "phase_s": PHASE_S,
+                        "card": dev["smi"]}))
         return 0
     if sys.argv[1:] == ["--expressive"]:
         k6p = timed("2 K6 PRETSSEL", pretssel_flash_case, dev["smi"])
@@ -5341,6 +6031,9 @@ def main() -> int:
     # the 3i re-encode's shape and 3j's PRETSSEL decoder
     k6["streaming"] = timed("2 K6 streaming", streaming_flash_case, dev["smi"])
     k6["pretssel"] = timed("2 K6 PRETSSEL", pretssel_flash_case, dev["smi"])
+    # 3k's batched decode and 3l's pooled adaptor
+    k1["batched"] = timed("2 K1 batched", decode_batch_case, dev["smi"], floor_ms)
+    k6["adaptor"] = timed("2 K6 adaptor", adaptor_flash_case, dev["smi"])
     k6b, k6c = timed("2 K6b K6c", phase_flash_attention_bwd, dev["smi"])
     timed("2 sweep", phase_flash_sweep, dev["smi"])
     if sys.argv[1:] == ["--kernels"]:
@@ -5359,6 +6052,8 @@ def main() -> int:
     k5["launches"] = lazy["launches"]["decode_attention_indexed"]
     k4["launches"] = lazy["launches"]["fbank"]          # not on any path: 0
     fused = timed("3e", phase_fused, *base_v2, dev["smi"])
+    serving = timed("3k", phase_serving, translator, tok, cfg, dev["smi"])
+    k1["launches_3k"] = serving["launches"]
     vocoder = (translator.vocoder_params, translator.vocoder_cfg)
     del base_v2, translator
     gc.collect()        # 3d's MinTox translator holds base_v2's tree in a cycle
@@ -5375,11 +6070,15 @@ def main() -> int:
     k6["launches"] += streaming["launches"]
     k6["launches_3i"] = streaming["launches"]
     gc.collect()
-    # 3j's stream runs on 3i's loaded streaming models
-    expressive = timed("3j", phase_expressive, dev["smi"], streaming.pop("models"))
+    # 3j's stream and 3l's pool run on 3i's loaded streaming models
+    expressive = timed("3j", phase_expressive, dev["smi"], streaming["models"])
     k1["launches_3j"] = expressive["launches"]["decode_attention_int8"]
     k6["launches"] += expressive["launches"]["flash_attention"]
     k6["launches_3j"] = expressive["launches"]["flash_attention"]
+    gc.collect()
+    pool = timed("3l", phase_pool, dev["smi"], streaming.pop("models"), streaming["single"])
+    k6["launches"] += pool["launches"]
+    k6["launches_3l"] = pool["launches"]
     gc.collect()
     train = timed("3g", phase_train, dev["smi"])
     k6["launches"] += train["launches"]["flash_attention"]
@@ -5393,12 +6092,14 @@ def main() -> int:
                          ("4 offline", phase_tiny_offline),
                          ("4 streaming", phase_tiny_streaming),
                          ("4 expressive", phase_tiny_expressive),
+                         ("4 serving", phase_tiny_serving),
                          ("4 train", phase_tiny_train)):
         timed(label, phase)
     log(json.dumps({"main_path": s2tt["requests"] + s2st["requests"] + t2t["requests"],
                     "lazy": lazy["requests"], "fused": fused["requests"],
                     "v1": v1["requests"], "offline": offline["stats"],
                     "streaming": streaming["stats"], "expressive": expressive["stats"],
+                    "serving": serving["stats"], "pool": pool["stats"],
                     "train": train, "phase_s": PHASE_S,
                     "card": dev["smi"]}))
     log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5, k6, k6b, k6c]}))

@@ -218,10 +218,8 @@ class Translator:
         (``apply_mintox``, or ``_apply_mintox`` for this call) the source
         text is ``src_text``, the text input, or the ASR of the speech input
         in ``src_lang``."""
+        get_modalities_from_task_str(task_str)      # raises on an unknown task
         task = task_str.lower()
-        if task not in TEXT_TASKS + SPEECH_TASKS:
-            raise ValueError(f"unknown task {task_str!r}; expected one of "
-                             f"{', '.join(TEXT_TASKS + SPEECH_TASKS)}")
         if task in TEXT_INPUT_TASKS and src_lang is None:
             raise ValueError("src_lang required for text input")
         self.last_timings = {}

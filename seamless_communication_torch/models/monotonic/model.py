@@ -12,12 +12,15 @@ caches are (L, B, H, T_max, Dh) tensors whose row ``step`` each step writes in
 place, the cross-attention K/V are projected once per encoder output. The
 write burst is an eager loop that stops at the first token it does not write;
 the JAX package's ``lax.while_loop`` computes that one more step and discards
-it, so both return the same tokens, features, counts and cache.
+it, so both return the same tokens, features, counts and cache. The batched
+streaming pool runs the burst for several sessions at once
+(``monotonic_write_burst_rows``): each row has its own step, context, valid
+keys and limits, as JAX's ``vmap`` over the session axis gives each.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -129,22 +132,28 @@ def p_choose(params: dict, seqs: torch.Tensor, pooled_keys: Optional[torch.Tenso
 
 
 def decision_stat(pcs: torch.Tensor, cfg: MonotonicDecoderConfig, *, start_layer: int,
-                  sp_valid: int, method: str) -> torch.Tensor:
-    """The policy's statistic of (B, L * H, Sp) p_choose: ``method`` ("min",
-    "mean" or "median") over the heads of the layers from ``start_layer`` at
-    the last valid pooled key ``sp_valid - 1``, a 0-d fp32 tensor. An even
-    count's median is the mean of its two middle values, as numpy's and
-    jnp's (``torch.median`` would take the lower one)."""
+                  sp_valid: Union[int, Sequence[int], torch.Tensor],
+                  method: str) -> torch.Tensor:
+    """The policy's statistic of (B, L * H, Sp) p_choose, row by row:
+    ``method`` ("min", "mean" or "median") over the heads of the layers from
+    ``start_layer`` at each row's last valid pooled key ``sp_valid - 1``
+    (one int, or one a row) -> (B,) fp32. An even count's median is the
+    mean of its two middle values, as numpy's and jnp's (``torch.median``
+    would take the lower one)."""
     B = pcs.shape[0]
-    last = pcs.reshape(B, cfg.num_layers, cfg.num_heads, -1)[:, start_layer:, :,
-                                                              sp_valid - 1]
+    pl = pcs.reshape(B, cfg.num_layers, cfg.num_heads, -1)[:, start_layer:]
+    if isinstance(sp_valid, int):
+        last = pl[..., sp_valid - 1]                                    # (B, L', H)
+    else:
+        idx = torch.as_tensor(sp_valid, device=pcs.device) - 1
+        last = torch.gather(pl, 3, idx.view(B, 1, 1, 1).expand(*pl.shape[:3], 1))[..., 0]
     if method == "min":
-        return last.min()
+        return last.amin(dim=(1, 2))
     if method == "mean":
-        return last.mean()
-    flat = torch.sort(last.reshape(-1)).values
-    n = flat.shape[0]
-    return (flat[(n - 1) // 2] + flat[n // 2]) * 0.5
+        return last.mean(dim=(1, 2))
+    flat = torch.sort(last.reshape(B, -1), dim=1).values
+    n = flat.shape[1]
+    return (flat[:, (n - 1) // 2] + flat[:, n // 2]) * 0.5
 
 
 # ---------------------------------------------------------------------------
@@ -179,13 +188,17 @@ def monotonic_decoder_cache(params: dict, cfg: MonotonicDecoderConfig,
 
 
 def monotonic_decode_step(params: dict, tok_t: torch.Tensor, cache: MonotonicCache,
-                          step: int, cfg: MonotonicDecoderConfig, *,
+                          step: Union[int, torch.Tensor], cfg: MonotonicDecoderConfig, *,
                           enc_padding_mask: Optional[torch.Tensor] = None):
     """One step: tok_t (B, 1) -> ((B, V) fp32 logits, (B, 1, D) features,
     (B, L * H, Sp) p_choose, cache). The features feed the NAR T2U. Row
     ``step`` of the self-attention caches is written in place (the cache
-    returned is the one given)."""
+    returned is the one given); ``step`` is one int, or a (B,) tensor of
+    each row's own step (the batched write burst)."""
     x = embedding_frontend(params["embed"], tok_t, cfg.dec_cfg(), start_step=step)
+    if isinstance(step, torch.Tensor):
+        step = step.to(x.device)
+        rows = torch.arange(x.shape[0], device=x.device)
     cross_bias = padding_bias(enc_padding_mask)
     pcs = []
     for i, layer in enumerate(params["layers"]):
@@ -202,8 +215,12 @@ def monotonic_decode_step(params: dict, tok_t: torch.Tensor, cache: MonotonicCac
         z = layer_norm(layer["ffn"]["layer_norm"], x)
         z = torch.relu(linear(layer["ffn"]["inner_proj"], z))
         x = x + linear(layer["ffn"]["output_proj"], z)
-        cache.self_k[i, :, :, step] = k_t[:, :, 0].to(cache.self_k.dtype)
-        cache.self_v[i, :, :, step] = v_t[:, :, 0].to(cache.self_v.dtype)
+        if isinstance(step, torch.Tensor):
+            cache.self_k[i][rows, :, step] = k_t[:, :, 0].to(cache.self_k.dtype)
+            cache.self_v[i][rows, :, step] = v_t[:, :, 0].to(cache.self_v.dtype)
+        else:
+            cache.self_k[i, :, :, step] = k_t[:, :, 0].to(cache.self_k.dtype)
+            cache.self_v[i, :, :, step] = v_t[:, :, 0].to(cache.self_v.dtype)
     out = layer_norm(params["layer_norm"], x)
     logits = tied_projection(params["embed"], out)[:, 0]
     return logits, out, torch.cat(pcs, dim=1), cache
@@ -215,6 +232,13 @@ class WriteBurst(NamedTuple):
     finished: bool
     cache: MonotonicCache
     stats: list             # the decision statistic at each decision (floats)
+    gaps: Optional[list] = None  # the top-2 logit gap at each decision, if asked for
+
+
+def _top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy logit's lead over the runner-up, a row: (..., V) -> (...)."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
 
 
 def monotonic_write_burst(params: dict, cache: MonotonicCache, start_step: int,
@@ -224,16 +248,18 @@ def monotonic_write_burst(params: dict, cache: MonotonicCache, start_step: int,
                           sp_valid: int, eos_idx: int, max_len: int, n_context: int,
                           max_writes: int, source_finished: bool,
                           enc_padding_mask: Optional[torch.Tensor] = None,
-                          min_gen_len: int = 0) -> WriteBurst:
+                          min_gen_len: int = 0, with_gaps: bool = False) -> WriteBurst:
     """The EMMA write loop from the prefill's last logits and p_choose: write
     the greedy token while the statistic clears ``decision_threshold`` (or the
     source is finished), at most ``max_writes`` tokens; stop on EOS or the
     length limit ``max_len`` (a target length that counts the ``n_context``
     context tokens). ``finished`` is the last decision's EOS / length test
     (False when ``max_writes`` tokens were written). ``min_gen_len`` > 0
-    keeps EOS out until that many tokens were generated."""
+    keeps EOS out until that many tokens were generated. ``with_gaps`` also
+    records each decision's top-2 logit gap (a measurement's margin)."""
     logits, pcs, step = first_logits, first_pcs, start_step
     tokens, feats, stats = [], [], []
+    gaps = [] if with_gaps else None
     finished = False
     while len(tokens) < max_writes:
         total = n_context - 2 + len(tokens)      # generated so far, minus [eos, lang]
@@ -245,6 +271,8 @@ def monotonic_write_burst(params: dict, cache: MonotonicCache, start_step: int,
         prob = float(decision_stat(pcs, cfg, start_layer=p_choose_start_layer,
                                    sp_valid=sp_valid, method=decision_method))
         stats.append(prob)
+        if with_gaps:
+            gaps.append(float(_top2_gap(lg)))
         cur_len = n_context + len(tokens)
         finished = (index == eos_idx or cur_len > max_len
                     or (source_finished and cur_len >= max_len))
@@ -260,10 +288,97 @@ def monotonic_write_burst(params: dict, cache: MonotonicCache, start_step: int,
     D = cfg.model_dim
     features = (torch.stack(feats) if feats
                 else torch.zeros((0, D), dtype=torch.float32, device=logits.device))
-    return WriteBurst(tokens, features, finished, cache, stats)
+    return WriteBurst(tokens, features, finished, cache, stats, gaps)
 
 
-def monotonic_encode_and_prefill(params: dict, tokens: torch.Tensor, n_tokens: int,
+def monotonic_write_burst_rows(params: dict, cache: MonotonicCache,
+                               start_step: Sequence[int], first_logits: torch.Tensor,
+                               first_pcs: torch.Tensor, cfg: MonotonicDecoderConfig, *,
+                               decision_threshold: float, decision_method: str,
+                               p_choose_start_layer: int, sp_valid: Sequence[int],
+                               eos_idx: int, max_len: Sequence[int],
+                               n_context: Sequence[int], max_writes: int,
+                               source_finished: Sequence[bool],
+                               active: Optional[Sequence[bool]] = None,
+                               enc_padding_mask: Optional[torch.Tensor] = None,
+                               min_gen_len: int = 0,
+                               with_gaps: bool = False) -> List[WriteBurst]:
+    """``monotonic_write_burst`` for B rows at once (the streaming pool's
+    sessions), each with its own step, context length, valid pooled keys,
+    length limit and source state -> one ``WriteBurst`` a row (the cache is
+    shared). Each decision brings every row's greedy index and statistic
+    (and, ``with_gaps``, its top-2 logit gap) to the host in one copy; one
+    decode step runs for all rows while any row writes. A row that has
+    stopped (or is not ``active``) runs along, its outputs thrown away: its
+    step writes cache row ``start_step + n_written`` again, which no later
+    decision of that row reads. A row gives exactly the tokens, ``finished``
+    and statistics of ``monotonic_write_burst`` on that row alone."""
+    B = first_logits.shape[0]
+    dev = first_logits.device
+    active = [True] * B if active is None else list(active)
+    logits, pcs = first_logits, first_pcs
+    steps = list(start_step)
+    tokens: List[list] = [[] for _ in range(B)]
+    stats: List[list] = [[] for _ in range(B)]
+    gaps: List[list] = [[] for _ in range(B)]
+    finished = [False] * B
+    done = [not a for a in active]
+    feats = []
+    sp = torch.tensor(list(sp_valid), device=dev)
+    while True:
+        live = [b for b in range(B) if not done[b] and len(tokens[b]) < max_writes]
+        if not live:
+            break
+        lg = logits
+        if min_gen_len > 0:
+            # generated so far, minus [eos, lang]
+            ban = torch.tensor([n_context[b] - 2 + len(tokens[b]) < min_gen_len
+                                for b in range(B)], device=dev)
+            lg = lg.clone()
+            lg[:, eos_idx] = torch.where(ban, -torch.inf, lg[:, eos_idx])
+        per_row = [torch.argmax(lg, dim=-1).double(),
+                   decision_stat(pcs, cfg, start_layer=p_choose_start_layer, sp_valid=sp,
+                                 method=decision_method).double()]
+        if with_gaps:
+            per_row.append(_top2_gap(lg).double())
+        host = torch.stack(per_row).tolist()
+        writes = {}
+        for b in live:
+            index, prob = int(host[0][b]), host[1][b]
+            stats[b].append(prob)
+            if with_gaps:
+                gaps[b].append(host[2][b])
+            cur_len = n_context[b] + len(tokens[b])
+            finished[b] = (index == eos_idx or cur_len > max_len[b]
+                           or (source_finished[b] and cur_len >= max_len[b]))
+            if (finished[b] or (not source_finished[b] and prob < decision_threshold)
+                    or cur_len >= max_len[b]):
+                done[b] = True
+            else:
+                writes[b] = index
+        if not writes:
+            break
+        tok = torch.tensor([[writes.get(b, 0)] for b in range(B)], dtype=torch.long,
+                           device=dev)
+        logits, feat, pcs, cache = monotonic_decode_step(
+            params, tok, cache, torch.tensor(steps, device=dev), cfg,
+            enc_padding_mask=enc_padding_mask)
+        feats.append(feat[:, 0].float())
+        for b, index in writes.items():
+            tokens[b].append(index)
+            steps[b] += 1
+    out = []
+    for b in range(B):
+        n = len(tokens[b])
+        features = (torch.stack([f[b] for f in feats[:n]]) if n
+                    else torch.zeros((0, cfg.model_dim), dtype=torch.float32, device=dev))
+        out.append(WriteBurst(tokens[b], features, finished[b], cache, stats[b],
+                              gaps[b] if with_gaps else None))
+    return out
+
+
+def monotonic_encode_and_prefill(params: dict, tokens: torch.Tensor,
+                                 n_tokens: Union[int, Sequence[int]],
                                  enc_out: torch.Tensor, max_len: int,
                                  cfg: MonotonicDecoderConfig, *,
                                  enc_padding_mask: Optional[torch.Tensor] = None,
@@ -299,19 +414,31 @@ def monotonic_prefill(params: dict, tokens: torch.Tensor, n_tokens: int,
     return logits, torch.stack(feats, dim=1), pcs, cache
 
 
-def monotonic_prefill_parallel(params: dict, tokens: torch.Tensor, n_tokens: int,
+def monotonic_prefill_parallel(params: dict, tokens: torch.Tensor,
+                               n_tokens: Union[int, Sequence[int]],
                                cache: MonotonicCache, cfg: MonotonicDecoderConfig, *,
                                enc_padding_mask: Optional[torch.Tensor] = None):
     """The teacher-forced full-sequence prefill, the same function as
     ``monotonic_prefill`` (causal self-attention gives each position the same
     output) with one pass over the weights instead of one a token. Writes
-    rows [0, T) of the self-attention caches; same contract."""
+    rows [0, T) of the self-attention caches; same contract. ``n_tokens`` is
+    one int, or one a row (contexts of different lengths padded to T)."""
     B, T = tokens.shape
     H = cfg.num_heads
     x = embedding_frontend(params["embed"], tokens, cfg.dec_cfg())
     cross_bias = padding_bias(enc_padding_mask)
     cbias = causal_mask(T, device=tokens.device)[None, None]
-    last = min(max(n_tokens - 1, 0), T - 1)
+    counts = [n_tokens] * B if isinstance(n_tokens, int) else list(n_tokens)
+    lasts = [min(max(n - 1, 0), T - 1) for n in counts]
+    if len(set(lasts)) == 1:
+        def at_last(z):             # (B, T, D) -> (B, 1, D) at each row's last token
+            return z[:, lasts[0]:lasts[0] + 1]
+    else:
+        rows = torch.arange(B, device=tokens.device)
+        last = torch.tensor(lasts, device=tokens.device)
+
+        def at_last(z):
+            return z[rows, last][:, None]
     pcs = []
     for i, layer in enumerate(params["layers"]):
         z = layer_norm(layer["self_attn_layer_norm"], x)
@@ -323,7 +450,7 @@ def monotonic_prefill_parallel(params: dict, tokens: torch.Tensor, n_tokens: int
         x = x + linear(ap["output_proj"], attn_ops._merge_heads(y))
 
         z = layer_norm(layer["cross_attn_layer_norm"], x)
-        pcs.append(p_choose(layer["p_choose"], z[:, last:last + 1], None, cfg,
+        pcs.append(p_choose(layer["p_choose"], at_last(z), None, cfg,
                             k_energy=cache.k_energy[i])[:, :, 0, :])
         cp = layer["cross_attn"]
         cq = attn_ops._split_heads(linear(cp["q_proj"], z), H)
@@ -336,5 +463,5 @@ def monotonic_prefill_parallel(params: dict, tokens: torch.Tensor, n_tokens: int
         cache.self_k[i, :, :, :T] = k.to(cache.self_k.dtype)
         cache.self_v[i, :, :, :T] = v.to(cache.self_v.dtype)
     out = layer_norm(params["layer_norm"], x)
-    logits = tied_projection(params["embed"], out[:, last:last + 1])[:, 0]
+    logits = tied_projection(params["embed"], at_last(out))[:, 0]
     return logits, out, torch.cat(pcs, dim=1), cache

@@ -14,7 +14,7 @@ Logit math is fp32; inputs and outputs keep the activation dtype. Caches are
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -242,14 +242,17 @@ def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
-def _joint_softmax(q, k_t, logits, step: int):
+def _joint_softmax(q, k_t, logits, step: Union[int, torch.Tensor]):
     """Softmax over the history rows t < step of ``logits`` (B,H,1,T) jointly
     with the current row, whose logit comes from the unquantized ``k_t``.
-    Returns (p_hist (B,H,1,T) with row ``step`` zeroed, p_cur (B,H,1))."""
+    ``step`` is one int or a (B,) tensor, each row's own step. Returns
+    (p_hist (B,H,1,T) with row ``step`` zeroed, p_cur (B,H,1))."""
     dh = q.shape[-1]
     t_max = logits.shape[-1]
     logit_cur = true_div((q.float() * k_t.float()).sum(-1), math.sqrt(dh))  # (B,H,1)
     t = torch.arange(t_max, device=q.device)[None, None, None, :]
+    if isinstance(step, torch.Tensor):
+        step = step.to(q.device).view(-1, 1, 1, 1)
     valid = t < step
     is_cur = t == step
     logits = torch.where(valid, logits,
@@ -262,10 +265,11 @@ def _joint_softmax(q, k_t, logits, step: int):
 
 def self_attention_step_nocache(params: dict, x_t: torch.Tensor,
                                 k_cache: torch.Tensor, v_cache: torch.Tensor,
-                                step: int, num_heads: int):
+                                step: Union[int, torch.Tensor], num_heads: int):
     """Causal decode attention that does not write the cache: history rows
     t < step come from the caches, the current token's K/V are used exactly.
-    Returns (y, k_t, v_t); the caller stores the current row."""
+    ``step`` is one int or a (B,) tensor of each row's step. Returns (y, k_t,
+    v_t); the caller stores the current row."""
     dtype = x_t.dtype
     q = _split_heads(linear(params["q_proj"], x_t), num_heads)       # (B,H,1,Dh)
     k_t = _split_heads(linear(params["k_proj"], x_t), num_heads)

@@ -6,7 +6,7 @@ padding-aware positions, which start at ``padding_idx + 1``."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -35,13 +35,20 @@ def sinusoidal_positions(num_positions: int, dim: int, *,
 
 def apply_sinusoidal_pos(x: torch.Tensor, *,
                          padding_mask: Optional[torch.Tensor] = None,
-                         padding_idx: int = 1, start_step: int = 0) -> torch.Tensor:
+                         padding_idx: int = 1,
+                         start_step: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """Add sinusoidal positions to (B, T, D) embeddings: valid step ``t`` gets
-    position ``padding_idx + 1 + start_step + t``."""
-    _, T, D = x.shape
-    steps = torch.arange(T, device=x.device) + start_step + padding_idx + 1
-    pos = _sin_cos(steps, D)
-    pos = torch.where((steps == padding_idx)[:, None], 0.0, pos).to(x.dtype)
+    position ``padding_idx + 1 + start_step + t``. ``start_step`` is one int
+    for every row or a (B,) tensor, a start for each row."""
+    B, T, D = x.shape
+    steps = torch.arange(T, device=x.device)
+    if isinstance(start_step, torch.Tensor):
+        steps = steps[None, :] + start_step.to(x.device)[:, None]        # (B, T)
+    else:
+        steps = steps + start_step
+    steps = steps + padding_idx + 1
+    pos = _sin_cos(steps.reshape(-1), D).reshape(*steps.shape, D)
+    pos = torch.where((steps == padding_idx)[..., None], 0.0, pos).to(x.dtype)
     if padding_mask is not None:
-        pos = pos[None] * padding_mask[..., None].to(x.dtype)
+        pos = pos * padding_mask[..., None].to(x.dtype)
     return x + pos

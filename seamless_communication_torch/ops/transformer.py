@@ -15,7 +15,7 @@ tensors ((B, H, T, Dh/2) packed bytes for int4).
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -352,9 +352,10 @@ def transformer_decoder_step(params: dict, x_t: torch.Tensor, cache, step: int,
 
 def embedding_frontend(embed_params: dict, ids: torch.Tensor, cfg: TransformerConfig, *,
                        padding_mask: Optional[torch.Tensor] = None,
-                       start_step: int = 0) -> torch.Tensor:
+                       start_step: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """ids -> embeddings scaled by sqrt(dim) + sinusoidal positions (fairseq
-    convention: positions offset by pad_idx + 1)."""
+    convention: positions offset by pad_idx + 1); ``start_step`` is one int
+    or a (B,) tensor, a first position for each row."""
     x = embedding(embed_params, ids, scale=cfg.dim ** 0.5)
     return apply_sinusoidal_pos(x, padding_mask=padding_mask, padding_idx=cfg.pad_idx,
                                 start_step=start_step)

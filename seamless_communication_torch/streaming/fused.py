@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import List, Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,8 +26,8 @@ import torch
 from seamless_communication_torch.device import params_to
 from seamless_communication_torch.inference.generator import stage_end
 from seamless_communication_torch.models.monotonic.model import (
-    MonotonicDecoderConfig, WriteBurst, monotonic_encode_and_prefill,
-    monotonic_write_burst,
+    MonotonicDecoderConfig, monotonic_encode_and_prefill, monotonic_write_burst,
+    monotonic_write_burst_rows,
 )
 from seamless_communication_torch.models.unity import model as unity
 from seamless_communication_torch.models.unity.builder import UnitYConfig
@@ -121,10 +121,84 @@ def incremental_s2t_chunk(unity_params: dict, mono_params: dict, enc_state,
     enc_seqs, _ = speech_encoder_stream_output(se, enc_state, unity_cfg.speech)
     _timed_stage(kw.get("timings"), "encoder", t0, fbank_new.device)
     enc_len = encoder_output_length(unity_cfg.speech,
-                                    enc_state.n * unity_cfg.speech.fbank_stride)
+                                    int(enc_state.n[0]) * unity_cfg.speech.fbank_stride)
     burst, ctx_feats = _decode_over_encoder(mono_params, enc_seqs, enc_len, tokens,
                                            n_tokens, mono_cfg, **kw)
     return enc_state, burst, ctx_feats
+
+
+def _decode_over_encoder_rows(mono_params: dict, enc_seqs_raw: torch.Tensor,
+                             enc_len: Sequence[int], tokens: torch.Tensor,
+                             n_tokens: Sequence[int], mono_cfg: MonotonicDecoderConfig, *,
+                             max_target_len: int, decision_threshold: float,
+                             decision_method: str, p_choose_start_layer: int,
+                             eos_idx: int, max_len_a: int, max_len_b: int,
+                             max_writes: int, source_finished: Sequence[bool],
+                             active: Sequence[bool], min_gen_len: int = 0,
+                             with_gaps: bool = False, timings: Optional[dict] = None):
+    """``_decode_over_encoder`` of B sessions, row b's first ``enc_len[b]``
+    frames valid and its context ``tokens[b, :n_tokens[b]]``, the burst for
+    the ``active`` rows -> one burst a row."""
+    t0 = time.perf_counter()
+    B, S, D = enc_seqs_raw.shape
+    dev = enc_seqs_raw.device
+    pos = torch.arange(S, device=dev)
+    lens = torch.tensor(list(enc_len), device=dev)
+    idx = torch.minimum(pos[None, :], lens[:, None] - 1)
+    enc_seqs = torch.gather(enc_seqs_raw, 1, idx[..., None].expand(B, S, D))
+    enc_mask = pos[None, :] < lens[:, None]
+    logits, _, pcs, cache = monotonic_encode_and_prefill(
+        mono_params, tokens, list(n_tokens), enc_seqs, max_target_len, mono_cfg,
+        enc_padding_mask=enc_mask)
+    t0 = _timed_stage(timings, "prefill", t0, dev)
+    bursts = monotonic_write_burst_rows(
+        mono_params, cache, n_tokens, logits, pcs, mono_cfg,
+        decision_threshold=decision_threshold, decision_method=decision_method,
+        p_choose_start_layer=p_choose_start_layer,
+        sp_valid=[max(1, -(-n // mono_cfg.pre_decision_ratio)) for n in enc_len],
+        eos_idx=eos_idx, max_len=[max_len_a * n + max_len_b for n in enc_len],
+        n_context=n_tokens, max_writes=max_writes, source_finished=source_finished,
+        active=active, enc_padding_mask=enc_mask, min_gen_len=min_gen_len,
+        with_gaps=with_gaps)
+    _timed_stage(timings, "burst", t0, dev)
+    return bursts
+
+
+def batched_incremental_s2t_chunk(unity_params: dict, mono_params: dict, enc_state,
+                                  fbank_new: torch.Tensor, n_valid: Sequence[int],
+                                  tokens: torch.Tensor, n_tokens: Sequence[int],
+                                  unity_cfg: UnitYConfig,
+                                  mono_cfg: MonotonicDecoderConfig, *,
+                                  commit: Sequence[bool], active: Sequence[bool], **kw):
+    """``incremental_s2t_chunk`` for B sessions at once (the streaming pool's
+    slots): row b encodes its (FB, 80) block of ``fbank_new`` (B, FB, 80) at
+    its own offset ``enc_state.n[b]`` with ``n_valid[b]`` stacked frames
+    valid, and decodes its context ``tokens[b, :n_tokens[b]]``
+    (``kw``: the options of ``_decode_over_encoder_rows``). The decode runs
+    for the ``active`` rows only, and not at all when no row is active
+    (blocks that are only taken up). A row that is not ``commit``ted keeps
+    its previous conv tail and count (the rows written past its count are
+    written again by its next step) -> (new encoder state, one burst a row,
+    or None where no row was active)."""
+    t0 = time.perf_counter()
+    se = unity_params["speech_encoder"]
+    new = speech_encoder_stream_step(se, enc_state, fbank_new, unity_cfg.speech,
+                                     n_valid=n_valid)
+    bursts = None
+    if any(active):
+        enc_seqs, _ = speech_encoder_stream_output(se, new, unity_cfg.speech)
+        _timed_stage(kw.get("timings"), "encoder", t0, fbank_new.device)
+        enc_len = [encoder_output_length(unity_cfg.speech, n * unity_cfg.speech.fbank_stride)
+                   for n in new.n.tolist()]
+        bursts = _decode_over_encoder_rows(mono_params, enc_seqs, enc_len, tokens, n_tokens,
+                                           mono_cfg, active=active, **kw)
+    else:
+        _timed_stage(kw.get("timings"), "encoder", t0, fbank_new.device)
+    take = torch.tensor(list(commit))
+    # the new tails keep the activations' dtype, as a single session's do
+    tail = torch.where(take.to(fbank_new.device)[None, :, None, None], new.conv_tail,
+                       enc_state.conv_tail)
+    return new._replace(conv_tail=tail, n=torch.where(take, new.n, enc_state.n)), bursts
 
 
 class FusedDecoderAgentStates(DecoderAgentStates):

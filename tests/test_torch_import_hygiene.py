@@ -48,7 +48,11 @@ new = {"seamless_communication_torch.ops.fused_attention",
        "seamless_communication_torch.models.pretssel.streamable",
        "seamless_communication_torch.models.pretssel.vocoder",
        "seamless_communication_torch.inference.pretssel_generator",
-       "seamless_communication_torch.cli.expressivity_predict"}
+       "seamless_communication_torch.cli.expressivity_predict",
+       "seamless_communication_torch.streaming.multi",
+       "seamless_communication_torch.inference.serving",
+       "seamless_communication_torch.inference.text_translator",
+       "seamless_communication_torch.cli.serve"}
 # the asset cards the port reads are its own copies
 from seamless_communication_torch import assets
 if assets.CARDS_DIR.resolve().parent != __import__("pathlib").Path(pkg.__path__[0]).resolve():
