@@ -56,7 +56,10 @@ Each part's wall seconds are printed as ``phase <label>: <s> s``.
    Dh=64; L2-warm and HBM-cold beside its bound and the plain version, the
    cluster size ``split_plan`` picks; ``decode_batch_case``) and K6 at 3l's
    pooled adaptor (B = 4 slots, H=16, T=257, Dh=64, four valid lengths as
-   key segment ids, fp32 and bf16 beside SDPA; ``adaptor_flash_case``).
+   key segment ids, fp32 and bf16 beside SDPA; ``adaptor_flash_case``); K6,
+   K6b and K6c at the heads one rank computes under 3m's ``model=2`` (the
+   10 s Shaw shape with H=8, fp32 and bf16, beside SDPA and the bounds;
+   ``rank_flash_case``).
    ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
@@ -152,6 +155,17 @@ Each part's wall seconds are printed as ``phase <label>: <s> s``.
       beside 3i's incremental S2TT stream; session 0's decisions equal that
       stream's up to the first decision with a margin under 1e-3; then one
       session through /v1/stream/open, push, poll and close.
+   m. Finetuning (after 3g, ``phase_finetune``): ``base_v2`` written as an
+      fp16 ``.pt`` and a seeded conformer-shaw ``.pt``, a manifest of 8 WAVs
+      of 4-10 s, ``cli.finetune.main`` in-process (S2T, batch 2, one epoch,
+      an eval every 2 steps, ``--init_speech_encoder``, the best model and
+      the state as checkpoint directories, the option on: K6, K6b, K6c as
+      counted for each batch; the best model loads back leaf for leaf);
+      resume from the state directory against the uninterrupted steps;
+      one step under each remat policy (dots, offload_dots, full); then
+      two gloo processes on the one card train one step at 4 + 4 layers in
+      fp32 on the meshes (data 2), (model 2) and (pipe 2, remat full), each
+      held to the step without a mesh (loss 1e-4, params 2e-4).
    Each path's launches are counted from 0 just before it.
 4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
    tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
@@ -219,6 +233,11 @@ builds the kernels and runs only phase 2's K6 at PRETSSEL's shape, phase
 builds the kernels and runs only phase 2's K1 and K6 serving shapes, phase
 3k, phase 3i (which loads the streaming models), phase 3l and phase 4's
 tiny serving case.
+
+    python3 chip_smoke.py --finetune
+
+builds the kernels and runs only phase 2's per-rank K6/K6b/K6c case and
+phase 3m.
 
     python3 chip_smoke.py --k12-trace
 
@@ -3038,7 +3057,7 @@ def hold_leaves(label: str, want, got, same) -> int:
     return 1
 
 
-def phase_offline(smi: str) -> dict:
+def phase_offline(smi: str, shared=None) -> dict:
     """3h. The offline entry point at full width. ``base_v2`` UnitY and
     ``CodeHifiGanConfig()`` on seeded bf16 weights are exported by the port's
     exporter as fp16 ``.pt`` files with their cards (``write_cards``, the
@@ -3052,7 +3071,9 @@ def phase_offline(smi: str) -> dict:
     [-1, 1], the text and units those of a Translator built in-process on
     the loaded tree; then an S2TT request with ``--quantize_bits 4`` whose
     hypotheses pass ``check_hypotheses``, and one of its int4 linears held
-    to the plain product of its dequantized weight on the card."""
+    to the plain product of its dequantized weight on the card. ``shared``:
+    a directory on ``SEAMLESS_CARDS_DIR`` to write into and leave for 3m
+    (default: one of its own, removed at the end)."""
     import os
 
     import numpy as np
@@ -3083,7 +3104,7 @@ def phase_offline(smi: str) -> dict:
     n_unity = sum(t.numel() for t in {id(t): t for t in tensor_leaves(params)}.values())
     n_voc = sum(t.numel() for t in tensor_leaves(vocoder))
     max_len = ["--text_generation_max_len_a", "0", "--text_generation_max_len_b", "126"]
-    with offline_dir() as d:
+    with contextlib.nullcontext(shared) if shared is not None else offline_dir() as d:
         t0 = time.perf_counter()
         torch.save({"model": export_unity(params, dtype=torch.float16)}, d / "unity.pt")
         torch.save({"generator": export_vocoder(vocoder, dtype=torch.float16)},
@@ -5960,6 +5981,545 @@ def profile_call(label: str, run, path: str, smi: str) -> dict:
             "kernel_ms": kernel_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 3m: m4t_finetune, checkpoint directories, remat, meshes on one card
+# ---------------------------------------------------------------------------
+
+H_RANK = 8                      # heads a rank computes under model=2 (16 / 2)
+FT_SECONDS = (4.0, 9.5, 6.0, 10.0, 5.0, 8.0, 7.0, 4.5)   # the manifest's WAVs
+FT_EVAL_SECONDS = (6.5, 9.0)
+MESH_CASES_3M = (("data 2", dict(data=2, model=1), {}),
+                 ("model 2", dict(data=1, model=2), {}),
+                 ("pipe 2, n_micro 2, remat full", dict(data=1, model=1, pipe=2),
+                  dict(pp_microbatches=2, remat="full")))
+
+
+def rank_flash_case(smi: str) -> dict:
+    """Phase 2's K6, K6b and K6c at the heads one rank computes under
+    ``model=2``: the 10 s Shaw shape (B=1, T=512, 499 valid keys, Dh=64,
+    ``ab``) with H=8, in fp32 and bf16. K6 against ``_reference`` (rtol =
+    atol = 1e-5 fp32, 1.6e-2 bf16), K6b and K6c against ``_reference_bwd``
+    (``bwd_error``); device times by CUDA-graph replay beside the plain
+    versions, the bounds and the library's SDPA (its backward: forward +
+    backward less forward)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(47)
+    B, H, T, Dh, valid = 1, H_RANK, 512, DH_MAIN, 499
+    qkv = [torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32,
+                           device=dev) for _ in range(3)]
+    qkv[0] = qkv[0] / Dh ** 0.5
+    pad = torch.where(torch.arange(T, device=dev) < valid, 0.0, -1e9)
+    ab32 = torch.as_tensor(rng.standard_normal((B, H, T, T)) * 0.5, dtype=torch.float32,
+                           device=dev) + pad
+    do32 = torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32,
+                           device=dev)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qs, k, v = (x.to(dtype) for x in qkv)
+        ab, do = ab32.to(dtype), do32.to(dtype)
+        args = (qs, k, v, ab, None, None)
+        got = fl.flash_attention(*args)
+        ref = fl._reference(*args)
+        err = (got.float() - ref.float()).abs()
+        if not bool((err <= tol[dtype] * (1 + ref.float().abs())).all()):
+            raise AssertionError(f"K6 H={H} {dtype}: out max err {float(err.max()):.3g}")
+        o, m, l = fl._launch(*args, residuals=True)
+        grads = fl.flash_attention_bwd(*args, o, m, l, do, need_dab=True)
+        refs = fl._reference_bwd(*args, o, m, l, do)
+        errs = {n: bwd_error(f"H={H} {n}", g, r, dtype)
+                for n, g, r in zip(("dq", "dk", "dv", "dab"), grads, refs)}
+        bargs = fl._bwd_args(*args, o, m, l, do)
+        dq, dk, dv = (torch.empty_like(x) for x in grads[:3])
+        dab = fl.empty_bias(B, H, T, T, dtype, dev)
+        k6_ms = cuda_time_ms(lambda: fl.flash_attention(*args))
+        dkv_ms = cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DKV, bargs, dk, dv))
+        dq_ms = cuda_time_ms(lambda: fl._launch_one(fl.KERNEL_DQ, bargs, dq, dab))
+        plain = {"k6": cuda_time_ms(lambda: fl._reference(*args), calls=5, reps=20)}
+        for part in ("dkv", "dq"):
+            plain[part] = cuda_time_ms(lambda: fl._reference_bwd(
+                *args, o, m, l, do, part=part), calls=5, reps=20)
+        leaves = [x.detach().clone().requires_grad_() for x in (qs, k, v)]
+        lmask = ab.detach().clone().requires_grad_()
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(*leaves, attn_mask=lmask, scale=1.0)
+
+        lib_fwd_ms = cuda_time_ms(lib_fwd, calls=5, reps=20)
+        lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            lib_fwd(), leaves + [lmask], do), calls=5, reps=20) - lib_fwd_ms
+        pairs = fl.unmasked_pairs(B, H, T, T, ab, None, None)
+        b6 = fl.bound(B, H, T, T, Dh, dtype, True, False, pairs)
+        bb = (B, H, T, T, Dh, dtype, True, False, pairs, True)
+        b_dkv, b_dq = fl.bound_bwd(*bb, part="dkv"), fl.bound_bwd(*bb, part="dq")
+        name = str(dtype)[6:]
+        log(f"per-rank heads (model=2): 10 s Shaw shape, B={B} H={H} T={T} Dh={Dh}, {name}: "
+            f"K6 out max err {float(err.max()):.3g}, K6b/K6c max errs "
+            + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f"; device K6 {k6_ms * 1e3:.2f} us (plain {plain['k6'] * 1e3:.2f}, SDPA "
+            f"{lib_fwd_ms * 1e3:.2f}, bound {b6[0] * 1e3:.2f} {b6[1]}), K6b "
+            f"{dkv_ms * 1e3:.2f} us (plain {plain['dkv'] * 1e3:.2f}, bound "
+            f"{b_dkv[0] * 1e3:.2f} {b_dkv[1]}), K6c {dq_ms * 1e3:.2f} us (plain "
+            f"{plain['dq'] * 1e3:.2f}, bound {b_dq[0] * 1e3:.2f} {b_dq[1]}); K6b + K6c "
+            f"{(dkv_ms + dq_ms) * 1e3:.2f} us against SDPA's backward "
+            f"{lib_bwd_ms * 1e3:.2f} us [{smi}]")
+        out[name] = {
+            "flash_attention": {"ms": k6_ms, "plain_ms": plain["k6"], "library_ms": lib_fwd_ms,
+                                "bound_ms": b6[0], "bound_by": b6[1],
+                                "max_abs_err": float(err.max())},
+            "flash_attention_bwd_dkv": {"ms": dkv_ms, "plain_ms": plain["dkv"],
+                                        "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
+                                        "library_ms": None,
+                                        "max_abs_err": max(errs["dk"], errs["dv"])},
+            "flash_attention_bwd_dq": {"ms": dq_ms, "plain_ms": plain["dq"],
+                                       "bound_ms": b_dq[0], "bound_by": b_dq[1],
+                                       "library_ms": None,
+                                       "max_abs_err": max(errs["dq"], errs["dab"])},
+            "pair_library_ms": lib_bwd_ms}
+    return out
+
+
+def write_finetune_manifest(d, tok, name: str, seconds, seed: int) -> str:
+    """A manifest of seeded noise WAVs of ``seconds`` (16 kHz) with synthetic
+    target texts of 20-60 tokens of the synthetic vocabulary."""
+    import json
+
+    import numpy as np
+
+    from seamless_communication_torch.audio.wav import write_wav
+
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i, s in enumerate(seconds):
+        path = d / f"{name}{i}.wav"
+        write_wav(str(path), (rng.standard_normal(int(s * 16000)) * 0.1).astype(np.float32),
+                  16000)
+        text = synthetic_text(tok, int(rng.integers(20, 61)), seed * 100 + i)
+        lines.append(json.dumps({"source": {"audio_local_path": str(path), "lang": "eng"},
+                                 "target": {"text": text, "lang": "fra"}}))
+    path = d / f"{name}.json"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def flat_on_host(tree) -> dict:
+    """{dotted path: host copy} of a tree's tensors."""
+    from seamless_communication_torch.checkpoint.serialize import flat_tensors
+
+    return {k: t.detach().to("cpu", copy=True) for k, t in flat_tensors(tree).items()}
+
+
+def phase_finetune(smi: str, shared=None) -> dict:
+    """3m. ``m4t_finetune`` at full width and the meshes on the one card.
+
+    a. ``base_v2`` on seeded bf16 weights written by the port's exporter as
+       an fp16 ``.pt`` with the synthetic cards (``write_cards``): 3h's,
+       left in ``shared`` by the same run, else its own (seed 7); and a
+       seeded full-width conformer-shaw ``.pt`` (seed 8, bf16); a
+       manifest of 8 noise WAVs of 4-10 s with synthetic texts and an eval
+       manifest of 2; ``cli.finetune.main`` in-process, S2T, ``--batch_size 2
+       --max_epochs 1 --eval_steps 2 --init_speech_encoder``, the best model
+       and the state to directories, bf16, ``SEAMLESS_FUSED_ATTN=1``: when
+       the run starts, the trainer's speech-encoder conformer stack and
+       frontend projection equal the exported ones (part c); 4 steps with
+       finite losses; K6 launched as ``k6_train_expected`` counts for each
+       train and eval batch, K6b and K6c for each train batch; the best
+       model loads back leaf for leaf equal to the trainer's parameters when
+       it was saved.
+    b. The trained trainer takes 2 more steps (the first two batches); then
+       it restores (a)'s state directory and takes the same 2 steps: the
+       losses bit for bit, else within 2e-3 relative (bf16).
+    d. One S2T step (the first batch) from the loaded parameters with
+       ``remat`` "dots", "offload_dots" and "full": losses within 2e-2 of
+       each other (3g's bf16 tolerance), the loss and backward's peak
+       (``fwd_bwd_peak``) and the step's wall.
+    e. Two processes on ``cuda:0`` over gloo (``mesh_worker``), full width
+       at 4 + 4 layers, fp32, TF32 off, the fused option on: one S2T step on
+       the meshes (data 2), (model 2) and (pipe 2, n_micro 2, remat full),
+       each held to the same process's step without a mesh from the same
+       parameters: loss within 1e-4, every updated parameter within 2e-4
+       (as JAX's tests), the whole clipped gradient within 1e-4 of its norm
+       and every leaf's within 1e-4 of its own or 10 times what rounding
+       alone moves it, by the larger of two witnesses (``mesh_worker``): at
+       lr 1e-4 AdamW's first step moves each element by about lr whatever
+       its gradient, so only the gradients show a wrong sum."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.checkpoint.fairseq_export import (
+        export_conformer_shaw_fairseq1, export_unity,
+    )
+    from seamless_communication_torch.checkpoint.serialize import flat_tensors, load_params
+    from seamless_communication_torch.cli import finetune
+    from seamless_communication_torch.datasets.loader import manifest_batches
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seamless_communication_torch.train import trainer as ttrainer
+
+    dev = torch.device("cuda")
+    cfg = get_arch("base_v2")
+    names = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    out: dict = {}
+    with contextlib.nullcontext(shared) if shared is not None else offline_dir() as d:
+        t0 = time.perf_counter()
+        if shared is None:
+            params = unity.unity_init(torch.Generator(device=dev).manual_seed(7), cfg,
+                                      dtype=torch.bfloat16, device=dev)
+            torch.save({"model": export_unity(params, dtype=torch.float16)},
+                       d / "unity.pt")
+            del params
+            write_cards(d)
+        shaw = unity.unity_init(torch.Generator(device=dev).manual_seed(8), cfg,
+                                dtype=torch.bfloat16, device=dev)["speech_encoder"]
+        shaw = {k: shaw[k] for k in ("feature_projection", "encoder")}
+        torch.save({"model": export_conformer_shaw_fairseq1(shaw, dtype=torch.bfloat16)},
+                   d / "shaw.pt")
+        shaw = flat_on_host(shaw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tok = synthetic_tokenizer()
+        train = write_finetune_manifest(d, tok, "train", FT_SECONDS, 3)
+        evals = write_finetune_manifest(d, tok, "eval", FT_EVAL_SECONDS, 4)
+        out["write_s"] = time.perf_counter() - t0
+        batches = list(manifest_batches(train, tok, batch_size=2))
+        eval_batches = list(manifest_batches(evals, tok, batch_size=2))
+        per_train = [sum(k6_train_expected(cfg, b, s2s=False).values()) for b in batches]
+        per_eval = sum(sum(k6_train_expected(cfg, b, s2s=False).values())
+                       for b in eval_batches)
+        held, saved = {}, {}
+        real_run, real_save = ttrainer.UnitYFinetune.run, ttrainer.UnitYFinetune.save
+
+        def checked_run(self, start_step: int = 0):
+            # c: the conformer-shaw initialisation, before any step
+            got = flat_on_host({k: self.params["speech_encoder"][k]
+                                for k in ("feature_projection", "encoder")})
+            bad = [k for k in shaw if not torch.equal(got[k], shaw[k])]
+            if set(got) != set(shaw) or bad:
+                raise AssertionError(f"3m --init_speech_encoder: {len(bad)} leaves differ "
+                                     f"from the exported ones ({bad[:3]})")
+            held["shaw_leaves"] = len(shaw)
+            return real_run(self, start_step)
+
+        def recorded_save(self):
+            saved["params"] = flat_on_host(self.params)
+            saved["step"] = len(self.step_losses)
+            return real_save(self)
+
+        argv = ["--train_dataset", train, "--eval_dataset", evals,
+                "--model_name", OFFLINE_CARD, "--local_pt_path", str(d / "unity.pt"),
+                "--batch_size", "2", "--max_epochs", "1", "--eval_steps", "2",
+                "--learning_rate", "1e-4", "--warmup_steps", "1",
+                "--init_speech_encoder", str(d / "shaw.pt"),
+                "--save_model_to", str(d / "best"), "--save_state_to", str(d / "state")]
+        ttrainer.UnitYFinetune.run, ttrainer.UnitYFinetune.save = checked_run, recorded_save
+        try:
+            with fused_attention(True):
+                reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = finetune.main(argv)
+                torch.cuda.synchronize()
+                cli_s = time.perf_counter() - t0
+                launches = {k: launch_counts[k] for k in names}
+        finally:
+            ttrainer.UnitYFinetune.run, ttrainer.UnitYFinetune.save = real_run, real_save
+        tr = res.trainer
+        n_evals = res.final_step // 2
+        want = {"flash_attention": sum(per_train) + n_evals * per_eval,
+                "flash_attention_bwd_dkv": sum(per_train),
+                "flash_attention_bwd_dq": sum(per_train)}
+        losses = tr.step_losses
+        if (res.final_step != len(batches) or launches != want or "shaw_leaves" not in held
+                or not all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"3m CLI: {res.final_step} steps, losses {losses}, launches "
+                                 f"{launches} (expected {want})")
+        best = flat_on_host(load_params(str(d / "best")))
+        if set(best) != set(saved["params"]) or any(
+                not torch.equal(best[k], saved["params"][k]) for k in best):
+            raise AssertionError("3m: the best-model directory does not load back leaf for leaf")
+        sizes = {name: sum(f.stat().st_size for f in (d / name).rglob("*") if f.is_file())
+                 for name in ("best", "state")}
+        log(f"3m m4t_finetune (base_v2 from an fp16 .pt, bf16, S2T, the option on, "
+            f"--init_speech_encoder: {held['shaw_leaves']} leaves equal the exported ones): "
+            f"{cli_s:.1f} s in main with the load, {len(batches)} steps of 2 WAVs (4-10 s), "
+            f"losses {', '.join(f'{x:.5f}' for x in losses)}, evals {n_evals} (best "
+            f"{tr.best_eval:.5f}, saved at step {saved['step']}); K6, K6b, K6c {launches} as "
+            f"counted for each batch; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; best model {sizes['best'] / 2**30:.2f} GiB and state "
+            f"{sizes['state'] / 2**30:.2f} GiB as directories; the best model loads back "
+            f"leaf for leaf ({len(best)} leaves) [{smi}]")
+        out["cli"] = {"main_s": cli_s, "losses": losses, "launches": launches,
+                      "evals": n_evals, "best_eval": tr.best_eval,
+                      "dir_bytes": sizes, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+        # b: resume
+        two = batches[:2]
+        with fused_attention(True):
+            cont = [float(tr.step(b)["loss"]) for b in two]
+            t0 = time.perf_counter()
+            step = tr.restore_state(str(d / "state"))
+            restore_s = time.perf_counter() - t0
+            again = [float(tr.step(b)["loss"]) for b in two]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(cont, again))
+        if step != len(batches) or rel > 2e-3:
+            raise AssertionError(f"3m resume: step {step}, losses {again} against {cont}")
+        log(f"3m resume from the state directory (restored in {restore_s:.1f} s, step "
+            f"{step}): 2 more steps {', '.join(f'{x:.6f}' for x in again)} against the "
+            f"uninterrupted {', '.join(f'{x:.6f}' for x in cont)} "
+            f"({'bit for bit' if again == cont else f'{rel:.3g} relative'}) [{smi}]")
+        out["resume"] = {"continued": cont, "resumed": again, "restore_s": restore_s,
+                         "bitwise": again == cont}
+        params = {k: v for k, v in tr.params.items()}
+        base = ttrainer.trainable_copy(params, dev)
+        del res, tr, params, saved, best
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # d: remat policies from the same parameters
+    rows = {}
+    with fused_attention(True):
+        for policy in ("dots", "offload_dots", "full"):
+            trainer = ttrainer.UnitYFinetune(base, cfg, ttrainer.FinetuneParams(
+                learning_rate=1e-4, warmup_steps=1, remat=policy), device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(trainer.step(batches[0])["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            rows[policy] = {"loss": loss, "wall_ms": wall * 1e3,
+                            "fwd_bwd_peak_gib": fwd_bwd_peak(base, cfg, batches[0], dev, policy)}
+    spread = max(r["loss"] for r in rows.values()) - min(r["loss"] for r in rows.values())
+    log("3m remat, one S2T step each from the same parameters: " + "; ".join(
+        f"{p}: loss {r['loss']:.5f}, wall {r['wall_ms']:.1f} ms, loss + backward peak "
+        f"{r['fwd_bwd_peak_gib']:.2f} GiB above the params" for p, r in rows.items())
+        + f" (losses within {spread:.3g}, limit 2e-2) [{smi}]")
+    if spread > 2e-2:
+        raise AssertionError(f"3m remat: losses {rows}")
+    out["remat"] = rows
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["meshes"] = phase_meshes(smi)
+    return out
+
+
+def mesh_cfg():
+    """base_v2 at full width cut to 4 conformer and 4 decoder layers (3g's
+    gradient parity's cut, the text encoder and T2U left out)."""
+    import dataclasses
+
+    from seamless_communication_torch.models.unity.builder import get_arch
+
+    cfg = get_arch("base_v2")
+    conf = cfg.speech.conformer._replace(num_layers=4)
+    return dataclasses.replace(cfg, speech=cfg.speech._replace(conformer=conf),
+                               nllb=cfg.nllb._replace(num_decoder_layers=4),
+                               nar_t2u=None, use_text_encoder=False)
+
+
+def mesh_worker(rank: int, port: int, path: str) -> None:
+    """One of the two gloo processes of 3m (e), both on ``cuda:0``: the
+    process's own step without a mesh and its rounding witnesses
+    (``no_mesh_grads``), then one step on each of ``MESH_CASES_3M`` from the
+    same parameters, each held to it; rank 0 writes the results to
+    ``path``.
+
+    The witnesses say how far rounding alone moves each gradient leaf: the
+    step's gradient computed as the sum of the batch's two one-row halves
+    (what "data" 2 and two micro-batches compute), against the step's; and
+    with the plain attention's output rounded otherwise by about one ulp
+    (3g's control, ``flash_versions``), against the plain attention's. A
+    mesh's leaf may depart from the step's by 1e-4 of its norm or by 10
+    times the larger witness, whichever is more (an attention's ``k_proj``
+    bias, whose exact gradient is 0, by 1e-4 of its weight's)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.ops.kernels import launch_counts
+    from seamless_communication_torch.parallel.collectives import (
+        all_gather, local_heads, model_shard,
+    )
+    from seamless_communication_torch.parallel.sharding import make_mesh
+    from seamless_communication_torch.train.trainer import (
+        MAX_GRAD_NORM, FinetuneParams, UnitYFinetune, batch_to, map_tree, named_leaves,
+        s2t_loss, trainable_copy,
+    )
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["SEAMLESS_FUSED_ATTN"] = "1"
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    dev = torch.device("cuda")
+    cfg = mesh_cfg()
+    params = unity.unity_init(torch.Generator(device=dev).manual_seed(12), cfg,
+                              dtype=torch.float32, device=dev)
+    batch = train_batch(cfg, 33)
+    names = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    ft = dict(learning_rate=1e-4, warmup_steps=1, float_dtype=torch.float32)
+    ref = UnitYFinetune(params, cfg, FinetuneParams(**ft), device=dev)
+    ref_loss = float(ref.step(batch)["loss"])
+    ref_params = map_tree(torch.Tensor.detach, ref.params)
+    ref_grads = [t.grad.detach() for _, t in named_leaves(ref.params)]
+    paths = [".".join(where) for where, _ in named_leaves(ref.params)]
+    del ref
+
+    def no_mesh_grads(rows, ctx) -> list:
+        """The step's clipped gradient without a mesh, its summed loss taken
+        over the slices ``rows`` of the batch, over the batch's tokens."""
+        p = trainable_copy(params, dev, torch.float32)
+        leaves = [t for _, t in named_leaves(p)]
+        with ctx:
+            sums = [s2t_loss(p, cfg, batch_to({k: v[r] for k, v in batch.items()}, dev),
+                             label_smoothing=FinetuneParams().label_smoothing)
+                    for r in rows]
+            loss = (sum(l for l, _ in sums)
+                    / torch.clamp_min(sum(n for _, n in sums), 1.0))
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        gs = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, gs)]
+        norm = float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in gs])))
+        return [g * (MAX_GRAD_NORM / norm) if norm >= MAX_GRAD_NORM else g for g in gs]
+
+    halves = no_mesh_grads([slice(0, 1), slice(1, 2)], contextlib.nullcontext())
+    w_split = [float((a - b).norm()) for a, b in zip(halves, ref_grads)]
+    del halves
+    plain = no_mesh_grads([slice(None)], flash_versions("plain", "plain"))
+    ulp = no_mesh_grads([slice(None)], flash_versions("plain, out +-1 ulp", "plain"))
+    w_ulp = [float((a - b).norm()) for a, b in zip(ulp, plain)]
+    del plain, ulp
+    ref_norms = [float(g.norm()) for g in ref_grads]
+    index = {w: i for i, w in enumerate(paths)}
+    # the norm each leaf is held to: an attention's k_proj bias, its weight's
+    scale = [ref_norms[index[w[:-len("bias")] + "weight"]] if w.endswith("k_proj.bias")
+             else n for w, n in zip(paths, ref_norms)]
+    limits = [max(1e-4 * n, 10 * max(a, b)) for n, a, b in zip(scale, w_split, w_ulp)]
+    witness = {"split_max": max(a / n for a, n in zip(w_split, scale) if n > 0),
+               "ulp_max": max(a / n for a, n in zip(w_ulp, scale) if n > 0)}
+    results = []
+    for label, mesh_kw, extra in MESH_CASES_3M:
+        mesh = make_mesh(**mesh_kw)
+        tr = UnitYFinetune(params, cfg, FinetuneParams(**ft, **extra), mesh=mesh,
+                           device=dev)
+        before = dict(launch_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(tr.step(batch)["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: launch_counts[k] - before[k] for k in names}
+        worst, sq, leaf_errs = 0.0, 0.0, []
+
+        def whole(x, like):
+            s = model_shard(like)
+            return torch.cat(all_gather(x.detach(), s.axis), s.dim) if s else x.detach()
+
+        for i, ((_, t), (_, r)) in enumerate(zip(named_leaves(tr.params),
+                                                 named_leaves(ref_params))):
+            worst = max(worst, float(((whole(t, t) - r).abs() / (1 + r.abs())).max()))
+            # the clipped gradients: the whole tree's, and each leaf's against
+            # its limit
+            dg = float((whole(t.grad, t) - ref_grads[i]).norm())
+            sq += dg ** 2
+            leaf_errs.append((dg / limits[i] if limits[i] > 0 else math.inf if dg else 0.0,
+                              paths[i], dg / scale[i] if scale[i] > 0 else dg,
+                              w_split[i] / scale[i] if scale[i] > 0 else 0.0,
+                              w_ulp[i] / scale[i] if scale[i] > 0 else 0.0))
+        leaf_errs.sort(reverse=True)
+        heads = local_heads(tr.params["speech_encoder"]["encoder"][0]["self_attn"]["q_proj"],
+                            cfg.speech.conformer.num_heads)
+        results.append({"mesh": label, "loss": loss, "ref_loss": ref_loss,
+                        "max_param_err": worst,
+                        "grad_err": (sq / sum(n * n for n in ref_norms)) ** 0.5,
+                        "leaf_grad_errs": leaf_errs[:3], "leaves": len(paths),
+                        "witness": witness, "launches": got, "heads": heads,
+                        "wall_ms": wall * 1e3,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        del tr
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(path, "w") as f:
+            json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def phase_meshes(smi: str) -> list:
+    """3m (e): ``mesh_worker`` in two spawned processes on the one card
+    (NCCL puts no two ranks on one device, so the group is gloo; the port's
+    collectives carry CUDA tensors through the host under gloo). Each mesh's
+    loss within 1e-4 of the no-mesh step's, every parameter within 2e-4
+    (relative to 1 + |ref|), the whole clipped gradient within 1e-4 of its
+    norm and each leaf's within its limit (``mesh_worker``); the K6
+    launches a rank and its heads shown."""
+    import multiprocessing as mp
+    import os
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mesh_worker, args=(r, port, path)) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+    wall = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"3m meshes: worker exit codes {[p.exitcode for p in procs]}")
+    with open(path) as f:
+        rows = json.load(f)
+    os.unlink(path)
+    bad = []
+    for r in rows:
+        ok = (abs(r["loss"] - r["ref_loss"]) <= 1e-4 and r["max_param_err"] <= 2e-4
+              and r["grad_err"] <= 1e-4 and r["leaf_grad_errs"][0][0] <= 1)
+        log(f"3m mesh ({r['mesh']}) on one card, two gloo processes, base_v2 4 + 4 layers "
+            f"fp32: loss {r['loss']:.6f} against {r['ref_loss']:.6f} without a mesh "
+            f"({abs(r['loss'] - r['ref_loss']):.3g}, limit 1e-4), {r['leaves']} params within "
+            f"{r['max_param_err']:.3g} (limit 2e-4; at lr 1e-4 AdamW's first step moves an "
+            f"element by about 1e-4, so a gradient that rounds to the other sign moves it "
+            f"2e-4), the whole clipped gradient within {r['grad_err']:.3g} of its norm "
+            f"(limit 1e-4), the leaves nearest their limits "
+            + ", ".join(f"{p} {e:.3g} of its norm ({q:.3g} of its limit; witnesses: "
+                        f"halves {a:.3g}, 1 ulp {b:.3g})" for q, p, e, a, b in
+                        r["leaf_grad_errs"])
+            + f" (limit: 1e-4 or 10 times the larger witness; the witnesses' largest "
+            f"{r['witness']['split_max']:.3g} and {r['witness']['ulp_max']:.3g}); "
+            f"rank 0: K6 {r['launches']['flash_attention']}, "
+            f"K6b {r['launches']['flash_attention_bwd_dkv']}, K6c "
+            f"{r['launches']['flash_attention_bwd_dq']} launches, {r['heads']} heads a rank; "
+            f"step wall {r['wall_ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB [{smi}]")
+        if not ok:
+            bad.append(r["mesh"])
+    log(f"3m meshes: {wall:.1f} s with the two processes' start [{smi}]")
+    if bad:
+        raise AssertionError(f"3m meshes {bad} differ from the step without a mesh")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -6011,6 +6571,12 @@ def main() -> int:
                         "launches_3l": pool["launches"], "phase_s": PHASE_S,
                         "card": dev["smi"]}))
         return 0
+    if sys.argv[1:] == ["--finetune"]:
+        k6r = timed("2 K6 per-rank heads", rank_flash_case, dev["smi"])
+        ft = timed("3m", phase_finetune, dev["smi"])
+        log(json.dumps({"finetune": ft, "k6_per_rank": k6r, "phase_s": PHASE_S,
+                        "card": dev["smi"]}))
+        return 0
     if sys.argv[1:] == ["--expressive"]:
         k6p = timed("2 K6 PRETSSEL", pretssel_flash_case, dev["smi"])
         expressive = timed("3j", phase_expressive, dev["smi"])
@@ -6035,6 +6601,10 @@ def main() -> int:
     k1["batched"] = timed("2 K1 batched", decode_batch_case, dev["smi"], floor_ms)
     k6["adaptor"] = timed("2 K6 adaptor", adaptor_flash_case, dev["smi"])
     k6b, k6c = timed("2 K6b K6c", phase_flash_attention_bwd, dev["smi"])
+    # 3m's per-rank heads under model=2
+    rank = timed("2 K6 per-rank heads", rank_flash_case, dev["smi"])
+    for row in (k6, k6b, k6c):
+        row["per_rank_h8"] = {dt: rank[dt][row["name"]] for dt in rank}
     timed("2 sweep", phase_flash_sweep, dev["smi"])
     if sys.argv[1:] == ["--kernels"]:
         return 0
@@ -6063,7 +6633,10 @@ def main() -> int:
     k6["launches"] = fused["launches"]["flash_attention"] + v1["launches"]["flash_attention"]
     del v1_translator, vocoder
     gc.collect()
-    offline = timed("3h", phase_offline, dev["smi"])
+    # 3h's fp16 base_v2 .pt and cards stay for 3m (finetuning)
+    shared = contextlib.ExitStack()
+    ft_dir = shared.enter_context(offline_dir())
+    offline = timed("3h", phase_offline, dev["smi"], ft_dir)
     k1["launches_3h"] = offline["launches"]     # 3h's m4t_predict S2ST request
     gc.collect()
     streaming = timed("3i", phase_streaming, dev["smi"])
@@ -6085,6 +6658,12 @@ def main() -> int:
     for row, name in ((k6b, "flash_attention_bwd_dkv"), (k6c, "flash_attention_bwd_dq")):
         row["launches"] = train["launches"][name]
         row["launches_fp32"] = train["launches_fp32"][name]   # 3g's fp32 gradient parity
+    gc.collect()
+    with shared:
+        finetune = timed("3m", phase_finetune, dev["smi"], ft_dir)
+    for row in (k6, k6b, k6c):
+        row["launches_3m"] = finetune["cli"]["launches"][row["name"]]
+        row["launches"] += row["launches_3m"]
     for label, phase in (("4 cuda vs cpu", phase_tiny_cuda_vs_cpu),
                          ("4 s2st", phase_tiny_s2st), ("4 t2t", phase_tiny_t2t),
                          ("4 options", phase_tiny_options),
@@ -6100,7 +6679,7 @@ def main() -> int:
                     "v1": v1["requests"], "offline": offline["stats"],
                     "streaming": streaming["stats"], "expressive": expressive["stats"],
                     "serving": serving["stats"], "pool": pool["stats"],
-                    "train": train, "phase_s": PHASE_S,
+                    "train": train, "finetune": finetune, "phase_s": PHASE_S,
                     "card": dev["smi"]}))
     log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5, k6, k6b, k6c]}))
     print(json.dumps({"ok": True, "device": {

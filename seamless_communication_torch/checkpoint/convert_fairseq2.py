@@ -893,6 +893,115 @@ def monotonic_tree_from_fairseq2(sd: Mapping[str, Any]) -> dict:
             "layer_norm": _ln(sd, "text_decoder.layer_norm")}
 
 
+# ---------------------------------------------------------------------------
+# the standalone conformer-shaw speech encoder (a finetune's initialisation)
+# ---------------------------------------------------------------------------
+
+# fairseq1 conformer-shaw (w2v-BERT pretraining) -> fairseq2 paths, the JAX
+# package's rules (reference models/conformer_shaw/loader.py:44-74)
+_CONFORMER_SHAW_RULES = [
+    (r"^encoder\.layers\.([0-9]+)\.self_attn\.out_proj\.",
+     r"encoder.layers.\1.self_attn.output_proj."),
+    (r"^encoder\.layers\.([0-9]+)\.self_attn\.rel_k_embedding\.",
+     r"encoder.layers.\1.self_attn.sdpa.rel_k_embed."),
+    (r"^encoder\.layers\.([0-9]+)\.conv_module\.depthwise_conv\.",
+     r"encoder.layers.\1.conv.depthwise_conv."),
+    (r"^encoder\.layers\.([0-9]+)\.conv_module\.layer_norm2\.",
+     r"encoder.layers.\1.conv.layer_norm."),
+    (r"^encoder\.layers\.([0-9]+)\.conv_module\.layer_norm\.",
+     r"encoder.layers.\1.conv_layer_norm."),
+    (r"^encoder\.layers\.([0-9]+)\.conv_module\.pointwise_conv1\.",
+     r"encoder.layers.\1.conv.pointwise_conv1."),
+    (r"^encoder\.layers\.([0-9]+)\.conv_module\.pointwise_conv2\.",
+     r"encoder.layers.\1.conv.pointwise_conv2."),
+    (r"^encoder\.layers\.([0-9]+)\.ffn(1|2)\.layer_norm\.",
+     r"encoder.layers.\1.ffn\2_layer_norm."),
+    (r"^encoder\.layers\.([0-9]+)\.ffn(1|2)\.w_1\.",
+     r"encoder.layers.\1.ffn\2.inner_proj."),
+    (r"^encoder\.layers\.([0-9]+)\.ffn(1|2)\.w_2\.",
+     r"encoder.layers.\1.ffn\2.output_proj."),
+    (r"^encoder\.layers\.([0-9]+)\.final_layer_norm\.",
+     r"encoder.layers.\1.layer_norm."),
+    (r"^layer_norm\.", "encoder_frontend.post_extract_layer_norm."),
+    (r"^post_extract_proj\.", "encoder_frontend.model_dim_proj."),
+    # fairseq2-native checkpoints pass through unchanged
+    (r"^encoder_frontend\.", "encoder_frontend."),
+    (r"^encoder\.", "encoder."),
+]
+
+# pretraining-only tensors (masker, quantizer, target projections): dropped
+_CONFORMER_SHAW_DROP = re.compile(
+    r"^(mask_emb|quantizer\.|project_q\.|mlm_proj\.|final_target_proj\.|masker\.)")
+
+
+def conformer_shaw_tree_from_pt(sd: Mapping[str, Any]) -> dict:
+    """A standalone conformer-shaw speech-encoder checkpoint (fairseq1
+    w2v-BERT names or fairseq2 names; card ``cards/conformer_shaw.yaml``)
+    -> the pieces of the port's ``speech_encoder`` that UnitY shares with
+    it: {"feature_projection", "encoder"} (the conformer layers as a list)."""
+    f2: Dict[str, torch.Tensor] = {}
+    compiled = [(re.compile(p), r) for p, r in _CONFORMER_SHAW_RULES]
+    for key, val in sd.items():
+        if _CONFORMER_SHAW_DROP.match(key):
+            continue
+        for rx, repl in compiled:
+            if rx.match(key):
+                f2[rx.sub(repl, key)] = _t(val)
+                break
+    n = _num_layers(f2, r"encoder\.layers\.([0-9]+)\.")
+    if n == 0:
+        raise ValueError("no conformer encoder layers found in checkpoint")
+    return {
+        "feature_projection": {
+            "layer_norm": _ln(f2, "encoder_frontend.post_extract_layer_norm"),
+            "projection": _linear(f2, "encoder_frontend.model_dim_proj"),
+        },
+        "encoder": [_conformer_layer_tree(f2, f"encoder.layers.{i}") for i in range(n)],
+    }
+
+
+def _tree_leaves(tree, prefix: str = "") -> dict:
+    """{path: tensor} of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: t for key, v in tree.items()
+                for k, t in _tree_leaves(v, f"{prefix}{key}.").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: t for i, v in enumerate(tree)
+                for k, t in _tree_leaves(v, f"{prefix}{i}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def init_speech_encoder_from_conformer_shaw(params: dict, sd: Mapping[str, Any], *,
+                                            dtype: Optional[torch.dtype] = None) -> dict:
+    """``params`` with ``speech_encoder``'s frontend projection and conformer
+    stack replaced by a converted conformer-shaw checkpoint, in ``dtype``
+    (None: the replaced leaves' dtype) on their device; the UnitY-only
+    adaptor, intermediate FFN and inner layer norm stay as they are. Raises
+    ``ValueError`` where the checkpoint does not match the config (layer
+    count, widths)."""
+    tree = conformer_shaw_tree_from_pt(sd)
+    se = dict(params["speech_encoder"])
+    for key in ("feature_projection", "encoder"):
+        old = _tree_leaves(se[key])
+        new = _tree_leaves(tree[key])
+        if set(old) != set(new) or any(tuple(old[k].shape) != tuple(new[k].shape)
+                                       for k in old):
+            raise ValueError(f"conformer_shaw checkpoint does not match model config at "
+                             f"'{key}' (layer count / dims)")
+        first = next(iter(old.values()))
+        dt = dtype if dtype is not None else first.dtype
+        se[key] = _tree_map(lambda t: t.to(first.device, dt), tree[key])
+    return dict(params, speech_encoder=se)
+
+
 def load_pt_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """``torch.load`` a reference checkpoint -> its state dict (the ``model``
     or ``generator`` entry), tensors kept in their dtype."""

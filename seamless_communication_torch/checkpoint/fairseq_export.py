@@ -438,3 +438,39 @@ def export_pretssel(params: dict, cfg, *, dtype: Optional[torch.dtype] = None) -
     # the batch norms' statistics stay fp32 too: their fold is the identity
     # only at fp32 (1 - 1e-5 rounds to 1 in fp16)
     return _cast(sd, dtype, keep=(".weight_g", ".running_mean", ".running_var"))
+
+
+def export_conformer_shaw_fairseq1(se: dict, *, dtype: Optional[torch.dtype] = None
+                                   ) -> dict:
+    """The speech encoder's frontend projection and conformer stack of a
+    port tree under the fairseq1 w2v-BERT names that
+    ``convert_fairseq2.conformer_shaw_tree_from_pt`` reads (the reference's
+    models/conformer_shaw/loader.py), with the pretraining-only tensors a
+    real checkpoint holds, which the converter drops."""
+    sd: dict = {}
+    _x_ln(sd, "layer_norm", se["feature_projection"]["layer_norm"])
+    _x_lin(sd, "post_extract_proj", se["feature_projection"]["projection"])
+    for i, lp in enumerate(se["encoder"]):
+        p = f"encoder.layers.{i}"
+        for n in (1, 2):
+            _x_ln(sd, f"{p}.ffn{n}.layer_norm", lp[f"ffn{n}"]["layer_norm"])
+            _x_lin(sd, f"{p}.ffn{n}.w_1", lp[f"ffn{n}"]["inner_proj"])
+            _x_lin(sd, f"{p}.ffn{n}.w_2", lp[f"ffn{n}"]["output_proj"])
+        _x_ln(sd, f"{p}.self_attn_layer_norm", lp["self_attn_layer_norm"])
+        for k in ("q_proj", "k_proj", "v_proj"):
+            _x_lin(sd, f"{p}.self_attn.{k}", lp["self_attn"][k])
+        _x_lin(sd, f"{p}.self_attn.out_proj", lp["self_attn"]["output_proj"])
+        _x_embed(sd, f"{p}.self_attn.rel_k_embedding", lp["self_attn"]["rel_k_embed"])
+        conv = lp["conv"]
+        _x_ln(sd, f"{p}.conv_module.layer_norm", conv["layer_norm"])
+        _x_pointwise(sd, f"{p}.conv_module.pointwise_conv1", conv["pointwise_conv1"])
+        _x_conv(sd, f"{p}.conv_module.depthwise_conv", conv["depthwise_conv"])
+        _x_ln(sd, f"{p}.conv_module.layer_norm2", conv["norm"])
+        _x_pointwise(sd, f"{p}.conv_module.pointwise_conv2", conv["pointwise_conv2"])
+        _x_ln(sd, f"{p}.final_layer_norm", lp["layer_norm"])
+    sd["mask_emb"] = torch.zeros(4)
+    sd["quantizer.vars"] = torch.zeros(1, 8, 2)
+    sd["quantizer.weight_proj.weight"] = torch.zeros(8, 4)
+    sd["project_q.weight"] = torch.zeros(4, 4)
+    sd["mlm_proj.weight"] = torch.zeros(4, 4)
+    return _cast(sd, dtype)

@@ -47,6 +47,7 @@ from seamless_communication_torch.ops.transformer import (
     transformer_decoder_step, transformer_encoder, transformer_stack_init,
 )
 from seamless_communication_torch.ops.upsample import hard_upsample
+from seamless_communication_torch.parallel.collectives import whole_channels
 
 
 class NarT2UConfig(NamedTuple):
@@ -100,7 +101,9 @@ def variance_predictor(p: dict, x: torch.Tensor, padding_mask: Optional[torch.Te
     FiLM layer where the parameters have one."""
     h = apply_padding_mask(x, padding_mask)
     h = torch.relu(conv1d(p["conv1"], h, padding="SAME"))
-    h = layer_norm(p["ln1"], h)
+    # ln1 normalises all the hidden channels: a conv1 split over "model"
+    # gives each rank its own, gathered here (conv2 takes its part again)
+    h = layer_norm(p["ln1"], whole_channels(h, p["conv1"]))
     h = apply_padding_mask(h, padding_mask)
     h = torch.relu(conv1d(p["conv2"], h, padding="SAME"))
     h = layer_norm(p["ln2"], h)

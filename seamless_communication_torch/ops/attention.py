@@ -20,6 +20,9 @@ import torch
 
 from seamless_communication_torch.ops.fused_attention import try_flash
 from seamless_communication_torch.ops.modules import linear, linear_init, true_div
+from seamless_communication_torch.parallel.collectives import (
+    local_heads, local_part, shared,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +98,7 @@ def multi_head_attention(params: dict, q_in: torch.Tensor, kv_in: torch.Tensor,
                          ) -> torch.Tensor:
     """Full-sequence MHA; ``bias`` is an additive fp32 logit mask broadcastable
     to (B, H, Tq, Tk)."""
+    num_heads = local_heads(params["q_proj"], num_heads)
     q = _split_heads(linear(params["q_proj"], q_in), num_heads)
     k = _split_heads(linear(params["k_proj"], kv_in), num_heads)
     v = _split_heads(linear(params["v_proj"], kv_in), num_heads)
@@ -109,13 +113,16 @@ def shaw_self_attention(params: dict, x: torch.Tensor, num_heads: int, *,
 
     The relative term is taken as the JAX package takes it: the (B,H,T,P)
     products with the P embeddings, then a product with the (T,T,P) one-hot
-    of the clipped distance. Each output sums exactly one nonzero term."""
+    of the clipped distance. Each output sums exactly one nonzero term.
+    With the projections split over "model" a rank computes its own heads,
+    each with the whole (replicated) table."""
+    num_heads = local_heads(params["q_proj"], num_heads)
     q = _split_heads(linear(params["q_proj"], x), num_heads)
     k = _split_heads(linear(params["k_proj"], x), num_heads)
     v = _split_heads(linear(params["v_proj"], x), num_heads)
     T = x.shape[1]
     dh = q.shape[-1]
-    rel = params["rel_k_embed"]["embedding"].to(q.dtype)            # (P, Dh)
+    rel = shared(params["rel_k_embed"]["embedding"], params["q_proj"]).to(q.dtype)  # (P, Dh)
     pos = torch.arange(T, device=x.device)
     idx = torch.clamp(pos[None, :] - pos[:, None], -max_left, max_right) + max_left
     rel_logits_full = torch.matmul(q.float(), rel.float().T)         # (B,H,T,P)
@@ -206,12 +213,16 @@ def xl_self_attention(params: dict, x: torch.Tensor, num_heads: int, *,
     additive logit."""
     D = x.shape[-1]
     dh = D // num_heads
-    q = _split_heads(linear(params["q_proj"], x), num_heads)
+    qp = params["q_proj"]
+    num_heads = local_heads(qp, num_heads)
+    q = _split_heads(linear(qp, x), num_heads)
     k = _split_heads(linear(params["k_proj"], x), num_heads)
     v = _split_heads(linear(params["v_proj"], x), num_heads)
-    u = params["u_bias"].to(x.dtype)[None, :, None, :]
-    vb = params["v_bias"].to(x.dtype)[None, :, None, :]
-    bd = _xl_rel_bias(q + vb, params["r_proj"]["weight"])
+    # with the projections split over "model": this rank's heads of the
+    # replicated u, v biases and r-projection columns
+    u = local_part(params["u_bias"], qp, 0).to(x.dtype)[None, :, None, :]
+    vb = local_part(params["v_bias"], qp, 0).to(x.dtype)[None, :, None, :]
+    bd = _xl_rel_bias(q + vb, local_part(params["r_proj"]["weight"], qp, 1))
     scale = 1.0 / math.sqrt(dh)
     out = _sdpa(q + u, k, v, bias, extra_logits=bd * scale, scale=scale)
     return linear(params["output_proj"], _merge_heads(out))

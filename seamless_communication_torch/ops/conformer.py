@@ -29,6 +29,7 @@ from seamless_communication_torch.ops.masks import NEG_INF, apply_padding_mask, 
 from seamless_communication_torch.ops.modules import (
     conv1d, conv1d_init, glu, layer_norm, layer_norm_init, linear, linear_init, swish,
 )
+from seamless_communication_torch.parallel.pipeline import run_layers
 
 
 class ConformerConfig(NamedTuple):
@@ -134,7 +135,9 @@ def conformer_encoder(layers: list, x: torch.Tensor, cfg: ConformerConfig, *,
                       padding_mask: Optional[torch.Tensor] = None,
                       chunk_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run the conformer stack (a list of per-layer params) over (B, T, D);
-    each layer is a checkpoint region under ``ops/remat.py remat_layers``.
+    each layer is a checkpoint region under ``ops/remat.py remat_layers``,
+    and the stack a GPipe pipeline under ``parallel/pipeline.py
+    pipeline_layers``.
 
     ``chunk_bias``: an optional additive (T, T) bias, the chunked attention
     of the streaming speech encoder (``chunk_attention_bias``), added to the
@@ -143,10 +146,11 @@ def conformer_encoder(layers: list, x: torch.Tensor, cfg: ConformerConfig, *,
     if chunk_bias is not None:
         cb = chunk_bias[None, None]
         bias = cb if bias is None else bias + cb
-    for layer_params in layers:
-        x = remat.layer_call(conformer_layer, layer_params, x, cfg, attn_bias=bias,
-                             padding_mask=padding_mask)
-    return x
+    return run_layers(
+        lambda h, tens, lp: remat.layer_call(conformer_layer, lp, h, cfg,
+                                             attn_bias=tens["bias"],
+                                             padding_mask=tens["mask"]),
+        layers, x, {"bias": bias, "mask": padding_mask})
 
 
 def chunk_attention_bias(seq_len: int, chunk_size: int, left_chunk_num: int, *,

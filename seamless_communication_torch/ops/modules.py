@@ -20,6 +20,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from seamless_communication_torch.parallel.collectives import (
+    copy_to, model_shard, reduce_from, split_to,
+)
+
 
 def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` as an IEEE division in x's dtype. PyTorch turns a division
@@ -58,9 +62,33 @@ def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "weight_i4" in params:
         from seamless_communication_torch.ops.quantization import linear_quantized_int4
         return linear_quantized_int4(params, x)
+    shard = model_shard(params["weight"])
+    if shard is not None:
+        return _linear_shard(params, x, shard)
     w = params["weight"].to(x.dtype)
     y = torch.matmul(x.float(), w.float())
     b = params.get("bias")
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def _linear_shard(params: dict, x: torch.Tensor, shard) -> torch.Tensor:
+    """``linear`` of a weight split over "model" (``parallel/sharding.py``):
+    by columns (dim 1), the replicated input behind ``copy_to`` and this
+    rank's output columns with its part of the bias; by rows (dim 0), this
+    rank's input columns (split from a whole input), its partial product
+    summed over the axis in fp32, then the bias."""
+    w = params["weight"].to(x.dtype)
+    b = params.get("bias")
+    if shard.dim == 1:
+        y = torch.matmul(copy_to(x, shard.axis).float(), w.float())
+        if b is not None:
+            y = y + b.float()
+        return y.to(x.dtype)
+    if x.shape[-1] != w.shape[0]:
+        x = split_to(x, shard.axis, -1)
+    y = reduce_from(torch.matmul(x.float(), w.float()), shard.axis)
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
@@ -111,7 +139,18 @@ def embedding(params: dict, ids: torch.Tensor, *, scale: Optional[float] = None
             embedding_lookup_quantized_int4,
         )
         return embedding_lookup_quantized_int4(params, ids, scale_mult=scale)
-    e = params["embedding"][ids]
+    table = params["embedding"]
+    shard = model_shard(table)
+    if shard is not None:
+        # a vocabulary split over "model": this rank's rows, the other ids
+        # zero, summed over the axis (one nonzero term: exact)
+        n = table.shape[0]
+        local = ids - shard.axis.rank * n
+        mine = (local >= 0) & (local < n)
+        e = table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+        e = reduce_from(e, shard.axis)
+    else:
+        e = table[ids]
     if scale is not None:
         e = e * torch.full((), scale, dtype=e.dtype, device=e.device)
     return e
@@ -152,10 +191,20 @@ def conv1d(params: dict, x: torch.Tensor, *, stride: int = 1, padding="SAME",
     "VALID", "CAUSAL" or an explicit (lo, hi) pair."""
     w = params["weight"].to(x.dtype)
     k = w.shape[0]
+    # a weight split over "model": by output channels (dim 2), the input
+    # behind copy_to; by input channels (dim 1), this rank's channels in and
+    # the partial outputs summed over the axis before the bias
+    shard = model_shard(params["weight"])
+    if shard is not None and shard.dim == 2:
+        x = copy_to(x, shard.axis)
+    elif shard is not None and x.shape[-1] != w.shape[1] * groups:
+        x = split_to(x, shard.axis, -1)
     lo, hi = _conv_padding(padding, x.shape[1], k, stride, dilation)
     xc = F.pad(x.transpose(1, 2), (lo, hi))                  # (B, C, W)
     y = F.conv1d(xc, w.permute(2, 1, 0), stride=stride, dilation=dilation,
                  groups=groups).transpose(1, 2)
+    if shard is not None and shard.dim == 1:
+        y = reduce_from(y.float(), shard.axis)
     b = params.get("bias")
     if b is not None:
         y = y + b.to(y.dtype)

@@ -14,8 +14,13 @@ layer's activations instead of keeping them.
   dimensions (``aten.mm``, ``aten.addmm``: the linears) and recompute the
   rest, JAX's ``dots_with_no_batch_dims_saveable``, through
   ``torch.utils.checkpoint.create_selective_checkpoint_contexts``.
-- ``"offload_dots"``: JAX's TPU policy that moves the saved products to host
-  memory. Not ported (ROADMAP, Queue 1): it raises.
+- ``"offload_dots"``: ``"dots"`` with the saved products in host memory,
+  JAX's ``offload_dot_with_no_batch_dims``: each product of the layer's
+  forward is copied to a pinned host buffer (on the card; a host copy on
+  the CPU) as it is made, and the backward's recompute of the layer takes
+  it back instead of computing it again (``_OffloadSave``,
+  ``_OffloadReplay``: the selective checkpoint's two contexts with the
+  saved outputs kept on the host). Its gradients are ``"dots"``'s.
 
 The setting is read at each layer call, so it covers whatever runs inside
 the ``with`` block; a call without autograd (grad mode off) is never
@@ -29,6 +34,7 @@ import threading
 from typing import Callable
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
@@ -47,9 +53,6 @@ def current_policy():
 def remat_layers(policy: str = "full"):
     if policy not in POLICIES:
         raise ValueError(f"unknown remat policy {policy!r}; one of {POLICIES}")
-    if policy == "offload_dots":
-        raise NotImplementedError("remat policy 'offload_dots' (host offload of the "
-                                  "saved products) is not ported yet: ROADMAP, Queue 1")
     prev = current_policy()
     _state.policy = policy
     try:
@@ -67,11 +70,51 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_dots_policy)
 
 
+class _OffloadSave(TorchDispatchMode):
+    """The forward of an ``"offload_dots"`` layer: every product's output
+    copied to a host buffer (pinned for a card's tensor), in order."""
+
+    def __init__(self, store: list):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _SAVED_OPS:
+            host = torch.empty(out.shape, dtype=out.dtype, device="cpu",
+                               pin_memory=out.is_cuda)
+            host.copy_(out.detach(), non_blocking=True)
+            self.store.append(host)
+        return out
+
+
+class _OffloadReplay(TorchDispatchMode):
+    """The backward's recompute of the layer: each product taken back from
+    its host buffer, in the forward's order, the other ops computed again."""
+
+    def __init__(self, store: list):
+        super().__init__()
+        self.store = store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _SAVED_OPS:
+            return self.store.pop(0).to(args[0].device, non_blocking=True)
+        return func(*args, **(kwargs or {}))
+
+
+def _offload_context():
+    store: list = []
+    return _OffloadSave(store), _OffloadReplay(store)
+
+
+_CONTEXTS = {"dots": _dots_context, "offload_dots": _offload_context}
+
+
 def layer_call(fn: Callable, *args, **kwargs):
     """``fn(*args, **kwargs)``: one layer of a stack, checkpointed under the
     current policy when remat is on and autograd records."""
     policy = current_policy()
     if policy is None or not torch.is_grad_enabled():
         return fn(*args, **kwargs)
-    extra = {"context_fn": _dots_context} if policy == "dots" else {}
+    extra = {"context_fn": _CONTEXTS[policy]} if policy in _CONTEXTS else {}
     return checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)

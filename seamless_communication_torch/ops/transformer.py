@@ -34,6 +34,8 @@ from seamless_communication_torch.ops.modules import (
     embedding, layer_norm, layer_norm_init, linear, linear_init,
 )
 from seamless_communication_torch.ops.positional import apply_sinusoidal_pos
+from seamless_communication_torch.parallel.collectives import copy_to, model_shard
+from seamless_communication_torch.parallel.pipeline import run_layers
 
 
 class TransformerConfig(NamedTuple):
@@ -107,11 +109,14 @@ def _layer_forward(p: dict, x: torch.Tensor, cfg: TransformerConfig, *,
 def transformer_encoder(params: dict, x: torch.Tensor, cfg: TransformerConfig, *,
                         padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence encoder stack; each layer is a checkpoint region under
-    ``ops/remat.py remat_layers``."""
+    ``ops/remat.py remat_layers``, the stack a GPipe pipeline under
+    ``parallel/pipeline.py pipeline_layers``."""
     bias = padding_bias(padding_mask)
-    for lp in params["layers"]:
-        x = remat.layer_call(_layer_forward, lp, x, cfg, self_bias=bias, enc_out=None,
-                             cross_bias=None)
+    x = run_layers(
+        lambda h, tens, lp: remat.layer_call(_layer_forward, lp, h, cfg,
+                                             self_bias=tens["bias"], enc_out=None,
+                                             cross_bias=None),
+        params["layers"], x, {"bias": bias})
     return layer_norm(params["layer_norm"], x)
 
 
@@ -126,9 +131,13 @@ def transformer_decoder(params: dict, x: torch.Tensor, cfg: TransformerConfig, *
     self_bias = combine_masks(causal_mask(x.shape[1], device=x.device)[None, None],
                               padding_bias(self_padding_mask))
     cross_bias = padding_bias(enc_padding_mask)
-    for lp in params["layers"]:
-        x = remat.layer_call(_layer_forward, lp, x, cfg, self_bias=self_bias,
-                             enc_out=enc_out, cross_bias=cross_bias)
+    x = run_layers(
+        lambda h, tens, lp: remat.layer_call(_layer_forward, lp, h, cfg,
+                                             self_bias=tens["self_bias"],
+                                             enc_out=tens["enc_out"],
+                                             cross_bias=tens["cross_bias"]),
+        params["layers"], x, {"self_bias": self_bias, "enc_out": enc_out,
+                              "cross_bias": cross_bias})
     return layer_norm(params["layer_norm"], x)
 
 
@@ -363,7 +372,8 @@ def embedding_frontend(embed_params: dict, ids: torch.Tensor, cfg: TransformerCo
 
 def tied_projection(embed_params: dict, x: torch.Tensor) -> torch.Tensor:
     """Logits through the tied embedding matrix, fp32; the int8 or int4
-    quantized table when present."""
+    quantized table when present. A table split over "model" gives this
+    rank's vocabulary columns only."""
     if "embedding_i8" in embed_params:
         from seamless_communication_torch.ops.quantization import (
             tied_projection_quantized,
@@ -375,4 +385,9 @@ def tied_projection(embed_params: dict, x: torch.Tensor) -> torch.Tensor:
         )
         return tied_projection_quantized_int4(embed_params, x)
     w = embed_params["embedding"]
+    shard = model_shard(w)
+    if shard is not None:
+        # a vocabulary split over "model": this rank's columns of the logits
+        # (train/loss.py reduces over the axis)
+        x = copy_to(x, shard.axis)
     return torch.matmul(x.float(), w.to(x.dtype).float().T)

@@ -6,8 +6,12 @@ best-model save and an exact train-state resume.
 
 The JAX trainer is functional; here the parameter tree is a plain dict of
 tensors (lists per layer, as the rest of the port) that the trainer owns and
-updates in place. It trains on one card; the JAX package's data-, tensor-
-and pipeline-parallel meshes (``parallel/*``) are not ported yet.
+updates in place. Under a mesh (``parallel/sharding.py make_mesh``), as the
+JAX trainer under its ``jax.sharding.Mesh``: each rank holds its shards of
+the leaves that the rules split over "model", takes its rows of each batch
+over "data" (the loss and token sums, then the gradients, summed over
+"data"), and with ``pp_microbatches`` runs the layer stacks as a GPipe
+pipeline over "pipe" (``parallel/pipeline.py``).
 
 Behaviour of the JAX trainer kept on purpose (ROADMAP, Queue 3):
 - ``TEXT_TO_SPEECH`` mode trains the S2T loss, as ``make_train_step`` does;
@@ -33,6 +37,9 @@ from seamless_communication_torch.device import resolve_device
 from seamless_communication_torch.models.unity import model as unity
 from seamless_communication_torch.models.unity.builder import UnitYConfig
 from seamless_communication_torch.ops.masks import lengths_to_padding_mask
+from seamless_communication_torch.parallel.collectives import (
+    SHARD_ATTR, all_reduce, model_shard, reduce_from,
+)
 from seamless_communication_torch.train.loss import (
     chunked_tied_nll_loss, label_smoothed_nll_loss,
 )
@@ -62,8 +69,10 @@ class FinetuneParams:
     log_steps: int = 10
     freeze_text_encoder: bool = True
     freeze_speech_encoder: bool = False
-    remat: Optional[str] = None    # None, "full" or "dots": ops/remat.py
-    pp_microbatches: int = 0   # pipeline parallelism: not ported yet
+    remat: Optional[str] = None    # None, "full", "dots" or "offload_dots": ops/remat.py
+    pp_microbatches: int = 0   # >0 + a mesh with a "pipe" axis: the layer
+                               # stacks run as a GPipe pipeline with this many
+                               # micro-batches (parallel/pipeline.py); 0 = off
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +155,10 @@ def _text_loss(params: dict, cfg: UnitYConfig, feats: torch.Tensor, batch: dict,
             feats, params["text_decoder"]["embed"], batch["target_tokens"],
             pad_idx=cfg.nllb.pad_idx, label_smoothing=label_smoothing,
             ignore_prefix_size=1, chunk=vocab_chunk)
-    return label_smoothed_nll_loss(unity.project(params, feats), batch["target_tokens"],
-                                   pad_idx=cfg.nllb.pad_idx,
-                                   label_smoothing=label_smoothing, ignore_prefix_size=1)
+    return label_smoothed_nll_loss(
+        unity.project(params, feats), batch["target_tokens"], pad_idx=cfg.nllb.pad_idx,
+        label_smoothing=label_smoothing, ignore_prefix_size=1,
+        vocab_shard=model_shard(params["text_decoder"]["embed"].get("embedding")))
 
 
 def s2t_loss(params: dict, cfg: UnitYConfig, batch: dict, *,
@@ -198,7 +208,8 @@ def s2st_loss(params: dict, cfg: UnitYConfig, batch: dict, *,
         unit_logits = tied_projection(params["t2u"]["embed"], dec)
         t2u, n_units = label_smoothed_nll_loss(
             unit_logits, batch["target_units"], pad_idx=tcfg.pad_idx,
-            label_smoothing=label_smoothing, ignore_prefix_size=1)
+            label_smoothing=label_smoothing, ignore_prefix_size=1,
+            vocab_shard=model_shard(params["t2u"]["embed"].get("embedding")))
         return s2t + t2u, n_text + n_units
 
     if cfg.nar_t2u is not None:
@@ -247,8 +258,16 @@ class AdamWMyle:
             self.opt, myle_lr(learning_rate, warmup_steps))
 
     def global_norm(self) -> torch.Tensor:
+        """The norm of the whole gradient: a leaf split over "model" counts
+        its shards' squares summed over the axis, a replicated leaf once."""
         norms = [torch.linalg.vector_norm(p.grad, dtype=torch.float32)
                  for p in self.params]
+        split = [i for i, p in enumerate(self.params) if model_shard(p) is not None]
+        if split:
+            axis = model_shard(self.params[split[0]]).axis
+            sq = all_reduce(torch.stack([norms[i] for i in split]).square(), axis)
+            for j, i in enumerate(split):
+                norms[i] = sq[j].sqrt()
         return torch.linalg.vector_norm(torch.stack(norms))
 
     def step(self) -> float:
@@ -267,12 +286,32 @@ class AdamWMyle:
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
-    def state_dict(self) -> dict:
-        return {"opt": self.opt.state_dict(), "schedule": self.schedule.state_dict()}
+    def steps_taken(self) -> int:
+        return self.schedule.last_epoch
 
-    def load_state_dict(self, state: dict) -> None:
-        self.opt.load_state_dict(state["opt"])
-        self.schedule.load_state_dict(state["schedule"])
+    def moments(self) -> dict:
+        """{"exp_avg": [...], "exp_avg_sq": [...]}, a tensor for each of
+        ``params`` (zeros before the first step)."""
+        out: dict = {"exp_avg": [], "exp_avg_sq": []}
+        for p in self.params:
+            st = self.opt.state.get(p, {})
+            for k in out:
+                out[k].append(st[k] if k in st else torch.zeros_like(p))
+        return out
+
+    def restore(self, moments: dict, steps: int) -> None:
+        """The state after ``steps`` updates with the given moments: AdamW's
+        per-tensor state and the schedule's position and rate."""
+        for i, p in enumerate(self.params):
+            self.opt.state[p] = {"step": torch.tensor(float(steps)),
+                                 "exp_avg": moments["exp_avg"][i],
+                                 "exp_avg_sq": moments["exp_avg_sq"][i]}
+        self.schedule.last_epoch = steps
+        lrs = [base * lmbda(steps) for base, lmbda in zip(self.schedule.base_lrs,
+                                                          self.schedule.lr_lambdas)]
+        for group, lr in zip(self.opt.param_groups, lrs):
+            group["lr"] = lr
+        self.schedule._last_lr = lrs
 
 
 # ---------------------------------------------------------------------------
@@ -285,20 +324,39 @@ def batch_to(batch: dict, device: torch.device) -> dict:
                                device=device) for k, v in batch.items()}
 
 
+def _sum_over(tensors: list, axis) -> None:
+    """Sum ``tensors`` over ``axis`` in place, one collective a dtype."""
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = all_reduce(torch.cat([t.reshape(-1) for t in group]), axis)
+        o = 0
+        for t in group:
+            t.copy_(flat[o:o + t.numel()].view_as(t))
+            o += t.numel()
+
+
 def make_train_step(cfg: UnitYConfig, optimizer: AdamWMyle, *,
                     label_smoothing: float = 0.2, mode: Optional[FinetuneMode] = None,
                     frozen_predicate: Optional[Callable] = None,
-                    remat: Optional[str] = None, pp_mesh=None) -> Callable:
+                    remat: Optional[str] = None, mesh=None, pp_n_micro: int = 0
+                    ) -> Callable:
     """The train step ``step(params, batch) -> {"loss", "n_tokens", "grad_norm"}``:
     the loss per token (summed loss over max(tokens, 1)), its backward, the
     gradients of frozen leaves (``frozen_predicate(path)``) and of leaves no
     loss reached set to zeros (``jax.grad``'s zeros), then one update of
-    ``optimizer``, in place. ``remat``: None, "full" or "dots"
-    (``ops/remat.py``). ``SPEECH_TO_SPEECH`` trains ``s2st_loss``, every
-    other mode ``s2t_loss``, as the JAX step does."""
-    if pp_mesh is not None:
-        raise NotImplementedError("pipeline parallelism (parallel/pipeline.py) is not "
-                                  "ported yet: the port trains on one card")
+    ``optimizer``, in place. ``remat``: None, "full", "dots" or
+    "offload_dots" (``ops/remat.py``). ``SPEECH_TO_SPEECH`` trains
+    ``s2st_loss``, every other mode ``s2t_loss``, as the JAX step does.
+
+    ``mesh``: ``batch`` is this rank's rows of the global batch split over
+    "data"; the summed loss and the token count are summed over "data"
+    (JAX's global loss over global tokens, not a mean of the ranks' means)
+    and so are the gradients. With ``pp_n_micro`` > 0 and a "pipe" axis
+    of more than one rank, the layer stacks run as a GPipe pipeline over it
+    with ``pp_n_micro`` micro-batches (``parallel/pipeline.py``; JAX's
+    ``pp_mesh``); 0: no pipeline."""
     base = s2st_loss if mode == FinetuneMode.SPEECH_TO_SPEECH else s2t_loss
     loss_fn = partial(base, label_smoothing=label_smoothing)
     if remat is not None:
@@ -309,15 +367,32 @@ def make_train_step(cfg: UnitYConfig, optimizer: AdamWMyle, *,
         def loss_fn(p, cfg, batch):
             with remat_layers(remat):
                 return inner_loss(p, cfg, batch)
+    if pp_n_micro > 0 and mesh is not None and mesh.size("pipe") > 1:
+        from seamless_communication_torch.parallel.pipeline import pipeline_layers
+
+        pp_inner = loss_fn
+
+        def loss_fn(p, cfg, batch):
+            with pipeline_layers(mesh, n_micro=pp_n_micro):
+                return pp_inner(p, cfg, batch)
+    data = mesh.axis("data") if mesh is not None else None
 
     def step(params: dict, batch: dict) -> dict:
         optimizer.zero_grad()
         loss_sum, n_tokens = loss_fn(params, cfg, batch)
+        if data is not None and data.size > 1:
+            loss_sum = reduce_from(loss_sum, data)
+            n_tokens = all_reduce(n_tokens, data)
         loss = loss_sum / torch.clamp_min(n_tokens, 1.0)
         loss.backward()
+        trained = []
         for path, t in named_leaves(params):
             if t.grad is None or (frozen_predicate is not None and frozen_predicate(path)):
                 t.grad = torch.zeros_like(t)
+            else:
+                trained.append(t.grad)
+        if data is not None and data.size > 1:
+            _sum_over(trained, data)
         grad_norm = optimizer.step()
         return {"loss": loss.detach(), "n_tokens": n_tokens.detach(),
                 "grad_norm": grad_norm}
@@ -331,20 +406,27 @@ class UnitYFinetune:
     ``eval_data`` every ``eval_steps``, patience early stop, NaN abort and
     best-model save. ``device=None`` trains on the card (and raises without
     one); the tests pass ``device="cpu"``. The trainer trains its own copy of
-    ``params`` in ``ft.float_dtype`` (``trainable_copy``), in ``self.params``."""
+    ``params`` in ``ft.float_dtype`` (``trainable_copy``), in ``self.params``:
+    under ``mesh`` (``parallel/sharding.py make_mesh``) this rank's shards
+    (``shard_params``), each batch and eval batch split over "data", and
+    with ``ft.pp_microbatches`` > 0 on a mesh with "pipe" > 1 the pipeline."""
 
     def __init__(self, params: dict, cfg: UnitYConfig, ft: FinetuneParams, *,
                  mesh=None, train_data=None, eval_data=None, device=None):
-        if mesh is not None or ft.pp_microbatches:
-            raise NotImplementedError("data-, tensor- and pipeline-parallel meshes "
-                                      "(parallel/*) are not ported yet: the port trains "
-                                      "on one card")
         self.cfg = cfg
         self.ft = ft
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.train_data = train_data
         self.eval_data = eval_data
         self.params = trainable_copy(params, self.device, ft.float_dtype)
+        self.split = lambda batch: batch
+        if mesh is not None:
+            from seamless_communication_torch.parallel.sharding import (
+                data_sharding, shard_params,
+            )
+            self.params = shard_params(self.params, mesh)
+            self.split = data_sharding(mesh)
         leaves = [t for _, t in named_leaves(self.params)]
         self.optimizer = AdamWMyle(leaves, ft.learning_rate, ft.warmup_steps,
                                    ft.weight_decay)
@@ -355,52 +437,88 @@ class UnitYFinetune:
             cfg, self.optimizer, label_smoothing=ft.label_smoothing,
             mode=ft.finetune_mode,
             frozen_predicate=freeze_modules(*frozen) if frozen else None,
-            remat=ft.remat)
+            remat=ft.remat, mesh=mesh, pp_n_micro=ft.pp_microbatches)
         self.best_eval = float("inf")
         self.patience_left = ft.patience
+        self.step_losses: list = []     # each step's loss in ``run``
 
     def step(self, batch: dict) -> dict:
-        """One train step on a batch of arrays."""
-        return self.train_step(self.params, batch_to(batch, self.device))
+        """One train step on a (global) batch of arrays."""
+        return self.train_step(self.params, batch_to(self.split(batch), self.device))
 
     def _eval(self) -> float:
+        """The S2T loss per token over ``eval_data``: the sums over every
+        batch (each split over "data" and summed over it under a mesh)."""
         if self.eval_data is None:
             return float("nan")
+        data = self.mesh.axis("data") if self.mesh is not None else None
         loss, count = 0.0, 0.0
         with torch.no_grad():
             for batch in self.eval_data:
-                l, n = s2t_loss(self.params, self.cfg, batch_to(batch, self.device),
+                l, n = s2t_loss(self.params, self.cfg,
+                                batch_to(self.split(batch), self.device),
                                 label_smoothing=self.ft.label_smoothing)
+                if data is not None:
+                    l, n = all_reduce(torch.stack([l.float(), n.float()]), data)
                 loss += float(l)
                 count += float(n)
         return loss / max(count, 1.0)
 
     def save(self) -> None:
-        """The parameters (the best model so far) to ``save_model_path``."""
-        torch.save(map_tree(torch.Tensor.detach, self.params), self.ft.save_model_path)
+        """The parameters (the best model so far) to ``save_model_path``: a
+        checkpoint directory (``checkpoint/serialize.py save_params``; each
+        rank its shards under a mesh), or a ``.npz`` file."""
+        from seamless_communication_torch.checkpoint.serialize import save_params
+
+        save_params(self.ft.save_model_path, self.params, mesh=self.mesh)
         logger.info("saved checkpoint to %s", self.ft.save_model_path)
+
+    def _state_tensors(self, step_nr: int = 0) -> dict:
+        """The flat state of a checkpoint directory: the parameters, AdamW's
+        moments (each shaped and split as its parameter), the optimizer's
+        step count and the counters, each a tensor."""
+        from seamless_communication_torch.checkpoint.serialize import flat_tensors
+
+        params = flat_tensors(self.params)
+        state = {f"params.{k}": t for k, t in params.items()}
+        for name, tensors in self.optimizer.moments().items():
+            for (k, p), m in zip(params.items(), tensors):
+                if model_shard(p) is not None:
+                    setattr(m, SHARD_ATTR, model_shard(p))
+                state[f"{name}.{k}"] = m
+        state["optimizer.steps"] = torch.tensor(self.optimizer.steps_taken())
+        state["counters.step"] = torch.tensor(step_nr)
+        state["counters.best_eval"] = torch.tensor(self.best_eval, dtype=torch.float64)
+        state["counters.patience_left"] = torch.tensor(self.patience_left)
+        return state
 
     def save_state(self, path: str, step_nr: int) -> None:
         """The whole training state (parameters, optimizer and schedule,
-        step counter, early-stop bookkeeping) for an exact resume."""
-        torch.save({"params": map_tree(torch.Tensor.detach, self.params),
-                    "optimizer": self.optimizer.state_dict(),
-                    "counters": {"step": step_nr, "best_eval": self.best_eval,
-                                 "patience_left": self.patience_left}}, path)
+        step counter, early-stop bookkeeping) for an exact resume: a
+        checkpoint directory at ``path``, each rank its shards under a
+        mesh."""
+        from seamless_communication_torch.checkpoint.serialize import save_dir
+
+        save_dir(path, self._state_tensors(step_nr), self.mesh)
         logger.info("saved train state (step %d) to %s", step_nr, path)
 
     def restore_state(self, path: str) -> int:
-        """Restore a ``save_state`` file; returns its step counter."""
-        state = torch.load(path, map_location=self.device)
-        with torch.no_grad():
-            for (_, t), (_, saved) in zip(named_leaves(self.params),
-                                          named_leaves(state["params"])):
-                t.copy_(saved)
-        self.optimizer.load_state_dict(state["optimizer"])
-        counters = state["counters"]
-        self.best_eval = float(counters["best_eval"])
-        self.patience_left = int(counters["patience_left"])
-        step_nr = int(counters["step"])
+        """Restore a ``save_state`` directory, written under any mesh or
+        none, into this trainer's mesh; returns its step counter."""
+        from seamless_communication_torch.checkpoint.serialize import load_dir_into
+
+        state = self._state_tensors()
+        for k in ("optimizer.steps", "counters.step", "counters.best_eval",
+                  "counters.patience_left"):
+            state[k] = state[k].clone()
+        load_dir_into(path, state, self.mesh)
+        keys = [k[len("params."):] for k in state if k.startswith("params.")]
+        moments = {name: [state[f"{name}.{k}"] for k in keys]
+                   for name in ("exp_avg", "exp_avg_sq")}
+        self.optimizer.restore(moments, int(state["optimizer.steps"]))
+        self.best_eval = float(state["counters.best_eval"])
+        self.patience_left = int(state["counters.patience_left"])
+        step_nr = int(state["counters.step"])
         logger.info("restored train state (step %d) from %s", step_nr, path)
         return step_nr
 
@@ -411,6 +529,7 @@ class UnitYFinetune:
         for _ in range(self.ft.max_epochs):
             for batch in self.train_data:
                 loss = float(self.step(batch)["loss"])
+                self.step_losses.append(loss)
                 if math.isnan(loss):
                     raise RuntimeError(f"NaN loss at step {step_nr}")
                 step_nr += 1

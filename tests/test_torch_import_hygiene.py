@@ -17,7 +17,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "seamless_communication_tpu")))
+             if m in ("jax", "orbax") or m.startswith(("jax.", "jaxlib", "orbax.",
+                                                      "seamless_communication_tpu")))
 new = {"seamless_communication_torch.ops.fused_attention",
        "seamless_communication_torch.ops.kernels.flash_attention",
        "seamless_communication_torch.ops.remat",
@@ -52,7 +53,13 @@ new = {"seamless_communication_torch.ops.fused_attention",
        "seamless_communication_torch.streaming.multi",
        "seamless_communication_torch.inference.serving",
        "seamless_communication_torch.inference.text_translator",
-       "seamless_communication_torch.cli.serve"}
+       "seamless_communication_torch.cli.serve",
+       "seamless_communication_torch.parallel.collectives",
+       "seamless_communication_torch.parallel.sharding",
+       "seamless_communication_torch.parallel.pipeline",
+       "seamless_communication_torch.datasets.loader",
+       "seamless_communication_torch.datasets.huggingface",
+       "seamless_communication_torch.cli.finetune"}
 # the asset cards the port reads are its own copies
 from seamless_communication_torch import assets
 if assets.CARDS_DIR.resolve().parent != __import__("pathlib").Path(pkg.__path__[0]).resolve():

@@ -195,11 +195,13 @@ def test_remat_matches_no_remat(fused_on, policy):
 
 
 def test_remat_offload_raises():
-    from seamless_communication_torch.ops.remat import remat_layers
+    """``"offload_dots"`` is a policy now (its gradients are held to
+    ``"dots"``'s in test_torch_parallel.py); an unknown policy raises."""
+    from seamless_communication_torch.ops.remat import current_policy, remat_layers
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        with remat_layers("offload_dots"):
-            pass
+    with remat_layers("offload_dots"):
+        assert current_policy() == "offload_dots"
+    assert current_policy() is None
     with pytest.raises(ValueError):
         with remat_layers("everything"):
             pass
@@ -295,13 +297,17 @@ def test_float_dtype_sets_the_trained_params(tiny_params):
 
 
 def test_entry_points_that_raise(tiny_params):
-    """A mesh or pipeline microbatches raise (one card only); the default
-    device is the card, which this test needs to be absent."""
+    """A mesh larger than the process group raises (one process: one rank);
+    pipeline micro-batches without a "pipe" axis are ignored, as in JAX; the
+    default device is the card, which this test needs to be absent."""
+    from seamless_communication_torch.parallel.sharding import make_mesh
+
     cfg = get_arch("tiny_v2")
-    with pytest.raises(NotImplementedError, match="one card"):
-        UnitYFinetune(tiny_params, cfg, FinetuneParams(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="one card"):
-        UnitYFinetune(tiny_params, cfg, FinetuneParams(pp_microbatches=2), device="cpu")
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        make_mesh(data=1, model=2)
+    tr = UnitYFinetune(tiny_params, cfg, FinetuneParams(pp_microbatches=2),
+                       mesh=make_mesh(), device="cpu")
+    assert tr.mesh.shape == {"data": 1, "model": 1}
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
