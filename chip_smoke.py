@@ -42,7 +42,7 @@ Each part's wall seconds are printed as ``phase <label>: <s> s``.
    and the tile pairs of ``skippable_tiles`` that K6c and fp32 K6b leave
    out. In bf16, K6, K6b and K6c are the tensor-core kernels (``wgmma`` fed
    by TMA); in fp32 register-blocked SIMT kernels fed by TMA. Then a sweep
-   of every head dim they specialise (16, 32, 64, 128) x a key count that is
+   of every head dim they all specialise (16, 32, 64, 128) x a key count that is
    and one that is not a multiple of 8 x a bias, segment ids and neither
    (fp32 K6, K6b and K6c also with 32- and 64-row or -key blocks), the
    attention shapes of phase 3g's train steps in both dtypes, and the NAR
@@ -59,7 +59,11 @@ Each part's wall seconds are printed as ``phase <label>: <s> s``.
    key segment ids, fp32 and bf16 beside SDPA; ``adaptor_flash_case``); K6,
    K6b and K6c at the heads one rank computes under 3m's ``model=2`` (the
    10 s Shaw shape with H=8, fp32 and bf16, beside SDPA and the bounds;
-   ``rank_flash_case``).
+   ``rank_flash_case``); K6 at the XLSR2-1B encoder's shape of 3n (B=2,
+   H=16, Dh=80, T=499 with 499 and 350 valid keys as key segment ids, fp32
+   with both block heights and bf16, beside SDPA and the bound;
+   ``xlsr_flash_case``), and K6 alone at Dh=80 over the sweep's Tk x bias
+   cases, where the backward raises (``SWEEP_DH_FWD``).
    ``python3 chip_smoke.py --kernels`` stops after this phase.
 3. The main path at full width: the port's ``base_v2`` (v2-large) UnitY (with
    its text encoder) and unit HiFi-GAN on random bf16 weights from a seeded
@@ -166,6 +170,17 @@ Each part's wall seconds are printed as ``phase <label>: <s> s``.
       two gloo processes on the one card train one step at 4 + 4 layers in
       fp32 on the meshes (data 2), (model 2) and (pipe 2, remat full), each
       held to the step without a mesh (loss 1e-4, params 2e-4).
+   n. The auxiliary models (``phase_aux``): ``cli.audio_to_units.main`` on
+      10 s with the full-width XLSR2-1B (0.96 B parameters, written as an
+      fp32 ``.pt``) and a 10000 x 1280 k-means, ``SEAMLESS_FUSED_ATTN=1``:
+      K6 at head dim 80 once a layer run (35), 499 units, the wall by
+      stage; the encoder with the option off (layer 35 within atol 2e-3 +
+      rtol 2e-3) and k-means on the card against the CPU; the UnitY2
+      aligner at full width, card against CPU (log-probs 1e-4, durations
+      equal); ``cli.mutox_speech.main`` with the full-width classifier and
+      a TorchScript stand-in encoder, card against CPU (1e-5); VAD
+      segmentation and spectral subtraction of 60 s (host work, timed); the
+      unit extraction again under ``utils.profiling.device_trace``.
    Each path's launches are counted from 0 just before it.
 4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
    tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
@@ -238,6 +253,10 @@ tiny serving case.
 
 builds the kernels and runs only phase 2's per-rank K6/K6b/K6c case and
 phase 3m.
+
+    python3 chip_smoke.py --aux
+
+builds the kernels and runs only phase 3n.
 
     python3 chip_smoke.py --k12-trace
 
@@ -1218,7 +1237,7 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
     shape_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
     shape_fn.restype = ctypes.c_int
     for part in ("dkv", "dq"):
-        for dh in fl.HEAD_DIMS:
+        for dh in fl.BWD_HEAD_DIMS:
             for block in (32, 64):
                 smem, stages = ctypes.c_int(), ctypes.c_int()
                 if shape_fn(int(part == "dkv"), dh, block, ctypes.byref(smem),
@@ -1378,6 +1397,7 @@ def phase_flash_attention_bwd(smi: str) -> tuple[dict, dict]:
 # the bf16 kernels' head dims, each with a key count that is a multiple of 8
 # and one that is not (130: ab's rows padded, the last key tile ragged)
 SWEEP_DH = (16, 32, 64, 128)
+SWEEP_DH_FWD = (80,)            # K6 alone: the XLSR encoder's (K6b, K6c take it not)
 SWEEP_TK = (136, 130)
 SWEEP_BIAS = ("ab", "segments", "none")
 # the attentions of phase 3g's bf16 train steps on base_v2 (B=2, H=16,
@@ -1424,6 +1444,32 @@ def hold_flash_case(label: str, qkv, ab32, segs, do32, dtype) -> dict:
         if r is not None:
             errs[name] = bwd_error(f"{label} {name}", g, r, dtype)
     return errs
+
+
+def hold_flash_fwd(label: str, qkv, ab32, segs, dtype) -> float:
+    """K6 alone on one case: ``out`` within rtol = atol = 1.6e-2 (bf16) or
+    1e-5 (fp32) of ``_reference`` and bit-equal with and without residuals.
+    Returns the largest error."""
+    import torch
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    qs, k, v = (x.to(dtype) for x in qkv)
+    ab = None
+    if ab32 is not None:
+        ab = fl.empty_bias(*ab32.shape, dtype, ab32.device).copy_(ab32)
+    args = (qs, k, v, ab, *(segs or (None, None)))
+    out = fl._launch(*args, residuals=True)[0]
+    alone = fl._launch(*args)[0]
+    ref = fl._reference(*args)
+    torch.cuda.synchronize()
+    tol = 1.6e-2 if dtype is torch.bfloat16 else 1e-5
+    err = (out.float() - ref.float()).abs()
+    if not bool((err <= tol * (1 + ref.float().abs())).all()):
+        raise AssertionError(f"K6 {label}: out max err {float(err.max()):.3g}")
+    if not torch.equal(out, alone):
+        raise AssertionError(f"K6 {label}: out with residuals differs")
+    return float(err.max())
 
 
 def hold_fp32_rows(label: str, qkv, ab32, segs, do32=None) -> float:
@@ -1528,6 +1574,33 @@ def phase_flash_sweep(smi: str) -> None:
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
         + f"; fp32 K6 (within 1e-5), K6b and K6c (within 1e-4 * (1 + |ref|)) with 32- and "
         f"64-row (key) blocks, max abs err {fp32_err:.3g} [{smi}]")
+    # K6 alone at the head dims of its forward only; the backward raises there
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    n_fwd, fwd_err = 0, {"bf16": 0.0, "fp32": 0.0}
+    for dh in SWEEP_DH_FWD:
+        for tk in SWEEP_TK:
+            for kind in SWEEP_BIAS:
+                tq = 130 + 10 * n_fwd % 80
+                n_fwd += 1
+                qkv, ab32, segs, _ = case(2, 3, dh, tq, tk, kind, (tk, tk - 21))
+                label = f"sweep Dh={dh} Tq={tq} Tk={tk} {kind}"
+                fwd_err["bf16"] = max(fwd_err["bf16"], hold_flash_fwd(
+                    label + " bf16", qkv, ab32, segs, torch.bfloat16))
+                fwd_err["fp32"] = max(fwd_err["fp32"], hold_fp32_rows(
+                    label + " fp32", qkv, ab32, segs))
+        qs, k, v = qkv
+        out, m, l = fl._launch(qs, k, v, None, None, None, residuals=True)
+        try:
+            fl.flash_attention_bwd(qs, k, v, None, None, None, out, m, l, out)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError(f"K6b/K6c took head dim {dh}")
+    log(f"K6 sweep of its forward-only head dims: {n_fwd} cases (Dh {SWEEP_DH_FWD} x Tk "
+        f"{SWEEP_TK} x {SWEEP_BIAS}) within tolerance; max abs err bf16 "
+        f"{fwd_err['bf16']:.3g}, fp32 (32- and 64-row blocks) {fwd_err['fp32']:.3g}; the "
+        f"backward raises: {refused} [{smi}]")
     for label, T, kind, valid in TRAIN_SHAPES:
         qkv, ab32, segs, do32 = case(2, H_MAIN, DH_MAIN, T, T, kind, valid)
         for dtype in (torch.bfloat16, torch.float32):
@@ -6520,6 +6593,405 @@ def phase_meshes(smi: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 3n: the auxiliary models (unit extraction, the aligner, MuToX, VAD,
+# denoising, profiling)
+# ---------------------------------------------------------------------------
+
+XLSR_T, XLSR_VALID = 499, (499, 350)     # 10 s of 16 kHz audio through the conv stack
+AUX_SECONDS, AUX_LONG_SECONDS = 10.0, 60.0
+# 3n: two centroids whose fp64 distances to a feature differ by less than
+# this share of the distance are a tie that fp32 rounding may decide either
+# way (fp32 distances near 1e4 are off by about 2e-7 of themselves)
+KMEANS_TIE = 1e-6
+
+
+def xlsr_flash_case(smi: str) -> dict:
+    """Phase 2's K6 at the XLSR2-1B encoder's shape: B=2, H=16, Dh=80 (1280
+    over 16 heads), T=499 (10 s through the conv stack) with 499 and 350
+    valid keys as key segment ids, as ``try_flash`` turns the encoder's
+    key-padding bias into them. K6 against its plain version in fp32 (with
+    32- and 64-row blocks) and bf16 within rtol = atol = 1e-5 and 1.6e-2,
+    timed beside the library's SDPA with the segment mask as a float mask
+    and the bound over the unmasked logits (bytes over 3.35 TB/s against
+    operations over the dtype's peak rate); the fp32 kernel's skipped key
+    tiles counted."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from seamless_communication_torch.ops.kernels import flash_attention as fl
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(47)
+    B, H, T, Dh = 2, 16, XLSR_T, 80
+    qkv = [torch.as_tensor(rng.standard_normal((B, H, T, Dh)), dtype=torch.float32,
+                           device=dev) for _ in range(3)]
+    qkv[0] = qkv[0] / Dh ** 0.5
+    q_seg = torch.ones((B, T), dtype=torch.int32, device=dev)
+    valid = torch.tensor(XLSR_VALID, device=dev)
+    kv_seg = (torch.arange(T, device=dev)[None] < valid[:, None]).to(torch.int32)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qs, k, v = (x.to(dtype) for x in qkv)
+        args = (qs, k, v, None, q_seg, kv_seg)
+        got = fl.flash_attention(*args)
+        ref = fl._reference(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        if not bool((err <= tol[dtype] * (1 + ref.float().abs())).all()):
+            raise AssertionError(f"K6 XLSR {dtype}: out max err {float(err.max()):.3g} "
+                                 "over tolerance")
+        mask = torch.where(q_seg[:, None, :, None] == kv_seg[:, None, None, :], 0.0,
+                           fl.MASK_VALUE).to(dtype)
+        k_ms = cuda_time_ms(lambda: fl.flash_attention(*args))
+        p_ms = cuda_time_ms(lambda: fl._reference(*args), calls=5, reps=20)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, scale=1.0), calls=5, reps=20)
+        pairs = fl.unmasked_pairs(B, H, T, T, None, q_seg, kv_seg)
+        bound = fl.bound(B, H, T, T, Dh, dtype, False, True, pairs)
+        skipped = int(fl.skippable_tiles_fwd(q_seg, kv_seg, T, T, None).sum())
+        how = "wgmma, five 32-byte boxes a row"
+        if dtype is torch.float32:
+            err = max(float(err.max()), hold_fp32_rows("XLSR Dh=80", qkv, None,
+                                                       (q_seg, kv_seg)))
+            heights = ", ".join(
+                f"{r} rows {cuda_time_ms(lambda: fl._launch(*args, block_rows=r)) * 1e3:.2f} us"
+                for r in (32, 64))
+            how = (f"five 64-byte boxes a row, {fl.fp32_block_rows(B, H, T)}-row blocks "
+                   f"({heights})")
+        else:
+            err = float(err.max())
+        log(f"K6 XLSR2-1B encoder, B={B} H={H} Dh={Dh} T={T} (valid keys {XLSR_VALID}, key "
+            f"segment ids), {str(dtype)[6:]} ({how}): out max abs err {err:.3g} "
+            f"(rtol=atol={tol[dtype]}); device kernel {k_ms * 1e3:.2f} us, plain "
+            f"{p_ms * 1e3:.2f} us, library SDPA with the float mask {lib_ms * 1e3:.2f} us, "
+            f"bound {bound[0] * 1e3:.2f} us ({bound[1]}; {pairs} unmasked logits of "
+            f"{B * H * T * T}), {skipped} tile pairs skipped, kernel at "
+            f"{k_ms / bound[0]:.1f}x its bound [{smi}]")
+        out[str(dtype)[6:]] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                               "bound_ms": bound[0], "bound_by": bound[1],
+                               "max_abs_err": err, "tiles_skipped": skipped,
+                               "unmasked_pairs": pairs}
+    return out
+
+
+def stand_in_speech_encoder(dim: int, seed: int):
+    """A TorchScript stand-in for a SONAR speech encoder (no SONAR weights
+    are in the repository): waveform (1, T) -> (1, dim), a fixed seeded
+    projection of four statistics of the waveform, traced."""
+    import torch
+
+    class Encoder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("w", torch.randn((4, dim), generator=torch.Generator()
+                                                  .manual_seed(seed)))
+
+        def forward(self, wav):
+            stats = torch.stack([wav.mean() * 10.0, wav.abs().mean() * 10.0,
+                                 wav.std() * 10.0, wav.abs().max()])
+            return (stats @ self.w)[None]
+
+    return torch.jit.trace(Encoder().eval(), torch.zeros((1, 1600)))
+
+
+def aux_waveform(seconds: float, seed: int):
+    """Seeded 16 kHz audio shaped like speech: bursts of a few harmonics in
+    noise of 0.6-2.4 s between pauses of 0.1-0.8 s of faint noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sr, n = 16000, int(seconds * 16000)
+    parts, m = [], 0
+    while m < n:
+        k = int(rng.uniform(0.6, 2.4) * sr)
+        t = np.arange(k) / sr
+        f0 = rng.uniform(90, 250)
+        burst = sum(np.sin(2 * np.pi * f0 * h * t) / h for h in range(1, 5))
+        parts.append(0.2 * burst + 0.05 * rng.standard_normal(k))
+        k = int(rng.uniform(0.1, 0.8) * sr)
+        parts.append(0.003 * rng.standard_normal(k))
+        m += sum(len(p) for p in parts[-2:])
+    return np.concatenate(parts)[:n].astype(np.float32)
+
+
+def phase_aux(smi: str) -> dict:
+    """3n. The auxiliary models at full width, seeded, each step timed.
+
+    1. ``cli.audio_to_units.main`` in-process on a 10 s 16 kHz WAV, the
+       full-width ``Wav2Vec2RawConfig()`` XLSR2-1B (48 x 1280, 16 heads of
+       80) written by the port's exporter as an fp32 ``.pt`` into a
+       temporary directory, a 10000 x 1280 k-means ``.npy``,
+       ``SEAMLESS_FUSED_ATTN=1``, layer 35: K6 launched once a layer run
+       (35: the port stops after the output layer), 499 units, the wall by
+       stage.
+    2. The encoder again with the option off: layer 35's features within
+       atol 2e-3 + rtol 2e-3 of the kernel path's (as 3e); the share of
+       equal units printed; k-means on the card against k-means on the CPU
+       on the same features: the units equal, save where the fp64 distances
+       of the two centroids differ by less than ``KMEANS_TIE`` of the
+       distance (a tie that fp32's rounding decides; counted and printed).
+    3. ``AlignmentExtractor`` at the full ``AlignerConfig()`` from an
+       ``export_aligner`` ``.pt``, on step 1's units and a text of about 60
+       characters through the synthetic char tokenizer, against the same
+       extractor on the CPU: log-probs within 1e-4, durations equal and
+       summing to the unit count.
+    4. ``cli.mutox_speech.main`` with the full-width classifier (1024 ->
+       512 -> 128 -> 1) in the reference ``.pt`` layout and a TorchScript
+       stand-in speech encoder, on three WAVs: the scores finite and within
+       1e-5 of the same CLI on the CPU.
+    5. ``VADSegmenter`` (the energy VAD, 10 s chunks) and
+       ``Denoiser.spectral_subtract`` on 60 s of seeded audio: host work,
+       timed.
+    6. Step 1 again inside the port's ``device_trace``: the top device
+       events of its aggregation.
+
+    Launches are counted from 0 just before step 1. The CLI's log line of
+    the 499 units is held back (the count and the distinct units are
+    printed)."""
+    import logging
+
+    import torch
+
+    from seamless_communication_torch.models.unit_extractor.wav2vec2_raw import (
+        Wav2Vec2RawConfig,
+    )
+
+    dev = torch.device("cuda")
+    cfg = Wav2Vec2RawConfig()
+    layer = 35
+    cli_log = logging.getLogger("audio_to_units")
+    level = cli_log.level
+    cli_log.setLevel(logging.WARNING)
+    try:
+        return aux_steps(smi, dev, cfg, layer)
+    finally:
+        cli_log.setLevel(level)
+
+
+def aux_steps(smi: str, dev, cfg, layer: int) -> dict:
+    """The steps of ``phase_aux``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.audio.wav import write_wav
+    from seamless_communication_torch.checkpoint.fairseq_export import (
+        export_aligner, export_w2v2_raw,
+    )
+    from seamless_communication_torch.cli import audio_to_units, mutox_speech
+    from seamless_communication_torch.denoise.denoiser import Denoiser
+    from seamless_communication_torch.models.aligner.extractor import AlignmentExtractor
+    from seamless_communication_torch.models.aligner.model import AlignerConfig, aligner_init
+    from seamless_communication_torch.models.unit_extractor.unit_extractor import KmeansModel
+    from seamless_communication_torch.models.unit_extractor.wav2vec2_raw import (
+        wav2vec2_raw_init,
+    )
+    from seamless_communication_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seamless_communication_torch.segment.vad import VADSegmenter
+    from seamless_communication_torch.toxicity.mutox import MutoxConfig, mutox_init
+    from seamless_communication_torch.utils.profiling import device_trace
+
+    stats: dict = {}
+    t0 = time.perf_counter()
+    params = wav2vec2_raw_init(torch.Generator(device=dev).manual_seed(51), cfg, device=dev)
+    n_params = sum(t.numel() for t in tensor_leaves(params))
+    rng = np.random.default_rng(52)
+    centroids = rng.standard_normal((10000, cfg.model_dim)).astype(np.float32)
+    wav = aux_waveform(AUX_SECONDS, 53)
+    with offline_dir() as d:
+        torch.save({"model": export_w2v2_raw(params)}, d / "xlsr.pt")
+        del params
+        gc.collect()
+        np.save(d / "kmeans.npy", centroids)
+        write_wav(str(d / "in.wav"), wav, 16000)
+        export_s = time.perf_counter() - t0
+        size = os.path.getsize(d / "xlsr.pt")
+        log(f"3n: XLSR2-1B ({n_params / 1e9:.3f} B parameters) drawn on the card and "
+            f"written as an fp32 .pt of {size / 2**30:.3f} GiB, k-means {centroids.shape}, "
+            f"{AUX_SECONDS:.0f} s WAV in {export_s:.1f} s [{smi}]")
+        stats.update(xlsr_params=n_params, xlsr_pt_bytes=size, export_s=export_s)
+
+        # ---- 1. m4t_audio_to_units with the fused option (K6 at Dh = 80)
+        argv = [str(d / "in.wav"), "--kmeans_path", str(d / "kmeans.npy"),
+                "--w2v2_checkpoint", str(d / "xlsr.pt"), "--out_layer_number", str(layer),
+                "--device", "cuda"]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with fused_attention(True):
+            t0 = time.perf_counter()
+            res = audio_to_units.main(argv)
+            wall = time.perf_counter() - t0
+        launches = dict(launch_counts)
+        k6 = launches["flash_attention"]
+        others = {k: v for k, v in launches.items() if v and k != "flash_attention"}
+        if k6 != layer or others:
+            raise AssertionError(f"3n: K6 launched {k6} times for {layer} layers run "
+                                 f"(other kernels {others})")
+        if len(res.units) != XLSR_T or not all(0 <= u < 10000 for u in res.units):
+            raise AssertionError(f"3n: {len(res.units)} units, expected {XLSR_T} in [0, 10000)")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"3n m4t_audio_to_units, {AUX_SECONDS:.0f} s, layer {layer}, "
+            f"SEAMLESS_FUSED_ATTN=1: wall {wall:.2f} s = "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in res.timings.items())
+            + f"; K6 launches {k6} (one a layer run), {len(res.units)} units "
+            f"({len(set(res.units))} distinct), peak {peak:.2f} GiB [{smi}]")
+        stats["audio_to_units"] = {"wall_s": wall, "stages_s": res.timings, "units": len(res.units),
+                                   "k6_launches": k6, "peak_gib": peak}
+
+        # ---- 2. the option off; k-means on the card against the CPU
+        ex = res.extractor
+        x = torch.as_tensor(wav[None], device=dev)
+        lens = torch.tensor([wav.size], device=dev)
+        feats = {}
+        with torch.inference_mode():
+            for on in (True, False):
+                with fused_attention(on):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    feats[on] = ex.features(x, lens)[0]
+                    torch.cuda.synchronize()
+                    stats[f"encoder_ms_option_{'on' if on else 'off'}"] = (
+                        time.perf_counter() - t0) * 1e3
+            err = (feats[True] - feats[False]).abs()
+            if not bool((err <= 2e-3 + 2e-3 * feats[False].abs()).all()):
+                raise AssertionError(f"3n: layer {layer}'s features with and without the fused "
+                                     f"option differ by up to {float(err.max()):.3g}")
+            units = {on: ex.kmeans(feats[on])[0].cpu().numpy() for on in (True, False)}
+            if units[True].tolist() != res.units:
+                raise AssertionError("3n: the extractor's units differ from the CLI's")
+            same = float((units[True] == units[False]).mean())
+            f_cpu = feats[True][0].cpu()
+            t0 = time.perf_counter()
+            cpu_units = KmeansModel(centroids)(f_cpu).numpy()
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+        differ = np.nonzero(cpu_units != units[True])[0]
+        f64 = f_cpu.double().numpy()
+        c64 = centroids.astype(np.float64)
+        for i in differ:
+            a, b = int(cpu_units[i]), int(units[True][i])
+            da, db = ((f64[i] - c64[a]) ** 2).sum(), ((f64[i] - c64[b]) ** 2).sum()
+            if abs(da - db) >= KMEANS_TIE * da:
+                raise AssertionError(f"3n: frame {i}: k-means on the card chose {b}, on the "
+                                     f"CPU {a}, whose fp64 distances are {db:.8g} and {da:.8g}")
+        log(f"3n encoder with the option on / off: {stats['encoder_ms_option_on']:.1f} / "
+            f"{stats['encoder_ms_option_off']:.1f} ms; layer {layer}'s features max abs "
+            f"difference {float(err.max()):.3g} (atol 2e-3 + rtol 2e-3), "
+            f"max |feature| {float(feats[False].abs().max()):.3g}; units equal at "
+            f"{same * 100:.2f} % of frames; k-means on the card and on the CPU "
+            f"({cpu_ms:.1f} ms) give the same units at {XLSR_T - len(differ)} of {XLSR_T} "
+            f"frames, the rest ties within {KMEANS_TIE} of the distance in fp64 [{smi}]")
+        stats.update(features_max_abs_diff=float(err.max()), units_equal_share=same,
+                     kmeans_cpu_ms=cpu_ms, kmeans_ties=len(differ))
+        del ex, res, feats
+        gc.collect()
+
+        # ---- 3. the aligner at full width, card against CPU
+        acfg = AlignerConfig()
+        aparams = aligner_init(torch.Generator(device=dev).manual_seed(54), acfg, device=dev)
+        torch.save(export_aligner(aparams), d / "aligner.pt")
+        del aparams
+        text = ("the quick brown fox jumps over the lazy dog while seven "
+                "birds sing")
+        durs, lprobs, walls = {}, {}, {}
+        for where in ("cuda", "cpu"):
+            ae = AlignmentExtractor(str(d / "aligner.pt"), char_tokenizer=synthetic_char_tokenizer(),
+                                    aligner_cfg=acfg, device=where)
+            t0 = time.perf_counter()
+            durs[where], lprobs[where] = ae.extract_alignment(units[True], text)
+            walls[where] = time.perf_counter() - t0
+        lp_err = float(np.abs(np.where(np.isinf(lprobs["cpu"]), 0.0,
+                                       lprobs["cuda"] - lprobs["cpu"])).max())
+        if (not np.array_equal(np.isinf(lprobs["cuda"]), np.isinf(lprobs["cpu"]))
+                or lp_err > 1e-4 or not np.array_equal(durs["cuda"], durs["cpu"])
+                or int(durs["cuda"].sum()) != XLSR_T):
+            raise AssertionError(f"3n aligner: log-probs differ by {lp_err:.3g}, durations "
+                                 f"sum {int(durs['cuda'].sum())} of {XLSR_T}, equal to the "
+                                 f"CPU's: {np.array_equal(durs['cuda'], durs['cpu'])}")
+        log(f"3n AlignmentExtractor, full AlignerConfig(), {XLSR_T} units and {len(text)} "
+            f"characters ({durs['cuda'].shape[1]} tokens): card {walls['cuda'] * 1e3:.1f} ms, "
+            f"CPU {walls['cpu'] * 1e3:.1f} ms; log-probs within {lp_err:.3g} (limit 1e-4), "
+            f"durations equal, summing to {int(durs['cuda'].sum())}, longest "
+            f"{int(durs['cuda'].max())} [{smi}]")
+        stats["aligner"] = {"card_ms": walls["cuda"] * 1e3, "cpu_ms": walls["cpu"] * 1e3,
+                            "lprob_max_abs_diff": lp_err, "tokens": int(durs["cuda"].shape[1])}
+
+        # ---- 4. MuToX speech at full width, card against CPU
+        mcfg = MutoxConfig()
+        mparams = mutox_init(torch.Generator().manual_seed(55), mcfg)
+        sd = {}
+        for i, lyr in enumerate(mparams["layers"]):
+            sd[f"model_all.{i}.1.weight"] = lyr["linear"]["weight"].T.contiguous()
+            sd[f"model_all.{i}.1.bias"] = lyr["linear"]["bias"]
+        torch.save({"model": sd}, d / "mutox.pt")
+        stand_in_speech_encoder(mcfg.input_size, 56).save(str(d / "sonar_speech.pt"))
+        paths = []
+        for i, secs in enumerate((3.0, 5.5, 8.0)):
+            write_wav(str(d / f"m{i}.wav"), aux_waveform(secs, 57 + i), 16000)
+            paths.append(str(d / f"m{i}.wav"))
+        (d / "mutox_in.txt").write_text("\n".join(paths) + "\n")
+        scores, mwalls = {}, {}
+        for where in ("cuda", "cpu"):
+            out = d / f"mutox_{where}.tsv"
+            t0 = time.perf_counter()
+            mutox_speech.main(["eng", str(d / "mutox_in.txt"), str(out), "--classifier_pt",
+                               str(d / "mutox.pt"), "--sonar_torchscript",
+                               str(d / "sonar_speech.pt"), "--device", where])
+            mwalls[where] = time.perf_counter() - t0
+            gc.collect()
+            rows = [line.split("\t") for line in out.read_text().splitlines()[1:]]
+            if [r[0] for r in rows] != paths:
+                raise AssertionError(f"3n mutox_speech on {where}: rows {rows}")
+            scores[where] = np.array([float(r[1]) for r in rows])
+        m_err = float(np.abs(scores["cuda"] - scores["cpu"]).max())
+        if not np.isfinite(scores["cuda"]).all() or m_err > 1e-5:
+            raise AssertionError(f"3n mutox_speech: scores {scores}")
+        log(f"3n mutox_speech, 1024 -> 512 -> 128 -> 1, a TorchScript stand-in encoder, three "
+            f"WAVs: card {mwalls['cuda'] * 1e3:.1f} ms, CPU {mwalls['cpu'] * 1e3:.1f} ms; "
+            f"scores {np.round(scores['cuda'], 4).tolist()}, within {m_err:.3g} of the CPU's "
+            f"(limit 1e-5) [{smi}]")
+        stats["mutox"] = {"card_ms": mwalls["cuda"] * 1e3, "cpu_ms": mwalls["cpu"] * 1e3,
+                          "max_abs_diff": m_err}
+
+        # ---- 5. host segmentation and denoising of 60 s
+        long_wav = aux_waveform(AUX_LONG_SECONDS, 60)
+        t0 = time.perf_counter()
+        segments = VADSegmenter(chunk_size_sec=10.0).segment_long_input(long_wav)
+        vad_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        clean = Denoiser.spectral_subtract(long_wav, 16000)
+        den_ms = (time.perf_counter() - t0) * 1e3
+        if (not segments or any(not 0 < e - s <= 10 * 16000 for s, e in segments)
+                or clean.shape != long_wav.shape or not np.isfinite(clean).all()):
+            raise AssertionError(f"3n: VAD segments {segments}, denoised {clean.shape}")
+        log(f"3n host work on {AUX_LONG_SECONDS:.0f} s: VADSegmenter (energy VAD, 10 s chunks) "
+            f"{vad_ms:.1f} ms, {len(segments)} segments of "
+            f"{min(e - s for s, e in segments) / 16000:.2f}-"
+            f"{max(e - s for s, e in segments) / 16000:.2f} s; spectral_subtract "
+            f"{den_ms:.1f} ms [{smi}]")
+        stats.update(vad_ms=vad_ms, vad_segments=len(segments), denoise_ms=den_ms)
+
+        # ---- 6. step 1 under the profiler
+        with fused_attention(True):
+            t0 = time.perf_counter()
+            with device_trace(str(d / "trace")) as trace:
+                audio_to_units.main(argv)
+            traced_s = time.perf_counter() - t0
+        top = trace.aggregate(top=8)
+        total = sum(ms for ms, _, _ in trace.aggregate(top=0))
+        log(f"3n m4t_audio_to_units under device_trace: wall {traced_s:.2f} s, device events "
+            f"{total:.2f} ms in all; top: "
+            + (", ".join(f"{name[:60]} {ms:.2f} ms x{n}" for ms, n, name in top)
+               or "none (the profiler recorded no device events)") + f" [{smi}]")
+        stats["trace"] = {"wall_s": traced_s, "device_ms": total,
+                          "top": [[ms, n, name[:80]] for ms, n, name in top]}
+    return {"launches": k6, "stats": stats}
+
+
 def main() -> int:
     import torch
 
@@ -6577,6 +7049,11 @@ def main() -> int:
         log(json.dumps({"finetune": ft, "k6_per_rank": k6r, "phase_s": PHASE_S,
                         "card": dev["smi"]}))
         return 0
+    if sys.argv[1:] == ["--aux"]:
+        aux = timed("3n", phase_aux, dev["smi"])
+        log(json.dumps({"aux": aux["stats"], "launches_3n": aux["launches"],
+                        "phase_s": PHASE_S, "card": dev["smi"]}))
+        return 0
     if sys.argv[1:] == ["--expressive"]:
         k6p = timed("2 K6 PRETSSEL", pretssel_flash_case, dev["smi"])
         expressive = timed("3j", phase_expressive, dev["smi"])
@@ -6600,6 +7077,8 @@ def main() -> int:
     # 3k's batched decode and 3l's pooled adaptor
     k1["batched"] = timed("2 K1 batched", decode_batch_case, dev["smi"], floor_ms)
     k6["adaptor"] = timed("2 K6 adaptor", adaptor_flash_case, dev["smi"])
+    # 3n's XLSR2-1B encoder: head dim 80
+    k6["xlsr"] = timed("2 K6 XLSR", xlsr_flash_case, dev["smi"])
     k6b, k6c = timed("2 K6b K6c", phase_flash_attention_bwd, dev["smi"])
     # 3m's per-rank heads under model=2
     rank = timed("2 K6 per-rank heads", rank_flash_case, dev["smi"])
@@ -6664,6 +7143,10 @@ def main() -> int:
     for row in (k6, k6b, k6c):
         row["launches_3m"] = finetune["cli"]["launches"][row["name"]]
         row["launches"] += row["launches_3m"]
+    gc.collect()
+    aux = timed("3n", phase_aux, dev["smi"])
+    k6["launches_3n"] = aux["launches"]
+    k6["launches"] += aux["launches"]
     for label, phase in (("4 cuda vs cpu", phase_tiny_cuda_vs_cpu),
                          ("4 s2st", phase_tiny_s2st), ("4 t2t", phase_tiny_t2t),
                          ("4 options", phase_tiny_options),
@@ -6679,8 +7162,8 @@ def main() -> int:
                     "v1": v1["requests"], "offline": offline["stats"],
                     "streaming": streaming["stats"], "expressive": expressive["stats"],
                     "serving": serving["stats"], "pool": pool["stats"],
-                    "train": train, "finetune": finetune, "phase_s": PHASE_S,
-                    "card": dev["smi"]}))
+                    "train": train, "finetune": finetune, "aux": aux["stats"],
+                    "phase_s": PHASE_S, "card": dev["smi"]}))
     log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5, k6, k6b, k6c]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

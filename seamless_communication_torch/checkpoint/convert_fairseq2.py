@@ -24,8 +24,11 @@ expressive UnitY's ECAPA prosody encoder, FiLM layers and prosody projection
 (``pretssel_tree_from_pt``: its flat, interleaved ``layers`` list decoded
 by the config, the LSTM's two biases folded into one).
 
-Not here yet: the aligner, MuTox, raw wav2vec2 and conformer-shaw converters
-(ROADMAP entry 13).
+The auxiliary models convert too: the raw-waveform XLSR wav2vec2 of unit
+extraction (``wav2vec2_raw_tree_from_pt``, fairseq1 or fairseq2 keys, its
+positional conv's weight norm folded), the UnitY2 forced aligner
+(``aligner_tree_from_pt``) and the MuToX classifier (``mutox_tree_from_pt``);
+so does the standalone conformer-shaw encoder.
 """
 
 from __future__ import annotations
@@ -1000,6 +1003,119 @@ def init_speech_encoder_from_conformer_shaw(params: dict, sd: Mapping[str, Any],
         dt = dtype if dtype is not None else first.dtype
         se[key] = _tree_map(lambda t: t.to(first.device, dt), tree[key])
     return dict(params, speech_encoder=se)
+
+
+# ---------------------------------------------------------------------------
+# the UnitY2 forced aligner (reference models/aligner/loader.py:22-75)
+# ---------------------------------------------------------------------------
+
+def aligner_tree_from_pt(ckpt: Mapping, *,
+                         char_spm_pieces: Optional[Sequence[str]] = None) -> dict:
+    """The raw checkpoint (``text_emb_state``, ``unit_emb_state`` and
+    ``aligner_state`` sub-dicts) or an already converted flat dict -> the
+    aligner tree. With ``char_spm_pieces`` the char embedding's rows are
+    reordered to sorted-SPM order (loader.py:52-56, 61-75)."""
+    if "aligner_state" in ckpt:
+        sd = {f"alignment_encoder.{k}": _t(v) for k, v in ckpt["aligner_state"].items()}
+        sd["alignment_frontend.embed_text.weight"] = _t(ckpt["text_emb_state"]["weight"])
+        sd["alignment_frontend.embed_unit.weight"] = _t(ckpt["unit_emb_state"]["weight"])
+    else:
+        sd = {k: _t(v) for k, v in (ckpt.get("model") or ckpt).items()}
+
+    te = sd["alignment_frontend.embed_text.weight"].clone()
+    if char_spm_pieces is not None:
+        spm_order = list(char_spm_pieces)[4:]
+        spm_to_dict = {ch: i for i, ch in enumerate(sorted(spm_order), start=4)}
+        mapping = [0, 1, 2, 3] + [spm_to_dict[ch] for ch in spm_order]
+        te[:len(mapping)] = te[mapping]
+
+    def tower(name: str) -> list:
+        # Sequential slots: a conv at 1 + 3 i (conv, relu, dropout / conv,
+        # dropout, permute)
+        rx = re.compile(rf"alignment_encoder\.{name}\.([0-9]+)\.weight$")
+        idx = sorted({int(m.group(1)) for k in sd if (m := rx.match(k))})
+        return [_conv(sd, f"alignment_encoder.{name}.{i}") for i in idx]
+
+    return {"embed_text": {"embedding": te},
+            "embed_unit": {"embedding": sd["alignment_frontend.embed_unit.weight"]},
+            "t_conv": tower("t_conv"),
+            "f_conv": tower("f_conv")}
+
+
+# ---------------------------------------------------------------------------
+# the MuToX classifier (reference toxicity/mutox/{builder.py:44-64,
+# loader.py:27-35}: Sequential((Dropout, Linear 1024->512), (ReLU, Linear
+# 512->128), (ReLU, Linear 128->1)) under model_all.N.1 keys)
+# ---------------------------------------------------------------------------
+
+def mutox_tree_from_pt(sd: Mapping[str, Any]) -> dict:
+    n = _num_layers(sd, r"model_all\.([0-9]+)\.")
+    return {"layers": [{"linear": _linear(sd, f"model_all.{i}.1")} for i in range(n)]}
+
+
+# ---------------------------------------------------------------------------
+# the raw-waveform XLSR wav2vec2 of unit extraction (reference
+# wav2vec2_layer_output.py:23-52, through fairseq2's wav2vec2 key map)
+# ---------------------------------------------------------------------------
+
+_W2V2_RAW_RULES = [
+    (r"^encoder\.pos_conv\.0\.", "encoder_frontend.pos_encoder.conv."),
+    (r"^layer_norm\.", "encoder_frontend.post_extract_layer_norm."),
+    (r"^post_extract_proj\.", "encoder_frontend.model_dim_proj."),
+    (r"^feature_extractor\.conv_layers\.([0-9]+)\.0\.",
+     r"encoder_frontend.feature_extractor.layers.\1.conv."),
+    (r"^feature_extractor\.conv_layers\.([0-9]+)\.2\.1\.",
+     r"encoder_frontend.feature_extractor.layers.\1.layer_norm."),
+    (r"^encoder\.layers\.([0-9]+)\.self_attn\.out_proj\.",
+     r"encoder.layers.\1.self_attn.output_proj."),
+    (r"^encoder\.layers\.([0-9]+)\.self_attn\.", r"encoder.layers.\1.self_attn."),
+    (r"^encoder\.layers\.([0-9]+)\.self_attn_layer_norm\.",
+     r"encoder.layers.\1.self_attn_layer_norm."),
+    (r"^encoder\.layers\.([0-9]+)\.fc1\.", r"encoder.layers.\1.ffn.inner_proj."),
+    (r"^encoder\.layers\.([0-9]+)\.fc2\.", r"encoder.layers.\1.ffn.output_proj."),
+    (r"^encoder\.layers\.([0-9]+)\.final_layer_norm\.",
+     r"encoder.layers.\1.ffn_layer_norm."),
+    (r"^encoder\.layer_norm\.", "encoder.layer_norm."),
+    (r"^encoder_frontend\.", "encoder_frontend."),   # fairseq2 keys pass through
+    (r"^encoder\.", "encoder."),
+]
+
+
+def wav2vec2_raw_tree_from_pt(sd: Mapping[str, Any]) -> dict:
+    """fairseq1 or fairseq2 wav2vec2 keys -> the tree of
+    ``models/unit_extractor/wav2vec2_raw.py`` (the frontend and the encoder;
+    the quantizer and the pretraining heads are dropped, as the reference's
+    Wav2Vec2LayerOutputModel drops them). The positional conv's weight norm
+    (g over the kernel axis) is folded. The layers are a list."""
+    f2: Dict[str, torch.Tensor] = {}
+    compiled = [(re.compile(p), r) for p, r in _W2V2_RAW_RULES]
+    for key, val in sd.items():
+        key = key.removeprefix("w2v_encoder.w2v_model.")
+        for rx, repl in compiled:
+            if rx.match(key):
+                f2[rx.sub(repl, key)] = _t(val)
+                break
+
+    fe = "encoder_frontend.feature_extractor.layers"
+    n_convs = _num_layers(f2, rf"{re.escape(fe)}\.([0-9]+)\.")
+    convs = [{"conv": _conv(f2, f"{fe}.{i}.conv"), "norm": _ln(f2, f"{fe}.{i}.layer_norm")}
+             for i in range(n_convs)]
+    n = _num_layers(f2, r"encoder\.layers\.([0-9]+)\.")
+    layers = [{
+        "self_attn_layer_norm": _ln(f2, f"encoder.layers.{i}.self_attn_layer_norm"),
+        "self_attn": _mha(f2, f"encoder.layers.{i}.self_attn"),
+        "ffn": {"layer_norm": _ln(f2, f"encoder.layers.{i}.ffn_layer_norm"),
+                "inner_proj": _linear(f2, f"encoder.layers.{i}.ffn.inner_proj"),
+                "output_proj": _linear(f2, f"encoder.layers.{i}.ffn.output_proj")},
+    } for i in range(n)]
+    return {
+        "feature_extractor": convs,
+        "post_extract_norm": _ln(f2, "encoder_frontend.post_extract_layer_norm"),
+        "post_extract_proj": _linear(f2, "encoder_frontend.model_dim_proj"),
+        "pos_conv": _conv_wn(f2, "encoder_frontend.pos_encoder.conv"),
+        "encoder_norm": _ln(f2, "encoder.layer_norm"),
+        "layers": layers,
+    }
 
 
 def load_pt_state_dict(path: str) -> Dict[str, torch.Tensor]:

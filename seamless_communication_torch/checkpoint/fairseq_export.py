@@ -1,6 +1,7 @@
 """Synthetic fairseq2-keyed checkpoints from the port's trees (counterpart of
 ``export_unity``, ``export_ecapa``, ``export_pretssel``, ``export_vocoder``,
-``export_monotonic`` and ``export_monotonic_fairseq1`` in
+``export_monotonic``, ``export_monotonic_fairseq1``, ``export_aligner`` and
+``export_w2v2_raw`` in
 ``seamless_communication_tpu/checkpoint/fairseq_export.py``).
 
 These invert ``convert_fairseq2``: a UnitY (expressive ones too), PRETSSEL,
@@ -474,3 +475,44 @@ def export_conformer_shaw_fairseq1(se: dict, *, dtype: Optional[torch.dtype] = N
     sd["project_q.weight"] = torch.zeros(4, 4)
     sd["mlm_proj.weight"] = torch.zeros(4, 4)
     return _cast(sd, dtype)
+
+
+def export_aligner(params: dict) -> dict:
+    """An aligner tree -> the raw aligner checkpoint's layout (reference
+    aligner/loader.py:22-58): ``aligner_state`` with a conv at Sequential
+    slot 1 + 3 i of each tower, ``text_emb_state`` and ``unit_emb_state``."""
+    aligner_state: dict = {}
+    for name in ("t_conv", "f_conv"):
+        for i, cp in enumerate(params[name]):
+            _x_conv(aligner_state, f"{name}.{1 + 3 * i}", cp)
+    return {"aligner_state": aligner_state,
+            "text_emb_state": {"weight": _t(_np(params["embed_text"]["embedding"]))},
+            "unit_emb_state": {"weight": _t(_np(params["embed_unit"]["embedding"]))}}
+
+
+def export_w2v2_raw(params: dict) -> dict:
+    """A ``wav2vec2_raw`` tree (layers a list) -> fairseq1-style wav2vec2 keys,
+    the form fairseq2's loader remaps. The positional conv is weight-normed
+    over the kernel axis (dim 2): g of shape (1, 1, k)."""
+    sd: dict = {}
+    for i, cp in enumerate(params["feature_extractor"]):
+        _x_conv(sd, f"feature_extractor.conv_layers.{i}.0", cp["conv"])
+        _x_ln(sd, f"feature_extractor.conv_layers.{i}.2.1", cp["norm"])
+    _x_ln(sd, "layer_norm", params["post_extract_norm"])
+    _x_lin(sd, "post_extract_proj", params["post_extract_proj"])
+    pc = params["pos_conv"]
+    w = np.transpose(_np(pc["weight"]), (2, 1, 0))            # (out, in / g, k)
+    sd["encoder.pos_conv.0.weight_g"] = _t(np.sqrt((w ** 2).sum(axis=(0, 1), keepdims=True)))
+    sd["encoder.pos_conv.0.weight_v"] = _t(w)
+    sd["encoder.pos_conv.0.bias"] = _t(_np(pc["bias"]))
+    for i, lp in enumerate(params["layers"]):
+        p = f"encoder.layers.{i}"
+        _x_ln(sd, f"{p}.self_attn_layer_norm", lp["self_attn_layer_norm"])
+        for k in ("q_proj", "k_proj", "v_proj"):
+            _x_lin(sd, f"{p}.self_attn.{k}", lp["self_attn"][k])
+        _x_lin(sd, f"{p}.self_attn.out_proj", lp["self_attn"]["output_proj"])
+        _x_lin(sd, f"{p}.fc1", lp["ffn"]["inner_proj"])
+        _x_lin(sd, f"{p}.fc2", lp["ffn"]["output_proj"])
+        _x_ln(sd, f"{p}.final_layer_norm", lp["ffn"]["layer_norm"])
+    _x_ln(sd, "encoder.layer_norm", params["encoder_norm"])
+    return sd

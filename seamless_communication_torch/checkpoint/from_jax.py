@@ -1,7 +1,9 @@
 """Carry parameters of the JAX package over to the port.
 
 The input is a JAX parameter tree (UnitY, expressive ones too, PRETSSEL,
-monotonic decoder, vocoder) with numpy leaves (the caller maps
+monotonic decoder, vocoder, the XLSR wav2vec2 of unit extraction; the
+aligner and MuToX, which have no stacks, cross with ``to_torch`` and
+``to_numpy`` as they are) with numpy leaves (the caller maps
 ``np.asarray`` over it; nothing here imports JAX). Leaves become torch
 tensors with the same names and layouts (linear weights ``(in, out)``, conv
 weights WIO), quantized leaves included (``weight_i8``/``scale``,
@@ -134,6 +136,12 @@ def monotonic_params_from_jax(tree: dict, device=None) -> dict:
     return to_torch(dict(tree, layers=unstack_layers(tree["layers"])), device)
 
 
+def wav2vec2_raw_params_from_jax(tree: dict, device=None) -> dict:
+    """The XLSR wav2vec2 tree of unit extraction: its scan-stacked layers
+    become a list."""
+    return to_torch(dict(tree, layers=unstack_layers(tree["layers"])), device)
+
+
 # ---------------------------------------------------------------------------
 # port -> JAX layout
 # ---------------------------------------------------------------------------
@@ -195,5 +203,12 @@ def unity_params_to_numpy(params: dict) -> dict:
 def monotonic_params_to_numpy(params: dict) -> dict:
     """A port monotonic decoder tree as numpy leaves in the JAX tree's
     layout (the layers stacked again)."""
+    tree = to_numpy(params)
+    return dict(tree, layers=stack_layers(tree["layers"]))
+
+
+def wav2vec2_raw_params_to_numpy(params: dict) -> dict:
+    """A port XLSR wav2vec2 tree as numpy leaves in the JAX tree's layout
+    (the layers stacked again)."""
     tree = to_numpy(params)
     return dict(tree, layers=stack_layers(tree["layers"]))

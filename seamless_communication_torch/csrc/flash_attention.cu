@@ -30,7 +30,17 @@
 // bf16 the same shape moves about 12 MB (3.8 us) against 1 us of tensor-core
 // operations: bound by bytes, most of them ab's.
 //
-// One kernel per dtype, chosen by `dtype` in the C entry.
+// One kernel per dtype, chosen by `dtype` in the C entry, for head dims 16,
+// 32, 64, 80 and 128. Dh = 80 is the XLSR2-1B encoder's (1280 over 16
+// heads; models/unit_extractor/wav2vec2_raw.py). A row of 80 elements is not
+// a whole number of 128-byte boxes, so its tiles are cut in the largest box
+// that divides a row (hopper::row_box_bytes): five 64-byte boxes of 16
+// floats, 64-byte swizzled, in fp32; five 32-byte boxes of 16 bf16, 32-byte
+// swizzled, in bf16. In bf16 each k16 step of S = Q K^T then reads one box
+// (K-major, SBO = 8 rows of 32 bytes), and O += P V is m64n80k16 with V read
+// MN-major across the five boxes (LBO = one box's rows apart); in fp32 a
+// thread holds O's columns as five 8-byte pairs, since 10 columns a thread
+// are not whole 16-byte chunks. The backward (K6b, K6c) takes Dh = 80 not.
 //
 // bf16 (flash_attention_tc_kernel, below): the products on the tensor cores
 // (wgmma, bf16 operands, fp32 accumulators), the tiles fed by TMA. One block
@@ -63,7 +73,8 @@
 // one block per (b, h, 64 query rows) (32 where 64-row blocks would leave
 // most of the card idle, flash_attention.py fp32_block_rows); a producer warp
 // loads Q once and streams K, V, the ab tile and the key segment ids by TMA
-// (rows in 128-byte boxes, 128-byte swizzled) through a ring of 3-4 stages
+// (rows in 128-byte boxes, 128-byte swizzled; 64-byte ones at Dh = 80)
+// through a ring of 3-4 stages
 // guarded by mbarriers; two groups of four warps take alternate key tiles,
 // each with its own online softmax, and merge at the end. A thread holds a
 // register tile of 4 rows x 8 keys of S and the same 4 rows x Dh/8 columns
@@ -121,7 +132,7 @@ struct Shape {
   static constexpr int TR = BM / 16;                        // query rows of a thread
   static constexpr int KPT = BK / 8;                        // keys of a thread
   static constexpr int CPT = DH / 8;                        // output columns of a thread
-  static constexpr int kSwz = DH * 4 < 128 ? DH * 4 : 128;  // bytes of a swizzled row
+  static constexpr int kSwz = hopper::row_box_bytes(DH * 4);  // bytes of a swizzled box row
   static constexpr int kCols = kSwz / 4;                    // its floats (a TMA box row)
   static constexpr int kParts = DH / kCols;                 // boxes of a Q, K or V row
   static constexpr int kAbParts = BK / 32;                  // 32-key boxes of an ab tile
@@ -326,8 +337,10 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap q_map,
 
   // ---- consumer group wg: thread (row group g, key group kg) holds rows
   // g + 16 i (i < TR) and keys kg + 8 c (c < KPT) of each score tile, and
-  // the same rows of O at the columns of the 16-byte chunks kg + 8 u (Dh =
-  // 16: the columns 2 kg, 2 kg + 1). A row group lives in one warp, so p
+  // the same rows of O at the columns of the 16-byte chunks kg + 8 u; where
+  // Dh / 8 is not a multiple of 4 (Dh = 16, 80), at the columns of the
+  // 8-byte pairs kg + 8 u instead (columns 2 (kg + 8 u) and the next, u <
+  // Dh / 16). A row group lives in one warp, so p
   // goes from the scores to the value product through shared memory with a
   // warp's sync alone. Row r, key j: TMA's swizzle puts the 16-byte chunks
   // of eight consecutive rows in distinct banks, so a warp's 16-byte loads of
@@ -462,7 +475,7 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int jj = 0; jj < 4; ++jj) {
         const int j = 4 * j4 + jj;
         float vv[CPT];
-        if constexpr (CPT >= 4) {
+        if constexpr (CPT % 4 == 0) {
 #pragma unroll
           for (int u = 0; u < CPT / 4; ++u) {
             const float4 x =
@@ -473,10 +486,14 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap q_map,
             vv[4 * u + 3] = x.w;
           }
         } else {
-          const float2 x = *reinterpret_cast<const float2*>(
-              v_s + chunk_at<SWZ, BK>(j, kg / 2) + (kg % 2) * 8);
-          vv[0] = x.x;
-          vv[1] = x.y;
+#pragma unroll
+          for (int u = 0; u < CPT / 2; ++u) {
+            const int pair = kg + 8 * u;
+            const float2 x = *reinterpret_cast<const float2*>(
+                v_s + chunk_at<SWZ, BK>(j, pair / 2) + (pair % 2) * 8);
+            vv[2 * u] = x.x;
+            vv[2 * u + 1] = x.y;
+          }
         }
 #pragma unroll
         for (int i = 0; i < TR; ++i) {
@@ -524,14 +541,17 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap q_map,
     if (row >= a.Tq) continue;
     const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
     float* dst = a.out + (bh * a.Tq + row) * DH;
-    if constexpr (CPT >= 4) {
+    if constexpr (CPT % 4 == 0) {
 #pragma unroll
       for (int u = 0; u < CPT / 4; ++u)
         *reinterpret_cast<float4*>(dst + 4 * (kg + 8 * u)) =
             make_float4(o[i][4 * u] * inv, o[i][4 * u + 1] * inv, o[i][4 * u + 2] * inv,
                         o[i][4 * u + 3] * inv);
     } else {
-      *reinterpret_cast<float2*>(dst + 2 * kg) = make_float2(o[i][0] * inv, o[i][1] * inv);
+#pragma unroll
+      for (int u = 0; u < CPT / 2; ++u)
+        *reinterpret_cast<float2*>(dst + 2 * (kg + 8 * u)) =
+            make_float2(o[i][2 * u] * inv, o[i][2 * u + 1] * inv);
     }
     if (a.m_out != nullptr && kg == 0) {
       a.m_out[bh * a.Tq + row] = m[i];
@@ -591,6 +611,9 @@ cudaError_t dispatch_f32(int Dh, int block_rows, const void* q, const void* k,
     case 64:
       return wide ? launch_f32<64, 64>(q, k, v, ab, st, B, H, Tq, Tk, a, stream)
                   : launch_f32<64, 32>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
+    case 80:
+      return wide ? launch_f32<80, 64>(q, k, v, ab, st, B, H, Tq, Tk, a, stream)
+                  : launch_f32<80, 32>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
     case 128:
       return wide ? launch_f32<128, 64>(q, k, v, ab, st, B, H, Tq, Tk, a, stream)
                   : launch_f32<128, 32>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
@@ -617,9 +640,9 @@ struct FwdShape {
   static constexpr int BM = 64;                        // query rows of a block
   static constexpr int BK = 64;                        // keys of a tile
   static constexpr int kStages = DH <= 64 ? 4 : 3;     // ring of K, V, ab tiles
-  static constexpr int kSwz = DH >= 64 ? 128 : DH * 2; // bytes of a swizzled row
+  static constexpr int kSwz = hopper::row_box_bytes(DH * 2);  // bytes of a swizzled box row
   static constexpr int kCols = kSwz / 2;               // its columns (TMA box)
-  static constexpr int kHalves = DH / kCols;           // 2 at Dh = 128, else 1
+  static constexpr int kParts = DH / kCols;            // 2 at Dh = 128, 5 at 80, else 1
   static constexpr int kQBytes = BM * DH * 2;
   static constexpr int kKvBytes = BK * DH * 2;         // one K or V tile
   static constexpr int kAbBytes = BM * BK * 2;         // one ab tile
@@ -696,8 +719,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       hopper::prefetch_map(&k_map);
       hopper::prefetch_map(&v_map);
       hopper::mbar_arrive_expect_tx(q_full, S::kQBytes);
-      for (int half = 0; half < S::kHalves; ++half)
-        hopper::load_rows(q_s + half * BM * SWZ, &q_map, q_full, half * COLS, q0, h, b, a.q_swap);
+      for (int part = 0; part < S::kParts; ++part)
+        hopper::load_rows(q_s + part * BM * SWZ, &q_map, q_full, part * COLS, q0, h, b, a.q_swap);
     }
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % NS, k0 = t * BK;
@@ -712,10 +735,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       if (lane == 0) {
         hopper::mbar_arrive_expect_tx(
             &full[s], 2 * S::kKvBytes + (HAS_AB ? S::kAbBytes : 0));
-        for (int half = 0; half < S::kHalves; ++half) {
-          hopper::load_rows(st + half * BK * SWZ, &k_map, &full[s], half * COLS, k0, h, b,
+        for (int part = 0; part < S::kParts; ++part) {
+          hopper::load_rows(st + part * BK * SWZ, &k_map, &full[s], part * COLS, k0, h, b,
                     a.k_swap);
-          hopper::load_rows(st + S::kKvBytes + half * BK * SWZ, &v_map, &full[s], half * COLS, k0,
+          hopper::load_rows(st + S::kKvBytes + part * BK * SWZ, &v_map, &full[s], part * COLS, k0,
                     h, b, a.v_swap);
         }
         if (HAS_AB)
@@ -745,15 +768,16 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     const uint8_t* st = stages + s * S::kStageBytes;
     hopper::mbar_wait(&full[s], (t / NS) & 1);
 
-    // ---- S = Q K^T (K-major A and B from shared memory)
+    // ---- S = Q K^T (K-major A and B from shared memory; k16 step kk in
+    // part kk * 16 / COLS of the rows)
     hopper::fence_regs(sc);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
-      const int half = kk * 16 / COLS, off = (kk * 16 % COLS) * 2;
+      const int part = kk * 16 / COLS, off = (kk * 16 % COLS) * 2;
       hopper::Wgmma<BK>::ss(
-          sc, hopper::make_desc(q_s + half * BM * SWZ + off, 16, 8 * SWZ, SWZ),
-          hopper::make_desc(st + half * BK * SWZ + off, 16, 8 * SWZ, SWZ), kk > 0);
+          sc, hopper::make_desc(q_s + part * BM * SWZ + off, 16, 8 * SWZ, SWZ),
+          hopper::make_desc(st + part * BK * SWZ + off, 16, 8 * SWZ, SWZ), kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -849,7 +873,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       pa[kk][3] = hopper::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
 
-    // ---- O += P V (V MN-major from shared memory); keys past Tk: p = 0, v = 0
+    // ---- O += P V (V MN-major from shared memory, its parts along N LBO =
+    // BK * SWZ apart); keys past Tk: p = 0, v = 0
     hopper::fence_regs(o);
     hopper::wgmma_fence();
 #pragma unroll
@@ -974,6 +999,7 @@ cudaError_t dispatch_tc(int Dh, const void* q, const void* k, const void* v,
     case 16: return launch_tc<16>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
     case 32: return launch_tc<32>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
     case 64: return launch_tc<64>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
+    case 80: return launch_tc<80>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
     case 128: return launch_tc<128>(q, k, v, ab, st, B, H, Tq, Tk, a, stream);
     default: return cudaErrorInvalidValue;
   }

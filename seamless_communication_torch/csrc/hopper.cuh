@@ -8,16 +8,19 @@
 //
 // Layouts. Every bf16 tile that a wgmma reads is stored as TMA writes it
 // with a swizzle: rows of `kSwizzle` bytes (the row of a tile of width Dh
-// <= 64, or one 64-column half of a Dh = 128 tile), 8 rows making one
-// swizzle atom of 8 * kSwizzle bytes, the atom's 16-byte chunks XOR-ed with
-// the row index. A tile's base is 1024-byte aligned, so the swizzle phase
-// starts at 0. The same tile is read two ways:
+// <= 64, one 64-column half of a Dh = 128 tile, or one 16-column part of a
+// Dh = 80 tile: `row_box_bytes`), the parts of a row stored one after the
+// other (part p of every row, then part p + 1), 8 rows making one swizzle
+// atom of 8 * kSwizzle bytes, the atom's 16-byte chunks XOR-ed with the row
+// index. A tile's base is 1024-byte aligned, so the swizzle phase starts at
+// 0. The same tile is read two ways:
 //   K-major (the contraction runs along the row: S = Q K^T reads Q and K
 //     so), descriptor SBO = 8 rows = 8 * kSwizzle bytes between 8-row
-//     groups, LBO unused; a k16 step advances the start by 32 bytes;
+//     groups, LBO unused; a k16 step advances the start by 32 bytes within
+//     a part, or to the next part;
 //   MN-major (the contraction runs down the rows: O += P V reads V so),
 //     SBO = 8 * kSwizzle between groups of 8 contraction rows, LBO between
-//     64-column halves; a k16 step advances the start by 16 rows.
+//     the parts along N; a k16 step advances the start by 16 rows.
 // The fp32 accumulator of m64nNk16 gives thread t of warp w the rows
 // 16 w + t / 4 and 16 w + t / 4 + 8 and, in each 8-column chunk j, the
 // columns 8 j + 2 (t % 4) + {0, 1}: d[4 j + {0, 1}] on the first row and
@@ -254,6 +257,17 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 
 // ---- wgmma ------------------------------------------------------------------
 
+// Bytes of the swizzled TMA box that holds one row of `row_bytes` (a
+// multiple of 32) of a tile: the whole row up to 128 bytes, else the largest
+// of 128, 64 and 32 bytes that divides it, so that a row is a whole number of
+// boxes (Dh = 80: five 64-byte boxes of fp32, five 32-byte boxes of bf16).
+__host__ __device__ constexpr int row_box_bytes(int row_bytes) {
+  return row_bytes <= 128        ? row_bytes
+         : row_bytes % 128 == 0 ? 128
+         : row_bytes % 64 == 0  ? 64
+                                : 32;
+}
+
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (16-byte units), swizzle mode (bits 62-63: 1 = 128 B, 2 = 64 B,
 // 3 = 32 B).
@@ -373,6 +387,22 @@ struct Wgmma<64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<80> {
+  // D (64 x 80, fp32) (+)= A (64 x 16, bf16 in registers) * B (16 x 80,
+  // MN-major in shared memory: five 16-column parts of 32-byte rows, LBO
+  // apart)
+  static __device__ __forceinline__ void rs(float (&d)[40], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };

@@ -5,7 +5,9 @@ full-sequence attention of the fused-attention option
     out = softmax_fp32(qs @ k^T + ab + segmask) @ v
 
 - ``qs`` (B, H, Tq, Dh) is q already scaled, in q's dtype; k, v (B, H, Tk,
-  Dh) in the same dtype, float32 or bfloat16.
+  Dh) in the same dtype, float32 or bfloat16; Dh one of ``HEAD_DIMS`` (the
+  backward's ``BWD_HEAD_DIMS`` lack 80, the XLSR encoder's, which no path
+  trains).
 - ``ab``: an optional (B, H, Tq, Tk) additive bias in q's dtype, its last
   dimension contiguous and its rows 16-byte aligned: a ``[..., :Tk]`` view
   of a buffer whose rows are padded to a multiple of 8 elements
@@ -55,7 +57,8 @@ KERNEL = "flash_attention"
 KERNEL_DKV = "flash_attention_bwd_dkv"    # K6b
 KERNEL_DQ = "flash_attention_bwd_dq"      # K6c
 MASK_VALUE = float(np.float32(-0.7 * float(np.finfo(np.float32).max)))
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)        # K6 (80: the XLSR2-1B encoder's)
+BWD_HEAD_DIMS = (16, 32, 64, 128)        # K6b and K6c
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,       # fp32 outside the tensor cores
@@ -203,16 +206,18 @@ def _row_stride(ab: Optional[torch.Tensor]) -> int:
     return 0 if ab is None else ab.stride(2)
 
 
-def _check(qs, k, v, ab, q_seg, kv_seg) -> None:
-    """Raise on what the kernel does not take."""
+def _check(qs, k, v, ab, q_seg, kv_seg, head_dims: tuple = HEAD_DIMS,
+           name: str = KERNEL) -> None:
+    """Raise on what the kernel ``name`` (its head dims ``head_dims``)
+    does not take."""
     if qs.dtype not in _DTYPE_CODES:
         raise TypeError(f"{KERNEL}: dtype {qs.dtype} is not float32 or bfloat16")
     if qs.dim() != 4:
         raise ValueError(f"{KERNEL}: q is {tuple(qs.shape)}, expected (B, H, Tq, Dh)")
     B, H, Tq, Dh = qs.shape
     Tk = k.shape[2] if k.dim() == 4 else -1
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"{KERNEL}: head dim {Dh} not in {HEAD_DIMS}")
+    if Dh not in head_dims:
+        raise ValueError(f"{name}: head dim {Dh} not in {head_dims}")
     if Tq < 1 or Tk < 1:
         raise ValueError(f"{KERNEL}: empty sequence (Tq {Tq}, Tk {Tk})")
     if (q_seg is None) != (kv_seg is None):
@@ -336,7 +341,7 @@ class _BwdArgs(NamedTuple):
 
 
 def _bwd_args(qs, k, v, ab, q_seg, kv_seg, o, m, l, do) -> _BwdArgs:
-    _check(qs, k, v, ab, q_seg, kv_seg)
+    _check(qs, k, v, ab, q_seg, kv_seg, BWD_HEAD_DIMS, KERNEL_DKV)
     B, H, Tq, Dh = qs.shape
     Tk = k.shape[2]
     for name, x, dtype in (("o", o, qs.dtype), ("do", do, qs.dtype),

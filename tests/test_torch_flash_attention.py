@@ -188,7 +188,7 @@ def test_bound_counts_unmasked_pairs():
 
 
 def test_kernel_raises_on_what_it_does_not_take():
-    """Checked before any launch: a head dim outside {16, 32, 64, 128}, one
+    """Checked before any launch: a head dim outside {16, 32, 64, 80, 128}, one
     segment array without the other."""
     x = torch.zeros((1, 1, 4, 24))
     with pytest.raises(ValueError, match="head dim"):

@@ -98,7 +98,7 @@ def test_dropped_rows_match_library_reference(case):
         assert (err <= 1e-5 * (1 + np.abs(w))).all(), f"{name}: max err {err.max():.3g}"
 
 
-@pytest.mark.parametrize("Dh", tfl.HEAD_DIMS)
+@pytest.mark.parametrize("Dh", tfl.BWD_HEAD_DIMS)
 def test_block_plans_own_every_key_and_row_once(Dh):
     """fp32 K6b's key blocks and K6c's row blocks (``fp32_block_rows`` of Tk
     and Tq) for T in 1..2048: each key (row) lies in exactly one block, a

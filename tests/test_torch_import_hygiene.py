@@ -59,7 +59,19 @@ new = {"seamless_communication_torch.ops.fused_attention",
        "seamless_communication_torch.parallel.pipeline",
        "seamless_communication_torch.datasets.loader",
        "seamless_communication_torch.datasets.huggingface",
-       "seamless_communication_torch.cli.finetune"}
+       "seamless_communication_torch.cli.finetune",
+       "seamless_communication_torch.models.unit_extractor.wav2vec2_raw",
+       "seamless_communication_torch.models.unit_extractor.unit_extractor",
+       "seamless_communication_torch.models.aligner.model",
+       "seamless_communication_torch.models.aligner.extractor",
+       "seamless_communication_torch.toxicity.mutox",
+       "seamless_communication_torch.toxicity.mutox_speech",
+       "seamless_communication_torch.segment.vad",
+       "seamless_communication_torch.denoise.denoiser",
+       "seamless_communication_torch.utils.profiling",
+       "seamless_communication_torch.cli.audio_to_units",
+       "seamless_communication_torch.cli.mutox_speech",
+       "seamless_communication_torch.cli.mutox_text"}
 # the asset cards the port reads are its own copies
 from seamless_communication_torch import assets
 if assets.CARDS_DIR.resolve().parent != __import__("pathlib").Path(pkg.__path__[0]).resolve():
@@ -138,3 +150,21 @@ def test_streaming_default_device_needs_a_card(device):
         assert proc.stdout.startswith("raised no CUDA device"), proc.stdout
     else:
         assert proc.stdout.strip() == "device cpu"
+
+
+@pytest.mark.parametrize("cli", ["audio_to_units", "mutox_speech", "mutox_text"])
+def test_aux_clis_default_to_the_card(cli):
+    """The auxiliary CLIs run on the card unless ``--device cpu`` is given:
+    without a card and without the flag they raise before reading a file."""
+    argv = {"audio_to_units": ["in.wav", "--kmeans_path", "k.npy", "--w2v2_checkpoint", "w.pt"],
+            "mutox_speech": ["eng", "--classifier_pt", "m.pt"],
+            "mutox_text": ["eng_Latn", "--classifier_pt", "m.pt"]}[cli]
+    proc = _run(
+        f"from seamless_communication_torch.cli import {cli}\n"
+        "try:\n"
+        f"    {cli}.main({argv!r})\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n",
+        CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("raised no CUDA device"), proc.stdout
