@@ -144,7 +144,9 @@ Each part's wall seconds are printed as ``phase <label>: <s> s``.
       eligible; the WAV finite and within [-1, 1]; PRETSSEL again with the
       option off (within 1e-3). Then one expressive streaming session of 10
       s, fused (``build_expressive_s2st_pipeline`` on 3i's loaded streaming
-      models), its text decode cut to 127 tokens: ms a chunk, xRT.
+      models), its text decode cut to 127 tokens: ms a chunk, xRT; and the
+      same with ``use_vad=True`` (the VAD agent first) on 6 s with a 1 s
+      silence.
    k. Serving (after 3e, on base_v2's int8 tree): ``inference.serving.serve``
       with ``max_batch=8``, the decode cut to 127 steps; eight S2TT requests
       of 4-10 s posted at once as base64 WAV over HTTP, answered 200 by one
@@ -181,6 +183,18 @@ Each part's wall seconds are printed as ``phase <label>: <s> s``.
       a TorchScript stand-in encoder, card against CPU (1e-5); VAD
       segmentation and spectral subtraction of 60 s (host work, timed); the
       unit extraction again under ``utils.profiling.device_trace``.
+   o. Evaluation (after 3m, ``phase_eval``, on 3h's fp16 base_v2 ``.pt``
+      and 3i's streaming models, ``SEAMLESS_FUSED_ATTN=1``, decodes cut to
+      64 tokens): the native runtime (``native/*.cpp`` built with g++) held
+      to the numpy fbank, WAV reader and loader and the Python SentencePiece
+      encoder; ``cli.evaluate.main`` (m4t_evaluate) S2TT on four WAVs, one
+      corrupted, through the native loader (its hypothesis empty); the
+      ``Transcriber`` on 10 s and on 24 s that the VAD splits at a silence,
+      and ``lid_scores``; m4t_evaluate S2ST with ``--compute_asr_bleu``
+      (the port's Transcriber on the written WAVs); ``evaluate_streaming``
+      on one 10 s S2TT stream (AL, LAAL). K1 24 times a decode step and K6
+      as the encoders' shapes make eligible, each held to the decodes and
+      encodes made.
    Each path's launches are counted from 0 just before it.
 4. ``tiny_v2`` on the card and on the CPU: S2TT with int8 KV, S2ST with the
    tiny vocoder with int8 KV (K1) and int4 KV (K2), and T2TT and T2ST with
@@ -257,6 +271,11 @@ phase 3m.
     python3 chip_smoke.py --aux
 
 builds the kernels and runs only phase 3n.
+
+    python3 chip_smoke.py --eval
+
+builds the kernels and runs only phase 3o, on a base_v2 ``.pt`` it writes
+and streaming models drawn in memory.
 
     python3 chip_smoke.py --k12-trace
 
@@ -4650,10 +4669,11 @@ def phase_expressive(smi: str, stream_models: Optional[dict] = None) -> dict:
     the HiFi-GAN). Then one expressive streaming session in the fused mode
     (``build_expressive_s2st_pipeline``: the ``streaming`` UnitY and the
     dense_1b EMMA decoder, the loaded PRETSSEL): 10 s in 320 ms chunks, the
-    text decode cut to ``STREAM_EXPR_MAX_LEN`` tokens, ms a chunk and xRT.
-    The streaming models are ``stream_models``, 3i's loaded ones
-    (``phase_streaming``'s ``models``), or else drawn seeded bf16 in
-    memory."""
+    text decode cut to ``STREAM_EXPR_MAX_LEN`` tokens, ms a chunk and xRT;
+    and the same pipeline with ``use_vad=True`` (the VAD agent first) on 6 s
+    with a 1 s silence: finished, finite segments, ms a chunk. The streaming
+    models are ``stream_models``, 3i's loaded ones (``phase_streaming``'s
+    ``models``), or else ``seeded_streaming_models(45)``."""
     import os
 
     import numpy as np
@@ -4665,9 +4685,6 @@ def phase_expressive(smi: str, stream_models: Optional[dict] = None) -> dict:
         export_pretssel, export_unity,
     )
     from seamless_communication_torch.cli import expressivity_predict, loading
-    from seamless_communication_torch.models.monotonic.model import (
-        MonotonicDecoderConfig, monotonic_decoder_init,
-    )
     from seamless_communication_torch.models.pretssel.vocoder import (
         pretssel_24khz_config, pretssel_init,
     )
@@ -4816,18 +4833,9 @@ def phase_expressive(smi: str, stream_models: Optional[dict] = None) -> dict:
         gc.collect()
 
     # one expressive streaming session, fused
-    if stream_models is None:
-        scfg = get_arch("streaming")
-        stream_unity = unity.unity_init(torch.Generator(device=dev).manual_seed(45), scfg,
-                                        **kw)
-        del stream_unity["text_decoder"]
-        mono_cfg = MonotonicDecoderConfig()
-        mono = monotonic_decoder_init(torch.Generator(device=dev).manual_seed(46),
-                                      mono_cfg, **kw)
-        text_tok, char_tok = synthetic_tokenizer(), synthetic_char_tokenizer()
-    else:
-        stream_unity, scfg, mono, mono_cfg, text_tok, char_tok = (
-            stream_models[k] for k in ("unity", "cfg", "mono", "mono_cfg", "text", "char"))
+    stream_unity, scfg, mono, mono_cfg, text_tok, char_tok = (
+        (stream_models or seeded_streaming_models(45))[k]
+        for k in ("unity", "cfg", "mono", "mono_cfg", "text", "char"))
     unit_tok = UnitTokenizer(10000, ["eng", "fra"], "streaming")
     swav = (np.random.default_rng(47).standard_normal(int(STREAM_SECONDS * 16000))
             * 0.1).astype(np.float32)
@@ -4876,12 +4884,77 @@ def phase_expressive(smi: str, stream_models: Optional[dict] = None) -> dict:
                           "tokens": dec.policy_counts["tokens"], "mel_frames": samples // hop,
                           "audio_s": samples / 24000,
                           "k6_launches": slaunches["flash_attention"], "peak_gib": speak}
-    del pipe, dec, stream_unity, mono, pretssel_tree
+    del pipe, dec
+    gc.collect()
+
+    # the same models behind the VAD agent: 6 s with a 1 s silence
+    vwav = (np.random.default_rng(48).standard_normal(6 * 16000) * 0.1).astype(np.float32)
+    vwav[3 * 16000:4 * 16000] = 0.0
+    with fused_attention(True):
+        pipe = build_expressive_s2st_pipeline(
+            stream_unity, scfg, mono, mono_cfg, text_tok, unit_tok, char_tok,
+            pretssel_tree, pcfg, langs, gcmvn_mean, gcmvn_std, sample_rate=24000,
+            tgt_lang="fra", fused=True, use_vad=True)
+        text_decoder_agent(pipe).max_len_a = 0
+        text_decoder_agent(pipe).max_len_b = STREAM_EXPR_MAX_LEN
+        if type(pipe.agents[0]).__name__ != "VADAgent":
+            raise AssertionError("3j VAD: the pipeline does not start with the VAD agent")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        vouts, vtimes, _, vwall = stream_timed(pipe, vwav, tgt_lang="fra")
+        vlaunches = dict(launch_counts)
+    vwavs = [np.asarray(s.content) for _, s in vouts
+             if type(s).__name__ == "SpeechSegment" and not s.is_empty]
+    vsamples = sum(w.size for w in vwavs)
+    if not vouts or not vouts[-1][1].finished or vsamples % hop or not all(
+            np.isfinite(w).all() and np.abs(w).max() <= 1.0 for w in vwavs):
+        raise AssertionError(f"3j VAD: the stream did not finish, or gave {vsamples} "
+                             f"samples (not a multiple of {hop}) or a chunk not finite or "
+                             "outside [-1, 1]")
+    n_vsource = -(-len(vwav) // int(CHUNK_MS * 16))
+    vdec = text_decoder_agent(pipe)
+    log(f"3j expressive streaming S2ST fused with use_vad=True, 6 s with a 1 s silence: "
+        f"{len(vtimes)} process calls; ms a 320 ms chunk median "
+        f"{statistics.median(vtimes[:n_vsource]):.1f}, max {max(vtimes[:n_vsource]):.1f}; "
+        f"wall {vwall:.2f} s, xRT {vwall / 6:.3f}; {vdec.policy_counts['tokens']} tokens, "
+        f"{len(vwavs)} speech segments, {vsamples / 24000:.2f} s of 24 kHz audio; K6 "
+        f"launches {vlaunches['flash_attention']} [{smi}]")
+    stats["streaming_vad"] = {"calls": len(vtimes), "chunk_ms": vtimes[:n_vsource],
+                              "wall_s": vwall, "xrt": vwall / 6,
+                              "tokens": vdec.policy_counts["tokens"],
+                              "segments": len(vwavs), "audio_s": vsamples / 24000,
+                              "k6_launches": vlaunches["flash_attention"]}
+    del pipe, vdec, stream_unity, mono, pretssel_tree
     gc.collect()
     return {"launches": {"decode_attention_int8": k1,
                          "flash_attention": launches["flash_attention"]
-                         + slaunches["flash_attention"]},
+                         + slaunches["flash_attention"] + vlaunches["flash_attention"]},
             "stats": stats}
+
+
+def seeded_streaming_models(seed: int) -> dict:
+    """The ``streaming`` UnitY (no text decoder) and the dense_1b EMMA
+    decoder drawn in bf16 on the card from ``seed`` and ``seed + 1``, with the
+    synthetic tokenizers: ``phase_streaming``'s ``models`` without the
+    ``.pt`` files."""
+    import torch
+
+    from seamless_communication_torch.models.monotonic.model import (
+        MonotonicDecoderConfig, monotonic_decoder_init,
+    )
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+
+    dev = torch.device("cuda")
+    kw = dict(dtype=torch.bfloat16, device=dev)
+    cfg = get_arch("streaming")
+    params = unity.unity_init(torch.Generator(device=dev).manual_seed(seed), cfg, **kw)
+    del params["text_decoder"]
+    mono_cfg = MonotonicDecoderConfig()
+    mono = monotonic_decoder_init(torch.Generator(device=dev).manual_seed(seed + 1),
+                                  mono_cfg, **kw)
+    return {"unity": params, "cfg": cfg, "mono": mono, "mono_cfg": mono_cfg,
+            "text": synthetic_tokenizer(), "char": synthetic_char_tokenizer()}
 
 
 # the tiny PRETSSEL of tests/test_torch_pretssel.py
@@ -6992,6 +7065,418 @@ def aux_steps(smi: str, dev, cfg, layer: int) -> dict:
     return {"launches": k6, "stats": stats}
 
 
+EVAL_MAX_LEN = 62               # 3o's decodes cut to 63 steps
+EVAL_CARD = "smoke_m4t_v2_words"
+
+
+def word_tokenizer_spm(vocab_size: int, n_langs: int) -> bytes:
+    """A SentencePiece model whose pieces fill an NLLB vocabulary of
+    ``vocab_size`` ids with ``n_langs`` languages: distinct words ("▁bb",
+    "▁bc", ...) up to the language symbols, so that every token a random
+    model writes decodes to a word."""
+    from seamless_communication_torch.text.spm import (
+        TYPE_CONTROL, TYPE_NORMAL, TYPE_UNKNOWN, build_spm_model,
+    )
+
+    def word(i: int) -> str:
+        out, i = "", i + 27
+        while i:
+            i, r = divmod(i, 26)
+            out = "abcdefghijklmnopqrstuvwxyz"[r] + out
+        return "\u2581" + out
+
+    base = [("<unk>", 0.0, TYPE_UNKNOWN), ("<s>", 0.0, TYPE_CONTROL),
+            ("</s>", 0.0, TYPE_CONTROL)]
+    # pad, the languages and <MINED_DATA> take the other ids
+    n_words = vocab_size - 1 - n_langs - 1 - len(base)
+    return build_spm_model(base + [(word(i), -2.0, TYPE_NORMAL) for i in range(n_words)])
+
+
+@contextlib.contextmanager
+def recording_model_calls(record: list):
+    """Within the block, each ``UnitYGenerator.generate_text`` appends
+    ("decode", its beam's steps) to ``record`` and each
+    ``unity.encode_speech`` ("encode", its padded fbank frames)."""
+    from seamless_communication_torch.inference import generator
+    from seamless_communication_torch.models.unity import model as unity
+
+    gen, enc = generator.UnitYGenerator.generate_text, unity.encode_speech
+
+    def generate_text(self, *a, **kw):
+        out = gen(self, *a, **kw)
+        record.append(("decode", int(self.last_result.steps)))
+        return out
+
+    def encode_speech(params, cfg, fbank, lens):
+        record.append(("encode", int(fbank.shape[1])))
+        return enc(params, cfg, fbank, lens)
+
+    generator.UnitYGenerator.generate_text, unity.encode_speech = generate_text, encode_speech
+    try:
+        yield
+    finally:
+        generator.UnitYGenerator.generate_text, unity.encode_speech = gen, enc
+
+
+def expected_launches(cfg, record: list) -> dict:
+    """K1 and K6 launches of the decodes and speech encodes in ``record``
+    (``recording_model_calls``): K1 once a decoder layer a step, K6 where
+    the encoder's shapes make attentions eligible (``k6_expected``)."""
+    k1 = cfg.nllb.num_decoder_layers * sum(n for kind, n in record if kind == "decode")
+    k6 = sum(sum(k6_expected(cfg, src_len=n // 2, speech=True).values())
+             for kind, n in record if kind == "encode")
+    return {"decode_attention_int8": k1, "flash_attention": k6}
+
+
+def wave_decode(data: bytes):
+    """A 16-bit PCM WAV's bytes through the standard library's ``wave``, as
+    ``inference/serving.py _decode_wav_b64`` reads a file the native decoder
+    does not take: (mono float32 waveform, sample rate)."""
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(data), "rb") as w:
+        rate, n = w.getframerate(), w.getnframes()
+        raw = np.frombuffer(w.readframes(n), "<i2").astype(np.float32)
+    return (raw / 32768.0).reshape(n, -1).mean(axis=1), rate
+
+
+def native_checks(d, smi: str) -> dict:
+    """The native runtime built from ``native/*.cpp`` on this machine against
+    the port's numpy and Python paths: fbank (atol 1e-3, rtol 1e-4), WAV
+    decoding (1e-6 of ``read_wav``; its time on a 10 s WAV beside ``wave``'s,
+    serving's two decoders), the threaded loader (1e-4 of the numpy
+    fbank of the PCM16 waveforms, padded with zeros, a corrupted file at
+    length 0) and the SentencePiece encoder (equal to the Python Viterbi on
+    the synthetic vocabulary, which has no duplicate piece)."""
+    import numpy as np
+
+    from seamless_communication_torch import native
+    from seamless_communication_torch.audio.fbank import fbank_numpy
+    from seamless_communication_torch.audio.wav import read_wav, write_wav
+    from seamless_communication_torch.text.spm import SentencePieceModel
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(31)
+    wav = (rng.standard_normal(160000) * 0.1).astype(np.float32)
+    t0 = time.perf_counter()
+    fb = native.fbank_native(wav)
+    fbank_ms = (time.perf_counter() - t0) * 1e3
+    fb_err = float(np.abs(fb - fbank_numpy(wav)).max())
+    np.testing.assert_allclose(fb, fbank_numpy(wav), atol=1e-3, rtol=1e-4)
+    paths = []
+    for i, seconds in enumerate((4.0, 7.0, 10.0)):
+        p = d / f"native_{i}.wav"
+        write_wav(str(p), wav[:int(seconds * 16000)], 16000)
+        paths.append(str(p))
+    (d / "native_bad.wav").write_bytes(b"not a wav")
+    paths.insert(1, str(d / "native_bad.wav"))
+    got, rate = native.wav_decode_native(open(paths[0], "rb").read())
+    ref, ref_rate = read_wav(paths[0])
+    if rate != ref_rate or got.shape != ref.shape or float(np.abs(got - ref).max()) > 1e-6:
+        raise AssertionError("3o native: the WAV decode differs from read_wav")
+    # serving's decode of an uploaded 10 s WAV: the binding against ``wave``
+    # (the other decoder ``_decode_wav_b64`` keeps), median of 20 each
+    data = open(paths[-1], "rb").read()
+    decode_ms = {}
+    for name, fn in (("native", native.wav_decode_native), ("wave", wave_decode)):
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        decode_ms[name] = sorted(times)[len(times) // 2]
+    t0 = time.perf_counter()
+    batches = list(native.NativeFbankLoader(paths, batch_size=4))
+    loader_ms = (time.perf_counter() - t0) * 1e3
+    (fbs, lens), = batches
+    loader_err = 0.0
+    for b, p in enumerate(paths):
+        if "bad" in p:
+            if lens[b] != 0:
+                raise AssertionError("3o native: the corrupted file has a length")
+            continue
+        want = fbank_numpy(read_wav(p)[0])
+        if lens[b] != want.shape[0] or fbs[b, lens[b]:].any():
+            raise AssertionError(f"3o native: loader row {b} has length {lens[b]}, not "
+                                 f"{want.shape[0]}, or is not zero-padded")
+        loader_err = max(loader_err, float(np.abs(fbs[b, :lens[b]] - want).max()))
+    if loader_err > 1e-4:
+        raise AssertionError(f"3o native: the loader differs from the numpy fbank by "
+                             f"{loader_err:.3g}")
+    spm = SentencePieceModel.from_bytes(synthetic_spm())
+    enc = native.NativeSpmEncoder.from_model(spm)
+    texts = [synthetic_text(synthetic_tokenizer(), 40, seed) for seed in range(20)]
+    texts += ["", " x ", "unknown\U0001d11eglyph", "the a . ,"]
+    for t in texts:
+        if enc.encode_normalized(spm._normalize(t)) != spm.encode(t):
+            raise AssertionError(f"3o native: the SentencePiece encoder differs on {t!r}")
+    log(f"3o native runtime (g++ -O3 -march=native): built and loaded in {build_s:.2f} s; "
+        f"fbank of 10 s {fbank_ms:.1f} ms, max abs difference to numpy {fb_err:.3g}; WAV "
+        f"decode equal to read_wav, of 10 s {decode_ms['native']:.3f} ms (wave "
+        f"{decode_ms['wave']:.3f} ms); loader of 4 files (one corrupted, length 0) "
+        f"{loader_ms:.1f} ms, {loader_err:.3g} from numpy; SentencePiece encoder equal to "
+        f"the Python Viterbi on {len(texts)} texts [{smi}]")
+    return {"build_s": build_s, "fbank_10s_ms": fbank_ms, "fbank_err": fb_err,
+            "wav_decode_10s_ms": decode_ms,
+            "loader_ms": loader_ms, "loader_err": loader_err, "spm_texts": len(texts)}
+
+
+def phase_eval(smi: str, shared=None, stream_models: Optional[dict] = None) -> dict:
+    """3o. The evaluation entry points at full width, ``SEAMLESS_FUSED_ATTN=1``,
+    every decode cut to ``EVAL_MAX_LEN + 2`` tokens:
+
+    a. The native runtime against the numpy and Python paths
+       (``native_checks``).
+    b. ``cli.evaluate.main`` (m4t_evaluate) S2TT on base_v2's fp16 ``.pt``
+       (3h's in ``shared``, else written here from seed 7, with a vocoder
+       ``.pt`` from seed 6) over a TSV of four WAVs (4-10 s, the second
+       corrupted), one batch, through the native loader: ``run_info.json``
+       says native, the corrupted row's hypothesis is empty, the other
+       hypotheses pass ``check_hypotheses``.
+    c. The ``Transcriber`` on the loaded tree: 10 s, then 24 s with a
+       silence at 11.5-12.5 s that the VAD splits; tokens, times, the wall;
+       ``lid_scores`` on the 10 s input.
+    d. ``cli.evaluate.main`` S2ST with ``--compute_asr_bleu`` on two of the
+       WAVs: the port's own Transcriber scores the written WAVs
+       (``s2st_asr_bleu.json``: "own_asr", a finite score).
+    e. ``evaluate_streaming`` over one 10 s S2TT stream on the streaming
+       models (``stream_models``, 3i's, else ``seeded_streaming_models(21)``;
+       the EMMA decoder's final layer-norm scale drawn at random so that it
+       writes words), the decoder cut to 40 tokens: AL and LAAL.
+
+    K1 launches equal 24 a decode step of every beam in (b)-(d) and K6 the
+    speech encodes' eligible attentions in (b) and (c), counted from 0
+    before each part; (d) launches K6 at least at its encodes (its T2U and
+    re-decode add launches no record counts), (e) at least once (as 3i
+    holds the streaming re-encode)."""
+    import numpy as np
+    import torch
+
+    from seamless_communication_torch.assets import load_card
+    from seamless_communication_torch.audio.wav import write_wav
+    from seamless_communication_torch.checkpoint.fairseq_export import (
+        export_unity, export_vocoder,
+    )
+    from seamless_communication_torch.cli import evaluate
+    from seamless_communication_torch.inference.generator import SequenceGeneratorOptions
+    from seamless_communication_torch.inference.transcriber import Transcriber
+    from seamless_communication_torch.models.unity import model as unity
+    from seamless_communication_torch.models.unity.builder import get_arch
+    from seamless_communication_torch.models.vocoder.codehifigan import (
+        CodeHifiGanConfig, code_hifigan_init,
+    )
+    from seamless_communication_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seamless_communication_torch.streaming.evaluator import evaluate_streaming
+    from seamless_communication_torch.streaming.pipeline import build_s2t_pipeline
+    from seamless_communication_torch.text.nllb import NllbTokenizer
+    from seamless_communication_torch.text.spm import SentencePieceModel
+
+    dev = torch.device("cuda")
+    cfg = get_arch("base_v2")
+    names = ("decode_attention_int8", "flash_attention")
+    max_len = ["--text_generation_max_len_a", "0", "--text_generation_max_len_b",
+               str(EVAL_MAX_LEN)]
+    stats: dict = {}
+    launches = {n: 0 for n in names}
+
+    def run(label: str, fn, exact: bool = True):
+        """``fn()`` with its launches counted from 0 and held to the decodes
+        and encodes it made; returns (result, wall s, launches)."""
+        record: list = []
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with recording_model_calls(record):
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: launch_counts[n] for n in names}
+        want = expected_launches(cfg, record)
+        k6_ok = got["flash_attention"] == want["flash_attention"] if exact else \
+            got["flash_attention"] >= want["flash_attention"]
+        if got["decode_attention_int8"] != want["decode_attention_int8"] or not k6_ok:
+            raise AssertionError(f"3o {label}: launches {got}, expected {want} from "
+                                 f"{record}")
+        for n in names:
+            launches[n] += got[n]
+        return out, wall, got, record
+
+    with fused_attention(True), (contextlib.nullcontext(shared) if shared is not None
+                                 else offline_dir()) as d:
+        if shared is None:
+            kw = dict(dtype=torch.bfloat16, device=dev)
+            params = unity.unity_init(torch.Generator(device=dev).manual_seed(7), cfg, **kw)
+            torch.save({"model": export_unity(params, dtype=torch.float16)}, d / "unity.pt")
+            del params
+            vocoder = code_hifigan_init(torch.Generator(device=dev).manual_seed(6),
+                                        CodeHifiGanConfig(), **kw)
+            torch.save({"generator": export_vocoder(vocoder, dtype=torch.float16)},
+                       d / "vocoder.pt")
+            del vocoder
+            gc.collect()
+            write_cards(d)
+        stats["native"] = native_checks(d, smi)
+        # base_v2's card with a tokenizer whose every id is a word
+        n_langs = len(load_card(OFFLINE_CARD)["langs"])
+        (d / "words.model").write_bytes(word_tokenizer_spm(cfg.nllb.vocab_size, n_langs))
+        (d / f"{EVAL_CARD}.yaml").write_text(
+            f"name: {EVAL_CARD}\nbase: {OFFLINE_CARD}\ntokenizer: {d / 'words.model'}\n")
+
+        rng = np.random.default_rng(32)
+        (d / "eval").mkdir(exist_ok=True)
+        rows = []
+        for i, seconds in enumerate((4.0, 0.0, 7.0, 10.0)):
+            if seconds:
+                write_wav(str(d / "eval" / f"{i}.wav"),
+                          (rng.standard_normal(int(seconds * 16000)) * 0.1).astype(
+                              np.float32), 16000)
+            else:
+                (d / "eval" / f"{i}.wav").write_bytes(b"a corrupted upload")
+            rows.append(f"{i}.wav\tthe cat sat on the mat")
+        (d / "eval" / "data.tsv").write_text("audio\ttgt_text\n" + "\n".join(rows) + "\n")
+        (d / "eval" / "two.tsv").write_text(
+            "audio\ttgt_text\n" + "\n".join(rows[2:]) + "\n")
+        common = ["--model_name", EVAL_CARD, "--local_pt_path", str(d / "unity.pt"),
+                  "--audio_root_dir", str(d / "eval"), *max_len]
+
+        # (b) m4t_evaluate S2TT through the native loader
+        res, wall, got, rec = run("m4t_evaluate S2TT", lambda: evaluate.main(
+            [str(d / "eval" / "data.tsv"), "s2tt", "eng", "--batch_size", "4",
+             "--output_path", str(d / "out_s2tt"), *common]))
+        info = json.loads((d / "out_s2tt" / "run_info.json").read_text())
+        gen = res.translator.generator.last_result
+        if info["loader"] != "native" or res.loader != "native" or res.hypotheses[1] != "":
+            raise AssertionError(f"3o m4t_evaluate S2TT: loader {info}, corrupted row "
+                                 f"{res.hypotheses[1]!r}")
+        check_hypotheses(gen, res.translator.text_tokenizer.target_prefix("eng").tolist(),
+                         gen.tokens.shape[-1], cfg.nllb.eos_idx)
+        request = {k: v * 1e3 for k, v in res.translator.last_timings.items()}
+        log(f"3o m4t_evaluate S2TT, four WAVs (4, corrupted, 7, 10 s) in one batch, the "
+            f"native loader: wall {wall:.2f} s (the .pt load included); the batch "
+            + ", ".join(f"{k} {v:.1f}" for k, v in request.items())
+            + f" ms, {gen.steps} decode steps, {request['text_decode'] / gen.steps:.2f} ms "
+            f"a step; K1 {got['decode_attention_int8']}, K6 {got['flash_attention']}; "
+            f"scores {res.metrics}; corrupted row empty; hypothesis 0 "
+            f"{res.hypotheses[0][:40]!r} [{smi}]")
+        stats["evaluate_s2tt"] = {"wall_s": wall, "steps": int(gen.steps),
+                                  "request_ms": request, "launches": got,
+                                  "metrics": res.metrics, "loader": info["loader"]}
+        params, text_tok = res.translator.params, res.translator.text_tokenizer
+        del res
+        gc.collect()
+
+        # (c) the Transcriber and language identification
+        asr = Transcriber(params, cfg, text_tok, text_opts=SequenceGeneratorOptions(
+            soft_max_seq_len=(0, EVAL_MAX_LEN)))
+        long = (rng.standard_normal(24 * 16000) * 0.1).astype(np.float32)
+        long[int(11.5 * 16000):int(12.5 * 16000)] = 0.0
+        spans = asr.segmenter.segment_long_input(long)
+        if len(spans) < 2:
+            raise AssertionError(f"3o Transcriber: the VAD did not split 24 s ({spans})")
+        inputs = {"10 s": (rng.standard_normal(10 * 16000) * 0.1).astype(np.float32),
+                  "24 s with a silence": long}
+        stats["transcriber"] = {}
+        for label, wav in inputs.items():
+            tr, wall, got, rec = run(f"Transcriber {label}",
+                                     lambda wav=wav: asr.transcribe(wav, "eng"))
+            times = [t.time_s for t in tr.tokens]
+            if not all(0.0 <= t <= len(wav) / 16000 for t in times):
+                raise AssertionError(f"3o Transcriber {label}: a token time outside the "
+                                     f"input: {times}")
+            if not all(0.0 <= t.prob <= 1.0 for t in tr.tokens):
+                raise AssertionError(f"3o Transcriber {label}: a probability outside [0, 1]")
+            segs = [n for kind, n in rec if kind == "decode"]
+            log(f"3o Transcriber {label}: {len(segs)} segment(s) "
+                f"{spans if len(segs) > 1 else [(0, len(wav))]}, decode steps {segs}; "
+                f"{len(tr.tokens)} tokens, {len(tr.words())} words, times from "
+                f"{min(times, default=0):.2f} to {max(times, default=0):.2f} s; wall {wall:.2f} s; K1 "
+                f"{got['decode_attention_int8']}, K6 {got['flash_attention']} [{smi}]")
+            stats["transcriber"][label] = {"segments": len(segs), "steps": segs,
+                                           "tokens": len(tr.tokens), "wall_s": wall,
+                                           "launches": got}
+        lid, wall, got, _ = run("lid_scores", lambda: asr.lid_scores(inputs["10 s"]))
+        if len(lid) != min(5, len(text_tok.lang_to_id)) or not all(
+                0.0 <= v <= 1.0 for v in lid.values()):
+            raise AssertionError(f"3o lid_scores: {lid}")
+        log(f"3o lid_scores 10 s: {wall * 1e3:.1f} ms, top {list(lid.items())[:2]}; K6 "
+            f"{got['flash_attention']} [{smi}]")
+        stats["lid"] = {"wall_s": wall, "top": lid, "launches": got}
+        del asr, params
+        gc.collect()
+
+        # (d) m4t_evaluate S2ST with ASR-BLEU through the port's Transcriber
+        res, wall, got, rec = run("m4t_evaluate S2ST", lambda: evaluate.main(
+            [str(d / "eval" / "two.tsv"), "s2st", "eng", "--batch_size", "2",
+             "--vocoder_name", OFFLINE_VOCODER, "--compute_asr_bleu",
+             "--output_path", str(d / "out_s2st"), *common]), exact=False)
+        scores = json.loads((d / "out_s2st" / "s2st_asr_bleu.json").read_text())
+        n_wavs = len(list((d / "out_s2st" / "wavs").glob("*.wav")))
+        if scores.get("asr") != "own_asr" or not math.isfinite(scores["asr_bleu"]) \
+                or n_wavs != 2:
+            raise AssertionError(f"3o m4t_evaluate S2ST: {scores}, {n_wavs} WAVs")
+        decodes = [n for kind, n in rec if kind == "decode"]
+        log(f"3o m4t_evaluate S2ST with --compute_asr_bleu, two WAVs (7, 10 s): wall "
+            f"{wall:.2f} s (the .pt loads included); decodes {decodes} steps (the batch, "
+            f"then the Transcriber on each written WAV); ASR-BLEU {scores['asr_bleu']:.2f} "
+            f"({scores['asr']}); K1 {got['decode_attention_int8']}, K6 "
+            f"{got['flash_attention']} [{smi}]")
+        stats["evaluate_s2st"] = {"wall_s": wall, "decodes": decodes, "scores": scores,
+                                  "launches": got}
+        del res
+        gc.collect()
+
+    # (e) evaluate_streaming over one 10 s S2TT stream
+    models = stream_models or seeded_streaming_models(21)
+    words = NllbTokenizer(SentencePieceModel.from_bytes(word_tokenizer_spm(
+        models["mono_cfg"].vocab_size, 2)), langs=["__eng__", "__fra__"])
+    # a random final layer-norm scale: the random decoder then writes words
+    # instead of repeating the language token, which decodes to nothing
+    mono = dict(models["mono"])
+    scale = mono["layer_norm"]["scale"]
+    mono["layer_norm"] = {**mono["layer_norm"], "scale": torch.randn(
+        scale.shape, generator=torch.Generator(device=scale.device).manual_seed(33),
+        device=scale.device).to(scale.dtype)}
+    pipes = []
+
+    def factory():
+        pipe = build_s2t_pipeline(models["unity"], models["cfg"], mono,
+                                  models["mono_cfg"], words, tgt_lang="eng")
+        text_decoder_agent(pipe).max_len_a = 0
+        text_decoder_agent(pipe).max_len_b = 40
+        pipes.append(pipe)
+        return pipe
+
+    with fused_attention(True):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = evaluate_streaming(factory, [stream_waveform()], references=[
+            "the cat sat on the mat"], tgt_lang="eng")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: launch_counts[n] for n in names}
+    tokens = text_decoder_agent(pipes[0]).policy_counts["tokens"]
+    if not (math.isfinite(metrics["AL_ms"]) and math.isfinite(metrics["LAAL_ms"])) \
+            or metrics["num_instances"] != 1 or tokens <= 0 or metrics["AL_ms"] <= 0:
+        raise AssertionError(f"3o evaluate_streaming: {metrics}, {tokens} tokens")
+    if got["flash_attention"] <= 0:
+        raise AssertionError("3o evaluate_streaming: the re-encode never launched K6")
+    launches["flash_attention"] += got["flash_attention"]
+    log(f"3o evaluate_streaming S2TT, one 10 s stream: {tokens} tokens, AL "
+        f"{metrics['AL_ms']:.1f} ms, LAAL {metrics['LAAL_ms']:.1f} ms, BLEU "
+        f"{metrics['bleu']:.2f}; wall {wall:.2f} s; K6 {got['flash_attention']} [{smi}]")
+    stats["evaluate_streaming"] = {"wall_s": wall, "metrics": metrics, "tokens": tokens,
+                                   "launches": got}
+    del models, mono, pipes
+    gc.collect()
+    return {"launches": launches, "stats": stats}
+
+
 def main() -> int:
     import torch
 
@@ -7048,6 +7533,11 @@ def main() -> int:
         ft = timed("3m", phase_finetune, dev["smi"])
         log(json.dumps({"finetune": ft, "k6_per_rank": k6r, "phase_s": PHASE_S,
                         "card": dev["smi"]}))
+        return 0
+    if sys.argv[1:] == ["--eval"]:
+        ev = timed("3o", phase_eval, dev["smi"])
+        log(json.dumps({"eval": ev["stats"], "launches_3o": ev["launches"],
+                        "phase_s": PHASE_S, "card": dev["smi"]}))
         return 0
     if sys.argv[1:] == ["--aux"]:
         aux = timed("3n", phase_aux, dev["smi"])
@@ -7122,8 +7612,9 @@ def main() -> int:
     k6["launches"] += streaming["launches"]
     k6["launches_3i"] = streaming["launches"]
     gc.collect()
-    # 3j's stream and 3l's pool run on 3i's loaded streaming models
-    expressive = timed("3j", phase_expressive, dev["smi"], streaming["models"])
+    # 3j's stream, 3l's pool and 3o's evaluation run on 3i's loaded streaming models
+    stream_models = streaming["models"]
+    expressive = timed("3j", phase_expressive, dev["smi"], stream_models)
     k1["launches_3j"] = expressive["launches"]["decode_attention_int8"]
     k6["launches"] += expressive["launches"]["flash_attention"]
     k6["launches_3j"] = expressive["launches"]["flash_attention"]
@@ -7140,9 +7631,16 @@ def main() -> int:
     gc.collect()
     with shared:
         finetune = timed("3m", phase_finetune, dev["smi"], ft_dir)
-    for row in (k6, k6b, k6c):
-        row["launches_3m"] = finetune["cli"]["launches"][row["name"]]
-        row["launches"] += row["launches_3m"]
+        for row in (k6, k6b, k6c):
+            row["launches_3m"] = finetune["cli"]["launches"][row["name"]]
+            row["launches"] += row["launches_3m"]
+        gc.collect()
+        # 3o reads 3h's .pt and cards too
+        evaluation = timed("3o", phase_eval, dev["smi"], ft_dir, stream_models)
+    del stream_models
+    k1["launches_3o"] = evaluation["launches"]["decode_attention_int8"]
+    k6["launches_3o"] = evaluation["launches"]["flash_attention"]
+    k6["launches"] += k6["launches_3o"]
     gc.collect()
     aux = timed("3n", phase_aux, dev["smi"])
     k6["launches_3n"] = aux["launches"]
@@ -7163,6 +7661,7 @@ def main() -> int:
                     "streaming": streaming["stats"], "expressive": expressive["stats"],
                     "serving": serving["stats"], "pool": pool["stats"],
                     "train": train, "finetune": finetune, "aux": aux["stats"],
+                    "eval": evaluation["stats"],
                     "phase_s": PHASE_S, "card": dev["smi"]}))
     log(json.dumps({"kernels": [k1, k2, k3a, k3b, k4, k5, k6, k6b, k6c]}))
     print(json.dumps({"ok": True, "device": {

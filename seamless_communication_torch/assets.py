@@ -3,8 +3,9 @@
 Cards are YAML files in ``seamless_communication_torch/cards/`` (the port's
 own copies of the cards it loads: the SeamlessM4T v2-large, v1-large and
 v1-medium models, their NLLB bases, the two unit vocoders, the
-SeamlessStreaming models, and SeamlessExpressive's UnitY and its 24 and 16
-kHz PRETSSEL vocoders), with ``base:``
+SeamlessStreaming models, SeamlessExpressive's UnitY and its 24 and 16
+kHz PRETSSEL vocoders, the ETOX word lists of ``mintox`` and the mExpresso
+and Expresso datasets), with ``base:``
 inheritance; their fields name the checkpoint and tokenizer, the arch, the
 language lists and the vocoder's ``lang_spkr_idx_map``. ``SEAMLESS_CARDS_DIR``
 names a directory of extra cards, searched first. Gated assets resolve

@@ -25,9 +25,12 @@ sessions over one batched pool (counterpart of
 HTTP threads only enqueue and wait on their request's event or the pool step
 that covers them. ``Translator.predict`` and the pool's ``step`` enter
 ``torch.inference_mode`` themselves, on the worker thread that calls them
-(the mode is thread-local). The JAX package decodes an uploaded WAV with its
-native decoder where one is built; the port has no native module and always
-reads it with the standard library's ``wave``.
+(the mode is thread-local). An uploaded WAV is decoded by the native
+runtime's decoder (``native.wav_decode_native``), as in the JAX package;
+a file it does not take is read with the standard library's ``wave``.
+``serve`` builds the native library before it listens, so that no request
+waits on the compiler, and raises if it cannot (the JAX package serves on
+with ``wave`` when its library is missing).
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from seamless_communication_torch import native
 from seamless_communication_torch.audio.wav import resample
+from seamless_communication_torch.native import wav_decode_native
 
 logger = logging.getLogger("seamless_serve")
 
@@ -256,11 +261,15 @@ def _wav_bytes(waveform: np.ndarray, sample_rate: int) -> bytes:
 def _decode_wav_b64(b64: str) -> np.ndarray:
     """A base64 16-bit PCM WAV -> a mono float32 waveform at 16 kHz."""
     data = base64.b64decode(b64)
-    with wave.open(io.BytesIO(data), "rb") as w:
-        rate = w.getframerate()
-        n = w.getnframes()
-        raw = np.frombuffer(w.readframes(n), "<i2").astype(np.float32)
-        wav = (raw / 32768.0).reshape(n, -1).mean(axis=1)
+    decoded = wav_decode_native(data)
+    if decoded is None:
+        with wave.open(io.BytesIO(data), "rb") as w:
+            rate = w.getframerate()
+            n = w.getnframes()
+            raw = np.frombuffer(w.readframes(n), "<i2").astype(np.float32)
+            wav = (raw / 32768.0).reshape(n, -1).mean(axis=1)
+    else:
+        wav, rate = decoded
     return resample(wav, rate, 16000)
 
 
@@ -378,6 +387,7 @@ def serve(translator=None, *, host: str = "127.0.0.1", port: int = 8008,
     either or both."""
     if translator is None and stream_pool is None:
         raise ValueError("need a translator, a stream_pool, or both")
+    native.get_lib()        # the WAV decoder: built now, not in the first request
     batcher = (DynamicBatcher(translator, max_batch=max_batch,
                               max_wait_ms=max_wait_ms)
                if translator is not None else None)

@@ -393,8 +393,11 @@ def cross_attention_precompute_int8(params: dict, enc_out: torch.Tensor,
 
 
 def cross_attention_step(params: dict, x_t: torch.Tensor, enc_kv: KVCache,
-                         num_heads: int, *, bias: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         num_heads: int, *, bias: Optional[torch.Tensor] = None,
+                         return_probs: bool = False):
+    """Attention of ``x_t`` (B, T, D) over the projected encoder output;
+    with ``return_probs`` it returns (y, the (B, H, T, S) fp32 attention
+    probabilities), else y."""
     q = _split_heads(linear(params["q_proj"], x_t), num_heads)
     dh = q.shape[-1]
     logits = true_div(torch.matmul(q.float(), enc_kv.k.to(q.dtype).float()
@@ -403,7 +406,8 @@ def cross_attention_step(params: dict, x_t: torch.Tensor, enc_kv: KVCache,
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1)
     out = torch.matmul(probs.to(q.dtype).float(), enc_kv.v.to(q.dtype).float())
-    return linear(params["output_proj"], _merge_heads(out.to(x_t.dtype)))
+    y = linear(params["output_proj"], _merge_heads(out.to(x_t.dtype)))
+    return (y, probs) if return_probs else y
 
 
 def cross_attention_step_int8(params: dict, x_t: torch.Tensor, enc_kv: Int8KVCache,

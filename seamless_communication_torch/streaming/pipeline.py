@@ -54,6 +54,7 @@ from seamless_communication_torch.streaming.agents.online_vocoder import Vocoder
 from seamless_communication_torch.streaming.agents.pretssel_vocoder import (
     PretsselVocoderAgent,
 )
+from seamless_communication_torch.streaming.agents.vad import VADAgent
 from seamless_communication_torch.streaming.fused import (
     FusedMMASpeechToTextDecoderAgent, FusedUnitYMMATextDecoderAgent,
     IncrementalFusedMMASpeechToTextDecoderAgent, IncrementalFusedUnitYMMATextDecoderAgent,
@@ -241,11 +242,8 @@ def build_expressive_s2st_pipeline(unity_params: dict, unity_cfg: UnitYConfig,
     agent, which reads the audio the feature extractor has received for its
     prosody input (normalised by ``gcmvn_mean``, ``gcmvn_std``). The text
     decoder keeps its defaults (``max_len_b`` 200, 50 writes a call), as in
-    the JAX package. ``use_vad=True`` raises: the VAD agent comes with
-    ROADMAP entry 12."""
-    if use_vad:
-        raise NotImplementedError("use_vad=True needs the VAD agent (agents/vad.py), "
-                                  "which comes with ROADMAP entry 12")
+    the JAX package. ``use_vad=True`` puts a ``VADAgent`` (the energy VAD)
+    first: silences of 700 ms end an utterance."""
     unity_params, mono_params, device = _prepare(unity_params, mono_params,
                                                  mono_quantize_int8, device)
     feat = OnlineFeatureExtractorAgent(denormalize=denormalize)
@@ -262,7 +260,8 @@ def build_expressive_s2st_pipeline(unity_params: dict, unity_cfg: UnitYConfig,
         gcmvn_std=gcmvn_std, tgt_lang=tgt_lang, sample_rate=sample_rate,
         upstream_audio_getter=lambda: [x for c in feat.states.source for x in c],
         device=device)
-    return AgentPipeline([feat, *head, units, vocoder])
+    vad = [VADAgent()] if use_vad else []
+    return AgentPipeline([*vad, feat, *head, units, vocoder])
 
 
 class StreamingSession:

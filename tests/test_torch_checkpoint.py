@@ -400,7 +400,8 @@ def test_packaged_cards_equal_jax(monkeypatch):
                             "vocoder_v2", "vocoder_36langs", "seamless_streaming_unity",
                             "seamless_streaming_monotonic_decoder",
                             "seamless_expressivity", "vocoder_pretssel",
-                            "vocoder_pretssel_16khz", "conformer_shaw"])
+                            "vocoder_pretssel_16khz", "conformer_shaw", "mintox",
+                            "mexpresso_text", "expresso"])
     for name in names:
         assert load_card(name) == jload_card(name), name
     assert load_card("seamlessM4T_v2_large")["model_arch"] == "base_v2"

@@ -71,7 +71,22 @@ new = {"seamless_communication_torch.ops.fused_attention",
        "seamless_communication_torch.utils.profiling",
        "seamless_communication_torch.cli.audio_to_units",
        "seamless_communication_torch.cli.mutox_speech",
-       "seamless_communication_torch.cli.mutox_text"}
+       "seamless_communication_torch.cli.mutox_text",
+       "seamless_communication_torch.inference.transcriber",
+       "seamless_communication_torch.streaming.agents.vad",
+       "seamless_communication_torch.streaming.evaluator",
+       "seamless_communication_torch.native",
+       "seamless_communication_torch.cli.evaluate",
+       "seamless_communication_torch.cli.eval_utils",
+       "seamless_communication_torch.cli.metrics",
+       "seamless_communication_torch.cli.streaming_evaluate",
+       "seamless_communication_torch.cli.run_asr_bleu",
+       "seamless_communication_torch.cli.etox",
+       "seamless_communication_torch.cli.asr_etox",
+       "seamless_communication_torch.cli.expressivity_evaluate",
+       "seamless_communication_torch.cli.expressivity_pauserate",
+       "seamless_communication_torch.cli.prepare_dataset",
+       "seamless_communication_torch.cli.prepare_mexpresso"}
 # the asset cards the port reads are its own copies
 from seamless_communication_torch import assets
 if assets.CARDS_DIR.resolve().parent != __import__("pathlib").Path(pkg.__path__[0]).resolve():
@@ -159,6 +174,27 @@ def test_aux_clis_default_to_the_card(cli):
     argv = {"audio_to_units": ["in.wav", "--kmeans_path", "k.npy", "--w2v2_checkpoint", "w.pt"],
             "mutox_speech": ["eng", "--classifier_pt", "m.pt"],
             "mutox_text": ["eng_Latn", "--classifier_pt", "m.pt"]}[cli]
+    proc = _run(
+        f"from seamless_communication_torch.cli import {cli}\n"
+        "try:\n"
+        f"    {cli}.main({argv!r})\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n",
+        CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("raised no CUDA device"), proc.stdout
+
+
+@pytest.mark.parametrize("cli", ["evaluate", "streaming_evaluate", "run_asr_bleu", "asr_etox",
+                                 "expressivity_evaluate"])
+def test_eval_clis_default_to_the_card(cli):
+    """The evaluation CLIs run on the card unless ``--device cpu`` is given:
+    without a card and without the flag they raise before reading a file."""
+    argv = {"evaluate": ["data.tsv", "s2tt", "eng"],
+            "streaming_evaluate": ["--data-file", "data.tsv"],
+            "run_asr_bleu": ["gen", "data.tsv", "--tgt_lang", "eng"],
+            "asr_etox": ["data.tsv", "out.tsv", "--lang", "eng"],
+            "expressivity_evaluate": ["data.tsv", "--tgt_lang", "fra"]}[cli]
     proc = _run(
         f"from seamless_communication_torch.cli import {cli}\n"
         "try:\n"

@@ -277,14 +277,21 @@ def test_int8_mono_matches_jax(models, fused):
 
 def test_quantize_auto_and_expressive(models):
     """``mono_quantize_int8=None`` leaves a CPU tree as it is, ``True``
-    quantizes it; the expressive pipeline's VAD agent names the entry it
-    waits for (the pipeline itself: tests/test_torch_expressive_streaming.py)."""
+    quantizes it; the expressive pipeline puts the VAD agent first with
+    ``use_vad=True`` and only then (the pipelines themselves:
+    tests/test_torch_expressive_streaming.py, tests/test_torch_evaluation.py)."""
     _, tm = models
     tp = pipeline.build_s2t_pipeline(tm["unity"], tm["cfg"], tm["mono"], tm["mono_cfg"],
                                      tm["text"], device="cpu", **KW)
     assert "weight" in decoder(tp).params["layers"][0]["ffn"]["inner_proj"]
-    with pytest.raises(NotImplementedError, match="entry 12"):
-        pipeline.build_expressive_s2st_pipeline(*([None] * 12), use_vad=True)
+    for use_vad in (True, False):
+        ep = pipeline.build_expressive_s2st_pipeline(
+            tm["unity"], tm["cfg"], tm["mono"], tm["mono_cfg"], tm["text"], tm["units"],
+            tm["chars"], {}, None, {}, np.zeros(80), np.ones(80), use_vad=use_vad,
+            device="cpu")
+        names = [type(a).__name__ for a in ep.agents]
+        assert names[:1 + use_vad] == ["VADAgent"] * use_vad + ["OnlineFeatureExtractorAgent"]
+        assert names.count("VADAgent") == use_vad and names[-1] == "PretsselVocoderAgent"
     assert torch.equal(decoder(tp).params["embed"]["embedding"],
                        tm["mono"]["embed"]["embedding"])
     quantized = pipeline._maybe_quantize_mono(
