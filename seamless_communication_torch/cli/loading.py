@@ -28,7 +28,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -51,6 +51,7 @@ from seamless_communication_torch.ops.quantization import quantize_params
 from seamless_communication_torch.text.char_tokenizer import CharTokenizer
 from seamless_communication_torch.text.nllb import NllbTokenizer
 from seamless_communication_torch.text.spm import SentencePieceModel
+from seamless_communication_torch.utils.profiling import TRACER
 
 logger = logging.getLogger(__name__)
 
@@ -60,13 +61,6 @@ HF_REPO_FOR_CARD = {
     "seamlessM4T_medium": "facebook/hf-seamless-m4t-medium",
 }
 
-def _stage(timings: Dict[str, float], name: str, t0: float, device: torch.device) -> float:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t = time.perf_counter()
-    timings[name] = t - t0
-    return t
-
 
 def _unity_tree_from_pt(pt_path: str, card: dict, char_tok: Optional[CharTokenizer],
                         timings: dict, t0: float, device: torch.device) -> dict:
@@ -74,13 +68,13 @@ def _unity_tree_from_pt(pt_path: str, card: dict, char_tok: Optional[CharTokeniz
     loader's fixups for a fairseq1-keyed file (key remap, NLLB-100 dummy-row
     drop, control-symbol permutation, char reorder)."""
     sd = load_pt_state_dict(pt_path)
-    t0 = _stage(timings, "torch_load", t0, device)
+    t0 = TRACER.stage_end(timings, "torch_load", t0, device)
     if is_fairseq1_unity(sd):
         sd = fairseq1_to_fairseq2_auto(sd)
         pieces = ["<pad>"] + list(char_tok.spm.pieces) if char_tok is not None else None
         sd = apply_unity_fixups(sd, char_spm_pieces=pieces)
     tree = unity_tree_from_fairseq2(sd, v2="v2" in card["model_arch"])
-    _stage(timings, "convert", t0, device)
+    TRACER.stage_end(timings, "convert", t0, device)
     return tree
 
 
@@ -128,14 +122,14 @@ def load_unity_model_and_tokenizers(card_name: str, *, dtype=None,
         else:
             from transformers import SeamlessM4TModel
             tree = convert_hf_seamless_m4t_v1(SeamlessM4TModel.from_pretrained(src))
-        _stage(timings, "convert", t0, device)
+        TRACER.stage_end(timings, "convert", t0, device)
     t0 = time.perf_counter()
     params = params_to(tree, device, dtype)
     del tree
-    t0 = _stage(timings, "transfer", t0, device)
+    t0 = TRACER.stage_end(timings, "transfer", t0, device)
     if quantize:
         params = quantize_params(params, bits=quantize_bits)
-        _stage(timings, "quantize", t0, device)
+        TRACER.stage_end(timings, "quantize", t0, device)
 
     spm_path = resolve_asset(card.get("tokenizer", f"{src}/sentencepiece.bpe.model"))
     langs = [f"__{lang}__" for lang in card.get("langs", [])]
@@ -201,15 +195,15 @@ def load_monotonic_decoder(card_name: str = "seamless_streaming_monotonic_decode
     t0 = time.perf_counter()
     if path.endswith(".pt"):
         sd = load_pt_state_dict(path)
-        t0 = _stage(timings, "torch_load", t0, device)
+        t0 = TRACER.stage_end(timings, "torch_load", t0, device)
         tree = monotonic_tree_from_pt(sd)
         del sd
     else:
         tree = load_params(path)
-    t0 = _stage(timings, "convert", t0, device)
+    t0 = TRACER.stage_end(timings, "convert", t0, device)
     params = params_to(tree, device, dtype)
     del tree
-    _stage(timings, "transfer", t0, device)
+    TRACER.stage_end(timings, "transfer", t0, device)
     return params, MonotonicDecoderConfig()
 
 
@@ -236,13 +230,13 @@ def load_pretssel_vocoder(card_name: str = "vocoder_pretssel", *, dtype=None,
     t0 = time.perf_counter()
     if path.endswith(".pt"):
         sd = load_pt_state_dict(path)
-        t0 = _stage(timings, "torch_load", t0, device)
+        t0 = TRACER.stage_end(timings, "torch_load", t0, device)
         tree = pretssel_tree_from_pt(sd, cfg)
         del sd
     else:
         tree = load_params(path)
-    t0 = _stage(timings, "convert", t0, device)
+    t0 = TRACER.stage_end(timings, "convert", t0, device)
     params = params_to(tree, device, dtype)
     del tree
-    _stage(timings, "transfer", t0, device)
+    TRACER.stage_end(timings, "transfer", t0, device)
     return params, cfg, card.get("model_config") or {}, sample_rate

@@ -40,6 +40,7 @@ from seamless_communication_torch.ops.beam_search import (
 from seamless_communication_torch.text.char_frontend import text_to_char_seqs
 from seamless_communication_torch.text.char_tokenizer import CharTokenizer
 from seamless_communication_torch.text.nllb import NllbTokenizer
+from seamless_communication_torch.utils.profiling import TRACER
 
 
 def remove_consecutive_repeated_ngrams(seq: list, min_size: int = 1,
@@ -78,16 +79,6 @@ def _resolve_kv(opts: SequenceGeneratorOptions, device: torch.device
     kv_int8 = (opts.kv_cache_int8 if opts.kv_cache_int8 is not None
                else device.type == "cuda")
     return kv_int8, (opts.kv_cache_bits if kv_int8 else 8)
-
-
-def stage_end(timings: dict, name: str, t0: float, device: torch.device) -> float:
-    """Record under ``name`` the wall seconds since ``t0``, after the card has
-    finished the stage's work; returns the time now."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    now = time.perf_counter()
-    timings[name] = now - t0
-    return now
 
 
 class UnitYGenerator:
@@ -202,7 +193,7 @@ class UnitYGenerator:
         lens = torch.as_tensor(t2u_lens, device=dev)
         feats = unity.decode_text(self.params, self.cfg, torch.as_tensor(ids, device=dev),
                                   enc, self_lengths=lens)
-        t0 = stage_end(self.last_timings, "redecode", t0, dev)
+        t0 = TRACER.stage_end(self.last_timings, "redecode", t0, dev)
         if self.cfg.nar_t2u is not None:
             char_ids, _, char_counts = text_to_char_seqs(
                 self.text_tokenizer, self.char_tokenizer, ids,
@@ -213,7 +204,7 @@ class UnitYGenerator:
                     self.params, self.cfg,
                     torch.as_tensor(np.asarray(prosody_fbank, np.float32), device=dev),
                     torch.as_tensor(np.asarray(prosody_lens, np.int64), device=dev))
-                t0 = stage_end(self.last_timings, "prosody_encoder", t0, dev)
+                t0 = TRACER.stage_end(self.last_timings, "prosody_encoder", t0, dev)
             out = unity.t2u_nar(self.params, self.cfg, feats, lens,
                                 torch.as_tensor(char_ids, device=dev),
                                 torch.as_tensor(char_counts, device=dev),
@@ -230,7 +221,7 @@ class UnitYGenerator:
             raw = raw[:, 1:]    # the lang symbol the decoder keeps at position 0
             # the hypothesis is [eos, lang, units..., eos]: 3 tokens not units
             unit_lens = np.maximum(res.lengths[:, 0].cpu().numpy() - 3, 0)
-        stage_end(self.last_timings, "t2u", t0, dev)
+        TRACER.stage_end(self.last_timings, "t2u", t0, dev)
         out_units = []
         for b in range(raw.shape[0]):
             u = [int(t) for t in raw[b, :unit_lens[b]]

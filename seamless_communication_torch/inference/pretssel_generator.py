@@ -16,10 +16,10 @@ import numpy as np
 import torch
 
 from seamless_communication_torch.device import params_to, resolve_device
-from seamless_communication_torch.inference.generator import stage_end
 from seamless_communication_torch.models.pretssel.vocoder import (
     PretsselConfig, pretssel_cond, pretssel_premel, pretssel_wave_synth,
 )
+from seamless_communication_torch.utils.profiling import TRACER
 
 EOS_UNIT = 2        # the unit vocabulary's EOS; pad = 1
 
@@ -112,6 +112,6 @@ class PretsselGenerator:
 
     def _add(self, t0: float, name: str) -> float:
         part: dict = {}
-        now = stage_end(part, name, t0, self.device)
+        now = TRACER.stage_end(part, name, t0, self.device)
         self.last_timings[name] += part[name]
         return now

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import base64
 import io
+import itertools
 import json
 import logging
 import queue
@@ -52,8 +53,10 @@ import numpy as np
 from seamless_communication_torch import native
 from seamless_communication_torch.audio.wav import resample
 from seamless_communication_torch.native import wav_decode_native
+from seamless_communication_torch.utils.profiling import TRACER
 
 logger = logging.getLogger("seamless_serve")
+_request_ids = itertools.count(1)
 
 
 @dataclass
@@ -65,6 +68,10 @@ class _Request:
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[dict] = None
     error: Optional[str] = None
+    request_id: int = field(default_factory=_request_ids.__next__)
+    # time.perf_counter at submit and at the start of its group's predict
+    t_enqueued: float = 0.0
+    t_started: float = 0.0
 
     @property
     def group_key(self):
@@ -85,6 +92,7 @@ class DynamicBatcher:
         self._worker.start()
 
     def submit(self, req: _Request, timeout: float = 300.0) -> _Request:
+        req.t_enqueued = time.perf_counter()
         self._q.put(req)
         if not req.done.wait(timeout):
             req.error = "timeout"
@@ -125,6 +133,18 @@ class DynamicBatcher:
             for r in batch:
                 groups.setdefault(r.group_key, []).append(r)
             for (task, tgt_lang, src_lang), reqs in groups.items():
+                t = time.perf_counter()
+                for r in reqs:
+                    r.t_started = t
+                span = None
+                if TRACER.on:
+                    # the group's predict, and each request's wait for it
+                    span = TRACER.begin("predict")
+                    for r in reqs:
+                        TRACER.record("batcher.queue", r.t_enqueued, t, parent=span.id,
+                                      request=r.request_id)
+                    TRACER.count("batcher.groups")
+                    TRACER.count("batcher.requests", len(reqs))
                 try:
                     texts, speech = self.translator.predict(
                         [r.payload for r in reqs], task, tgt_lang,
@@ -140,6 +160,8 @@ class DynamicBatcher:
                     for r in reqs:
                         r.error = f"{type(e).__name__}: {e}"
                 finally:
+                    if span is not None:
+                        TRACER.end(span)
                     for r in reqs:
                         r.done.set()
 

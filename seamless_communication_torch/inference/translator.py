@@ -32,7 +32,7 @@ from seamless_communication_torch.audio.fbank import (
 from seamless_communication_torch.audio.wav import read_wav, resample
 from seamless_communication_torch.device import params_to, resolve_device
 from seamless_communication_torch.inference.generator import (
-    SequenceGeneratorOptions, UnitYGenerator, _bucket, stage_end,
+    SequenceGeneratorOptions, UnitYGenerator, _bucket,
 )
 from seamless_communication_torch.models.unity import model as unity
 from seamless_communication_torch.models.unity.builder import UnitYConfig
@@ -42,6 +42,7 @@ from seamless_communication_torch.models.vocoder.codehifigan import (
 )
 from seamless_communication_torch.text.char_tokenizer import CharTokenizer
 from seamless_communication_torch.text.nllb import NllbTokenizer
+from seamless_communication_torch.utils.profiling import TRACER
 
 
 class Task(enum.Enum):
@@ -224,24 +225,32 @@ class Translator:
             raise ValueError("src_lang required for text input")
         self.last_timings = {}
         t0 = time.perf_counter()
+        # the "encoder" stage is two spans: the host front end up to the
+        # copy to the card (speech input), then the encoder
         if task in TEXT_INPUT_TASKS:
+            span = TRACER.begin("predict.encoder") if TRACER.on else None
             enc = self._encode_text_input(input, src_lang)
         else:
+            span = TRACER.begin("predict.fbank") if TRACER.on else None
             if isinstance(input, FbankInput):
                 fbank, flens = self._normalize_fbank_batch(input)
             else:
                 fbank, flens = self._audio_to_fbank(input, sample_rate)
+            if span is not None:
+                TRACER.end(span)
+                span = TRACER.begin("predict.encoder")
             enc = unity.encode_speech(self.params, self.cfg,
                                       torch.as_tensor(fbank, device=self.device),
                                       torch.as_tensor(flens, device=self.device))
-        t0 = stage_end(self.last_timings, "encoder", t0, self.device)
+        t0 = TRACER.stage_end(self.last_timings, "encoder", t0, self.device, span)
         # ASR: the target language is the source language
         text_lang = (src_lang or tgt_lang) if task == "asr" else tgt_lang
+        span = TRACER.begin("predict.text_decode") if TRACER.on else None
         tokens, tok_lens, _ = self.generator.generate_text(
             enc, text_lang, banned=banned_sequences, opts_override=text_generation_opts)
         texts = [self.text_tokenizer.decode(tokens[b, :tok_lens[b]])
                  for b in range(tokens.shape[0])]
-        t0 = stage_end(self.last_timings, "text_decode", t0, self.device)
+        t0 = TRACER.stage_end(self.last_timings, "text_decode", t0, self.device, span)
         do_mintox = self.apply_mintox if _apply_mintox is None else _apply_mintox
         if task in TEXT_TASKS:
             if do_mintox:
@@ -276,7 +285,7 @@ class Translator:
         audio_wavs: List[np.ndarray] = []
         if self.vocoder_params is not None:
             audio_wavs = self.synthesize(units, tgt_lang, spkr=spkr)
-        stage_end(self.last_timings, "vocoder", t0, self.device)
+        TRACER.stage_end(self.last_timings, "vocoder", t0, self.device)
         return texts, BatchedSpeechOutput(units=units, audio_wavs=audio_wavs)
 
     def _run_mintox(self, input, task: str, tgt_lang: str, src_lang: Optional[str],
@@ -304,7 +313,7 @@ class Translator:
                                  "`apply_mintox` is True (or pass src_text)")
             src_texts, _ = self.predict(input, "asr", src_lang, src_lang=src_lang,
                                         sample_rate=sample_rate, _apply_mintox=False)
-            t0 = stage_end(self.last_mintox_timings, "asr", t0, self.device)
+            t0 = TRACER.stage_end(self.last_mintox_timings, "asr", t0, self.device)
 
         def rerun(indices, banned):
             # the whole batch again with the bans, then the offending items;
@@ -321,7 +330,7 @@ class Translator:
                                            sample_rate=sample_rate,
                                            banned_sequences=banned, _apply_mintox=False,
                                            **regen_kwargs)
-            stage_end(self.last_mintox_timings, "rerun", t1, self.device)
+            TRACER.stage_end(self.last_mintox_timings, "rerun", t1, self.device)
             u2 = speech2.units if speech2 is not None else None
             return ([texts2[i] for i in indices],
                     [u2[i] for i in indices] if u2 is not None else None)

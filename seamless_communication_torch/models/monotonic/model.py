@@ -33,6 +33,7 @@ from seamless_communication_torch.ops.modules import (
 from seamless_communication_torch.ops.transformer import (
     TransformerConfig, embedding_frontend, tied_projection,
 )
+from seamless_communication_torch.utils.profiling import TRACER
 
 
 class MonotonicDecoderConfig(NamedTuple):
@@ -341,7 +342,12 @@ def monotonic_write_burst_rows(params: dict, cache: MonotonicCache,
                                  method=decision_method).double()]
         if with_gaps:
             per_row.append(_top2_gap(lg).double())
+        tracing = TRACER.on
+        if tracing:
+            sync = TRACER.begin("burst.sync")
         host = torch.stack(per_row).tolist()
+        if tracing:
+            TRACER.end(sync)
         writes = {}
         for b in live:
             index, prob = int(host[0][b]), host[1][b]
@@ -363,6 +369,11 @@ def monotonic_write_burst_rows(params: dict, cache: MonotonicCache,
         logits, feat, pcs, cache = monotonic_decode_step(
             params, tok, cache, torch.tensor(steps, device=dev), cfg,
             enc_padding_mask=enc_padding_mask)
+        if tracing:
+            # every row runs the step; the rows in writes write a token
+            TRACER.count("burst.decode_steps")
+            TRACER.count("burst.row_steps", B)
+            TRACER.count("burst.writes", len(writes))
         feats.append(feat[:, 0].float())
         for b, index in writes.items():
             tokens[b].append(index)

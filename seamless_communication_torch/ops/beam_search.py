@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 from seamless_communication_torch.ops.topk import top_k
+from seamless_communication_torch.utils.profiling import TRACER
 
 NEG_INF = -1e9
 
@@ -103,11 +104,23 @@ def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
 
     step = 0
     while step < T - 1:
+        # a "beam.step" span a pass of the loop (the last may only find that
+        # the search stops), its two host reads "beam.sync" spans under it
+        tracing = TRACER.on
+        if tracing:
+            span = TRACER.begin("beam.step")
         # stop once no live beam's best reachable score beats the worst final
         best_cont = normalize(scores.amax(dim=1), torch.full((B,), T, device=dev))
         done = ((fin_scores > NEG_INF / 2).all(dim=1)
                 & (fin_scores.amin(dim=1) >= best_cont))
-        if bool(done.all()):
+        if tracing:
+            sync = TRACER.begin("beam.sync")
+        stop = bool(done.all())
+        if tracing:
+            TRACER.end(sync)
+        if stop:
+            if tracing:
+                TRACER.end(span)
             break
 
         gen_pos = step + 1                                             # position filled now
@@ -168,7 +181,12 @@ def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
 
         hyp_len = gen_pos + 1                                          # incl. EOS
         pos_is_gen = pos[None, None, :] == gen_pos
-        if bool(fin_eos.any()):
+        if tracing:
+            sync = TRACER.begin("beam.sync")
+        any_eos = bool(fin_eos.any())
+        if tracing:
+            TRACER.end(sync)
+        if any_eos:
             norm_eos = torch.where(
                 fin_eos, normalize(top_scores, torch.full_like(top_scores, hyp_len)),
                 NEG_INF)
@@ -193,6 +211,9 @@ def beam_search(step_fn: Callable, cache, prefix: torch.Tensor,
         if cache_reorder is not None:
             cache = cache_reorder(cache, pending_src)
         step += 1
+        if tracing:
+            TRACER.count("beam.steps")
+            TRACER.end(span)
 
     # rows that never finalized K hypotheses fall back to live beams
     live_norm = scores / torch.pow(torch.tensor(step + 1.0, device=dev) + 1.0,

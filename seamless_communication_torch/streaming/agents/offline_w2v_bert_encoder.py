@@ -14,12 +14,12 @@ import numpy as np
 import torch
 
 from seamless_communication_torch.device import params_to, resolve_device
-from seamless_communication_torch.inference.generator import stage_end
 from seamless_communication_torch.models.unity import model as unity
 from seamless_communication_torch.models.unity.builder import UnitYConfig
 from seamless_communication_torch.streaming.agents.common import (
     AgentStates, GenericAgent, ReadAction, SpeechSegment, WriteAction,
 )
+from seamless_communication_torch.utils.profiling import TRACER
 
 
 class OfflineWav2VecBertEncoderAgent(GenericAgent):
@@ -60,7 +60,7 @@ class OfflineWav2VecBertEncoderAgent(GenericAgent):
             self.params, self.cfg, torch.as_tensor(padded, device=self.device),
             torch.tensor([fbank.shape[0]], device=self.device))
         seqs = enc.seqs[0, :int(enc.lengths[0])].float()
-        stage_end(self.last_timings, "encoder", t0, self.device)
+        TRACER.stage_end(self.last_timings, "encoder", t0, self.device)
         return WriteAction(SpeechSegment(content=seqs, tgt_lang=states.tgt_lang,
                                          finished=states.source_finished),
                            finished=states.source_finished)

@@ -31,7 +31,6 @@ import numpy as np
 import torch
 
 from seamless_communication_torch.device import params_to, resolve_device
-from seamless_communication_torch.inference.generator import stage_end
 from seamless_communication_torch.models.monotonic.model import (
     MonotonicDecoderConfig, monotonic_decode_step, monotonic_encode_and_prefill,
     monotonic_write_burst,
@@ -40,6 +39,7 @@ from seamless_communication_torch.streaming.agents.common import (
     AgentStates, GenericAgent, ReadAction, Segment, TextSegment, WriteAction,
 )
 from seamless_communication_torch.text.nllb import NllbTokenizer
+from seamless_communication_torch.utils.profiling import TRACER
 
 
 class DecoderAgentStates(AgentStates):
@@ -186,7 +186,7 @@ class MMATextDecoderAgent(GenericAgent):
             max_writes=self.max_consecutive_writes,
             source_finished=bool(states.source_finished), enc_padding_mask=self._enc_mask,
             min_gen_len=self.min_gen_len)
-        stage_end(self.last_timings, "burst", t0, self.device)
+        TRACER.stage_end(self.last_timings, "burst", t0, self.device)
         self.decision_stats += burst.stats
         return burst
 
@@ -231,7 +231,7 @@ class MMATextDecoderAgent(GenericAgent):
         logits, ctx_feats, pchoose, cache = monotonic_encode_and_prefill(
             self.params, ctx, len(context), enc_padded, self.max_target_len, self.cfg,
             enc_padding_mask=self._enc_mask)
-        t0 = stage_end(self.last_timings, "prefill", t0, self.device)
+        t0 = TRACER.stage_end(self.last_timings, "prefill", t0, self.device)
 
         if not self.no_early_stop and blocked_ngrams is None:
             burst = self._burst(states, cache, context, logits, pchoose)
@@ -292,7 +292,7 @@ class MMATextDecoderAgent(GenericAgent):
                 feats.append(feat[0].float())
             step += 1
 
-        stage_end(self.last_timings, "steps", t0, self.device)
+        TRACER.stage_end(self.last_timings, "steps", t0, self.device)
         states.target_indices += pred_indices
         if len(pred_indices) > 0 or finished:
             finished = finished or len(states.target_indices) > self.max_len(states)

@@ -15,7 +15,6 @@ import numpy as np
 import torch
 
 from seamless_communication_torch.device import params_to, resolve_device
-from seamless_communication_torch.inference.generator import stage_end
 from seamless_communication_torch.models.unity.builder import UnitYConfig
 from seamless_communication_torch.models.unity.t2u import nar_t2u_forward
 from seamless_communication_torch.models.unity.unit_tokenizer import UnitTokenizer
@@ -28,6 +27,7 @@ from seamless_communication_torch.streaming.agents.online_text_decoder import (
 from seamless_communication_torch.text.char_frontend import text_to_char_seqs
 from seamless_communication_torch.text.char_tokenizer import CharTokenizer
 from seamless_communication_torch.text.nllb import NllbTokenizer
+from seamless_communication_torch.utils.profiling import TRACER
 
 
 class NARUnitDecoderAgentStates(AgentStates):
@@ -104,7 +104,7 @@ class NARUnitYUnitDecoderAgent(GenericAgent):
                               duration_factor=self.d_factor)
         n_chars = int(char_lens[0])
         durations = out.durations[0].cpu().numpy()[:n_chars]
-        stage_end(self.last_timings, "t2u", t0, self.device)
+        TRACER.stage_end(self.last_timings, "t2u", t0, self.device)
 
         if states.source_finished and states.duration_start_index > 0:
             if durations[states.duration_start_index:].sum() == 0:

@@ -12,13 +12,13 @@ import numpy as np
 import torch
 
 from seamless_communication_torch.device import params_to, resolve_device
-from seamless_communication_torch.inference.generator import stage_end
 from seamless_communication_torch.models.vocoder.codehifigan import (
     CodeHifiGanConfig, code_hifigan_forward,
 )
 from seamless_communication_torch.streaming.agents.common import (
     AgentStates, GenericAgent, ReadAction, SpeechSegment, WriteAction,
 )
+from seamless_communication_torch.utils.profiling import TRACER
 
 
 class VocoderAgent(GenericAgent):
@@ -69,7 +69,7 @@ class VocoderAgent(GenericAgent):
                                    torch.tensor([spkr_id], device=dev),
                                    dur_prediction=False)
         wav = out.waveform[0, :int(out.sample_lengths[0])].float().cpu().numpy()
-        stage_end(self.last_timings, "vocoder", t0, self.device)
+        TRACER.stage_end(self.last_timings, "vocoder", t0, self.device)
         return WriteAction(SpeechSegment(content=wav, sample_rate=self.sample_rate,
                                          tgt_lang=tgt_lang,
                                          finished=states.source_finished),

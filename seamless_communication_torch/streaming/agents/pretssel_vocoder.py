@@ -21,7 +21,6 @@ import torch
 
 from seamless_communication_torch.audio.fbank import fbank_numpy
 from seamless_communication_torch.device import params_to, resolve_device
-from seamless_communication_torch.inference.generator import stage_end
 from seamless_communication_torch.inference.pretssel_generator import unit_batch
 from seamless_communication_torch.models.pretssel.vocoder import (
     PretsselConfig, pretssel_forward,
@@ -30,6 +29,7 @@ from seamless_communication_torch.streaming.agents.common import (
     AgentStates, GenericAgent, ReadAction, SpeechSegment, WriteAction,
 )
 from seamless_communication_torch.streaming.agents.online_vocoder import VocoderAgent
+from seamless_communication_torch.utils.profiling import TRACER
 
 
 class PretsselVocoderAgent(GenericAgent):
@@ -89,7 +89,7 @@ class PretsselVocoderAgent(GenericAgent):
                                torch.tensor([self.lang_to_index[tgt_lang]], device=dev),
                                max_mel_len=M)
         wav = out.waveform[0, :int(out.sample_lengths[0])].float().cpu().numpy()
-        stage_end(self.last_timings, "vocoder", t0, dev)
+        TRACER.stage_end(self.last_timings, "vocoder", t0, dev)
         return WriteAction(SpeechSegment(content=wav, sample_rate=self.sample_rate,
                                          tgt_lang=tgt_lang,
                                          finished=states.source_finished),

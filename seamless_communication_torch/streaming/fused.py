@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from seamless_communication_torch.device import params_to
-from seamless_communication_torch.inference.generator import stage_end
 from seamless_communication_torch.models.monotonic.model import (
     MonotonicDecoderConfig, monotonic_encode_and_prefill, monotonic_write_burst,
     monotonic_write_burst_rows,
@@ -41,6 +40,7 @@ from seamless_communication_torch.streaming.agents.common import (
 from seamless_communication_torch.streaming.agents.online_text_decoder import (
     DecoderAgentStates, MMATextDecoderAgent, UnitYMMATextDecoderAgent,
 )
+from seamless_communication_torch.utils.profiling import TRACER
 
 
 def encoder_output_length(cfg: SpeechEncoderConfig, n_frames: int) -> int:
@@ -51,12 +51,6 @@ def encoder_output_length(cfg: SpeechEncoderConfig, n_frames: int) -> int:
     for _ in range(cfg.adaptor_layers):
         n = (n + 2 * (k // 2) - k) // s + 1
     return n
-
-
-def _timed_stage(timings: Optional[dict], name: str, t0: float, device) -> float:
-    """``stage_end`` where ``timings`` is given (the card synchronized), else
-    nothing: the agents' ``last_timings``."""
-    return t0 if timings is None else stage_end(timings, name, t0, device)
 
 
 def _decode_over_encoder(mono_params: dict, enc_seqs_raw: torch.Tensor, enc_len: int,
@@ -78,7 +72,7 @@ def _decode_over_encoder(mono_params: dict, enc_seqs_raw: torch.Tensor, enc_len:
     logits, ctx_feats, pcs, cache = monotonic_encode_and_prefill(
         mono_params, tokens, n_tokens, enc_seqs, max_target_len, mono_cfg,
         enc_padding_mask=enc_mask)
-    t0 = _timed_stage(timings, "prefill", t0, enc_seqs.device)
+    t0 = TRACER.stage_end(timings, "prefill", t0, enc_seqs.device)
     burst = monotonic_write_burst(
         mono_params, cache, n_tokens, logits, pcs, mono_cfg,
         decision_threshold=decision_threshold, decision_method=decision_method,
@@ -87,7 +81,7 @@ def _decode_over_encoder(mono_params: dict, enc_seqs_raw: torch.Tensor, enc_len:
         max_len=max_len_a * enc_len + max_len_b, n_context=n_tokens,
         max_writes=max_writes, source_finished=source_finished,
         enc_padding_mask=enc_mask, min_gen_len=min_gen_len)
-    _timed_stage(timings, "burst", t0, enc_seqs.device)
+    TRACER.stage_end(timings, "burst", t0, enc_seqs.device)
     return burst, ctx_feats
 
 
@@ -100,7 +94,7 @@ def fused_s2t_chunk(unity_params: dict, mono_params: dict, fbank: torch.Tensor,
     t0 = time.perf_counter()
     enc = unity.encode_speech(unity_params, unity_cfg, fbank,
                               torch.tensor([fbank_len], device=fbank.device))
-    _timed_stage(kw.get("timings"), "encoder", t0, fbank.device)
+    TRACER.stage_end(kw.get("timings"), "encoder", t0, fbank.device)
     enc_len = encoder_output_length(unity_cfg.speech, fbank_len)
     return _decode_over_encoder(mono_params, enc.seqs, enc_len, tokens, n_tokens,
                                mono_cfg, **kw)
@@ -119,7 +113,7 @@ def incremental_s2t_chunk(unity_params: dict, mono_params: dict, enc_state,
     enc_state = speech_encoder_stream_step(se, enc_state, fbank_new, unity_cfg.speech,
                                            n_valid=n_valid)
     enc_seqs, _ = speech_encoder_stream_output(se, enc_state, unity_cfg.speech)
-    _timed_stage(kw.get("timings"), "encoder", t0, fbank_new.device)
+    TRACER.stage_end(kw.get("timings"), "encoder", t0, fbank_new.device)
     enc_len = encoder_output_length(unity_cfg.speech,
                                     int(enc_state.n[0]) * unity_cfg.speech.fbank_stride)
     burst, ctx_feats = _decode_over_encoder(mono_params, enc_seqs, enc_len, tokens,
@@ -139,6 +133,7 @@ def _decode_over_encoder_rows(mono_params: dict, enc_seqs_raw: torch.Tensor,
     """``_decode_over_encoder`` of B sessions, row b's first ``enc_len[b]``
     frames valid and its context ``tokens[b, :n_tokens[b]]``, the burst for
     the ``active`` rows -> one burst a row."""
+    span = TRACER.begin("pool.prefill") if TRACER.on else None
     t0 = time.perf_counter()
     B, S, D = enc_seqs_raw.shape
     dev = enc_seqs_raw.device
@@ -150,7 +145,8 @@ def _decode_over_encoder_rows(mono_params: dict, enc_seqs_raw: torch.Tensor,
     logits, _, pcs, cache = monotonic_encode_and_prefill(
         mono_params, tokens, list(n_tokens), enc_seqs, max_target_len, mono_cfg,
         enc_padding_mask=enc_mask)
-    t0 = _timed_stage(timings, "prefill", t0, dev)
+    t0 = TRACER.stage_end(timings, "prefill", t0, dev, span)
+    span = TRACER.begin("pool.burst") if TRACER.on else None
     bursts = monotonic_write_burst_rows(
         mono_params, cache, n_tokens, logits, pcs, mono_cfg,
         decision_threshold=decision_threshold, decision_method=decision_method,
@@ -160,7 +156,7 @@ def _decode_over_encoder_rows(mono_params: dict, enc_seqs_raw: torch.Tensor,
         n_context=n_tokens, max_writes=max_writes, source_finished=source_finished,
         active=active, enc_padding_mask=enc_mask, min_gen_len=min_gen_len,
         with_gaps=with_gaps)
-    _timed_stage(timings, "burst", t0, dev)
+    TRACER.stage_end(timings, "burst", t0, dev, span)
     return bursts
 
 
@@ -179,7 +175,10 @@ def batched_incremental_s2t_chunk(unity_params: dict, mono_params: dict, enc_sta
     (blocks that are only taken up). A row that is not ``commit``ted keeps
     its previous conv tail and count (the rows written past its count are
     written again by its next step) -> (new encoder state, one burst a row,
-    or None where no row was active)."""
+    or None where no row was active). The stages' spans are ``pool.encoder``,
+    ``pool.prefill`` and ``pool.burst``."""
+    timings = kw.get("timings")
+    span = TRACER.begin("pool.encoder") if TRACER.on else None
     t0 = time.perf_counter()
     se = unity_params["speech_encoder"]
     new = speech_encoder_stream_step(se, enc_state, fbank_new, unity_cfg.speech,
@@ -187,13 +186,13 @@ def batched_incremental_s2t_chunk(unity_params: dict, mono_params: dict, enc_sta
     bursts = None
     if any(active):
         enc_seqs, _ = speech_encoder_stream_output(se, new, unity_cfg.speech)
-        _timed_stage(kw.get("timings"), "encoder", t0, fbank_new.device)
+        TRACER.stage_end(timings, "encoder", t0, fbank_new.device, span)
         enc_len = [encoder_output_length(unity_cfg.speech, n * unity_cfg.speech.fbank_stride)
                    for n in new.n.tolist()]
         bursts = _decode_over_encoder_rows(mono_params, enc_seqs, enc_len, tokens, n_tokens,
                                            mono_cfg, active=active, **kw)
     else:
-        _timed_stage(kw.get("timings"), "encoder", t0, fbank_new.device)
+        TRACER.stage_end(timings, "encoder", t0, fbank_new.device, span)
     take = torch.tensor(list(commit))
     # the new tails keep the activations' dtype, as a single session's do
     tail = torch.where(take.to(fbank_new.device)[None, :, None, None], new.conv_tail,
@@ -418,7 +417,7 @@ class IncrementalFusedMMASpeechToTextDecoderAgent(FusedMMASpeechToTextDecoderAge
                 n_valid=FB // stride)
             states.n_stacked += FB // stride
             states.fb_consumed += FB
-        stage_end(self.last_timings, "commit", t0, self.device)
+        TRACER.stage_end(self.last_timings, "commit", t0, self.device)
         decode_stacked = states.n_stacked + decode_nv
         # the host's copy of the encoder lengths, for max_len and the "," step
         self._set_encoder_valid(self._adaptor_len(decode_stacked),

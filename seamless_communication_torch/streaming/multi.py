@@ -55,6 +55,7 @@ from seamless_communication_torch.streaming.fused import (
     _float_dtype, batched_incremental_s2t_chunk, encoder_output_length,
 )
 from seamless_communication_torch.streaming.pipeline import _maybe_quantize_mono
+from seamless_communication_torch.utils.profiling import TRACER
 
 __all__ = ["BatchedStreamingPool", "PooledSegment"]
 
@@ -232,8 +233,11 @@ class BatchedStreamingPool:
         """One feature-extractor cycle (the pipeline's push and pop on the
         fbank agent): keep any fbank written, and arm the decode tick iff the
         agent wrote (after a READ the pipeline does not poll the decoder)."""
+        span = TRACER.begin("pool.fbank") if TRACER.on else None
         sess.feat_states.update_source(seg)
         action = sess.feat_agent.policy(sess.feat_states)
+        if span is not None:
+            TRACER.end(span)
         if isinstance(action, WriteAction):
             sess.tick_due = True
             out = action.content
@@ -256,6 +260,7 @@ class BatchedStreamingPool:
         if sess.fb_len // self.unity_cfg.speech.fbank_stride >= self.max_stream_frames:
             raise ValueError(f"session {sid} outgrew max_stream_frames "
                              f"({self.max_stream_frames} stacked frames)")
+        span = TRACER.begin("pool.push") if TRACER.on else None
         samples = np.asarray(samples, np.float32)
         if samples.size == 0:
             seg = EmptySegment(finished=finished, tgt_lang=sess.tgt_lang)
@@ -265,6 +270,9 @@ class BatchedStreamingPool:
         self._feat_tick(sess, seg)
         sess.source_finished = finished
         sess.pushed_since_step = True
+        if span is not None:
+            TRACER.count("pool.audio_samples", samples.size)
+            TRACER.end(span)
 
     # -- the batched tick --------------------------------------------------
 
@@ -355,6 +363,7 @@ class BatchedStreamingPool:
         every such cycle (it reads ``source[-1]``, which no longer advances),
         so each drain tick grows the decoder's fbank as the single-session
         agents see it."""
+        span = TRACER.begin("pool.step") if TRACER.on else None
         self.last_timings = {}
         for sess in self._sessions.values():
             if (sess.source_finished and not sess.target_finished
@@ -370,8 +379,14 @@ class BatchedStreamingPool:
         for k in range(n):
             self._run_batch({sid: q[k - n + len(q)] for sid, q in queues.items()
                              if k >= n - len(q)})
+        if span is not None:
+            TRACER.end(span)
 
     def _run_batch(self, batch: dict) -> None:
+        span = None
+        if TRACER.on:
+            span = TRACER.begin("pool.chunk")
+            TRACER.count("pool.chunks")
         N, FB = self.n_slots, self.fbank_block
         fb = np.zeros((N, FB, 80), np.float32)
         nv, srcfin, commit, active = [0] * N, [False] * N, [False] * N, [False] * N
@@ -433,6 +448,8 @@ class BatchedStreamingPool:
                 self._finish(sess, None)
             elif sess.outgrown:
                 self._finish(sess, PooledSegment("", [], True))
+        if span is not None:
+            TRACER.end(span)
 
     def _max_len(self, sess: _Session) -> int:
         n = sess.last_decode_stacked or sess.n_stacked

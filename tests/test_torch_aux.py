@@ -321,15 +321,15 @@ def test_demucs_shell_out_matches_jax(tmp_path, monkeypatch):
 def test_profiling_contract_on_a_cpu_trace(tmp_path):
     """``device_trace`` writes a Chrome trace; ``aggregate_trace`` sums its
     events by name for the given categories, largest total first, ``top``
-    rows; ``annotate``'s ranges and the block's name are user annotations;
-    a CPU trace has no device events; ``StageTimer`` times and counts
-    stages. The device categories' sum is checked on a written trace."""
-    @profiling.annotate("matmul_stage")
+    rows; the block's name is a user annotation; a CPU trace has no device
+    events; ``StageTimer`` times and counts stages, and while it records
+    spans each stage is one, inside the traced block. The device
+    categories' sum is checked on a written trace."""
     def step(x):
         return torch.relu(x @ x)
 
-    assert step.__name__ == "step"
     timer = profiling.StageTimer()
+    timer.enable()
     x = torch.from_numpy(np.random.default_rng(15).standard_normal((64, 64)).astype(np.float32))
     with profiling.device_trace(str(tmp_path / "trace"), annotate="block") as trace:
         for _ in range(3):
@@ -342,7 +342,10 @@ def test_profiling_contract_on_a_cpu_trace(tmp_path):
     assert [r[0] for r in ops] == sorted((r[0] for r in ops), reverse=True)
     assert len(trace.aggregate(categories=("cpu_op",), top=2)) == 2
     ann = {name: n for _, n, name in trace.aggregate(categories=("user_annotation",))}
-    assert ann == {"block": 1, "matmul_stage": 3}
+    assert ann == {"block": 1}
+    spans, counters = timer.take()
+    assert [s.name for s in spans] == ["step"] * 3 and counters == {}
+    assert [s.t1 - s.t0 for s in spans] == timer.times["step"]
     assert trace.aggregate() == []
     summary = timer.summary()
     assert summary["step"]["n"] == 3 and summary["step"]["p50_ms"] > 0
